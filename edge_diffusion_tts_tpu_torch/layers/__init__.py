@@ -1,0 +1,45 @@
+"""Neural-net layers of the PyTorch port."""
+
+from .attention import (
+    CrossAttention,
+    EfficientAttention,
+    MultiHeadLatentAttention,
+    local_attention_mask,
+    q_chunked_banded_sdpa,
+    q_chunked_sdpa,
+    sdpa,
+)
+from .conv import DepthwiseSeparableConv
+from .embeddings import (
+    SinusoidalPositionalEmb,
+    SinusoidalTimeEmb,
+    apply_rope,
+    rope_tables,
+    sinusoidal_position_table,
+    sinusoidal_time_embedding,
+)
+from .ffn import FeedForward, swiglu
+from .norms import AdaLayerNorm, RMSNorm
+from .transformer import DiffusionTransformerBlock
+
+__all__ = [
+    "AdaLayerNorm",
+    "CrossAttention",
+    "DepthwiseSeparableConv",
+    "DiffusionTransformerBlock",
+    "EfficientAttention",
+    "FeedForward",
+    "MultiHeadLatentAttention",
+    "RMSNorm",
+    "SinusoidalPositionalEmb",
+    "SinusoidalTimeEmb",
+    "apply_rope",
+    "local_attention_mask",
+    "q_chunked_banded_sdpa",
+    "q_chunked_sdpa",
+    "rope_tables",
+    "sdpa",
+    "sinusoidal_position_table",
+    "sinusoidal_time_embedding",
+    "swiglu",
+]
