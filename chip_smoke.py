@@ -38,7 +38,7 @@ reads x0 = sqrt(ab)*x - sqrt(1-ab)*v, well conditioned, and is held to 1e-4.
 Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device, without the port package beside it, or on any
-failed check.  The ptxas report of the build goes to chiprun_out/.
+failed check.  The ptxas report of the build goes to build/chip_smoke_build.log.
 """
 
 from __future__ import annotations
@@ -121,8 +121,8 @@ def phase_build():
     t0 = time.perf_counter()
     built = _build.build_all()
     seconds = time.perf_counter() - t0
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_build.log"), "w") as f:
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_build.log"), "w") as f:
         for name, info in built.items():
             f.write(f"=== {name} ({info['seconds']:.1f} s)\n{info['log']}\n")
     print(f"[build] {sorted(built) or 'cached'} in {seconds:.2f} s "

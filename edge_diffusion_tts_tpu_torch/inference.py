@@ -28,7 +28,7 @@ from .schedule import DiffusionSchedule, DPMSolverPP, ddim_sample
 
 
 class EdgeInference:
-    """Few-step (1-4) inference driver around an ``EdgeDiffusionDecoder``.
+    """Few-step (1-4) inference engine around an ``EdgeDiffusionDecoder``.
 
     ``sampler="dpmpp"`` serves with DPM-Solver++ (order ``solver_order``); it
     reads the decoder as a v- (or x0-) prediction model, so it needs

@@ -16,7 +16,7 @@ calls of each path with the weights and inputs of chip_smoke.py:
 For each it prints the wall time per call, the device busy share (summed
 kernel time over the window's wall time) and the device time per call of
 the kernels by name, and writes the same as JSON to
-chiprun_out/port_profile.json.  Exits non-zero without a CUDA device.
+build/port_profile.json.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -106,8 +106,8 @@ def main() -> int:
         torch, lambda: lengine.generate_mel(lsem, num_steps=4, x_T=lx), calls=3)
     report("longform_eager", out["longform_eager"])
 
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "port_profile.json"), "w") as f:
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "port_profile.json"), "w") as f:
         json.dump(out, f, indent=1)
     return 0
 
