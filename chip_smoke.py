@@ -19,7 +19,23 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    three requests; outputs finite, one fused launch per request;
 5. the long-form shape (configs/longform.json, S=2000 -> T=4000) through
    ``backend="eager"``, 4 steps: one banded launch per layer per step, and
-   the same output as with the banded route forced to its plain version.
+   the same output as with the banded route forced to its plain version;
+6. the conv-frontend kernel against its plain version at the hubert-base
+   conv specs on wav [1, 80000] (5 s) and [4, 32000], atol 2e-4 rtol 1e-3
+   (the JAX fused kernel's bar); timed beside the plain version;
+7. the audio path: ``EdgeInference(backend="fused", encoder=...)`` at full
+   HuBERT-base width answers three ``generate_from_audio`` requests (5 s at
+   B=1, the same at temperature 0.7, 2 s at B=2), each one frontend and one
+   fused-DDIM launch; the kernel route's layer-9 features are held to the
+   module route's to atol 1e-3 and its FSQ tokens agree on >= 99% (an
+   exact-GroupNorm vs analytical-GroupNorm difference can flip a token that
+   sits on a rounding edge);
+8. DDPM: the fused DDPM kernel against its plain version over the 50-step
+   schedule at the flagship shape, injected and Philox noise (tolerance
+   below); then
+   ``FusedEdgeInference.sample_ddpm`` over the full 1000-step schedule at
+   B=1, S=250: one launch per call, finite, the same output for the same
+   generator seed and another for another seed.
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -35,6 +51,18 @@ v is held to 2e-4 on at least 99.9% of elements and to 0.05 on all.  The
 long-form phase samples with DPM-Solver++ (v), which starts at t=950 and
 reads x0 = sqrt(ab)*x - sqrt(1-ab)*v, well conditioned, and is held to 1e-4.
 
+Why the DDPM tolerance is stated as it is: the unclamped DDPM recurrence
+over an untrained decoder grows to O(1e4) in 50 steps (its first step
+multiplies x by 1/sqrt(alpha_999) = 100), so float32 rounding differences
+between two summation orders reach ~1e-2 in absolute terms.  Where a
+trajectory crosses zero the element is small and its own relative error is
+large, though the error is the trajectory's, not the element's.  So every
+element is held to 1e-4 of the largest |x| (plus 1e-3), and at least 99.9%
+of elements to rtol 1e-4, atol 1e-3 elementwise (the JAX DDPM test's bar).
+
+The encoder's weights come from a torch.Generator seeded with SEED (no
+pretrained HuBERT is in the repository): no quality claim, only parity.
+
 Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device, without the port package beside it, or on any
@@ -44,6 +72,7 @@ failed check.  The ptxas report of the build goes to build/chip_smoke_build.log.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -311,6 +340,205 @@ def phase_longform(torch):
     return launches
 
 
+def seeded_encoder(torch, cfg, seed: int):
+    """A hubert-base SemanticEncoder whose weights come from a CPU
+    torch.Generator(seed): each weight matrix N(0, g/fan_in), g = 2 for the
+    convs (keeps the GELU stack's scale) and 1 elsewhere; every vector (bias,
+    norm affine) its default + 0.02 N(0, 1)."""
+    from edge_diffusion_tts_tpu_torch.models import HubertConfig, SemanticEncoder
+
+    enc = SemanticEncoder(cfg, HubertConfig())
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if p.dim() >= 2:
+                g = 2.0 if "conv" in name else 1.0
+                p.copy_(torch.randn(p.shape, generator=gen) * math.sqrt(g / p[0].numel()))
+            else:
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return enc.eval()
+
+
+def frontend_flops(B: int, samples: int) -> int:
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    frames = ff.frame_counts(samples)
+    c_in = [1] + [512] * 6
+    return sum(2 * B * f * 512 * k * c for f, k, c in zip(frames, ff.BASE_KERNELS, c_in))
+
+
+def phase_frontend(torch, encoder):
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    w = ff.pack_frontend_weights(encoder.hubert.feature_extractor)
+    results = {}
+    for B, n in ((1, 80000), (4, 32000)):
+        rng = np.random.RandomState(n + B)
+        wav = torch.from_numpy((0.2 * rng.randn(B, n)).astype(np.float32)).to(DEVICE)
+        got = ff.conv_frontend(wav, w)
+        torch.cuda.synchronize()
+        want = ff.conv_frontend_plain(wav, w)
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - 1e-3 * want.abs()).max().item()
+        assert torch.isfinite(got).all() and excess <= 2e-4, (
+            f"frontend [{B},{n}]: max err {err}, over atol 2e-4 + rtol 1e-3 by {excess}")
+        ms = timed_ms(torch, lambda: ff.conv_frontend(wav, w), iters=10)
+        plain_ms = timed_ms(torch, lambda: ff.conv_frontend_plain(wav, w), iters=10)
+        flops = frontend_flops(B, n)
+        nbytes = 4 * (wav.numel() + sum(t.numel() for t in w.values()) + got.numel())
+        bound_ms, bound_by = bound(flops, nbytes)
+        results[(B, n)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+        print(f"[frontend] wav [{B},{n}] -> {tuple(got.shape)}: max_abs_err={err:.3g} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} {flops / 1e9:.3f} GFLOP "
+              f"bound_ms={bound_ms:.5f} ({bound_by})")
+    return results
+
+
+def phase_audio(torch, cfg, decoder, schedule, encoder):
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    engine = EdgeInference(cfg, schedule, decoder, backend="fused", device=DEVICE,
+                           encoder=encoder)
+    rng = np.random.RandomState(3000 + SEED)
+    wav5 = torch.from_numpy((0.2 * rng.randn(1, 80000)).astype(np.float32)).to(DEVICE)
+    wav2 = torch.from_numpy((0.2 * rng.randn(2, 32000)).astype(np.float32)).to(DEVICE)
+    for wav in (wav5, wav2):  # warm-up of each request shape
+        engine.generate_from_audio(wav, num_steps=4)
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    requests = [dict(wav=wav5), dict(wav=wav5, temperature=0.7, generator=gen),
+                dict(wav=wav2, generator=gen)]
+    ff.conv_frontend.launches = fd.fused_ddim.launches = 0
+    times, outs = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        mel = engine.generate_from_audio(num_steps=4, **req)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(mel)
+    launches = ff.conv_frontend.launches
+    ddim_launches = fd.fused_ddim.launches
+    assert launches == ddim_launches == len(requests), (
+        f"frontend launches {launches}, fused_ddim launches {ddim_launches}, "
+        f"{len(requests)} requests")
+    for req, mel in zip(requests, outs):
+        B, n = req["wav"].shape
+        assert mel.shape == (B, 2 * ff.frame_counts(n)[-1], cfg.n_mels), mel.shape
+        assert torch.isfinite(mel).all(), "non-finite mel"
+
+    # The kernel route against the module route (exact GroupNorm, F.conv1d).
+    w = engine.frontend_weights
+    agree = []
+    with torch.no_grad():
+        for wav in (wav5, wav2):
+            h_kernel = encoder.extract_hubert(wav, conv_feats=ff.conv_frontend(wav, w))
+            h_module = encoder.extract_hubert(wav)
+            feat_err = (h_kernel - h_module).abs().max().item()
+            tok = (ff.fast_encode(encoder, wav, w) == encoder.encode(wav)).float().mean().item()
+            agree.append((feat_err, tok))
+            print(f"[audio] wav {tuple(wav.shape)}: layer-9 feature max err {feat_err:.3g}, "
+                  f"tokens equal {tok:.4%}")
+            assert feat_err <= 1e-3 and tok >= 0.99, (feat_err, tok)
+
+    # Per-call split: encode (fast_encode) and generate (generate_mel) alone.
+    split = []
+    for req in requests:
+        t0 = time.perf_counter()
+        tokens = ff.fast_encode(encoder, req["wav"], w)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.generate_mel(tokens, num_steps=4, temperature=req.get("temperature", 1.0),
+                            generator=req.get("generator"))
+        torch.cuda.synchronize()
+        split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    print("[audio] fused generate_from_audio per-call ms: "
+          + ", ".join(f"{t:.3f}" for t in times)
+          + "; alone, encode + generate ms: "
+          + ", ".join(f"{e:.3f} + {g:.3f}" for e, g in split)
+          + f"; frontend launches={launches}, fused_ddim launches={ddim_launches}")
+    return launches, agree
+
+
+def phase_ddpm(torch, cfg, decoder):
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+
+    dev = torch.device(DEVICE)
+    B, S = 1, 250
+    T = 2 * S
+    rng = np.random.RandomState(4000 + SEED)
+    sem_idx = torch.from_numpy(rng.randint(0, 2304, (B, S))).to(dev)
+    x_T = torch.from_numpy(rng.randn(B, T, cfg.n_mels).astype(np.float32)).to(dev)
+    w = fd.pack_decoder_weights(decoder)
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size)
+
+    def loop_args(steps):
+        ts = list(range(steps - 1, -1, -1))
+        loop = fd.prepare_loop_inputs(decoder, sem_idx, T, ts,
+                                      step_idx=torch.zeros(steps, dtype=torch.long))
+        coef = fd.ddpm_coefficients(DiffusionSchedule.create(steps)).to(dev)
+        return (x_T, loop["pos"], loop["mods"], loop["ckv"], coef, w)
+
+    args50 = loop_args(50)
+    noise = torch.from_numpy(rng.randn(B, 50, T, cfg.n_mels).astype(np.float32)).to(dev)
+    key = (SEED, 0x5EED)
+    errs = {}
+    for mode, extra in (("injected", dict(noise=noise)), ("philox", dict(key=key))):
+        got = fd.fused_ddpm(*args50, **kw, **extra)
+        torch.cuda.synchronize()
+        want = fd.fused_ddpm_plain(*args50, **kw, **extra)
+        diff = (got - want).abs()
+        scale = want.abs().max().item()
+        frac_over = (diff > 1e-3 + 1e-4 * want.abs()).float().mean().item()
+        errs[mode] = diff.max().item()
+        print(f"[ddpm] 50 steps, {mode} noise: max_abs_err={errs[mode]:.3g} max|x|={scale:.4g} "
+              f"max_abs_err/max|x|={errs[mode] / scale:.3g} frac over rtol 1e-4 atol 1e-3="
+              f"{frac_over:.2e}")
+        assert torch.isfinite(got).all(), f"ddpm {mode}: non-finite output"
+        assert errs[mode] <= 1e-3 + 1e-4 * scale and frac_over <= 1e-3, (
+            f"ddpm {mode}: max err {errs[mode]} at scale {scale}, {frac_over:.2e} of "
+            f"elements over rtol 1e-4 atol 1e-3")
+
+    engine = fd.FusedEdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), decoder,
+                                   device=DEVICE)
+
+    def sample(seed):
+        return engine.sample_ddpm(sem_idx, generator=torch.Generator(device=DEVICE)
+                                  .manual_seed(seed))
+
+    first = sample(SEED)  # warm-up, and the reference for determinism
+    torch.cuda.synchronize()
+    fd.fused_ddpm.launches = 0
+    t0 = time.perf_counter()
+    again = sample(SEED)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = fd.fused_ddpm.launches
+    assert launches == 1, f"fused_ddpm launches {launches} for one sample_ddpm call"
+    other = sample(SEED + 1)
+    assert again.shape == (B, T, cfg.n_mels) and torch.isfinite(again).all()
+    assert torch.equal(first, again), "sample_ddpm differs for the same seed"
+    assert (first - other).abs().max().item() > 1e-3, "sample_ddpm ignores the seed"
+
+    args = loop_args(cfg.diff_steps)
+    ms = timed_ms(torch, lambda: fd.fused_ddpm(*args, **kw, key=key), iters=1, warmup=0)
+    plain_ms = timed_ms(torch, lambda: fd.fused_ddpm_plain(*args, **kw, key=key), iters=1,
+                        warmup=0)
+    flops, nbytes = fused_flops_bytes(
+        B, T, S, cfg.n_mels, cfg.hidden, cfg.heads, cfg.layers, cfg.hidden * cfg.ffn_mult,
+        cfg.attn_window_size, cfg.diff_steps, list(args[:5]) + list(w.values()))
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[ddpm] sample_ddpm {cfg.diff_steps} steps B={B} S={S}: {call_ms:.3f} ms per call "
+          f"(host clock), kernel ms={ms:.3f} plain_ms={plain_ms:.3f}, {flops / 1e12:.4f} TFLOP "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); max|x|={first.abs().max().item():.4g}; "
+          f"fused_ddpm launches={launches}")
+    return dict(launches=launches, max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def run(torch) -> None:
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
@@ -333,6 +561,10 @@ def run(torch) -> None:
     fused = phase_fused(torch, cfg, decoder, schedule.to(DEVICE))
     fused_launches, _ = phase_main_path(torch, cfg, decoder, schedule, fused)
     banded_launches = phase_longform(torch)
+    encoder = seeded_encoder(torch, cfg, SEED).to(DEVICE)
+    frontend = phase_frontend(torch, encoder)
+    frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
+    ddpm = phase_ddpm(torch, cfg, decoder)
 
     b = banded[4000]
     kernels = [
@@ -350,6 +582,19 @@ def run(torch) -> None:
          "max_abs_err": fused["eps"]["max_abs_err"],
          "ms": fused["eps"]["ms"], "plain_ms": fused["eps"]["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+         "library_ms": None},
+        {"name": "conv_frontend", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
+         "launches": frontend_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
+         **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
+        {"name": "fused_ddpm", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:234",
+         **{k: ddpm[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

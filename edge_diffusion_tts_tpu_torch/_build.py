@@ -27,7 +27,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # library name -> source file in csrc/
 SOURCES = {
     "band_attention": "band_attention.cu",
-    "fused_ddim": "fused_ddim.cu",
+    "conv_frontend": "conv_frontend.cu",
+    "fused_ddim": "fused_ddim.cu",  # also holds the DDPM loop (edt_fused_ddpm)
 }
 
 NVCC_FLAGS = [

@@ -3,7 +3,10 @@
 
 ``generate_mel(sem_idx, num_steps)``: semantic tokens [B, S] -> normalized
 log-mel [B, 2S, n_mels], by eta=0 DDIM (or DPM-Solver++) over
-EdgeDiffusionDecoder.  Two backends:
+EdgeDiffusionDecoder.  ``generate_from_audio(wav)``: a 16 kHz reference wav
+-> tokens through the ``SemanticEncoder`` (HuBERT layer 9 + projection +
+FSQ), its conv frontend on the conv-frontend kernel
+(ops/fused_frontend.py::fast_encode) -> ``generate_mel``.  Two backends:
 
 - ``"eager"`` (the JAX package's ``"xla"``): the module loop, one decoder
   forward per step; long sequences route their windowed self-attention to
@@ -24,6 +27,7 @@ import torch
 
 from .config import CFG, resolve_device
 from .ops.fused_denoise import fused_generate_mel, pack_decoder_weights, start_noise
+from .ops.fused_frontend import fast_encode, pack_frontend_weights
 from .schedule import DiffusionSchedule, DPMSolverPP, ddim_sample
 
 
@@ -33,7 +37,8 @@ class EdgeInference:
     ``sampler="dpmpp"`` serves with DPM-Solver++ (order ``solver_order``); it
     reads the decoder as a v- (or x0-) prediction model, so it needs
     ``prediction != "eps"``.  The fused backend implements DDIM only and
-    packs the decoder's weights once, when the object is built.
+    packs the decoder's weights once, when the object is built.  ``encoder``
+    (a ``SemanticEncoder``) enables ``generate_from_audio``.
     """
 
     def __init__(
@@ -46,6 +51,7 @@ class EdgeInference:
         sampler: str = "ddim",
         solver_order: int = 2,
         device=None,
+        encoder=None,
     ):
         if backend not in ("eager", "fused"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -69,6 +75,8 @@ class EdgeInference:
         self.fused_weights = (
             pack_decoder_weights(self.decoder) if backend == "fused" else None
         )
+        self.encoder = None if encoder is None else encoder.to(self.device).eval()
+        self.frontend_weights = None  # packed at the first generate_from_audio
 
     def _sample(self, model_fn, x_T: torch.Tensor, num_steps: int) -> torch.Tensor:
         if self.sampler == "dpmpp":
@@ -135,11 +143,29 @@ class EdgeInference:
 
         return self._sample(model_fn, x_T, num_steps)
 
-    def generate_from_audio(self, wav, num_steps: Optional[int] = None,
-                            generator: Optional[torch.Generator] = None):
-        """Reference wav -> tokens -> mel: needs the HuBERT + FSQ encoder."""
-        raise NotImplementedError(
-            "generate_from_audio needs the semantic encoder (HuBERT + FSQ), "
-            "which the port has not reached yet: it is the encoder slice "
-            "(models/hubert.py, models/encoder.py, models/fsq.py)"
-        )
+    @torch.inference_mode()
+    def generate_from_audio(
+        self,
+        wav,
+        num_steps: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        x_T=None,
+        temperature: float = 1.0,
+    ) -> torch.Tensor:
+        """Reference wav [T] or [B, T] at 16 kHz -> normalized log-mel.
+
+        The tokens come from ``fast_encode`` (the conv frontend on its
+        kernel, which implements the hubert-base conv stack only: other
+        specs raise), then ``generate_mel(tokens, num_steps, temperature,
+        generator, x_T=x_T)``.
+        """
+        if self.encoder is None:
+            raise ValueError("EdgeInference was constructed without an encoder")
+        wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
+        if wav.dim() == 1:
+            wav = wav[None, :]
+        if self.frontend_weights is None:
+            self.frontend_weights = pack_frontend_weights(self.encoder.hubert.feature_extractor)
+        sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
+        return self.generate_mel(sem_idx, num_steps, temperature=temperature,
+                                 generator=generator, x_T=x_T)

@@ -1,20 +1,28 @@
-"""The few-step DDIM denoise loop as one CUDA host call, and its plain version.
+"""The decoder's sampling loops as CUDA host calls, and their plain versions.
 
-Replaces the TPU kernel ``edge_diffusion_tts_tpu/ops/fused_denoise.py::
-_denoise_kernel`` (launched by ``fused_generate_mel``): noise ->
-[decoder forward -> DDIM update] x num_steps -> x0.  The kernel's design and
-what bounds it on the H100 are in ``csrc/fused_ddim.cu``: one C function runs
-the whole loop as a fixed sequence of hand-written float32 kernels (tiled
-GEMMs with fused epilogues, row norms, the banded attention of
-``csrc/attention.cuh``, the DDIM update) on PyTorch's current stream.
+``fused_ddim`` replaces the TPU kernel ``edge_diffusion_tts_tpu/ops/
+fused_denoise.py::_denoise_kernel`` (launched by ``fused_generate_mel``):
+noise -> [decoder forward -> DDIM update] x num_steps -> x0.
+``fused_ddpm`` replaces ``_ddpm_kernel`` (launched by ``fused_ddpm_sample``):
+full-schedule ancestral DDPM, t = T-1 .. 0, with a Gaussian draw per step
+from an in-kernel Philox4x32-10 generator, or from an injected ``noise``
+tensor.  The design and what bounds them on the H100 are in
+``csrc/fused_ddim.cu``: one C function runs the whole loop as a fixed
+sequence of hand-written float32 kernels (tiled GEMMs with fused epilogues,
+row norms, the banded attention of ``csrc/attention.cuh``, the update) on
+PyTorch's current stream; both loops share one decoder-step function.
 
 As in the JAX package, everything that does not depend on x is computed once
 per call outside the loop with plain tensor ops: context embedding and the
 per-layer cross-attention K/V, the per-(step, layer) AdaLN scale/shift folded
-with the RMSNorm weights, and the DDIM coefficients.
+with the RMSNorm weights (for DDPM a [1000, L, 4, H] table, 10.24 MB at the
+flagship shape, which the JAX kernel recomputes per step because it does not
+fit VMEM beside the weights), and the sampler's coefficients.
 
-``fused_ddim`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+``philox4x32_10`` is the generator's integer arithmetic in torch int64 ops,
+the same bits as the kernel's.  ``fused_ddim`` and ``fused_ddpm`` take the
+plain version for CPU tensors only; for CUDA tensors they launch the kernel
+or raise.
 """
 
 from __future__ import annotations
@@ -97,10 +105,30 @@ def ddim_coefficients(schedule: DiffusionSchedule, num_steps: int):
     return ts, torch.from_numpy(coef)
 
 
+def ddpm_coefficients(schedule: DiffusionSchedule) -> torch.Tensor:
+    """[T, 5] float32 per loop index i (t = T-1-i): sqrt ab, sqrt(1-ab),
+    1/sqrt(alpha), beta/sqrt(1-ab), and sigma = sqrt(posterior variance),
+    0 at t = 0 (no noise on the last step); computed as the JAX package does."""
+    ab = schedule.alpha_bar.detach().cpu().numpy()
+    alphas = schedule.alphas.detach().cpu().numpy()
+    betas = schedule.betas.detach().cpu().numpy()
+    pvar = schedule.posterior_variance.detach().cpu().numpy()
+    coef = np.zeros((schedule.T, 5), np.float32)
+    for i, t in enumerate(range(schedule.T - 1, -1, -1)):
+        coef[i] = (
+            np.sqrt(ab[t]), np.sqrt(1.0 - ab[t]), 1.0 / np.sqrt(alphas[t]),
+            betas[t] / np.sqrt(1.0 - ab[t]), np.sqrt(pvar[t]) if t > 0 else 0.0,
+        )
+    return torch.from_numpy(coef)
+
+
 @torch.no_grad()
-def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts) -> Dict[str, torch.Tensor]:
+def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts,
+                        step_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Per-call, step-invariant tensors: ``pos`` [T, H], ``mods``
-    [steps, L, 4, H] and ``ckv`` [L, B, S, 2H]."""
+    [steps, L, 4, H] and ``ckv`` [L, B, S, 2H].  ``step_idx`` [steps] is the
+    stage index each step's time conditioning gets (default: 0, 1, ...;
+    DDPM drives every step with 0)."""
     device = sem_idx.device
     ctx = decoder.context(sem_idx=sem_idx)
     ckv = []
@@ -110,7 +138,7 @@ def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts) -> Dict[str,
     n = len(ts)
     te = decoder.time_cond(
         torch.tensor(ts, dtype=torch.float32, device=device),
-        torch.arange(n, device=device),
+        torch.arange(n, device=device) if step_idx is None else step_idx.to(device),
     )
     mods = []
     for b in decoder.layers:
@@ -129,11 +157,10 @@ def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts) -> Dict[str,
     }
 
 
-def fused_ddim_plain(
-    x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
-) -> torch.Tensor:
-    """The kernel's computation in plain tensor ops (same inputs, same order)."""
-    B, T, M = x_T.shape
+def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> torch.Tensor:
+    """One decoder forward of x [B, T, M] with this step's AdaLN table
+    ``mods_i`` [L, 4, H], in plain tensor ops in the kernel's order."""
+    B, T, M = x.shape
     H = pos.shape[1]
     L, S = ckv.shape[0], ckv.shape[2]
     dh = H // heads
@@ -144,30 +171,98 @@ def fused_ddim_plain(
     def merge(t):
         return t.transpose(1, 2).reshape(B, T, H)
 
+    h = x @ w["in_w"].T + w["in_b"] + pos
+    for l in range(L):
+        m = mods_i[l]
+        hn = rms_normalize(h) * m[0] + m[1]
+        qkv = hn @ w["qkv_w"][l].T
+        q, k, v = (split(qkv[..., j * H:(j + 1) * H], T) for j in range(3))
+        h = h + (merge(banded_attention_plain(q, k, v, window)) @ w["proj_w"][l].T
+                 + w["proj_b"][l])
+        hn = rms_normalize(h) * w["n2w"][l]
+        q = split(hn @ w["cq_w"][l].T, T)
+        a = sdpa(q, split(ckv[l, ..., :H], S), split(ckv[l, ..., H:], S))
+        h = h + merge(a) @ w["co_w"][l].T
+        hn = rms_normalize(h) * m[2] + m[3]
+        f = swiglu(hn @ w["fc1_w"][l].T + w["fc1_b"][l])
+        h = h + (f @ w["fc2_w"][l].T + w["fc2_b"][l])
+    hn = F.layer_norm(h, (H,), w["fn_s"], w["fn_b"], eps=1e-6)
+    return hn @ w["out_w"].T + w["out_b"]
+
+
+def fused_ddim_plain(
+    x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
+) -> torch.Tensor:
+    """The kernel's computation in plain tensor ops (same inputs, same order)."""
     x, x0 = x_T, torch.zeros_like(x_T)
     for i in range(coef.shape[0]):
-        h = x @ w["in_w"].T + w["in_b"] + pos
-        for l in range(L):
-            m = mods[i, l]
-            hn = rms_normalize(h) * m[0] + m[1]
-            qkv = hn @ w["qkv_w"][l].T
-            q, k, v = (split(qkv[..., j * H:(j + 1) * H], T) for j in range(3))
-            h = h + (merge(banded_attention_plain(q, k, v, window)) @ w["proj_w"][l].T
-                     + w["proj_b"][l])
-            hn = rms_normalize(h) * w["n2w"][l]
-            q = split(hn @ w["cq_w"][l].T, T)
-            a = sdpa(q, split(ckv[l, ..., :H], S), split(ckv[l, ..., H:], S))
-            h = h + merge(a) @ w["co_w"][l].T
-            hn = rms_normalize(h) * m[2] + m[3]
-            f = swiglu(hn @ w["fc1_w"][l].T + w["fc1_b"][l])
-            h = h + (f @ w["fc2_w"][l].T + w["fc2_b"][l])
-        hn = F.layer_norm(h, (H,), w["fn_s"], w["fn_b"], eps=1e-6)
-        pred = hn @ w["out_w"].T + w["out_b"]
+        pred = decoder_step_plain(x, pos, mods[i], ckv, w, heads=heads, window=window)
         sab, s1m, sabp, s1mp = coef[i]
         eps = s1m * x + sab * pred if prediction == "v" else pred
         x0 = ((x - s1m * eps) / sab).clamp(-X0_CLIP, X0_CLIP)
         x = sabp * x0 + s1mp * eps
     return x0
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of a * b for b in [0, 2^32), in int64 without
+    overflow: b is split into 16-bit halves."""
+    p_lo = a * (b & 0xFFFF)  # < 2^48
+    p_hi = a * (b >> 16)
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (s >> 32), s & _U32
+
+
+def philox4x32_10(counter: torch.Tensor, key) -> torch.Tensor:
+    """Philox4x32-10 (Random123's constants): counter [..., 4] int64 words in
+    [0, 2^32), key two such ints -> [..., 4] int64 words.  The same bits as
+    ``philox4x32_10`` in csrc/fused_ddim.cu."""
+    c0, c1, c2, c3 = counter.long().unbind(-1)
+    k0, k1 = (int(k) & _U32 for k in key)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], -1)
+
+
+def philox_normal(shape, step: int, key, device=None) -> torch.Tensor:
+    """The DDPM kernel's draws for loop index ``step``: element e of the
+    flattened ``shape`` takes counter (e, step, 0, 0); words 0 and 1 become
+    uniforms u1, u2 in [0, 1) (top 23 bits) and z = sqrt(-2 log1p(-u1)) *
+    cos(2 pi u2)."""
+    n = int(np.prod(shape))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(idx)
+    words = philox4x32_10(torch.stack([idx, torch.full_like(idx, step), zero, zero], -1), key)
+    u1, u2 = ((words[:, j] >> 9).float() * (1.0 / 8388608.0) for j in (0, 1))
+    z = torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos(6.283185307179586 * u2)
+    return z.reshape(shape)
+
+
+def fused_ddpm_plain(
+    x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
+    noise: Optional[torch.Tensor] = None, key=(0, 0),
+) -> torch.Tensor:
+    """The DDPM kernel's computation in plain tensor ops: per loop index i,
+    x <- coef[i, 2] (x - coef[i, 3] eps) + coef[i, 4] z, with z =
+    ``noise[:, i]`` or ``philox_normal(x.shape, i, key)``."""
+    x = x_T
+    for i in range(coef.shape[0]):
+        pred = decoder_step_plain(x, pos, mods[i], ckv, w, heads=heads, window=window)
+        c = coef[i]
+        eps = c[1] * x + c[0] * pred if prediction == "v" else pred
+        mean = c[2] * (x - c[3] * eps)
+        z = noise[:, i] if noise is not None else philox_normal(x.shape, i, key, x.device)
+        x = mean + c[4] * z
+    return x
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,7 +273,39 @@ def _lib() -> ctypes.CDLL:
     lib.edt_fused_ddim_workspace.restype = ctypes.c_longlong
     lib.edt_fused_ddim.argtypes = [p] * 23 + [i] * 11 + [ctypes.c_float, p]
     lib.edt_fused_ddim.restype = ctypes.c_int
+    lib.edt_fused_ddpm.argtypes = [p] * 24 + [i] * 11 + [ctypes.c_uint] * 2 + [p]
+    lib.edt_fused_ddpm.restype = ctypes.c_int
     return lib
+
+
+def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> None:
+    """Raise unless every tensor has the shape, type and device the loop
+    kernels take."""
+    B, T, M = x_T.shape
+    steps, L, _, H = mods.shape
+    S = ckv.shape[2]
+    F2 = w["fc1_w"].shape[1]
+    expected = {
+        "x_T": (B, T, M), "pos": (T, H), "mods": (steps, L, 4, H),
+        "ckv": (L, B, S, 2 * H), "coef": (steps, n_coef),
+        "in_w": (H, M), "in_b": (H,), "n2w": (L, H), "qkv_w": (L, 3 * H, H),
+        "proj_w": (L, H, H), "proj_b": (L, H), "cq_w": (L, H, H), "co_w": (L, H, H),
+        "fc1_w": (L, F2, H), "fc1_b": (L, F2), "fc2_w": (L, H, F2 // 2),
+        "fc2_b": (L, H), "fn_s": (H,), "fn_b": (H,), "out_w": (M, H), "out_b": (M,),
+    }
+    tensors = dict(w, x_T=x_T, pos=pos, mods=mods, ckv=ckv, coef=coef)
+    for name, shape in expected.items():
+        t = tensors[name]
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != x_T.device):
+            raise ValueError(f"{name}: expected contiguous float32 {shape} on "
+                             f"{x_T.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if H % heads or H // heads > 64:
+        raise ValueError(f"hidden {H} / heads {heads}: head dim must divide and be <= 64")
+
+
+def _weight_ptrs(w, first: int, last: Optional[int] = None):
+    return [w[n].data_ptr() for n in WEIGHT_NAMES[first:last]]
 
 
 def fused_ddim(
@@ -197,29 +324,12 @@ def fused_ddim(
                                 window=window, prediction=prediction)
     if x_T.device.type != "cuda":
         raise ValueError(f"fused_ddim runs on CPU or CUDA, not {x_T.device}")
+    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 4)
     B, T, M = x_T.shape
     steps, L, _, H = mods.shape
     S = ckv.shape[2]
-    F2 = w["fc1_w"].shape[1]
-    expected = {
-        "x_T": (B, T, M), "pos": (T, H), "mods": (steps, L, 4, H),
-        "ckv": (L, B, S, 2 * H), "coef": (steps, 4),
-        "in_w": (H, M), "in_b": (H,), "n2w": (L, H), "qkv_w": (L, 3 * H, H),
-        "proj_w": (L, H, H), "proj_b": (L, H), "cq_w": (L, H, H), "co_w": (L, H, H),
-        "fc1_w": (L, F2, H), "fc1_b": (L, F2), "fc2_w": (L, H, F2 // 2),
-        "fc2_b": (L, H), "fn_s": (H,), "fn_b": (H,), "out_w": (M, H), "out_b": (M,),
-    }
-    tensors = dict(w, x_T=x_T, pos=pos, mods=mods, ckv=ckv, coef=coef)
-    for name, shape in expected.items():
-        t = tensors[name]
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != x_T.device):
-            raise ValueError(f"{name}: expected contiguous float32 {shape} on "
-                             f"{x_T.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if H % heads or H // heads > 64:
-        raise ValueError(f"hidden {H} / heads {heads}: head dim must divide and be <= 64")
     lib = _lib()
-    ffn = F2 // 2
+    ffn = w["fc1_w"].shape[1] // 2
     out = torch.empty_like(x_T)
     work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M),
                        dtype=torch.float32, device=x_T.device)
@@ -227,12 +337,8 @@ def fused_ddim(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.edt_fused_ddim(
             x_T.data_ptr(), out.data_ptr(), work.data_ptr(), pos.data_ptr(),
-            *(w[n].data_ptr() for n in WEIGHT_NAMES[:2]),
-            mods.data_ptr(),
-            *(w[n].data_ptr() for n in WEIGHT_NAMES[2:7]),
-            ckv.data_ptr(),
-            *(w[n].data_ptr() for n in WEIGHT_NAMES[7:]),
-            coef.data_ptr(),
+            *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
+            ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(),
             B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
             X0_CLIP, stream,
         )
@@ -242,6 +348,56 @@ def fused_ddim(
 
 
 fused_ddim.launches = 0
+
+
+def fused_ddpm(
+    x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
+    noise: Optional[torch.Tensor] = None, key=(0, 0),
+) -> torch.Tensor:
+    """Run the whole ancestral DDPM loop (``coef`` [steps, 5] from
+    ``ddpm_coefficients``); returns the final x [B, T, M].
+
+    The per-step draws are ``noise`` [B, steps, T, M] when given, else Philox
+    normals under ``key`` (two 32-bit ints).  CPU tensors take
+    ``fused_ddpm_plain``; CUDA tensors launch the kernel sequence, counted
+    once per call in ``fused_ddpm.launches``.
+    """
+    kw = dict(heads=heads, window=window, prediction=prediction, noise=noise, key=key)
+    if x_T.device.type == "cpu":
+        return fused_ddpm_plain(x_T, pos, mods, ckv, coef, w, **kw)
+    if x_T.device.type != "cuda":
+        raise ValueError(f"fused_ddpm runs on CPU or CUDA, not {x_T.device}")
+    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 5)
+    B, T, M = x_T.shape
+    steps, L, _, H = mods.shape
+    S = ckv.shape[2]
+    if noise is not None and (
+            tuple(noise.shape) != (B, steps, T, M) or noise.dtype != torch.float32
+            or not noise.is_contiguous() or noise.device != x_T.device):
+        raise ValueError(f"noise: expected contiguous float32 {(B, steps, T, M)} on "
+                         f"{x_T.device}, got {noise.dtype} {tuple(noise.shape)}")
+    lib = _lib()
+    ffn = w["fc1_w"].shape[1] // 2
+    out = torch.empty_like(x_T)
+    work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M),
+                       dtype=torch.float32, device=x_T.device)
+    k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
+    with torch.cuda.device(x_T.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.edt_fused_ddpm(
+            x_T.data_ptr(), out.data_ptr(), work.data_ptr(), pos.data_ptr(),
+            *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
+            ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(),
+            None if noise is None else noise.data_ptr(),
+            B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
+            k0, k1, stream,
+        )
+    fused_ddpm.launches += 1
+    _build.check(err, "fused_ddpm")
+    return out
+
+
+fused_ddpm.launches = 0
 
 
 def fused_generate_mel(
@@ -271,8 +427,48 @@ def fused_generate_mel(
         )
 
 
+def fused_ddpm_sample(
+    cfg: CFG,
+    schedule: DiffusionSchedule,
+    decoder,
+    sem_idx: torch.Tensor,
+    x_T: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    prediction: str = "eps",
+    noise: Optional[torch.Tensor] = None,
+    weights: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Full-schedule (``schedule.T`` steps) ancestral DDPM through ``fused_ddpm``.
+
+    The semantics of ``schedule.ddpm_sample``: t = T-1 .. 0, the model
+    called with step_idx 0, no noise at t = 0.  ``noise`` [B, schedule.T,
+    T_mel, n_mels] injects the per-step draws; otherwise the kernel's Philox
+    generator draws them under a 64-bit key taken from ``generator`` (a
+    fresh one seeded 0 on ``sem_idx``'s device when None).  ``weights`` are
+    ``pack_decoder_weights(decoder)``, packed here if not given.
+    """
+    coef = ddpm_coefficients(schedule).to(x_T.device)
+    ts = list(range(schedule.T - 1, -1, -1))
+    key = (0, 0)
+    if noise is None:
+        if generator is None:
+            generator = torch.Generator(device=sem_idx.device).manual_seed(0)
+        key = torch.randint(0, 2**32, (2,), generator=generator, dtype=torch.int64,
+                            device=generator.device).tolist()
+    with torch.no_grad():
+        w = weights if weights is not None else pack_decoder_weights(decoder)
+        loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts,
+                                   step_idx=torch.zeros(len(ts), dtype=torch.long))
+        return fused_ddpm(
+            x_T.float().contiguous(), loop["pos"], loop["mods"], loop["ckv"], coef, w,
+            heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction,
+            noise=None if noise is None else noise.float().contiguous(), key=key,
+        )
+
+
 class FusedEdgeInference:
-    """``generate_mel`` straight through the fused loop (DDIM only).
+    """``generate_mel`` (DDIM) and ``sample_ddpm`` straight through the fused
+    loops.
 
     Runs on CUDA unless ``device`` names another device; raises without a
     card.  The decoder's weights are packed once, when the object is built.
@@ -305,6 +501,25 @@ class FusedEdgeInference:
             torch.as_tensor(x_T, dtype=torch.float32, device=self.device),
             num_steps, prediction, weights=self.weights,
         )
+
+    @torch.inference_mode()
+    def sample_ddpm(
+        self,
+        sem_idx,
+        temperature: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+        prediction: str = "eps",
+    ) -> torch.Tensor:
+        """Tokens [B, S] -> mel [B, 2S, n_mels] by full-schedule ancestral DDPM
+        (``schedule.T`` steps) in one ``fused_ddpm`` call.  The start noise
+        and then the Philox key come from ``generator`` (seeded 0 when None)."""
+        sem_idx = torch.as_tensor(sem_idx, device=self.device).long()
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        x_T = start_noise(sem_idx, self.cfg.n_mels, temperature, generator)
+        return fused_ddpm_sample(self.cfg, self.schedule, self.decoder, sem_idx, x_T,
+                                 generator=generator, prediction=prediction,
+                                 weights=self.weights)
 
 
 def start_noise(sem_idx: torch.Tensor, n_mels: int, temperature: float,

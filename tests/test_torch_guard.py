@@ -73,3 +73,36 @@ def test_wrappers_refuse_other_devices():
     q = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         wa.banded_attention(q, q, q, 2)
+
+
+def test_audio_and_ddpm_entry_points_need_a_card_unless_told_cpu():
+    from edge_diffusion_tts_tpu_torch.models import HubertConfig, SemanticEncoder
+
+    cfg = CFG(hidden=32, layers=1, heads=2, dropout=0.0)
+    dec = EdgeDiffusionDecoder(cfg)
+    enc = SemanticEncoder(cfg, HubertConfig.tiny())
+    sched = DiffusionSchedule.create(4)
+    if torch.cuda.is_available():
+        assert EdgeInference(cfg, sched, dec, encoder=enc).encoder is not None
+        assert FusedEdgeInference(cfg, sched, dec).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EdgeInference(cfg, sched, dec, encoder=enc)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            FusedEdgeInference(cfg, sched, dec).sample_ddpm(np.zeros((1, 4), np.int64))
+    engine = EdgeInference(cfg, sched, dec, device="cpu", encoder=enc)
+    assert next(engine.encoder.parameters()).device.type == "cpu"
+    mel = FusedEdgeInference(cfg, sched, dec, device="cpu").sample_ddpm(
+        np.zeros((1, 4), np.int64))
+    assert mel.device.type == "cpu" and mel.shape == (1, 8, 80)
+
+
+def test_new_wrappers_refuse_other_devices():
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ff.conv_frontend(torch.zeros(1, 800, device="meta"), {})
+    x = torch.zeros(1, 4, 80, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fd.fused_ddpm(x, None, None, None, None, {}, heads=1, window=1)

@@ -142,5 +142,5 @@ def test_generate_mel_noise_and_validation(engines):
                    device="cpu")
     with pytest.raises(ValueError, match="backend"):
         PInference(pcfg, sched, pdec, backend="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder slice"):
+    with pytest.raises(ValueError, match="without an encoder"):
         port.generate_from_audio(np.zeros(16000, np.float32))
