@@ -38,7 +38,9 @@ class EdgeInference:
     reads the decoder as a v- (or x0-) prediction model, so it needs
     ``prediction != "eps"``.  The fused backend implements DDIM only and
     packs the decoder's weights once, when the object is built.  ``encoder``
-    (a ``SemanticEncoder``) enables ``generate_from_audio``.
+    (a ``SemanticEncoder`` with the hubert-base conv stack, the one the
+    conv-frontend kernel implements; another raises) enables
+    ``generate_from_audio``; its frontend weights are packed here too.
     """
 
     def __init__(
@@ -76,7 +78,10 @@ class EdgeInference:
             pack_decoder_weights(self.decoder) if backend == "fused" else None
         )
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
-        self.frontend_weights = None  # packed at the first generate_from_audio
+        self.frontend_weights = (  # raises unless the conv stack is hubert-base's
+            None if encoder is None
+            else pack_frontend_weights(self.encoder.hubert.feature_extractor)
+        )
 
     def _sample(self, model_fn, x_T: torch.Tensor, num_steps: int) -> torch.Tensor:
         if self.sampler == "dpmpp":
@@ -155,8 +160,7 @@ class EdgeInference:
         """Reference wav [T] or [B, T] at 16 kHz -> normalized log-mel.
 
         The tokens come from ``fast_encode`` (the conv frontend on its
-        kernel, which implements the hubert-base conv stack only: other
-        specs raise), then ``generate_mel(tokens, num_steps, temperature,
+        kernel), then ``generate_mel(tokens, num_steps, temperature,
         generator, x_T=x_T)``.
         """
         if self.encoder is None:
@@ -164,8 +168,6 @@ class EdgeInference:
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
         if wav.dim() == 1:
             wav = wav[None, :]
-        if self.frontend_weights is None:
-            self.frontend_weights = pack_frontend_weights(self.encoder.hubert.feature_extractor)
         sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
         return self.generate_mel(sem_idx, num_steps, temperature=temperature,
                                  generator=generator, x_T=x_T)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -159,17 +159,14 @@ conv_frontend.launches = 0
 
 
 @torch.no_grad()
-def fast_encode(encoder, wav: torch.Tensor,
-                weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+def fast_encode(encoder, wav: torch.Tensor, weights: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``SemanticEncoder.encode`` with the conv frontend routed through
     ``conv_frontend`` (wav [B, T] -> token indices [B, S]).
 
     ``weights`` are ``pack_frontend_weights(encoder.hubert.feature_extractor)``,
-    packed here if not given.  Only the hubert-base conv stack is supported:
+    packed once by the caller.  Only the hubert-base conv stack is supported:
     any other raises.
     """
     check_base_specs(encoder.hubert_cfg)
-    if weights is None:
-        weights = pack_frontend_weights(encoder.hubert.feature_extractor)
     wav = wav.float().contiguous()
     return encoder.encode(wav, conv_feats=conv_frontend(wav, weights))

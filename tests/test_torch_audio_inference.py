@@ -97,7 +97,6 @@ def test_generate_from_audio_fused_backend_and_errors(models):
     with pytest.raises(ValueError, match="without an encoder"):
         PInference(pcfg, PSchedule.create(pcfg.diff_steps), pdec,
                    device="cpu").generate_from_audio(wav)
-    tiny = PInference(pcfg, PSchedule.create(pcfg.diff_steps), pdec, device="cpu",
-                      encoder=PEncoder(pcfg, PHC.tiny320()))
     with pytest.raises(ValueError, match="hubert-base"):  # never rerouted to the modules
-        tiny.generate_from_audio(wav)
+        PInference(pcfg, PSchedule.create(pcfg.diff_steps), pdec, device="cpu",
+                   encoder=PEncoder(pcfg, PHC.tiny320()))

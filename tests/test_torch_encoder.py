@@ -271,7 +271,8 @@ def test_fast_encode_tokens_match_jax_encode():
     jenc, variables, penc, wav = _encoders()
     want = np.asarray(jenc.apply(variables, jnp.asarray(wav), method=jenc.encode))
     before = ff.conv_frontend.launches
-    got = ff.fast_encode(penc, torch.from_numpy(wav))
+    got = ff.fast_encode(penc, torch.from_numpy(wav),
+                         ff.pack_frontend_weights(penc.hubert.feature_extractor))
     assert ff.conv_frontend.launches == before
     assert got.shape == want.shape == (2, 24)
     np.testing.assert_array_equal(got.numpy(), want)

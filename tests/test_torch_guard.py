@@ -80,7 +80,9 @@ def test_audio_and_ddpm_entry_points_need_a_card_unless_told_cpu():
 
     cfg = CFG(hidden=32, layers=1, heads=2, dropout=0.0)
     dec = EdgeDiffusionDecoder(cfg)
-    enc = SemanticEncoder(cfg, HubertConfig.tiny())
+    # The hubert-base conv stack (the frontend kernel's) under a small transformer.
+    enc = SemanticEncoder(cfg, HubertConfig(num_layers=1, hidden_size=32, num_heads=2,
+                                            intermediate_size=64))
     sched = DiffusionSchedule.create(4)
     if torch.cuda.is_available():
         assert EdgeInference(cfg, sched, dec, encoder=enc).encoder is not None
