@@ -11,10 +11,19 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    kernel from csrc/ (one nvcc per source, in parallel), with its time;
 2. the banded-attention kernel against its plain version at [1,4,500,40] and
    [1,4,4000,40], window 64, atol 2e-5; timed beside the plain version and a
-   band-masked ``scaled_dot_product_attention`` (a yardstick only);
+   band-masked ``scaled_dot_product_attention`` (a yardstick only), and its
+   device time in a CUDA graph (blocks of 16 query rows x 4 threads);
 3. the fused DDIM kernel against its plain version at the flagship shape
    (hidden 160, 4 layers, 4 heads of 40, window 64; B=1, S=250, T=500,
-   4 steps), eps and v prediction (tolerances below);
+   4 steps), eps and v prediction (tolerances below); the kernel launches
+   per decoder step (asserted: 2 + 8 * layers + 1, 35 at 4 layers); and each
+   GEMM of the step alone (``decoder_gemm``) at its flagship shape, held to
+   ``decoder_gemm_plain`` (atol 1e-5, rtol 1e-5) and timed in the host's
+   tile, with its blocks per launch, beside ``torch.nn.functional.linear``
+   at the same shape with TF32 off (a yardstick only, never called by the port),
+   each as device time: calls captured in a CUDA graph and replayed between
+   CUDA events, since one call from Python costs the host more than the
+   kernel costs the card;
 4. the main path: ``EdgeInference(backend="fused").generate_mel`` answers
    three requests; outputs finite, one fused launch per request;
 5. the long-form shape (configs/longform.json, S=2000 -> T=4000) through
@@ -37,7 +46,10 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    ``FusedEdgeInference.sample_ddpm`` over the full 1000-step schedule at
    B=1, S=250: one launch per call, finite, the same output for the same
    generator seed and another for another seed; and the 1000-step kernel
-   against its plain version (Philox noise, same key), held to the same rule.
+   against its plain version (Philox noise, same key), held to the same rule,
+   with both printed against the plain version in float64 (weights, inputs
+   and coefficients cast; the same Philox draws) as a witness of how far
+   each float32 route is from the exact trajectory.
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -126,6 +138,29 @@ def timed_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, n: int = 50, replays: int = 10) -> float:
+    """Device time of one ``fn()`` in ms: ``n`` calls captured in a CUDA
+    graph and replayed ``replays`` times between CUDA events, so that the
+    host's cost of each call (Python, ctypes, the launch) stays out."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * n)
+
+
 def band_pairs(T: int, window: int, kv_len: int) -> int:
     i = np.arange(T)
     lo = np.maximum(0, i - window)
@@ -194,11 +229,11 @@ def phase_banded(torch):
                    for _ in range(3))
         got = wa.banded_attention(q, k, v, w)
         torch.cuda.synchronize()
-        want = wa.banded_attention_plain(q, k, v, w)
-        err = (got - want).abs().max().item()
+        err = (got - wa.banded_attention_plain(q, k, v, w)).abs().max().item()
         assert err <= 2e-5, f"banded T={T}: max err {err} > 2e-5"
         mask = local_attention_mask(T, w, q.device)
         ms = timed_ms(torch, lambda: wa.banded_attention(q, k, v, w))
+        dev = graph_ms(torch, lambda: wa.banded_attention(q, k, v, w))
         plain_ms = timed_ms(torch, lambda: wa.banded_attention_plain(q, k, v, w))
         lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
@@ -207,7 +242,8 @@ def phase_banded(torch):
         results[T] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
         print(f"[banded] T={T}: max_abs_err={err:.3g} ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"sdpa_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})")
+              f"sdpa_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}); device ms in a "
+              f"CUDA graph: {dev:.5f} ({(T + 15) // 16 * B * H} blocks)")
     return results
 
 
@@ -271,8 +307,62 @@ def phase_fused(torch, cfg, decoder, schedule):
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[fused] {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB per call: "
           f"bound_ms={bound_ms:.5f} ({bound_by})")
+
+    before = fd.kernel_launches()
+    fd.fused_ddim(*args, heads=cfg.heads, window=cfg.attn_window_size)
+    torch.cuda.synchronize()
+    per_step = (fd.kernel_launches() - before) / len(ts)
+    want_per_step = 2 + 8 * cfg.layers + 1
+    print(f"[fused] kernel launches per decoder step (with its update): {per_step:g}")
+    assert per_step == want_per_step, f"{per_step} launches per step, not {want_per_step}"
+    step_gemms(torch, cfg, B * T, loop, w)
     out.update(bound_ms=bound_ms, bound_by=bound_by, x_T=x_T, sem_idx=sem_idx)
     return out
+
+
+def step_gemms(torch, cfg, rows: int, loop, w):
+    """Each GEMM of the decoder step alone at ``rows`` rows, layer 0's
+    weights: held to its plain version, and its device time (``graph_ms``)
+    in the host's tile beside ``F.linear``'s at the same shape."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+
+    H, M, FF = cfg.hidden, cfg.n_mels, cfg.hidden * cfg.ffn_mult
+    rng = np.random.RandomState(5000 + SEED)
+
+    def act(n):
+        return torch.from_numpy(rng.randn(rows, n).astype(np.float32)).to(DEVICE)
+
+    x, h, ao, f = act(M), act(H), act(H), act(FF)
+    m0 = loop["mods"][0, 0]
+    shapes = [
+        ("in_proj (+bias +pos)", x, w["in_w"], dict(bias=w["in_b"], pos=loop["pos"])),
+        ("qkv (AdaLN-RMS prologue)", h, w["qkv_w"][0], dict(norm="rms", scale=m0[0],
+                                                            shift=m0[1])),
+        ("attn proj (+bias +residual)", ao, w["proj_w"][0], dict(bias=w["proj_b"][0],
+                                                                residual=h)),
+        ("cross q (RMS x n2w prologue)", h, w["cq_w"][0], dict(norm="rms",
+                                                              scale=w["n2w"][0])),
+        ("cross out (+residual)", ao, w["co_w"][0], dict(residual=h)),
+        ("fc1 (AdaLN-RMS prologue, SwiGLU)", h, w["fc1_w"][0], dict(
+            bias=w["fc1_b"][0], norm="rms", scale=m0[2], shift=m0[3], swiglu=True)),
+        ("fc2 (+bias +residual)", f, w["fc2_w"][0], dict(bias=w["fc2_b"][0], residual=h)),
+        ("out_proj (LayerNorm prologue, +bias)", h, w["out_w"], dict(
+            bias=w["out_b"], norm="ln", scale=w["fn_s"], shift=w["fn_b"])),
+    ]
+    for name, a, W, kw in shapes:
+        got = fd.decoder_gemm(a, W, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, fd.decoder_gemm_plain(a, W, **kw), atol=1e-5, rtol=1e-5)
+        n, K = got.shape[-1], a.shape[1]
+        bm, bn = fd.decoder_gemm_tile(rows, n)
+        us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, **kw))
+        lin_us = 1e3 * graph_ms(torch, lambda: F.linear(a, W))
+        bound_us = 1e3 * bound(2 * rows * W.shape[0] * K, 0)[0]
+        print(f"[gemm] {name}: M={rows} N={n} K={K}: {us:.3f} us, tile {bm}x{bn}, "
+              f"{-(-rows // bm) * -(-n // bn)} blocks; F.linear {lin_us:.3f} us; "
+              f"ops bound {bound_us:.3f} us")
 
 
 def phase_main_path(torch, cfg, decoder, schedule, fused):
@@ -565,6 +655,14 @@ def phase_ddpm(torch, cfg, decoder):
     got, ms = timed_call(torch, lambda: fd.fused_ddpm(*args, **kw, key=key))
     want, plain_ms = timed_call(torch, lambda: fd.fused_ddpm_plain(*args, **kw, key=key))
     err = check_ddpm(f"{cfg.diff_steps} steps, philox noise, kernel vs plain", got, want)
+    # Witness: the plain version in float64 on the same draws, against which
+    # both float32 routes' own rounding shows.
+    args64 = [a.double() for a in args[:5]] + [{k: v.double() for k, v in w.items()}]
+    exact, f64_ms = timed_call(torch, lambda: fd.fused_ddpm_plain(*args64, **kw, key=key))
+    assert exact.dtype == torch.float64 and bool(exact.isfinite().all())
+    report_ddpm(f"{cfg.diff_steps} steps, kernel vs float64 plain", got.double(), exact)
+    report_ddpm(f"{cfg.diff_steps} steps, float32 plain vs float64 plain", want.double(), exact)
+    print(f"[ddpm] float64 plain {cfg.diff_steps} steps: {f64_ms:.3f} ms")
     flops, nbytes = fused_flops_bytes(
         B, T, S, cfg.n_mels, cfg.hidden, cfg.heads, cfg.layers, cfg.hidden * cfg.ffn_mult,
         cfg.attn_window_size, cfg.diff_steps, list(args[:5]) + list(w.values()))

@@ -4,8 +4,9 @@
 
 #include "attention.cuh"
 
-// q, k, v, o: contiguous float32 [B, H, T, d] on the current device.
-// Returns the cudaError_t of the launch (0 on success).
+// q, k, v, o: contiguous float32 [B, H, T, d] on the current device; blocks
+// of 16 query rows x 4 threads each, the decoder step's tile.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int edt_banded_attention(const float* q, const float* k, const float* v, float* o,
                                     int B, int H, int T, int d, int window, int seq_len,
                                     void* stream) {
@@ -24,5 +25,5 @@ extern "C" int edt_banded_attention(const float* q, const float* k, const float*
   a.window = window;
   a.kv_len = seq_len;
   a.scale = (float)pow((double)d, -0.5);
-  return edt::launch_attention(a, B, (cudaStream_t)stream);
+  return edt::launch_attention<16, 4>(a, B, (cudaStream_t)stream);
 }

@@ -9,25 +9,47 @@
 // the whole loop in one launch with every weight resident in VMEM.  On the
 // H100 the ~6 MB of f32 weights do not fit a block's 227 KB of shared
 // memory, so a step is a fixed sequence of hand-written kernels, each over
-// all B*T rows:
+// all B*T rows (2 + 8L + 1 launches: 35 at L = 4):
 //   in_proj GEMM (+bias +positional row)
-//   L x [ AdaLN-RMS row norm -> qkv GEMM -> banded self-attention (|i-j|<=w,
-//         key<T) -> attn-proj GEMM (+bias +residual) -> RMS row norm ->
-//         cross-q GEMM -> cross-attention over the precomputed K/V (key<S)
-//         -> cross-out GEMM (+residual) -> AdaLN-RMS row norm -> fc1 GEMM
-//         with a SwiGLU epilogue -> fc2 GEMM (+bias +residual) ]
-//   LayerNorm -> out_proj GEMM (+bias)
+//   L x [ qkv GEMM with an AdaLN-RMS prologue -> banded self-attention
+//         (|i-j|<=w, key<T) -> attn-proj GEMM (+bias +residual) -> cross-q
+//         GEMM with an RMS x n2w prologue -> cross-attention over the
+//         precomputed K/V (key<S) -> cross-out GEMM (+residual) -> fc1 GEMM
+//         with an AdaLN-RMS prologue and a SwiGLU epilogue -> fc2 GEMM
+//         (+bias +residual) ]
+//   out_proj GEMM with a LayerNorm prologue (+bias)
 // followed by the sampler's update kernel: DDIM with x0 clip, or DDPM with a
 // Gaussian draw per element and step.
-// What bounds it: at the flagship shape a decoder forward is ~1.7 GFLOP of
-// float32 work, so the loops are bound by float32 arithmetic (no TF32, to
-// hold the 1e-4 parity bar), at small per-kernel grids: 4 DDIM steps 0.103 ms,
-// 1000 DDPM steps 25.8 ms at 67 TFLOP/s.  Every product is a hand-written
-// float32 FMA kernel: a shared-memory-tiled GEMM (32x64 output tile, 4x4 per
-// thread) and the banded attention of attention.cuh.  Weights stream from L2
-// (50 MB holds them all, and DDPM's 10 MB AdaLN table); activations stay in
-// one workspace.  One persistent launch, a CUDA graph, or wgmma/TMA tiles
-// are later work.
+// What bounds it: at the flagship shape (B*T = 500 rows, hidden 160, 4
+// layers) a decoder forward is ~1.73 GFLOP of float32 work, ~26 us at the
+// card's 67 TFLOP/s (no TF32, to hold the parity bars): 4 DDIM steps 0.103
+// ms, 1000 DDPM steps 25.8 ms.  Every operand is L2-resident: ~6 MB of
+// weights, DDPM's 10 MB AdaLN table and the ~2 MB of activations fit the
+// 50 MB L2, so HBM bounds nothing.  What a step loses its time to is the
+// size of each launch: every kernel does 0.01-0.08 GFLOP, a few us of work
+// if it keeps all 132 SMs busy, and pays launch latency and the latency
+// of its first loads.  So the design goes for full grids and few launches:
+//   * one GEMM (gemm.cuh) with the output tile picked per shape so that
+//     every product of the step fills the SMs at 500 rows, K staged whole in
+//     shared memory by cp.async, and no split-K (a deterministic sum order:
+//     the same seed gives the same output);
+//   * the row norms in that GEMM's prologue: the four GEMMs whose input is
+//     a normed h (K = H) normalise their staged rows in shared memory, so
+//     the norms' 13 launches per step and the round trip of a normed copy
+//     of h leave the step;
+//   * attention (attention.cuh) with a 16-row x 4-thread tile: 128 blocks
+//     at T = 500 with 4 heads, where a 64-row tile gives 32.
+// Measured on the card, a step is ~0.4 ms: each GEMM 5-14 us, bound by its
+// blocks' wait for their operands from L2 and by its products' reads of
+// shared memory (gemm.cuh); each attention ~15 us, bound by each thread's
+// chain of keys; and ~1.8 us of host time between launches.
+// The row norms' statistics are summed in a 32-lane warp's tree order and
+// each query row's keys split over 4 threads in chunks at multiples of 64
+// keys: the float32 sums of one warp per row and of the 64-row tile, the
+// summation order the 1000-step DDPM parity rule was set on.  An order with
+// 8 threads per row crossed that rule's elementwise bar.
+// Activations live in one workspace.  One persistent launch, a CUDA graph,
+// and wgmma/TMA or tensor-core tiles are later work.
 //
 // DDPM noise: the TPU kernel draws from the core's hardware PRNG.  Here it
 // is Philox4x32-10 (Salmon et al., SC'11; Random123's constants), written
@@ -40,155 +62,9 @@
 #include <stdint.h>
 
 #include "attention.cuh"
+#include "gemm.cuh"
 
 namespace {
-
-constexpr int GBM = 32;   // output rows per block
-constexpr int GBN = 64;   // output columns per block
-constexpr int GBK = 16;   // reduction depth per shared-memory stage
-constexpr int GTHREADS = 128;
-
-// C[m, n] = sum_k A[m, k] * W[n, k] + bias[n] + pos[m % pos_rows, n] + R[m, n]
-// (each term only where its pointer is non-null).  A [M, K], W [N, K] (the
-// torch Linear layout), C and R [M, N], all row-major and contiguous.  R may
-// alias C: each element is read and written by the same thread.
-// SWIGLU: W has 2*N rows (value rows first, then gate rows) and
-// C[m, n] = (A W[n] + bias[n]) * silu(A W[N + n] + bias[N + n]).
-template <bool SWIGLU>
-__global__ void __launch_bounds__(GTHREADS)
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-            const float* __restrict__ bias, const float* __restrict__ pos, int pos_rows,
-            const float* R, float* C, int M, int N, int K) {
-  __shared__ float As[GBK][GBM + 4];
-  __shared__ float Ws[GBK][GBN + 4];
-  __shared__ float Gs[SWIGLU ? GBK : 1][GBN + 4];
-
-  const int m0 = blockIdx.y * GBM;
-  const int n0 = blockIdx.x * GBN;
-  const int tx = threadIdx.x % 16;  // 4 output columns each
-  const int ty = threadIdx.x / 16;  // 4 output rows each
-
-  float acc[4][4];
-  float accg[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = accg[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    for (int e = threadIdx.x; e < GBM * GBK; e += GTHREADS) {
-      const int mm = e / GBK, kk = e % GBK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? A[(long long)gm * K + gk] : 0.f;
-    }
-    for (int e = threadIdx.x; e < GBN * GBK; e += GTHREADS) {
-      const int nn = e / GBK, kk = e % GBK;
-      const int gn = n0 + nn, gk = k0 + kk;
-      const bool ok = gn < N && gk < K;
-      Ws[kk][nn] = ok ? W[(long long)gn * K + gk] : 0.f;
-      if constexpr (SWIGLU) Gs[kk][nn] = ok ? W[(long long)(N + gn) * K + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      float av[4], wv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wv[j] = Ws[kk][tx * 4 + j];
-        if constexpr (SWIGLU) gv[j] = Gs[kk][tx * 4 + j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-          if constexpr (SWIGLU) accg[i][j] = fmaf(av[i], gv[j], accg[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= N) continue;
-      float c = acc[i][j];
-      if (bias) c += bias[gn];
-      if constexpr (SWIGLU) {
-        float g = accg[i][j];
-        if (bias) g += bias[N + gn];
-        c = c * (g / (1.f + expf(-g)));
-      }
-      if (pos) c += pos[(long long)(gm % pos_rows) * N + gn];
-      const long long idx = (long long)gm * N + gn;
-      if (R) c = R[idx] + c;
-      C[idx] = c;
-    }
-  }
-}
-
-int gemm(const float* A, const float* W, const float* bias, const float* pos, int pos_rows,
-         const float* R, float* C, int M, int N, int K, cudaStream_t st) {
-  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  gemm_kernel<false><<<grid, GTHREADS, 0, st>>>(A, W, bias, pos, pos_rows, R, C, M, N, K);
-  return (int)cudaGetLastError();
-}
-
-int gemm_swiglu(const float* A, const float* W, const float* bias, float* C, int M, int N,
-                int K, cudaStream_t st) {
-  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  gemm_kernel<true><<<grid, GTHREADS, 0, st>>>(A, W, bias, nullptr, 1, nullptr, C, M, N, K);
-  return (int)cudaGetLastError();
-}
-
-constexpr int NORM_WARPS = 4;
-
-// out[m, :] = norm(x[m, :]) * scale + shift (shift optional), one warp per
-// row.  RMS: x * 1/sqrt(mean(x^2) + eps).  LN: (x - mean) / sqrt(var + eps).
-template <bool LN>
-__global__ void __launch_bounds__(NORM_WARPS * 32)
-rownorm_kernel(const float* __restrict__ x, float* __restrict__ out,
-               const float* __restrict__ scale, const float* __restrict__ shift, int M,
-               int N, float eps) {
-  const int row = blockIdx.x * NORM_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const float* xr = x + (long long)row * N;
-  float mu = 0.f;
-  if (LN) {
-    float s = 0.f;
-    for (int c = lane; c < N; c += 32) s += xr[c];
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    mu = s / N;
-  }
-  float ss = 0.f;
-  for (int c = lane; c < N; c += 32) {
-    const float d = xr[c] - mu;
-    ss = fmaf(d, d, ss);
-  }
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float inv = 1.f / sqrtf(ss / N + eps);
-  float* orow = out + (long long)row * N;
-  for (int c = lane; c < N; c += 32) {
-    float y = (xr[c] - mu) * inv * scale[c];
-    if (shift) y += shift[c];
-    orow[c] = y;
-  }
-}
-
-template <bool LN>
-int rownorm(const float* x, float* out, const float* scale, const float* shift, int M, int N,
-            cudaStream_t st) {
-  const int grid = (M + NORM_WARPS - 1) / NORM_WARPS;
-  rownorm_kernel<LN><<<grid, NORM_WARPS * 32, 0, st>>>(x, out, scale, shift, M, N, 1e-6f);
-  return (int)cudaGetLastError();
-}
 
 // eta=0 DDIM update with x0 clip; coef = (sqrt ab_t, sqrt(1-ab_t),
 // sqrt ab_prev, sqrt(1-ab_prev)).  x is updated in place, x0 written out.
@@ -265,7 +141,7 @@ struct Decoder {
   const float *pos, *in_w, *in_b, *n2w, *qkv_w, *proj_w, *proj_b, *cq_w, *ckv, *co_w;
   const float *fc1_w, *fc1_b, *fc2_w, *fc2_b, *fn_s, *fn_b, *out_w, *out_b;
   int B, T, S, M, H, L, F;
-  float *h, *hn, *qkv, *ao, *cq, *f, *pred, *x;  // workspace
+  float *h, *qkv, *ao, *cq, *f, *pred, *x;  // workspace
   edt::AttnArgs self_attn, cross;
 };
 
@@ -282,8 +158,7 @@ Decoder make_decoder(float* work, const float* pos, const float* in_w, const flo
   const long long rows = (long long)B * T;
   const long long RH = rows * H;
   d.h = work;
-  d.hn = d.h + RH;
-  d.qkv = d.hn + RH;
+  d.qkv = d.h + RH;
   d.ao = d.qkv + 3 * RH;
   d.cq = d.ao + RH;
   d.f = d.cq + RH;
@@ -326,41 +201,87 @@ Decoder make_decoder(float* work, const float* pos, const float* in_w, const flo
   return d;
 }
 
-#define EDT_TRY(call)    \
-  do {                   \
+long long g_launches = 0;  // kernels this library launched (edt_kernel_launches)
+
+#define EDT_TRY(call)      \
+  do {                     \
     const int e_ = (call); \
-    if (e_) return e_;   \
+    if (e_) return e_;     \
+  } while (0)
+#define EDT_LAUNCH(call) \
+  do {                   \
+    ++g_launches;        \
+    EDT_TRY(call);       \
   } while (0)
 
+// The step's attention tile: 16 query rows x 4 threads per block (the bits
+// of a 64-row tile, on 4x the blocks).
+int attention(const edt::AttnArgs& a, int batch, cudaStream_t st) {
+  return edt::launch_attention<16, 4>(a, batch, st);
+}
+
+// A GEMM over the step's rows: C [rows, N] = A [rows, K] W^T, no extras.
+edt::GemmArgs rows_gemm(const Decoder& d, const float* A, const float* W, float* C, int N,
+                        int K) {
+  edt::GemmArgs g;
+  g.A = A;
+  g.W = W;
+  g.C = C;
+  g.M = d.B * d.T;
+  g.N = N;
+  g.K = K;
+  return g;
+}
+
 // One decoder forward of x [B, T, M] with this step's AdaLN table md
-// [L, 4, H]; the prediction lands in d.pred.
+// [L, 4, H] (norm1 scale, norm1 shift, norm3 scale, norm3 shift); the
+// prediction lands in d.pred.  26 GEMMs, 8 attentions at L = 4.
 int decoder_step(Decoder& d, const float* x, const float* md, cudaStream_t st) {
-  const int rows = d.B * d.T;
   const int H = d.H, F = d.F;
   const long long HH = (long long)H * H;
-  EDT_TRY(gemm(x, d.in_w, d.in_b, d.pos, d.T, nullptr, d.h, rows, H, d.M, st));
+  edt::GemmArgs g = rows_gemm(d, x, d.in_w, d.h, H, d.M);
+  g.bias = d.in_b;
+  g.pos = d.pos;
+  g.pos_rows = d.T;
+  EDT_LAUNCH(edt::gemm(g, st));
   for (int l = 0; l < d.L; ++l) {
     const float* ml = md + (long long)l * 4 * H;
-    EDT_TRY(rownorm<false>(d.h, d.hn, ml, ml + H, rows, H, st));
-    EDT_TRY(gemm(d.hn, d.qkv_w + l * 3 * HH, nullptr, nullptr, 1, nullptr, d.qkv, rows, 3 * H,
-                 H, st));
-    EDT_TRY(edt::launch_attention(d.self_attn, d.B, st));
-    EDT_TRY(gemm(d.ao, d.proj_w + l * HH, d.proj_b + (long long)l * H, nullptr, 1, d.h, d.h,
-                 rows, H, H, st));
-    EDT_TRY(rownorm<false>(d.h, d.hn, d.n2w + (long long)l * H, nullptr, rows, H, st));
-    EDT_TRY(gemm(d.hn, d.cq_w + l * HH, nullptr, nullptr, 1, nullptr, d.cq, rows, H, H, st));
+    g = rows_gemm(d, d.h, d.qkv_w + l * 3 * HH, d.qkv, 3 * H, H);
+    g.norm_scale = ml;
+    g.norm_shift = ml + H;
+    EDT_LAUNCH(edt::gemm(g, st));
+    EDT_LAUNCH(attention(d.self_attn, d.B, st));
+    g = rows_gemm(d, d.ao, d.proj_w + l * HH, d.h, H, H);
+    g.bias = d.proj_b + (long long)l * H;
+    g.R = d.h;
+    EDT_LAUNCH(edt::gemm(g, st));
+    g = rows_gemm(d, d.h, d.cq_w + l * HH, d.cq, H, H);
+    g.norm_scale = d.n2w + (long long)l * H;
+    EDT_LAUNCH(edt::gemm(g, st));
     d.cross.k = d.ckv + (long long)l * d.B * d.S * 2 * H;
     d.cross.v = d.cross.k + H;
-    EDT_TRY(edt::launch_attention(d.cross, d.B, st));
-    EDT_TRY(gemm(d.ao, d.co_w + l * HH, nullptr, nullptr, 1, d.h, d.h, rows, H, H, st));
-    EDT_TRY(rownorm<false>(d.h, d.hn, ml + 2 * H, ml + 3 * H, rows, H, st));
-    EDT_TRY(gemm_swiglu(d.hn, d.fc1_w + (long long)l * 2 * F * H,
-                        d.fc1_b + (long long)l * 2 * F, d.f, rows, F, H, st));
-    EDT_TRY(gemm(d.f, d.fc2_w + (long long)l * H * F, d.fc2_b + (long long)l * H, nullptr, 1,
-                 d.h, d.h, rows, H, F, st));
+    EDT_LAUNCH(attention(d.cross, d.B, st));
+    g = rows_gemm(d, d.ao, d.co_w + l * HH, d.h, H, H);
+    g.R = d.h;
+    EDT_LAUNCH(edt::gemm(g, st));
+    g = rows_gemm(d, d.h, d.fc1_w + (long long)l * 2 * F * H, d.f, F, H);
+    g.bias = d.fc1_b + (long long)l * 2 * F;
+    g.norm_scale = ml + 2 * H;
+    g.norm_shift = ml + 3 * H;
+    g.swiglu = 1;
+    EDT_LAUNCH(edt::gemm(g, st));
+    g = rows_gemm(d, d.f, d.fc2_w + (long long)l * H * F, d.h, H, F);
+    g.bias = d.fc2_b + (long long)l * H;
+    g.R = d.h;
+    EDT_LAUNCH(edt::gemm(g, st));
   }
-  EDT_TRY(rownorm<true>(d.h, d.hn, d.fn_s, d.fn_b, rows, H, st));
-  return gemm(d.hn, d.out_w, d.out_b, nullptr, 1, nullptr, d.pred, rows, d.M, H, st);
+  g = rows_gemm(d, d.h, d.out_w, d.pred, d.M, H);
+  g.bias = d.out_b;
+  g.norm_scale = d.fn_s;
+  g.norm_shift = d.fn_b;
+  g.ln = 1;
+  EDT_LAUNCH(edt::gemm(g, st));
+  return 0;
 }
 
 constexpr int UPDATE_THREADS = 256;
@@ -370,8 +291,71 @@ constexpr int UPDATE_THREADS = 256;
 // Floats of scratch that edt_fused_ddim and edt_fused_ddpm need.
 extern "C" long long edt_fused_ddim_workspace(int B, int T, int H, int F, int M) {
   const long long rows = (long long)B * T;
-  return rows * (7LL * H + F + 2LL * M);
+  return rows * (6LL * H + F + 2LL * M);
 }
+
+// Kernels launched by this library since it was loaded (every GEMM,
+// attention and update launch of the loops and of edt_decoder_gemm).
+extern "C" long long edt_kernel_launches() { return g_launches; }
+
+// The decoder step's GEMM alone (gemm.cuh), as a test and timing hook:
+// C [M, N] = P(A) W^T (+bias) (SwiGLU if swiglu) (+pos[m % pos_rows])
+// (+R), P the RMS (ln = 0) or LayerNorm (ln = 1) row norm with norm_scale
+// (and norm_shift if non-null) when norm_scale is non-null.  A [M, K] and W
+// [N or 2N, K] contiguous float32 with 16-byte-aligned rows; R may alias C.
+// Returns a cudaError_t.
+extern "C" int edt_decoder_gemm(const float* A, const float* W, const float* bias,
+                                const float* pos, const float* R, float* C,
+                                const float* norm_scale, const float* norm_shift, int M, int N,
+                                int K, int pos_rows, int swiglu, int ln, void* stream) {
+  edt::GemmArgs g;
+  g.A = A;
+  g.W = W;
+  g.C = C;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.bias = bias;
+  g.pos = pos;
+  g.pos_rows = pos_rows;
+  g.R = R;
+  g.norm_scale = norm_scale;
+  g.norm_shift = norm_shift;
+  g.ln = ln;
+  g.swiglu = swiglu;
+  EDT_LAUNCH(edt::gemm(g, (cudaStream_t)stream));
+  return 0;
+}
+
+// The rows and columns (bm_bn[0], bm_bn[1]) of the output tile the host
+// picks for an M x N output of edt_decoder_gemm and the decoder step.
+extern "C" void edt_decoder_gemm_tile(int M, int N, int* bm_bn) {
+  const int tile = edt::gemm_pick_tile(M, N);
+  bm_bn[0] = edt::GEMM_TILE_BM[tile];
+  bm_bn[1] = edt::GEMM_TILE_BN[tile];
+}
+
+#ifdef EDT_GEMM_TIMERS
+// The timed build's hooks (port_profile.py --gemm-timers).  Force tile
+// `tile` of gemm.cuh's list (-1: the host's pick) on every later GEMM launch;
+// its rows and columns go to bm_bn.  Returns -1 if there is no such tile.
+extern "C" int edt_gemm_force_tile(int tile, int* bm_bn) {
+  if (tile >= edt::GEMM_NTILES) return -1;
+  edt::g_gemm_forced_tile = tile;
+  if (tile >= 0) {
+    bm_bn[0] = edt::GEMM_TILE_BM[tile];
+    bm_bn[1] = edt::GEMM_TILE_BN[tile];
+  }
+  return tile;
+}
+
+// The stamps of the last GEMM launch's first `blocks` blocks, [blocks][8]:
+// start and end (ns), then the clock64 cycles of its six phases.
+extern "C" int edt_gemm_timers(long long* out, int blocks) {
+  blocks = blocks < edt::GEMM_TIMER_BLOCKS ? blocks : edt::GEMM_TIMER_BLOCKS;
+  return (int)cudaMemcpyFromSymbol(out, edt::g_gemm_timers, sizeof(long long) * 8 * blocks);
+}
+#endif
 
 // The whole num_steps DDIM loop.  Pointers are contiguous float32 on the
 // current device; weights use the torch Linear layout [out, in], stacked over
@@ -404,6 +388,7 @@ extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, float* work, cons
   EDT_TRY((int)cudaGetLastError());
   for (int i = 0; i < steps; ++i) {
     EDT_TRY(decoder_step(d, d.x, mods + (long long)i * L * 4 * H, st));
+    ++g_launches;
     ddim_kernel<<<(unsigned)((n_out + UPDATE_THREADS - 1) / UPDATE_THREADS), UPDATE_THREADS, 0,
                   st>>>(d.x, d.pred, x0_out, coef + 4 * i, n_out, v_pred, x0_clip);
     EDT_TRY((int)cudaGetLastError());
@@ -439,6 +424,7 @@ extern "C" int edt_fused_ddpm(const float* x_T, float* x_out, float* work, const
   EDT_TRY((int)cudaGetLastError());
   for (int i = 0; i < steps; ++i) {
     EDT_TRY(decoder_step(d, x_out, mods + (long long)i * L * 4 * H, st));
+    ++g_launches;
     ddpm_kernel<<<(unsigned)((n_out + UPDATE_THREADS - 1) / UPDATE_THREADS), UPDATE_THREADS, 0,
                   st>>>(x_out, d.pred, coef + 5 * i, noise, i, steps, per_b, n_out, v_pred, key0,
                         key1);
@@ -446,4 +432,5 @@ extern "C" int edt_fused_ddpm(const float* x_T, float* x_out, float* work, const
   }
   return 0;
 }
+#undef EDT_LAUNCH
 #undef EDT_TRY

@@ -36,9 +36,11 @@ def sdpa(
     dropout_rate: float = 0.0,
     training: bool = False,
 ) -> torch.Tensor:
-    """Scaled dot-product attention on [B, H, T, D] with fp32 softmax."""
+    """Scaled dot-product attention on [B, H, T, D] with a softmax in float32
+    (float64 for float64 inputs)."""
     scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    ft = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
+    logits = torch.matmul(q.to(ft), k.to(ft).transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, _NEG)
     probs = torch.softmax(logits, dim=-1)

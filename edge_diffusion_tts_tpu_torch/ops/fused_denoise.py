@@ -8,9 +8,15 @@ full-schedule ancestral DDPM, t = T-1 .. 0, with a Gaussian draw per step
 from an in-kernel Philox4x32-10 generator, or from an injected ``noise``
 tensor.  The design and what bounds them on the H100 are in
 ``csrc/fused_ddim.cu``: one C function runs the whole loop as a fixed
-sequence of hand-written float32 kernels (tiled GEMMs with fused epilogues,
-row norms, the banded attention of ``csrc/attention.cuh``, the update) on
-PyTorch's current stream; both loops share one decoder-step function.
+sequence of hand-written float32 kernels on PyTorch's current stream; both
+loops share one decoder step of 2 + 8L launches plus the update: GEMMs
+(``csrc/gemm.cuh``) with the row norms in their prologue and the bias,
+SwiGLU, positional and residual terms in their epilogue, and the banded
+attention of ``csrc/attention.cuh``.
+
+``decoder_gemm`` launches that GEMM alone (a test and timing hook, never on
+the main path); ``decoder_gemm_plain`` is its plain version, and
+``decoder_step_plain`` calls it in the kernel's order.
 
 As in the JAX package, everything that does not depend on x is computed once
 per call outside the loop with plain tensor ops: context embedding and the
@@ -22,7 +28,8 @@ fit VMEM beside the weights), and the sampler's coefficients.
 ``philox4x32_10`` is the generator's integer arithmetic in torch int64 ops,
 the same bits as the kernel's.  ``fused_ddim`` and ``fused_ddpm`` take the
 plain version for CPU tensors only; for CUDA tensors they launch the kernel
-or raise.
+or raise.  The plain versions keep the dtype they are given, so a float64
+run of them is a witness of float32 rounding.
 """
 
 from __future__ import annotations
@@ -38,8 +45,7 @@ import torch.nn.functional as F
 from .. import _build
 from ..config import CFG, resolve_device
 from ..layers.attention import sdpa
-from ..layers.ffn import swiglu
-from ..layers.norms import rms_normalize
+from ..layers.ffn import swiglu as _swiglu
 from ..schedule import DiffusionSchedule
 from .window_attention import banded_attention_plain
 
@@ -157,6 +163,40 @@ def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts,
     }
 
 
+def decoder_gemm_plain(
+    a, w, *, bias=None, pos=None, residual=None, norm: Optional[str] = None,
+    scale=None, shift=None, swiglu: bool = False,
+) -> torch.Tensor:
+    """``decoder_gemm``'s computation in plain tensor ops, in its order.
+
+    a [..., K] is normed over K when ``norm`` is "rms" (x / sqrt(mean(x^2) +
+    1e-6) * scale (+ shift)) or "ln" (``F.layer_norm``, eps 1e-6); then
+    c = a @ w.T (+ bias); with ``swiglu`` the halves of c give value *
+    silu(gate); then + pos[m % pos.shape[0]] over the flattened rows m, then
+    residual + c.  Keeps a's dtype.
+    """
+    K = a.shape[-1]
+    if norm == "rms":
+        a = a * torch.rsqrt(a.square().mean(-1, keepdim=True) + 1e-6) * scale
+        if shift is not None:
+            a = a + shift
+    elif norm == "ln":
+        a = F.layer_norm(a, (K,), scale, shift, eps=1e-6)
+    elif norm is not None:
+        raise ValueError(f"norm must be None, 'rms' or 'ln', not {norm!r}")
+    c = a @ w.T
+    if bias is not None:
+        c = c + bias
+    if swiglu:
+        c = _swiglu(c)
+    if pos is not None:
+        rows = torch.arange(c.numel() // c.shape[-1], device=c.device) % pos.shape[0]
+        c = c + pos[rows].reshape(c.shape)
+    if residual is not None:
+        c = residual + c
+    return c
+
+
 def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> torch.Tensor:
     """One decoder forward of x [B, T, M] with this step's AdaLN table
     ``mods_i`` [L, 4, H], in plain tensor ops in the kernel's order."""
@@ -171,23 +211,21 @@ def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> to
     def merge(t):
         return t.transpose(1, 2).reshape(B, T, H)
 
-    h = x @ w["in_w"].T + w["in_b"] + pos
+    gemm = decoder_gemm_plain
+    h = gemm(x, w["in_w"], bias=w["in_b"], pos=pos)
     for l in range(L):
         m = mods_i[l]
-        hn = rms_normalize(h) * m[0] + m[1]
-        qkv = hn @ w["qkv_w"][l].T
+        qkv = gemm(h, w["qkv_w"][l], norm="rms", scale=m[0], shift=m[1])
         q, k, v = (split(qkv[..., j * H:(j + 1) * H], T) for j in range(3))
-        h = h + (merge(banded_attention_plain(q, k, v, window)) @ w["proj_w"][l].T
-                 + w["proj_b"][l])
-        hn = rms_normalize(h) * w["n2w"][l]
-        q = split(hn @ w["cq_w"][l].T, T)
-        a = sdpa(q, split(ckv[l, ..., :H], S), split(ckv[l, ..., H:], S))
-        h = h + merge(a) @ w["co_w"][l].T
-        hn = rms_normalize(h) * m[2] + m[3]
-        f = swiglu(hn @ w["fc1_w"][l].T + w["fc1_b"][l])
-        h = h + (f @ w["fc2_w"][l].T + w["fc2_b"][l])
-    hn = F.layer_norm(h, (H,), w["fn_s"], w["fn_b"], eps=1e-6)
-    return hn @ w["out_w"].T + w["out_b"]
+        a = merge(banded_attention_plain(q, k, v, window))
+        h = gemm(a, w["proj_w"][l], bias=w["proj_b"][l], residual=h)
+        q = split(gemm(h, w["cq_w"][l], norm="rms", scale=w["n2w"][l]), T)
+        a = merge(sdpa(q, split(ckv[l, ..., :H], S), split(ckv[l, ..., H:], S)))
+        h = gemm(a, w["co_w"][l], residual=h)
+        f = gemm(h, w["fc1_w"][l], bias=w["fc1_b"][l], norm="rms", scale=m[2], shift=m[3],
+                 swiglu=True)
+        h = gemm(f, w["fc2_w"][l], bias=w["fc2_b"][l], residual=h)
+    return gemm(h, w["out_w"], bias=w["out_b"], norm="ln", scale=w["fn_s"], shift=w["fn_b"])
 
 
 def fused_ddim_plain(
@@ -261,7 +299,7 @@ def fused_ddpm_plain(
         eps = c[1] * x + c[0] * pred if prediction == "v" else pred
         mean = c[2] * (x - c[3] * eps)
         z = noise[:, i] if noise is not None else philox_normal(x.shape, i, key, x.device)
-        x = mean + c[4] * z
+        x = mean + c[4] * z.to(x.dtype)
     return x
 
 
@@ -275,7 +313,91 @@ def _lib() -> ctypes.CDLL:
     lib.edt_fused_ddim.restype = ctypes.c_int
     lib.edt_fused_ddpm.argtypes = [p] * 24 + [i] * 11 + [ctypes.c_uint] * 2 + [p]
     lib.edt_fused_ddpm.restype = ctypes.c_int
+    lib.edt_decoder_gemm.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.edt_decoder_gemm.restype = ctypes.c_int
+    lib.edt_decoder_gemm_tile.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.edt_decoder_gemm_tile.restype = None
+    lib.edt_kernel_launches.argtypes = []
+    lib.edt_kernel_launches.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_launches() -> int:
+    """Kernels the loop library has launched in this process (every GEMM,
+    attention and update launch, the loops' and ``decoder_gemm``'s)."""
+    return int(_lib().edt_kernel_launches())
+
+
+def decoder_gemm_tile(m: int, n: int):
+    """``(rows, columns)`` of the output tile the host picks for an m x n
+    output of ``decoder_gemm`` and of the decoder step's GEMMs."""
+    bm_bn = (ctypes.c_int * 2)()
+    _lib().edt_decoder_gemm_tile(m, n, bm_bn)
+    return bm_bn[0], bm_bn[1]
+
+
+def decoder_gemm(
+    a, w, *, bias=None, pos=None, residual=None, norm: Optional[str] = None,
+    scale=None, shift=None, swiglu: bool = False, out=None,
+) -> torch.Tensor:
+    """One launch of the decoder step's GEMM (csrc/gemm.cuh), as
+    ``decoder_gemm_plain`` computes it; ``out`` may be ``residual`` (updated
+    in place, as the step does).  Its tile is the host's pick
+    (``decoder_gemm_tile``).
+
+    A test and timing hook: it takes CUDA tensors only (contiguous float32,
+    a [..., K] with K % 4 == 0, w [N, K] or [2N, K] with ``swiglu``) and
+    raises on anything else, CPU tensors included; it never falls back.
+    Counted in ``decoder_gemm.launches``.
+    """
+    if a.device.type != "cuda":
+        raise ValueError(f"decoder_gemm runs on CUDA tensors only, not {a.device} "
+                         "(its plain version is decoder_gemm_plain)")
+    K = a.shape[-1]
+    rows = a.numel() // K if K else 0
+    n_out = w.shape[0] // 2 if swiglu else w.shape[0]
+    out_shape = (*a.shape[:-1], n_out)
+    if norm not in (None, "rms", "ln") or (norm is None) != (scale is None) or (
+            shift is not None and norm is None):
+        raise ValueError(f"norm {norm!r}: 'rms' or 'ln' take a scale (and an optional "
+                         "shift); no norm takes neither")
+    expected = {
+        "a": (a, tuple(a.shape)), "w": (w, (2 * n_out if swiglu else n_out, K)),
+        "bias": (bias, (w.shape[0],)), "residual": (residual, out_shape),
+        "out": (out, out_shape), "scale": (scale, (K,)), "shift": (shift, (K,)),
+        "pos": (pos, (None if pos is None else pos.shape[0], n_out)),
+    }
+    for name, (t, shape) in expected.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+                              or not t.is_contiguous() or t.device != a.device):
+            raise ValueError(f"{name}: expected contiguous float32 {shape} on {a.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if w.dim() != 2 or K % 4 or (pos is not None and pos.shape[0] == 0) or any(
+            t.data_ptr() % 16 for t in (a, w, scale, shift) if t is not None):
+        raise ValueError(f"a [..., {K}] and w {tuple(w.shape)}: K must be a multiple of 4, "
+                         "a, w, scale and shift 16-byte aligned, pos non-empty")
+    if out is None:
+        out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+    elif out.data_ptr() in (a.data_ptr(), w.data_ptr()):
+        raise ValueError("out may alias residual only")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.edt_decoder_gemm(
+            a.data_ptr(), w.data_ptr(), ptr(bias), ptr(pos), ptr(residual), out.data_ptr(),
+            ptr(scale), ptr(shift), rows, n_out, K, 1 if pos is None else pos.shape[0],
+            int(swiglu), int(norm == "ln"), stream,
+        )
+    decoder_gemm.launches += 1
+    _build.check(err, "decoder_gemm")
+    return out
+
+
+decoder_gemm.launches = 0
 
 
 def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> None:
@@ -300,8 +422,12 @@ def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> N
                 or not t.is_contiguous() or t.device != x_T.device):
             raise ValueError(f"{name}: expected contiguous float32 {shape} on "
                              f"{x_T.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if H % heads or H // heads > 64:
-        raise ValueError(f"hidden {H} / heads {heads}: head dim must divide and be <= 64")
+    if H % heads or H // heads > 64 or (H // heads) % 4:
+        raise ValueError(f"hidden {H} / heads {heads}: the head dim must divide, be a "
+                         "multiple of 4 and be <= 64")
+    if M % 4 or F2 % 8:
+        raise ValueError(f"n_mels {M} and ffn width {F2 // 2} must be multiples of 4 (the "
+                         "kernels stage rows as 16-byte copies)")
 
 
 def _weight_ptrs(w, first: int, last: Optional[int] = None):

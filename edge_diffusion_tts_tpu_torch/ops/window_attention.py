@@ -7,14 +7,15 @@ softmax in float32, over q, k, v of shape [B, H, T, d].
 On the H100 the work is small (about 4*d*(2w+1) FLOP per query row) and the
 kernel is bound by memory traffic and latency, not by arithmetic: every
 q/k/v byte has to cross HBM once.  The design (csrc/attention.cuh): one
-block per (batch*head, 64-row query tile); the block walks only the key
+block per (batch*head, 16-row query tile); the block walks only the key
 chunks its band touches, stages each 64-key chunk of K and V in shared
-memory (head padded to a multiple of 8 and zero-masked, rows padded by one
-float against bank conflicts), and four threads per query row each keep an
-online softmax (running max, denominator, accumulator) in registers over a
-quarter of the keys, merged with warp shuffles at the end.  All arithmetic
-is float32 FMA.  The same device function serves the fused DDIM kernel's
-self-attention (with ``seq_len=T``) and its cross-attention (full window).
+memory with 16-byte cp.async copies, double-buffered (head padded to a
+multiple of 8 and zero-masked, rows padded by four floats against bank
+conflicts), and four threads per query row each keep an online softmax
+(running max, denominator, accumulator) in registers over a quarter of the
+keys, merged with warp shuffles at the end.  All arithmetic is float32 FMA.
+The same device function serves the fused DDIM kernel's self-attention
+(with ``seq_len=T``) and its cross-attention (full window).
 
 ``banded_attention`` takes the plain version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.
@@ -47,10 +48,11 @@ def banded_attention_plain(
     idx = torch.arange(T, device=q.device)
     mask = ((idx[None, :] - idx[:, None]).abs() <= window) & (idx[None, :] < seq_len)
     scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    ft = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
+    logits = torch.matmul(q.to(ft), k.to(ft).transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~mask, torch.finfo(ft).min)
     probs = torch.softmax(logits, dim=-1) * mask
-    return torch.matmul(probs, v.float()).to(q.dtype)
+    return torch.matmul(probs, v.to(ft)).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,7 +74,8 @@ def banded_attention(
     """Sliding-window attention over [B, H, T, d]; returns [B, H, T, d].
 
     CPU tensors take the plain version; CUDA tensors (float32, contiguous,
-    d <= 64) launch the kernel, counted in ``banded_attention.launches``.
+    d a multiple of 4 up to 64) launch the kernel, counted in
+    ``banded_attention.launches``.
     """
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must share one [B, H, T, d] shape: "
@@ -88,8 +91,9 @@ def banded_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} exceeds the kernel's {MAX_HEAD_DIM}")
+    if d > MAX_HEAD_DIM or d % 4 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"head dim {d}: the kernel takes a multiple of 4 up to "
+                         f"{MAX_HEAD_DIM}, in 16-byte-aligned tensors")
     lib = _lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -23,6 +23,18 @@ decoder-loop kernels, cuBLAS/cuDNN products such as HuBERT's, the rest), and
 the host gap (wall minus busy time).  For the audio path it also times each
 stage alone with CUDA events.  It writes the same as JSON to
 build/port_profile.json and exits non-zero without a CUDA device.
+
+    python3 port_profile.py --gemm-timers
+
+instead builds the loop library with -DEDT_GEMM_TIMERS into
+build/gemm_timers/, where the step GEMM (csrc/gemm.cuh) stamps each block's
+phases with clock64 (thread 0) and its start and end with %globaltimer and
+takes a tile forced from the host.  It runs each GEMM of the flagship decoder
+step in each tile at 500 rows and prints, per tile, its device time in a
+CUDA graph (stamps on), the kernel's span, and the median cycles per phase
+over blocks: issuing the staging copies, loading the epilogue's operands,
+the row-norm prologue, the wait for the first K-chunk, the products (with
+the waits for the later chunks), the epilogue.
 """
 
 from __future__ import annotations
@@ -82,7 +94,6 @@ GROUPS = (
     ("conv_gemm_kernel", "conv frontend kernel"),
     ("gemm_kernel<", "decoder loop kernels"),
     ("band_attention_kernel", "decoder loop kernels"),
-    ("rownorm_kernel", "decoder loop kernels"),
     ("ddim_kernel", "decoder loop kernels"),
     ("ddpm_kernel", "decoder loop kernels"),
     ("gemm", "cuBLAS/cuDNN products"),
@@ -112,6 +123,96 @@ def report(name: str, r: dict) -> None:
         print(f"[{name}]   {k['ms_per_call']:.5f} ms  x{k['count_per_call']:.0f}  {k['name']}")
 
 
+TIMER_PHASES = ("issue", "epilogue loads", "norm", "first chunk", "products", "epilogue")
+
+
+def build_gemm_timers():
+    """Compile the loop library with gemm.cuh's per-block timers
+    (-DEDT_GEMM_TIMERS) into build/gemm_timers/; returns the ctypes library."""
+    import ctypes
+    import subprocess
+
+    from edge_diffusion_tts_tpu_torch import _build
+
+    out = os.path.join(ROOT, "build", "gemm_timers")
+    os.makedirs(out, exist_ok=True)
+    lib_path = os.path.join(out, "libtimers.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DEDT_GEMM_TIMERS", "-o",
+                           lib_path, str(_build.CSRC / "fused_ddim.cu")],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc of the timed GEMM failed:\n{done.stdout}{done.stderr}")
+    return ctypes.CDLL(lib_path)
+
+
+def gemm_timers(torch) -> int:
+    import ctypes
+
+    import chip_smoke
+    from edge_diffusion_tts_tpu_torch import _build
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+
+    lib = build_gemm_timers()
+    load = _build.load
+    _build.load = lambda name: lib
+    try:
+        fd._lib.__wrapped__()  # sets the hook's argtypes on the timer library
+    finally:
+        _build.load = load
+    fd._lib = lambda: lib
+    lib.edt_gemm_timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.edt_gemm_force_tile.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.edt_gemm_force_tile.restype = ctypes.c_int
+    cfg = CFG(dropout=0.0)
+    w = fd.pack_decoder_weights(chip_smoke.seeded_decoder(torch, cfg, chip_smoke.SEED).cuda())
+    rows, H, M, F = 500, cfg.hidden, cfg.n_mels, cfg.hidden * cfg.ffn_mult
+    rng = np.random.RandomState(chip_smoke.SEED)
+
+    def act(n):
+        return torch.from_numpy(rng.randn(rows, n).astype(np.float32)).cuda()
+
+    x, h, ao, f = act(M), act(H), act(H), act(F)
+    mods = torch.from_numpy(1.0 + 0.1 * rng.randn(4, H).astype(np.float32)).cuda()
+    pos = act(H)
+    shapes = [
+        ("in_proj", x, w["in_w"], dict(bias=w["in_b"], pos=pos)),
+        ("qkv", h, w["qkv_w"][0], dict(norm="rms", scale=mods[0], shift=mods[1])),
+        ("attn proj", ao, w["proj_w"][0], dict(bias=w["proj_b"][0], residual=h)),
+        ("cross q", h, w["cq_w"][0], dict(norm="rms", scale=w["n2w"][0])),
+        ("cross out", ao, w["co_w"][0], dict(residual=h)),
+        ("fc1", h, w["fc1_w"][0], dict(bias=w["fc1_b"][0], norm="rms", scale=mods[2],
+                                       shift=mods[3], swiglu=True)),
+        ("fc2", f, w["fc2_w"][0], dict(bias=w["fc2_b"][0], residual=h)),
+        ("out_proj", h, w["out_w"], dict(bias=w["out_b"], norm="ln", scale=w["fn_s"],
+                                         shift=w["fn_b"])),
+    ]
+    stamps = np.zeros((8192, 8), np.int64)
+    bm_bn = (ctypes.c_int * 2)()
+    for name, a, W, kw in shapes:
+        n = W.shape[0] // (2 if kw.get("swiglu") else 1)
+        pick = fd.decoder_gemm_tile(rows, n)
+        tile = 0
+        while lib.edt_gemm_force_tile(tile, bm_bn) >= 0:
+            bm, bn = bm_bn[0], bm_bn[1]
+            for _ in range(3):  # the last launch's stamps are read
+                fd.decoder_gemm(a, W, **kw)
+            torch.cuda.synchronize()
+            blocks = -(-rows // bm) * -(-n // bn)
+            _build.check(lib.edt_gemm_timers(stamps.ctypes.data, blocks), "gemm timers")
+            t = stamps[:min(blocks, len(stamps))]
+            us = 1e3 * chip_smoke.graph_ms(torch, lambda: fd.decoder_gemm(a, W, **kw))
+            mark = " (the host's pick)" if (bm, bn) == pick else ""
+            print(f"[gemm timers] {name} tile {bm}x{bn}{mark}, {blocks} blocks: "
+                  f"{us:.3f} us in a CUDA graph, span {(t[:, 1].max() - t[:, 0].min()) / 1e3:.2f}"
+                  f" us, block median {np.median(t[:, 1] - t[:, 0]) / 1e3:.2f} us; median "
+                  "cycles: " + ", ".join(f"{p} {int(np.median(t[:, 2 + i]))}"
+                                         for i, p in enumerate(TIMER_PHASES)))
+            tile += 1
+    lib.edt_gemm_force_tile(-1, bm_bn)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -119,6 +220,8 @@ def main() -> int:
         print("port_profile: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--gemm-timers" in sys.argv[1:]:
+        return gemm_timers(torch)
     import chip_smoke
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.inference import EdgeInference

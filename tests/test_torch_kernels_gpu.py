@@ -58,6 +58,116 @@ def test_banded_kernel_rejects_what_it_cannot_take(cuda):
         wa.banded_attention(q, q, q, 2)
 
 
+GEMM_VARIANTS = ("plain", "bias_pos", "residual_aliased", "swiglu", "adaln_rms", "rms_w", "ln")
+
+
+def _gemm_case(variant, M, N, K, device, seed):
+    """Inputs of one decoder_gemm variant: (a, w, keyword arguments), at the
+    decoder's scales: unit activations, weights U(-1/sqrt(K), 1/sqrt(K)) as
+    torch's Linear draws them."""
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, s=1.0):
+        return torch.from_numpy((s * rng.randn(*shape)).astype(np.float32)).to(device)
+
+    a = t(M, K)
+    rows = 2 * N if variant == "swiglu" else N
+    w = torch.from_numpy(rng.uniform(-1, 1, (rows, K)).astype(np.float32) * K ** -0.5).to(device)
+    kw = {
+        "plain": {},
+        "bias_pos": dict(bias=t(N), pos=t(50, N)),
+        "residual_aliased": dict(residual=t(M, N)),
+        "swiglu": dict(bias=t(2 * N), swiglu=True),
+        "adaln_rms": dict(norm="rms", scale=1.0 + t(K, s=0.1), shift=t(K, s=0.1)),
+        "rms_w": dict(norm="rms", scale=1.0 + t(K, s=0.1)),
+        "ln": dict(norm="ln", scale=1.0 + t(K, s=0.1), shift=t(K, s=0.1), bias=t(N)),
+    }[variant]
+    return a, w, kw
+
+
+def _check_decoder_gemm(variant, M, N, K, device):
+    a, w, kw = _gemm_case(variant, M, N, K, device, seed=M * 7 + N * 3 + K)
+    want = fd.decoder_gemm_plain(a, w, **kw)
+    if variant == "residual_aliased":
+        kw["out"] = kw["residual"]  # updated in place, as the decoder step does
+    before = fd.decoder_gemm.launches
+    got = fd.decoder_gemm(a, w, **kw)
+    torch.cuda.synchronize()
+    assert fd.decoder_gemm.launches == before + 1
+    if variant == "residual_aliased":
+        assert got.data_ptr() == kw["residual"].data_ptr()
+    assert got.shape == (M, N)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [80, 160, 320])
+@pytest.mark.parametrize("N", [80, 160, 480])
+@pytest.mark.parametrize("M", [77, 500, 1000])
+@pytest.mark.parametrize("variant", GEMM_VARIANTS)
+def test_decoder_gemm_matches_plain(cuda, variant, M, N, K):
+    """The decoder step's GEMM in each prologue and epilogue variant, the
+    host's tile, ragged M and N: atol 1e-5, rtol 1e-5 (another float32
+    summation order of the norms; the products sum in k order)."""
+    _check_decoder_gemm(variant, M, N, K, cuda)
+
+
+# Shapes whose output the host gives each of the kernel's tiles on a 132-SM
+# H100 (the largest tile with at least 132 blocks): 32x64, 32x32, 16x32, 8x32.
+TILE_SHAPES = {(2000, 160, 160): (32, 64), (500, 480, 160): (32, 32),
+               (500, 160, 320): (16, 32), (500, 80, 80): (8, 32)}
+
+
+@pytest.mark.parametrize("M,N,K", list(TILE_SHAPES))
+@pytest.mark.parametrize("variant", GEMM_VARIANTS)
+def test_decoder_gemm_every_tile(cuda, variant, M, N, K):
+    _check_decoder_gemm(variant, M, N, K, cuda)
+
+
+def test_decoder_gemm_tiles_fill_the_card_at_the_flagship_rows(cuda):
+    """Every product of the flagship decoder step (500 rows) launches at
+    least one block per SM, and TILE_SHAPES reach every tile on the H100."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (80, 160, 320, 480):
+        bm, bn = fd.decoder_gemm_tile(500, n)
+        assert -(-500 // bm) * -(-n // bn) >= sms, (n, bm, bn)
+    if sms == 132:
+        assert {(M, N): fd.decoder_gemm_tile(M, N) for M, N, _ in TILE_SHAPES} == {
+            (M, N): tile for (M, N, _), tile in TILE_SHAPES.items()}
+
+
+def test_decoder_gemm_rejects_what_it_cannot_take(cuda):
+    a = torch.zeros(8, 6, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fd.decoder_gemm(a, torch.zeros(4, 6, device=cuda))
+    a = torch.zeros(8, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fd.decoder_gemm(a.double(), torch.zeros(4, 8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.decoder_gemm(a, torch.zeros(8, 4, device=cuda).T)
+    with pytest.raises(ValueError, match="bias"):
+        fd.decoder_gemm(a, torch.zeros(4, 8, device=cuda), bias=torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError, match="norm"):
+        fd.decoder_gemm(a, torch.zeros(4, 8, device=cuda), norm="rms")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fd.decoder_gemm(a.cpu(), torch.zeros(4, 8))
+
+
+def test_fused_loops_launch_35_kernels_per_step_at_4_layers(cuda):
+    """The decoder step is 2 + 8L launches (26 GEMMs and 8 attentions at
+    L = 4, the norms folded into the GEMMs), plus the sampler's update."""
+    cfg = CFG(layers=4, hidden=32, heads=2, dropout=0.0, attn_window_size=8)
+    dec = EdgeDiffusionDecoder(cfg).to(cuda).eval()
+    sem_idx = torch.zeros(1, 8, dtype=torch.long, device=cuda)
+    x_T = torch.zeros(1, 16, 80, device=cuda)
+    ts, coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), 3)
+    loop = fd.prepare_loop_inputs(dec, sem_idx, 16, ts)
+    before = fd.kernel_launches()
+    fd.fused_ddim(x_T, loop["pos"], loop["mods"], loop["ckv"], coef.to(cuda),
+                  fd.pack_decoder_weights(dec), heads=cfg.heads, window=cfg.attn_window_size)
+    torch.cuda.synchronize()
+    assert fd.kernel_launches() - before == 3 * 35
+
+
 @pytest.mark.parametrize("prediction", ["eps", "v"])
 def test_fused_kernel_matches_plain(cuda, prediction):
     """Small decoder (hidden 32, 2 layers, 2 heads of 16, window 8), B=2,
