@@ -29,9 +29,17 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
 5. the long-form shape (configs/longform.json, S=2000 -> T=4000) through
    ``backend="eager"``, 4 steps: one banded launch per layer per step, and
    the same output as with the banded route forced to its plain version;
-6. the conv-frontend kernel against its plain version at the hubert-base
+6. the conv-frontend kernels against their plain version at the hubert-base
    conv specs on wav [1, 80000] (5 s) and [4, 32000], atol 2e-4 rtol 1e-3
-   (the JAX fused kernel's bar); timed beside the plain version;
+   (the JAX fused kernel's bar), and two calls bit-equal; device time by
+   CUDA-graph replay of the kernels alone (``groupnorm_fold`` given), of the
+   whole ``conv_frontend`` call and of ``groupnorm_fold`` alone, beside the
+   plain version's; then each layer alone (``conv_frontend_layer``, the same
+   bar) with its plan (tile, split-K factor, blocks, waves), device µs,
+   TFLOP/s, bound, ``F.conv1d`` at the same shape and ``torch.matmul`` at
+   its GEMM shape (im2col not built), TF32 off (yardsticks the port never
+   calls), and, for a layer the plan keeps to one wave, the split factors
+   that would give >= one block per SM and twice the plan's;
 7. the audio path: ``EdgeInference(backend="fused", encoder=...)`` at full
    HuBERT-base width answers three ``generate_from_audio`` requests (5 s at
    B=1, the same at temperature 0.7, 2 s at B=2), each one frontend and one
@@ -474,6 +482,66 @@ def frontend_flops(B: int, samples: int) -> int:
     return sum(2 * B * f * 512 * k * c for f, k, c in zip(frames, ff.BASE_KERNELS, c_in))
 
 
+def frontend_layers(torch, wav, w, fold):
+    """Each layer alone (``conv_frontend_layer``) on the plain chain's input
+    for it: held to ``conv_frontend_layer_plain`` (atol 2e-4, rtol 1e-3),
+    device µs by CUDA-graph replay, TFLOP/s, its bound, and ``F.conv1d`` at
+    the same shape (channels-first, TF32 off: a yardstick the port never
+    calls).  Returns the per-layer rows."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    B, n = wav.shape
+    plan = ff.frontend_plan(B, n, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    x, rows = wav, []
+    for p in plan:
+        i = p["layer"]
+        extra = fold if i == 0 else ()
+        got = ff.conv_frontend_layer(x, i, w, *extra)
+        torch.cuda.synchronize()
+        want = ff.conv_frontend_layer_plain(x, i, w, *extra)
+        err = (got - want).abs().max().item()
+        excess = ((got - want).abs() - 1e-3 * want.abs()).max().item()
+        assert torch.isfinite(got).all() and excess <= 2e-4, (
+            f"frontend layer {i} [{B},{n}]: max err {err}, over the bar by {excess}")
+        us = 1e3 * graph_ms(torch, lambda: ff.conv_frontend_layer(x, i, w, *extra))
+        W = ff.layer_weight(w, i)
+        C = W.shape[0]
+        if i == 0:
+            xc, wc, s = x[:, None, :], W[:, None, :], ff.BASE_STRIDES[0]
+        else:
+            xc = x.transpose(1, 2).contiguous()
+            wc, s = W.reshape(C, -1, C).permute(0, 2, 1).contiguous(), ff.BASE_STRIDES[i]
+        conv_us = 1e3 * graph_ms(torch, lambda: F.conv1d(xc, wc, stride=s))
+        flops = 2 * B * p["M"] * p["N"] * p["K"]
+        if i > 0:  # cuBLAS float32 (TF32 off) at the layer's GEMM shape, im2col not built
+            a = torch.randn(B * p["M"], p["K"], device=x.device)
+            b = torch.randn(p["K"], p["N"], device=x.device)
+            mm_us = 1e3 * graph_ms(torch, lambda: torch.matmul(a, b))
+            notes = f"; torch.matmul {mm_us:.3f} us ({flops / mm_us / 1e6:.2f} TFLOP/s)"
+        else:
+            notes = ""
+        bound_ms, bound_by = bound(flops, 4 * (x.numel() + W.numel() + got.numel()))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        if i > 0 and p["blocks"] < sms:
+            # The plan keeps one wave; beside it, the fewest splits that give
+            # >= sms blocks and twice the plan's (two waves).
+            tiles, chunks = p["blocks"] // p["splits"], p["N"] // ff.CHUNK
+            for s2 in sorted({min(-(-sms // tiles), chunks), min(2 * p["splits"], chunks)}):
+                alt_us = 1e3 * graph_ms(torch, lambda: ff.conv_frontend_layer(x, i, w, splits=s2))
+                notes += f"; splits {s2} ({tiles * s2} blocks) {alt_us:.3f} us"
+        rows.append(dict(layer=i, us=us, conv1d_us=conv_us, bound_us=1e3 * bound_ms,
+                         blocks=p["blocks"], splits=p["splits"], max_abs_err=err))
+        print(f"[frontend] [{B},{n}] conv{i}: M={p['M']} N={p['N']} K={p['K']} tile "
+              f"{p['tile'][0]}x{p['tile'][1]} splits {p['splits']}, {p['blocks']} blocks "
+              f"({p['blocks'] / sms:.2f} waves): {us:.3f} us, {flops / us / 1e6:.2f} TFLOP/s; "
+              f"bound {1e3 * bound_ms:.3f} us ({bound_by}); F.conv1d {conv_us:.3f} us "
+              f"({flops / conv_us / 1e6:.2f} TFLOP/s){notes}; max_abs_err={err:.3g}")
+        x = want
+    return rows
+
+
 def phase_frontend(torch, encoder):
     from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
 
@@ -489,15 +557,23 @@ def phase_frontend(torch, encoder):
         excess = ((got - want).abs() - 1e-3 * want.abs()).max().item()
         assert torch.isfinite(got).all() and excess <= 2e-4, (
             f"frontend [{B},{n}]: max err {err}, over atol 2e-4 + rtol 1e-3 by {excess}")
-        ms = timed_ms(torch, lambda: ff.conv_frontend(wav, w), iters=10)
+        assert torch.equal(got, ff.conv_frontend(wav, w)), f"frontend [{B},{n}]: two calls differ"
+        fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
+        kernels_ms = graph_ms(torch, lambda: ff.conv_frontend(wav, w, fold=fold))
+        call_ms = graph_ms(torch, lambda: ff.conv_frontend(wav, w))
+        fold_ms = graph_ms(torch, lambda: ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"]))
         plain_ms = timed_ms(torch, lambda: ff.conv_frontend_plain(wav, w), iters=10)
         flops = frontend_flops(B, n)
         nbytes = 4 * (wav.numel() + sum(t.numel() for t in w.values()) + got.numel())
         bound_ms, bound_by = bound(flops, nbytes)
-        results[(B, n)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
-        print(f"[frontend] wav [{B},{n}] -> {tuple(got.shape)}: max_abs_err={err:.3g} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} {flops / 1e9:.3f} GFLOP "
+        layers = frontend_layers(torch, wav, w, fold)
+        results[(B, n)] = dict(max_abs_err=err, ms=kernels_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, layers=layers)
+        print(f"[frontend] wav [{B},{n}] -> {tuple(got.shape)}: max_abs_err={err:.3g}, two "
+              f"calls bit-equal; device ms by CUDA-graph replay: kernels {kernels_ms:.5f} "
+              f"(layers alone summed {sum(r['us'] for r in layers) / 1e3:.5f}), whole call "
+              f"{call_ms:.5f}, groupnorm_fold {fold_ms:.5f}; plain_ms={plain_ms:.4f}; "
+              f"{flops / 1e9:.3f} GFLOP, {flops / kernels_ms / 1e9:.2f} TFLOP/s; "
               f"bound_ms={bound_ms:.5f} ({bound_by})")
     return results
 

@@ -18,10 +18,11 @@ calls of each path with the weights and inputs of chip_smoke.py:
 
 For each it prints the wall time per call, the device busy time (the union
 of the kernels' intervals) and its share of the wall time, the device time
-per call of the kernels by name and by group (the frontend kernel, the
+per call of the kernels by name and by group (the frontend kernels, the
 decoder-loop kernels, cuBLAS/cuDNN products such as HuBERT's, the rest), and
 the host gap (wall minus busy time).  For the audio path it also times each
-stage alone with CUDA events.  It writes the same as JSON to
+stage alone with CUDA events, the frontend's kernels apart from
+``groupnorm_fold``, and those two by CUDA-graph replay.  It writes the same as JSON to
 build/port_profile.json and exits non-zero without a CUDA device.
 
     python3 port_profile.py --gemm-timers
@@ -91,7 +92,9 @@ def profile_calls(torch, fn, calls: int) -> dict:
 
 # Kernel-name substrings -> group, first match wins.
 GROUPS = (
-    ("conv_gemm_kernel", "conv frontend kernel"),
+    ("conv0_kernel", "conv frontend kernels"),
+    ("conv_slab_kernel", "conv frontend kernels"),
+    ("split_sum_gelu_kernel", "conv frontend kernels"),
     ("gemm_kernel<", "decoder loop kernels"),
     ("band_attention_kernel", "decoder loop kernels"),
     ("ddim_kernel", "decoder loop kernels"),
@@ -271,8 +274,16 @@ def main() -> int:
         feats = ff.conv_frontend(wav, w)
         h = encoder.hubert.feature_projection(feats)
         tokens = ff.fast_encode(encoder, wav, w)
+        fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
+        frontend = {
+            "frontend kernels (the fold given)": lambda: ff.conv_frontend(wav, w, fold=fold),
+            "groupnorm_fold": lambda: ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"]),
+        }
+        out["audio_frontend_graph_ms"] = {k: chip_smoke.graph_ms(torch, fn)
+                                          for k, fn in frontend.items()}
         stages = {
-            "frontend kernel": lambda: ff.conv_frontend(wav, w),
+            "frontend call (groupnorm_fold + kernels)": lambda: ff.conv_frontend(wav, w),
+            **frontend,
             "HuBERT positional conv (cuDNN, groups 16)":
                 lambda: encoder.hubert.encoder.pos_conv_embed(h),
             "HuBERT to layer 9 from the conv features":
@@ -284,6 +295,8 @@ def main() -> int:
                                  for k, fn in stages.items()}
     for k, ms in out["audio_stage_ms"].items():
         print(f"[audio_stages] {ms:.4f} ms  {k}")
+    for k, ms in out["audio_frontend_graph_ms"].items():
+        print(f"[audio_stages] {ms:.5f} ms device time by CUDA-graph replay  {k}")
 
     dengine = FusedEdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), dec)
     out["ddpm_1000"] = profile_calls(

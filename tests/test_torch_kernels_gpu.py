@@ -252,3 +252,93 @@ def test_fused_ddpm_kernel_matches_plain(cuda, prediction, noise_mode):
     assert fd.fused_ddpm.launches == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, fd.fused_ddpm_plain(*args, **kw), rtol=1e-4, atol=1e-3)
+
+
+# Shapes whose plan reaches every path of the frontend kernels on a 132-SM
+# H100: one split (GELU in the GEMM's epilogue), even and uneven split-K (2,
+# 4, 5, 8, 11, 16 and 32 splits; 32 = one chunk per split, fewer than the
+# ring's stages), 3- and 2-tap layers, ragged last tiles, B = 1 to 4.
+FRONTEND_SHAPES = [(1, 8000), (3, 4321), (2, 32000), (1, 80000), (4, 32000)]
+
+
+@pytest.fixture(scope="module")
+def frontend():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(11)
+    fe = FeatureExtractor(HubertConfig()).to("cuda").eval()
+    return ff.pack_frontend_weights(fe)
+
+
+def _frontend_wav(B, samples):
+    rng = np.random.RandomState(B * 7 + samples)
+    return torch.from_numpy((0.2 * rng.randn(B, samples)).astype(np.float32)).to("cuda")
+
+
+@pytest.mark.parametrize("layer", range(7))
+@pytest.mark.parametrize("B,samples", FRONTEND_SHAPES)
+def test_conv_frontend_layer_matches_plain(frontend, B, samples, layer):
+    """Each layer alone in the plan's tile and split, on the plain chain's
+    input for it: atol 2e-4, rtol 1e-3."""
+    w = frontend
+    wav = _frontend_wav(B, samples)
+    fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
+    x = wav
+    for i in range(layer):
+        x = ff.conv_frontend_layer_plain(x, i, w, *(fold if i == 0 else ()))
+    extra = fold if layer == 0 else ()
+    before = ff.conv_frontend_layer.launches
+    got = ff.conv_frontend_layer(x, layer, w, *extra)
+    torch.cuda.synchronize()
+    assert ff.conv_frontend_layer.launches == before + 1
+    want = ff.conv_frontend_layer_plain(x, layer, w, *extra)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7, 32])
+def test_conv_frontend_layer_any_split_is_the_same_sum(frontend, splits):
+    """A 3-tap and a 2-tap layer at split factors the plan does not pick;
+    splits partition the channels, so the results agree to float32
+    reassociation."""
+    w = frontend
+    rng = np.random.RandomState(splits)
+    for layer, T in ((2, 801), (5, 300)):
+        x = torch.from_numpy(rng.rand(2, T, 512).astype(np.float32)).to("cuda")
+        got = ff.conv_frontend_layer(x, layer, w, splits=splits)
+        torch.testing.assert_close(got, ff.conv_frontend_layer_plain(x, layer, w),
+                                   atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,samples", [(1, 80000), (3, 4321)])
+def test_conv_frontend_gives_the_same_bits_twice(frontend, B, samples):
+    wav = _frontend_wav(B, samples)
+    first = ff.conv_frontend(wav, frontend)
+    assert torch.equal(first, ff.conv_frontend(wav, frontend))
+    torch.testing.assert_close(first, ff.conv_frontend_plain(wav, frontend), atol=2e-4,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,samples", FRONTEND_SHAPES)
+def test_conv_frontend_workspace_matches_the_plan(frontend, B, samples):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ff.frontend_plan(B, samples, sms=sms)
+    lib = ff._lib()
+    assert lib.edt_conv_frontend_workspace(B, samples, 512, ff._splits(plan)) == \
+        ff.frontend_workspace(B, plan)
+
+
+def test_conv_frontend_layer_rejects_what_it_cannot_take(frontend):
+    w = frontend
+    x = torch.zeros(1, 100, 512, device="cuda")
+    with pytest.raises(ValueError, match="splits"):
+        ff.conv_frontend_layer(x, 1, w, splits=33)
+    with pytest.raises(ValueError, match="layer 1 takes"):
+        ff.conv_frontend_layer(torch.zeros(1, 100, device="cuda"), 1, w)
+    with pytest.raises(ValueError, match="scale and shift"):
+        ff.conv_frontend_layer(torch.zeros(1, 800, device="cuda"), 0, w)
+    with pytest.raises(ValueError, match="float32"):
+        ff.conv_frontend_layer(x.double(), 1, w)
+    with pytest.raises(ValueError, match="layer must be"):
+        ff.conv_frontend_layer(x, 7, w)
