@@ -9,10 +9,16 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
 
 1. the card (nvidia-smi name and power limit) and the build of every CUDA
    kernel from csrc/ (one nvcc per source, in parallel), with its time;
-2. the banded-attention kernel against its plain version at [1,4,500,40] and
-   [1,4,4000,40], window 64, atol 2e-5; timed beside the plain version and a
-   band-masked ``scaled_dot_product_attention`` (a yardstick only), and its
-   device time in a CUDA graph (blocks of 16 query rows x 4 threads);
+2. the long-form banded-attention kernel (csrc/band_attention.cu) against
+   its plain version at [1,4,500,40], [1,4,4000,40] and [2,4,4000,40],
+   window 64, atol 2e-5, and at T=4000 on strided views of a [B, T, 3, H, d]
+   buffer with the output in [B, T, H, d] memory (the attention layer's
+   call); per shape its plan (rows, threads, blocks, waves), device
+   time by CUDA-graph replay, the eager CUDA-event mean, the plain version's time, band-masked
+   ``scaled_dot_product_attention``'s device time (a yardstick only), the
+   bound and TFLOP/s; at T=4000 the float64 witness (kernel and float32
+   plain version against the plain version in float64); then the kernel
+   against band-masked SDPA at T = 500 to 4000, [1,4,T,40] (the crossover);
 3. the fused DDIM kernel against its plain version at the flagship shape
    (hidden 160, 4 layers, 4 heads of 40, window 64; B=1, S=250, T=500,
    4 steps), eps and v prediction (tolerances below); the kernel launches
@@ -28,7 +34,8 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    three requests; outputs finite, one fused launch per request;
 5. the long-form shape (configs/longform.json, S=2000 -> T=4000) through
    ``backend="eager"``, 4 steps: one banded launch per layer per step, and
-   the same output as with the banded route forced to its plain version;
+   the same output as with the banded route forced to its plain version
+   (atol 1e-4), with the call's time on each route;
 6. the conv-frontend kernels against their plain version at the hubert-base
    conv specs on wav [1, 80000] (5 s) and [4, 32000], atol 2e-4 rtol 1e-3
    (the JAX fused kernel's bar), and two calls bit-equal; device time by
@@ -111,6 +118,8 @@ F32_PEAK_FLOPS = 67e12  # H100 SXM float32 without tensor cores (NVIDIA data she
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 7  # first-step x0 fully clipped for these weights and inputs (see above)
 DEVICE = "cuda"  # the phases' device; a CPU rehearsal of the script sets "cpu"
+BAND_SHAPES = ((1, 500), (1, 4000), (2, 4000))  # phase 2's (B, T) at [B, 4, T, 40], w=64
+CROSSOVER_T = (500, 1000, 2000, 3000, 4000)  # phase 2's band kernel vs SDPA, [1, 4, T, 40]
 
 
 def bound(flops: float, nbytes: float):
@@ -223,35 +232,78 @@ def phase_build():
     return seconds
 
 
+def band_inputs(torch, B, H, T, d, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(B, H, T, d).astype(np.float32)).to(DEVICE)
+            for _ in range(3)]
+
+
 def phase_banded(torch):
+    """The band kernel against its plain version at [1,4,500,40],
+    [1,4,4000,40] and [2,4,4000,40], window 64 (atol 2e-5), and at T=4000
+    on strided views of a [B, T, 3, H, d] buffer written in [B, T, H, d];
+    per shape its plan, device time by graph replay, the eager CUDA-event
+    mean, the plain version's time,
+    band-masked SDPA's (a yardstick), the bound and TFLOP/s; at T=4000 the
+    float64 witness; then the crossover against SDPA from T=500 to 4000."""
     import torch.nn.functional as F
 
     from edge_diffusion_tts_tpu_torch.layers.attention import local_attention_mask
     from edge_diffusion_tts_tpu_torch.ops import window_attention as wa
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    H, d, w = 4, 40, 64
     results = {}
-    for T in (500, 4000):
-        B, H, d, w = 1, 4, 40, 64
-        rng = np.random.RandomState(T)
-        q, k, v = (torch.from_numpy(rng.randn(B, H, T, d).astype(np.float32)).to(DEVICE)
-                   for _ in range(3))
+    for B, T in BAND_SHAPES:
+        q, k, v = band_inputs(torch, B, H, T, d, seed=T + B)
         got = wa.banded_attention(q, k, v, w)
         torch.cuda.synchronize()
-        err = (got - wa.banded_attention_plain(q, k, v, w)).abs().max().item()
-        assert err <= 2e-5, f"banded T={T}: max err {err} > 2e-5"
-        mask = local_attention_mask(T, w, q.device)
-        ms = timed_ms(torch, lambda: wa.banded_attention(q, k, v, w))
+        want = wa.banded_attention_plain(q, k, v, w)
+        err = (got - want).abs().max().item()
+        assert err <= 2e-5, f"banded [{B},{H},{T},{d}]: max err {err} > 2e-5"
+        notes = ""
+        if T == BAND_SHAPES[-1][1]:
+            # Views of the qkv projection's output, o in [B, T, H, d]: the
+            # layer's call.
+            qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).contiguous()  # [B, T, 3, H, d]
+            qs, ks, vs = qkv.permute(2, 0, 3, 1, 4)
+            strided = wa.banded_attention(qs, ks, vs, w, out_layout="bthd")
+            torch.cuda.synchronize()
+            s_err = (strided - want).abs().max().item()
+            assert strided.transpose(1, 2).is_contiguous() and s_err <= 2e-5, (
+                f"banded strided [{B},{H},{T},{d}]: max err {s_err} > 2e-5")
+            err = max(err, s_err)
+            s_ms = graph_ms(torch, lambda: wa.banded_attention(qs, ks, vs, w, out_layout="bthd"))
+            exact = wa.banded_attention_plain(q.double(), k.double(), v.double(), w)
+            notes = (f"; strided views -> [B,T,H,d]: max_abs_err={s_err:.3g}, graph_ms="
+                     f"{s_ms:.5f}; float64 witness: kernel {(got.double() - exact).abs().max():.3g}"
+                     f", float32 plain {(want.double() - exact).abs().max():.3g}")
+            del exact
+        plan = wa.band_plan(B, H, T, d, w, sms)
         dev = graph_ms(torch, lambda: wa.banded_attention(q, k, v, w))
+        ms = timed_ms(torch, lambda: wa.banded_attention(q, k, v, w))
         plain_ms = timed_ms(torch, lambda: wa.banded_attention_plain(q, k, v, w))
-        lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask))
+        mask = local_attention_mask(T, w, q.device)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
         flops = 4 * d * band_pairs(T, w, T) * B * H
         bound_ms, bound_by = bound(flops, 4 * B * H * T * d * 4)
-        results[T] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        print(f"[banded] T={T}: max_abs_err={err:.3g} ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"sdpa_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}); device ms in a "
-              f"CUDA graph: {dev:.5f} ({(T + 15) // 16 * B * H} blocks)")
+        results[(B, T)] = dict(max_abs_err=err, ms=dev, eager_ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[banded] [{B},{H},{T},{d}] w={w}: max_abs_err={err:.3g} graph_ms={dev:.5f} "
+              f"({flops / dev / 1e9:.2f} TFLOP/s, {bound_ms / dev:.1%} of the bound) "
+              f"eager_ms={ms:.5f} plain_ms={plain_ms:.5f} sdpa_graph_ms={lib_ms:.5f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by}); plan: rows {plan['rows']}, threads "
+              f"{plan['threads']}, blocks {plan['blocks']}, {plan['resident']} per SM, waves "
+              f"{plan['waves']:.2f}, smem {plan['smem']} B" + notes)
+    # The crossover against band-masked SDPA (ops config pallas_min_seq_len).
+    for T in CROSSOVER_T:
+        q, k, v = band_inputs(torch, 1, H, T, d, seed=T)
+        mask = local_attention_mask(T, w, q.device)
+        kern = graph_ms(torch, lambda: wa.banded_attention(q, k, v, w))
+        sdpa = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        print(f"[banded] crossover T={T} [1,{H},{T},{d}] w={w}: kernel {kern:.5f} ms, "
+              f"band-masked SDPA {sdpa:.5f} ms (device time by graph replay), "
+              f"SDPA / kernel {sdpa / kern:.2f}")
     return results
 
 
@@ -439,7 +491,11 @@ def phase_longform(torch):
     assert mel.shape == (1, 2 * S, cfg.n_mels) and torch.isfinite(mel).all()
 
     kernel_route = wa.banded_attention
-    wa.banded_attention = wa.banded_attention_plain
+
+    def plain_route(q, k, v, window, seq_len=None, **layout):
+        return wa.banded_attention_plain(q, k, v, window, seq_len)
+
+    wa.banded_attention = plain_route
     try:
         t0 = time.perf_counter()
         plain = engine.generate_mel(sem_idx, num_steps=steps, x_T=x_T)
@@ -779,10 +835,10 @@ def run(torch) -> None:
     frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
     ddpm = phase_ddpm(torch, cfg, decoder)
 
-    b = banded[4000]
+    b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
         {"name": "banded_attention", "route": "cuda",
-         "source": "edge_diffusion_tts_tpu_torch/csrc/attention.cuh",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/band_attention.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/window_attention.py:48",
          "launches": banded_launches,
          "max_abs_err": max(r["max_abs_err"] for r in banded.values()),

@@ -5,8 +5,10 @@
 log-mel [B, 2S, n_mels], by eta=0 DDIM (or DPM-Solver++) over
 EdgeDiffusionDecoder.  ``generate_from_audio(wav)``: a 16 kHz reference wav
 -> tokens through the ``SemanticEncoder`` (HuBERT layer 9 + projection +
-FSQ), its conv frontend on the conv-frontend kernel
-(ops/fused_frontend.py::fast_encode) -> ``generate_mel``.  Two backends:
+FSQ) -> ``generate_mel``; an encoder with the conv stack the conv-frontend
+kernel takes runs its frontend on that kernel (ops/fused_frontend.py::
+fast_encode), any other runs its modules, as the JAX package does.  Two
+backends:
 
 - ``"eager"`` (the JAX package's ``"xla"``): the module loop, one decoder
   forward per step; long sequences route their windowed self-attention to
@@ -27,7 +29,7 @@ import torch
 
 from .config import CFG, resolve_device
 from .ops.fused_denoise import fused_generate_mel, pack_decoder_weights, start_noise
-from .ops.fused_frontend import fast_encode, pack_frontend_weights
+from .ops.fused_frontend import fast_encode, kernel_serves, pack_frontend_weights
 from .schedule import DiffusionSchedule, DPMSolverPP, ddim_sample
 
 
@@ -38,9 +40,10 @@ class EdgeInference:
     reads the decoder as a v- (or x0-) prediction model, so it needs
     ``prediction != "eps"``.  The fused backend implements DDIM only and
     packs the decoder's weights once, when the object is built.  ``encoder``
-    (a ``SemanticEncoder`` with the hubert-base conv stack, the one the
-    conv-frontend kernel implements; another raises) enables
-    ``generate_from_audio``; its frontend weights are packed here too.
+    (a ``SemanticEncoder``) enables ``generate_from_audio``.  Its route,
+    ``encode_route``, is fixed here: ``"kernel"`` when the conv-frontend
+    kernel takes its conv stack (``kernel_serves``; the frontend weights
+    are packed here), else ``"modules"``.
     """
 
     def __init__(
@@ -78,10 +81,17 @@ class EdgeInference:
             pack_decoder_weights(self.decoder) if backend == "fused" else None
         )
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
-        self.frontend_weights = (  # raises unless the conv stack is hubert-base's
-            None if encoder is None
-            else pack_frontend_weights(self.encoder.hubert.feature_extractor)
-        )
+        # The encode route is fixed here: "kernel" (fast_encode) for a stack
+        # the frontend kernel takes, "modules" (encoder.encode, the JAX
+        # package's route) for any other.
+        self.encode_route = None
+        self.frontend_weights = None
+        if encoder is not None:
+            self.encode_route = ("kernel" if kernel_serves(self.encoder.hubert_cfg)
+                                 else "modules")
+            if self.encode_route == "kernel":
+                self.frontend_weights = pack_frontend_weights(
+                    self.encoder.hubert.feature_extractor)
 
     def _sample(self, model_fn, x_T: torch.Tensor, num_steps: int) -> torch.Tensor:
         if self.sampler == "dpmpp":
@@ -160,7 +170,8 @@ class EdgeInference:
         """Reference wav [T] or [B, T] at 16 kHz -> normalized log-mel.
 
         The tokens come from ``fast_encode`` (the conv frontend on its
-        kernel), then ``generate_mel(tokens, num_steps, temperature,
+        kernel) on the ``"kernel"`` route, from ``encoder.encode`` on the
+        ``"modules"`` route; then ``generate_mel(tokens, num_steps, temperature,
         generator, x_T=x_T)``.
         """
         if self.encoder is None:
@@ -168,6 +179,9 @@ class EdgeInference:
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
         if wav.dim() == 1:
             wav = wav[None, :]
-        sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
+        if self.encode_route == "kernel":
+            sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
+        else:
+            sem_idx = self.encoder.encode(wav)
         return self.generate_mel(sem_idx, num_steps, temperature=temperature,
                                  generator=generator, x_T=x_T)

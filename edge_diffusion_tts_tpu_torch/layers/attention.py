@@ -154,8 +154,10 @@ class EfficientAttention(nn.Module):
             band_chunk = min(band_chunk or 512, T // 2)
 
         if kernel_len and key_mask is None:
+            # Views of the qkv output in, o in [B, T, H, dh] memory out: the
+            # reshape below is then a view, and no copy kernel runs.
             out = window_attention.banded_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), self.window_size
+                q, k, v, self.window_size, out_layout="bthd"
             )
         elif band_chunk > 0 and windowed_eval and T >= 2 * band_chunk:
             out = q_chunked_banded_sdpa(

@@ -49,14 +49,24 @@ CHUNK = 16  # conv1-6: input channels per K step
 H100_SMS = 132
 
 
+def _base_stack(hc: HubertConfig) -> bool:
+    return (tuple(hc.conv_kernel) == BASE_KERNELS and tuple(hc.conv_stride) == BASE_STRIDES
+            and len(set(hc.conv_dim)) == 1)
+
+
 def check_base_specs(hc: HubertConfig) -> None:
     """Raise unless ``hc`` has the hubert-base conv stack the kernel implements."""
-    if (tuple(hc.conv_kernel) != BASE_KERNELS or tuple(hc.conv_stride) != BASE_STRIDES
-            or len(set(hc.conv_dim)) != 1):
+    if not _base_stack(hc):
         raise ValueError(
             "the conv-frontend kernel implements the hubert-base stack (kernels "
             f"{BASE_KERNELS}, strides {BASE_STRIDES}, one width), not kernels "
             f"{hc.conv_kernel}, strides {hc.conv_stride}, widths {hc.conv_dim}")
+
+
+def kernel_serves(hc: HubertConfig) -> bool:
+    """Whether the frontend kernel takes ``hc``'s conv stack: hubert-base's
+    kernels and strides, one width, and that width a multiple of ``TILE[1]``."""
+    return _base_stack(hc) and hc.conv_dim[0] % TILE[1] == 0
 
 
 def pack_frontend_weights(feature_extractor) -> Dict[str, torch.Tensor]:

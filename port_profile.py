@@ -3,10 +3,11 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 port_profile.py
+    python3 port_profile.py [flagship] [longform] [audio] [ddpm]
 
 Profiles (``torch.profiler``, CPU + CUDA activity) a steady window of
-calls of each path with the weights and inputs of chip_smoke.py:
+calls of each path named (all four by default) with the weights and inputs
+of chip_smoke.py:
 
 - flagship: ``EdgeInference(backend="fused").generate_mel``, B=1, S=250,
   4 DDIM steps (5 calls);
@@ -17,13 +18,26 @@ calls of each path with the weights and inputs of chip_smoke.py:
 - ddpm: ``FusedEdgeInference.sample_ddpm``, 1000 steps at B=1, S=250 (1 call).
 
 For each it prints the wall time per call, the device busy time (the union
-of the kernels' intervals) and its share of the wall time, the device time
-per call of the kernels by name and by group (the frontend kernels, the
-decoder-loop kernels, cuBLAS/cuDNN products such as HuBERT's, the rest), and
-the host gap (wall minus busy time).  For the audio path it also times each
-stage alone with CUDA events, the frontend's kernels apart from
-``groupnorm_fold``, and those two by CUDA-graph replay.  It writes the same as JSON to
-build/port_profile.json and exits non-zero without a CUDA device.
+of the kernels' intervals) and its share of the wall time, the kernels
+launched per call and how many of them are copies (PyTorch's copy kernels:
+``.contiguous()``, a reshape that copies), the device time per call of the
+kernels by name and by group (the frontend kernels, the decoder-loop
+kernels, the long-form band attention, cuBLAS/cuDNN products such as
+HuBERT's, the rest), and the host gap (wall minus busy time).  For the
+audio path it also times each stage alone with CUDA events, the frontend's
+kernels apart from ``groupnorm_fold``, and those two by CUDA-graph replay.
+It writes the same as JSON to build/port_profile.json and exits non-zero
+without a CUDA device.
+
+    python3 port_profile.py --band-strip N
+
+prints the band-attention kernel's device time by CUDA-graph replay at
+chip_smoke.py's phase-2 shapes in each tile it is built for (the plan
+narrowed to one tile by ``BAND_ROWS``): N = 0 the kernel as it ships, and
+N = 1-3 a build with -DEDT_BAND_STRIP=N into build/band_strip/ that leaves
+work out (1: staging alone, 2: without O += PV, 3: without S = QK^T;
+csrc/band_attention.cu), beside which the full kernel's time shows where the
+time goes.  Run each N in its own process.
 
     python3 port_profile.py --gemm-timers
 
@@ -48,6 +62,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PATHS = ("flagship", "longform", "audio", "ddpm")
 
 
 def _device_us(evt) -> float:
@@ -68,12 +83,13 @@ def profile_calls(torch, fn, calls: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
+    kernels, copies = [], 0
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0 and evt.device_type is not None and "cuda" in str(evt.device_type).lower():
             kernels.append({"name": evt.key[:90], "ms_per_call": us / 1e3 / calls,
                             "count_per_call": evt.count / calls})
+            copies += evt.count if "copy" in evt.key.lower() else 0
     kernels.sort(key=lambda k: -k["ms_per_call"])
     # Busy time is the union of the device intervals: kernels that overlap
     # (cuDNN runs a grouped conv's groups side by side) count once.
@@ -87,7 +103,8 @@ def profile_calls(torch, fn, calls: int) -> dict:
     return {"wall_ms_per_call": wall_ms / calls,
             "kernel_ms_per_call": sum(k["ms_per_call"] for k in kernels),
             "device_ms_per_call": busy_ms, "busy_share": busy_ms / (wall_ms / calls),
-            "kernels": kernels}
+            "launches_per_call": sum(k["count_per_call"] for k in kernels),
+            "copies_per_call": copies / calls, "kernels": kernels}
 
 
 # Kernel-name substrings -> group, first match wins.
@@ -95,6 +112,7 @@ GROUPS = (
     ("conv0_kernel", "conv frontend kernels"),
     ("conv_slab_kernel", "conv frontend kernels"),
     ("split_sum_gelu_kernel", "conv frontend kernels"),
+    ("band_tile_kernel", "long-form band attention"),
     ("gemm_kernel<", "decoder loop kernels"),
     ("band_attention_kernel", "decoder loop kernels"),
     ("ddim_kernel", "decoder loop kernels"),
@@ -119,7 +137,8 @@ def report(name: str, r: dict) -> None:
     print(f"[{name}] wall {r['wall_ms_per_call']:.4f} ms/call, device busy "
           f"{r['device_ms_per_call']:.4f} ms/call (kernel times summed "
           f"{r['kernel_ms_per_call']:.4f}), busy share {r['busy_share']:.3f}, "
-          f"host gap {r['host_gap_ms_per_call']:.4f} ms/call")
+          f"host gap {r['host_gap_ms_per_call']:.4f} ms/call; {r['launches_per_call']:g} "
+          f"kernels per call, {r['copies_per_call']:g} of them copies")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{name}]   group {ms:.5f} ms  {g}")
     for k in r["kernels"][:12]:
@@ -146,6 +165,48 @@ def build_gemm_timers():
     if done.returncode:
         raise RuntimeError(f"nvcc of the timed GEMM failed:\n{done.stdout}{done.stderr}")
     return ctypes.CDLL(lib_path)
+
+
+def band_strip(torch, level: int) -> int:
+    import ctypes
+    import subprocess
+
+    import chip_smoke
+    from edge_diffusion_tts_tpu_torch import _build
+    from edge_diffusion_tts_tpu_torch.ops import window_attention as wa
+
+    if level:
+        out = os.path.join(ROOT, "build", "band_strip")
+        os.makedirs(out, exist_ok=True)
+        lib_path = os.path.join(out, f"libband_strip{level}.so")
+        done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-DEDT_BAND_STRIP={level}",
+                               "-o", lib_path, str(_build.CSRC / "band_attention.cu")],
+                              capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"nvcc of the stripped band kernel failed:\n{done.stdout}"
+                               f"{done.stderr}")
+        lib = ctypes.CDLL(lib_path)
+        load = _build.load
+        _build.load = lambda name: lib
+        try:
+            wa._lib.__wrapped__()  # sets the argtypes on the stripped library
+        finally:
+            _build.load = load
+        wa._lib = lambda: lib
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = wa.BAND_ROWS
+    for B, T in chip_smoke.BAND_SHAPES:
+        q, k, v = chip_smoke.band_inputs(torch, B, 4, T, 40, seed=T + B)
+        pick = wa.band_plan(B, 4, T, 40, 64, sms)["rows"]
+        times = {}
+        for rows in tiles:
+            wa.BAND_ROWS = (rows,)
+            times[rows] = chip_smoke.graph_ms(torch, lambda: wa.banded_attention(q, k, v, 64))
+        wa.BAND_ROWS = tiles
+        print(f"[band strip {level}] [{B},4,{T},40] w=64 device ms by graph replay, rows per "
+              f"block: " + ", ".join(f"{r} {ms:.5f}" + (" (the plan's)" if r == pick else "")
+                                     for r, ms in times.items()))
+    return 0
 
 
 def gemm_timers(torch) -> int:
@@ -225,6 +286,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if "--gemm-timers" in sys.argv[1:]:
         return gemm_timers(torch)
+    if "--band-strip" in sys.argv[1:]:
+        return band_strip(torch, int(sys.argv[sys.argv.index("--band-strip") + 1]))
+    paths = [a for a in sys.argv[1:] if not a.startswith("-")] or list(PATHS)
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        print(f"port_profile: unknown paths {sorted(unknown)}; choose from {PATHS}",
+              file=sys.stderr)
+        return 2
     import chip_smoke
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.inference import EdgeInference
@@ -241,68 +310,73 @@ def main() -> int:
     rng = np.random.RandomState(1000 + chip_smoke.SEED)
     sem = torch.from_numpy(rng.randint(0, 2304, (1, 250))).cuda()
     x_T = torch.from_numpy(rng.randn(1, 500, cfg.n_mels).astype(np.float32)).cuda()
-    out["flagship_fused"] = profile_calls(
-        torch, lambda: engine.generate_mel(sem, num_steps=4, x_T=x_T), calls=5)
-    report("flagship_fused", out["flagship_fused"])
+    if "flagship" in paths:
+        out["flagship_fused"] = profile_calls(
+            torch, lambda: engine.generate_mel(sem, num_steps=4, x_T=x_T), calls=5)
+        report("flagship_fused", out["flagship_fused"])
 
-    with open(os.path.join(ROOT, "configs", "longform.json")) as f:
-        lcfg = CFG.from_json(f.read())
-    ldec = chip_smoke.seeded_decoder(torch, lcfg, chip_smoke.SEED).cuda()
-    lengine = EdgeInference(lcfg, DiffusionSchedule.create(lcfg.diff_steps), ldec,
-                            prediction="v", sampler="dpmpp")
-    rng = np.random.RandomState(2000 + chip_smoke.SEED)
-    lsem = torch.from_numpy(rng.randint(0, 2304, (1, 2000))).cuda()
-    lx = torch.from_numpy(rng.randn(1, 4000, lcfg.n_mels).astype(np.float32)).cuda()
-    out["longform_eager"] = profile_calls(
-        torch, lambda: lengine.generate_mel(lsem, num_steps=4, x_T=lx), calls=3)
-    report("longform_eager", out["longform_eager"])
+    if "longform" in paths:
+        with open(os.path.join(ROOT, "configs", "longform.json")) as f:
+            lcfg = CFG.from_json(f.read())
+        ldec = chip_smoke.seeded_decoder(torch, lcfg, chip_smoke.SEED).cuda()
+        lengine = EdgeInference(lcfg, DiffusionSchedule.create(lcfg.diff_steps), ldec,
+                                prediction="v", sampler="dpmpp")
+        rng = np.random.RandomState(2000 + chip_smoke.SEED)
+        lsem = torch.from_numpy(rng.randint(0, 2304, (1, 2000))).cuda()
+        lx = torch.from_numpy(rng.randn(1, 4000, lcfg.n_mels).astype(np.float32)).cuda()
+        out["longform_eager"] = profile_calls(
+            torch, lambda: lengine.generate_mel(lsem, num_steps=4, x_T=lx), calls=3)
+        report("longform_eager", out["longform_eager"])
 
-    from edge_diffusion_tts_tpu_torch.ops.fused_denoise import FusedEdgeInference
+    if "audio" in paths:
+        encoder = chip_smoke.seeded_encoder(torch, cfg, chip_smoke.SEED).cuda()
+        aengine = EdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), dec,
+                                backend="fused", encoder=encoder)
+        rng = np.random.RandomState(3000 + chip_smoke.SEED)
+        wav = torch.from_numpy((0.2 * rng.randn(1, 80000)).astype(np.float32)).cuda()
+        out["audio_fused"] = profile_calls(
+            torch, lambda: aengine.generate_from_audio(wav, num_steps=4), calls=5)
+        report("audio_fused", out["audio_fused"])
+        from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
 
-    encoder = chip_smoke.seeded_encoder(torch, cfg, chip_smoke.SEED).cuda()
-    aengine = EdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), dec,
-                            backend="fused", encoder=encoder)
-    rng = np.random.RandomState(3000 + chip_smoke.SEED)
-    wav = torch.from_numpy((0.2 * rng.randn(1, 80000)).astype(np.float32)).cuda()
-    out["audio_fused"] = profile_calls(
-        torch, lambda: aengine.generate_from_audio(wav, num_steps=4), calls=5)
-    report("audio_fused", out["audio_fused"])
-    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+        w = aengine.frontend_weights
+        with torch.no_grad():
+            feats = ff.conv_frontend(wav, w)
+            h = encoder.hubert.feature_projection(feats)
+            tokens = ff.fast_encode(encoder, wav, w)
+            fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
+            frontend = {
+                "frontend kernels (the fold given)": lambda: ff.conv_frontend(wav, w, fold=fold),
+                "groupnorm_fold": lambda: ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"]),
+            }
+            out["audio_frontend_graph_ms"] = {k: chip_smoke.graph_ms(torch, fn)
+                                              for k, fn in frontend.items()}
+            stages = {
+                "frontend call (groupnorm_fold + kernels)": lambda: ff.conv_frontend(wav, w),
+                **frontend,
+                "HuBERT positional conv (cuDNN, groups 16)":
+                    lambda: encoder.hubert.encoder.pos_conv_embed(h),
+                "HuBERT to layer 9 from the conv features":
+                    lambda: encoder.extract_hubert(wav, conv_feats=feats),
+                "fast_encode (all of the encode)": lambda: ff.fast_encode(encoder, wav, w),
+                "generate_mel (4-step fused DDIM)":
+                    lambda: aengine.generate_mel(tokens, num_steps=4),
+            }
+            out["audio_stage_ms"] = {k: chip_smoke.timed_ms(torch, fn, iters=10)
+                                     for k, fn in stages.items()}
+        for k, ms in out["audio_stage_ms"].items():
+            print(f"[audio_stages] {ms:.4f} ms  {k}")
+        for k, ms in out["audio_frontend_graph_ms"].items():
+            print(f"[audio_stages] {ms:.5f} ms device time by CUDA-graph replay  {k}")
 
-    w = aengine.frontend_weights
-    with torch.no_grad():
-        feats = ff.conv_frontend(wav, w)
-        h = encoder.hubert.feature_projection(feats)
-        tokens = ff.fast_encode(encoder, wav, w)
-        fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
-        frontend = {
-            "frontend kernels (the fold given)": lambda: ff.conv_frontend(wav, w, fold=fold),
-            "groupnorm_fold": lambda: ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"]),
-        }
-        out["audio_frontend_graph_ms"] = {k: chip_smoke.graph_ms(torch, fn)
-                                          for k, fn in frontend.items()}
-        stages = {
-            "frontend call (groupnorm_fold + kernels)": lambda: ff.conv_frontend(wav, w),
-            **frontend,
-            "HuBERT positional conv (cuDNN, groups 16)":
-                lambda: encoder.hubert.encoder.pos_conv_embed(h),
-            "HuBERT to layer 9 from the conv features":
-                lambda: encoder.extract_hubert(wav, conv_feats=feats),
-            "fast_encode (all of the encode)": lambda: ff.fast_encode(encoder, wav, w),
-            "generate_mel (4-step fused DDIM)": lambda: aengine.generate_mel(tokens, num_steps=4),
-        }
-        out["audio_stage_ms"] = {k: chip_smoke.timed_ms(torch, fn, iters=10)
-                                 for k, fn in stages.items()}
-    for k, ms in out["audio_stage_ms"].items():
-        print(f"[audio_stages] {ms:.4f} ms  {k}")
-    for k, ms in out["audio_frontend_graph_ms"].items():
-        print(f"[audio_stages] {ms:.5f} ms device time by CUDA-graph replay  {k}")
+    if "ddpm" in paths:
+        from edge_diffusion_tts_tpu_torch.ops.fused_denoise import FusedEdgeInference
 
-    dengine = FusedEdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), dec)
-    out["ddpm_1000"] = profile_calls(
-        torch, lambda: dengine.sample_ddpm(sem, generator=torch.Generator(device="cuda")
-                                           .manual_seed(chip_smoke.SEED)), calls=1)
-    report("ddpm_1000", out["ddpm_1000"])
+        dengine = FusedEdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), dec)
+        out["ddpm_1000"] = profile_calls(
+            torch, lambda: dengine.sample_ddpm(sem, generator=torch.Generator(device="cuda")
+                                               .manual_seed(chip_smoke.SEED)), calls=1)
+        report("ddpm_1000", out["ddpm_1000"])
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "port_profile.json"), "w") as f:

@@ -31,16 +31,23 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "B,H,T,d,window,seq_len",
-    [(1, 4, 500, 40, 64, None), (2, 4, 200, 40, 64, 150), (1, 2, 300, 32, 16, None),
-     (1, 2, 256, 64, 200, None), (1, 1, 130, 16, 0, None), (1, 3, 77, 24, 5, None),
-     (1, 4, 4000, 40, 64, None)],
-)
-def test_banded_kernel_matches_plain(cuda, B, H, T, d, window, seq_len):
+BAND_SHAPES = [(1, 4, 500, 40, 64, None), (2, 4, 200, 40, 64, 150), (1, 2, 300, 32, 16, None),
+               (1, 2, 256, 64, 200, None), (1, 1, 130, 16, 0, None), (1, 3, 77, 24, 5, None),
+               (1, 4, 4000, 40, 64, None), (2, 4, 4000, 40, 64, None),
+               (1, 2, 1000, 48, 200, 900), (1, 2, 333, 20, 16, 100), (1, 1, 64, 36, 5, 0)]
+
+
+def _band_inputs(B, H, T, d, device):
     rng = np.random.RandomState(T + d)
-    q, k, v = (torch.from_numpy(rng.randn(B, H, T, d).astype(np.float32)).to(cuda)
-               for _ in range(3))
+    return [torch.from_numpy(rng.randn(B, H, T, d).astype(np.float32)).to(device)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("B,H,T,d,window,seq_len", BAND_SHAPES)
+def test_banded_kernel_matches_plain(cuda, B, H, T, d, window, seq_len):
+    """Windows 0 to 200, head dims 16 to 64, seq_len < T (0: no key at
+    all), T from 64 to 4000, in the plan's tile: atol 2e-5."""
+    q, k, v = _band_inputs(B, H, T, d, cuda)
     before = wa.banded_attention.launches
     got = wa.banded_attention(q, k, v, window, seq_len=seq_len)
     torch.cuda.synchronize()
@@ -49,12 +56,62 @@ def test_banded_kernel_matches_plain(cuda, B, H, T, d, window, seq_len):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("rows", wa.BAND_ROWS)
+@pytest.mark.parametrize("B,H,T,d,window,seq_len", [BAND_SHAPES[i] for i in (1, 3, 5, 7, 10)])
+def test_banded_kernel_every_tile(cuda, monkeypatch, rows, B, H, T, d, window, seq_len):
+    """Each built tile, the plan narrowed to it."""
+    monkeypatch.setattr(wa, "BAND_ROWS", (rows,))
+    q, k, v = _band_inputs(B, H, T, d, cuda)
+    got = wa.banded_attention(q, k, v, window, seq_len=seq_len)
+    torch.testing.assert_close(got, wa.banded_attention_plain(q, k, v, window, seq_len=seq_len),
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,T", [(1, 4000), (2, 500)])
+def test_banded_kernel_strided_views_bthd_output(cuda, B, T):
+    """q, k, v as views of a [B, T, 3, H, d] buffer; o in [B, T, H, d]
+    memory, as the attention layer calls it."""
+    H, d, w = 4, 40, 64
+    rng = np.random.RandomState(B * T)
+    qkv = torch.from_numpy(rng.randn(B, T, 3, H, d).astype(np.float32)).to(cuda)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    got = wa.banded_attention(q, k, v, w, out_layout="bthd")
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, T, d) and got.transpose(1, 2).is_contiguous()
+    want = wa.banded_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), w)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(got, wa.banded_attention(q.contiguous(), k.contiguous(),
+                                                v.contiguous(), w))
+
+
+def test_banded_kernel_gives_the_same_bits_twice(cuda):
+    q, k, v = _band_inputs(2, 4, 4000, 40, cuda)
+    assert torch.equal(wa.banded_attention(q, k, v, 64), wa.banded_attention(q, k, v, 64))
+
+
+@pytest.mark.parametrize("d", range(4, wa.MAX_HEAD_DIM + 1, 4))
+@pytest.mark.parametrize("rows", wa.BAND_ROWS)
+def test_band_geometry_of_the_library_is_the_plan(cuda, monkeypatch, rows, d):
+    monkeypatch.setattr(wa, "BAND_ROWS", (rows,))
+    plan = wa.band_plan(1, 4, 4000, d, 64)
+    assert wa.band_geometry(rows, d) == {k: plan[k] for k in ("threads", "keys", "stages", "smem")}
+
+
 def test_banded_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 1, 8, 72, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         wa.banded_attention(q, q, q, 2)
     q = torch.zeros(1, 1, 8, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
+        wa.banded_attention(q, q, q, 2)
+    q = torch.zeros(1, 1, 8, 42, device=cuda)[..., :40]  # rows 168 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa.banded_attention(q, q, q, 2)
+    q = torch.zeros(1, 1, 8, 44, device=cuda)[..., 1:41]  # every row 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa.banded_attention(q, q, q, 2)
+    q = torch.zeros(1, 1, 40, 8, device=cuda).transpose(2, 3)  # d not unit-stride
+    with pytest.raises(ValueError, match="unit-stride"):
         wa.banded_attention(q, q, q, 2)
 
 
