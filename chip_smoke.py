@@ -64,7 +64,33 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    against its plain version (Philox noise, same key), held to the same rule,
    with both printed against the plain version in float64 (weights, inputs
    and coefficients cast; the same Philox draws) as a witness of how far
-   each float32 route is from the exact trajectory.
+   each float32 route is from the exact trajectory;
+9. serving: ``serving.run_server`` from a port checkpoint (build/
+   serve_checkpoint: the flagship decoder and the phase-7 encoder) on
+   127.0.0.1, buckets (128, 256), ``max_batch`` 8, long-form with 2
+   streams and the default prep buckets (8/16/32/64 s).  16 concurrent
+   ``request_tts`` of 60-250 tokens (8 binary, 8 JSON): shapes [2 len, 80],
+   finite, fewer than 16 batches; latency p50/p95, requests per second,
+   mean occupancy.  Two concurrent ``request_longform`` streams of a 10 s
+   and a 6 s synthetic wav (the second as audio) at the protocol defaults
+   (50 steps, strength 0.6, cfg 2.0): the 10 s stream's mel equals
+   ``pipe.generate`` with its seed in log-mel, within the float32 rounding
+   that a tick's row count brings (cuBLAS picks its kernels by shape): the
+   bar is the chunk count times this run's witness (the stream's first
+   chunk refined alone vs beside another row) times the chunks' largest
+   std, and at least 1e-5; the audio increments are contiguous and finite;
+   time to first increment, ms per scheduler tick by rows, ticks per
+   stream, Griffin-Lim ms per increment; the conv-frontend launches of this
+   traffic (one per stream, from ``stream_prep``'s encode on its length
+   bucket) join the ``kernels`` line.  Then the 6 s stream's prep on its
+   8 s bucket against an exact-length prep (z_q 1e-4 at valid latents, zero
+   past them; chunk mean and std 1e-5), the kernel route's FSQ indices
+   against the module route's (>= 99% equal, as phase 7), ``conv_frontend``
+   against its plain version under phase 6's bar on the very wavs the two
+   streams' preps gave it ([1, 256000] with wav_len 160000 and [1, 128000]
+   with 96000) and at [2, 128000] with wav_len (80000, 128000), and, in
+   process, a masked batch of 8 rows at
+   temperature 0 against each row alone (1e-4).
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -808,6 +834,245 @@ def phase_ddpm(torch, cfg, decoder):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def synthetic_wav(seconds: float, seed: int) -> np.ndarray:
+    """A voiced-like test signal from ``seed``: a gliding harmonic tone with
+    a slow amplitude envelope, plus a little noise."""
+    rng = np.random.RandomState(seed)
+    n = int(seconds * 16000)
+    t = np.arange(n) / 16000
+    f0 = 110 + 40 * rng.rand() + 30 * np.sin(2 * np.pi * (0.3 + 0.2 * rng.rand()) * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    tone = sum(np.sin(k * phase) / k for k in (1, 2, 3, 5))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t) ** 2
+    return (0.15 * env * tone + 0.01 * rng.randn(n)).astype(np.float32)
+
+
+def phase_serve(torch, cfg, decoder, encoder):
+    """Phase 9: the serving path end to end through ``run_server`` (the
+    module docstring's phase 9); returns the conv-frontend launches of its
+    traffic and the numbers it printed."""
+    import threading
+
+    from edge_diffusion_tts_tpu_torch import serving
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.pipeline import ChunkStream, LongFormPipeline
+    from edge_diffusion_tts_tpu_torch.weights import save_checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(ROOT, "build", "serve_checkpoint")
+    save_checkpoint(ckpt, cfg, decoder, encoder)
+    t0 = time.perf_counter()
+    server, batcher = serving.run_server(ckpt, port=0, buckets=(128, 256), max_batch=8,
+                                         longform=True, longform_streams=2, device=DEVICE,
+                                         verbose=False)
+    warm_s = time.perf_counter() - t0
+    host, port = server.server_address
+    sched = server.longform_fn.scheduler
+    pipe = sched.pipe
+    out = {}
+    try:
+        assert pipe.encode_route == "kernel", pipe.encode_route
+        rng = np.random.RandomState(9000 + SEED)
+        # Every count to 0 just before the traffic (the phase's main path).
+        ff.conv_frontend.launches = 0
+
+        # Token path: 16 concurrent requests of 60-250 tokens, half binary.
+        lens = rng.randint(60, 251, 16)
+        toks = [rng.randint(0, cfg.effective_codebook_size(), n) for n in lens]
+        results, lat = {}, {}
+
+        def ask(i):
+            t = time.perf_counter()
+            results[i] = serving.request_tts(toks[i], host=host, port=port, binary=i % 2 == 0)
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(16)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        assert sorted(results) == list(range(16)), f"token answers {sorted(results)}"
+        for i, n in enumerate(lens):
+            assert results[i].shape == (2 * n, cfg.n_mels) and np.isfinite(results[i]).all()
+        stats = batcher.stats()
+        assert stats["batches_run"] < 16, stats
+        p50, p95 = np.percentile(list(lat.values()), [50, 95])
+        out.update(token_p50_ms=p50, token_p95_ms=p95, token_rps=16 / wall,
+                   occupancy=stats["mean_batch_occupancy"])
+        print(f"[serve] token path: 16 concurrent request_tts of {lens.min()}-{lens.max()} tokens "
+              f"(8 binary, 8 JSON): latency p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
+              f"{16 / wall:.3f} requests/s, {stats['batches_run']} batches, mean occupancy "
+              f"{stats['mean_batch_occupancy']}, mean batch {stats['mean_batch_ms']} ms")
+
+        # Long-form: two concurrent streams (10 s and 6 s; one as audio) at the
+        # protocol defaults (50 steps, strength 0.6, cfg 2.0).
+        wavs = {1: synthetic_wav(10.0, 9100 + SEED), 2: synthetic_wav(6.0, 9200 + SEED)}
+        streams, first_ms, gl_ms = {}, {}, []
+        vocode = pipe.vocode
+
+        def timed_vocode(*a, **kw):
+            t = time.perf_counter()
+            wav_out = vocode(*a, **kw)
+            gl_ms.append((time.perf_counter() - t) * 1e3)
+            return wav_out
+
+        pipe.vocode = timed_vocode
+        # The wavs the streams' preps hand the conv frontend (bucketed, with
+        # wav_len), kept to hold the kernel against its plain version below.
+        encoded = []
+        encode = pipe.encode
+
+        def recorded_encode(wav, wav_len=None):
+            encoded.append((wav.clone(), wav_len))
+            return encode(wav, wav_len)
+
+        pipe.encode = recorded_encode
+
+        def stream(seed, audio):
+            t = time.perf_counter()
+            segs = []
+            for seg, off in serving.request_longform(wavs[seed], host=host, port=port, seed=seed,
+                                                     audio=audio):
+                if not segs:
+                    first_ms[seed] = (time.perf_counter() - t) * 1e3
+                segs.append((seg, off))
+            streams[seed] = segs
+
+        threads = [threading.Thread(target=stream, args=(1, False)),
+                   threading.Thread(target=stream, args=(2, True))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        lf_wall = time.perf_counter() - t0
+        pipe.vocode = vocode
+        pipe.encode = encode
+        assert sorted(streams) == [1, 2], f"long-form streams {sorted(streams)}"
+        launches = ff.conv_frontend.launches
+        assert launches >= 2 and launches == len(encoded), (
+            f"conv_frontend launches {launches} for 2 streams, {len(encoded)} encodes")
+        lstats = sched.stats()
+        mel = np.concatenate([s for s, _ in streams[1]], axis=1)
+        audio = streams[2]
+        offs = [o for _, o in audio]
+        assert offs[0] == 0 and all(o2 == o1 + len(a) for (a, o1), o2 in zip(audio, offs[1:]))
+        assert all(np.isfinite(a).all() for a, _ in audio)
+        assert sum(len(a) for a, _ in audio) <= wavs[2].size
+
+        # The stream over TCP against the same seed's offline generation, in
+        # log-mel (where the refine computes).  A tick's bits depend on its
+        # row count (cuBLAS picks its kernels by shape), so the stream, whose
+        # ticks held 1 or 2 rows, differs from its solo run by rounding.  The
+        # bar comes from this run's witness: the stream's first chunk refined
+        # alone and beside another row, in normalized units, times its
+        # chunks' largest std (log-mel per normalized unit) and its chunk
+        # count (each chunk adding its own rounding), and at least 1e-5.
+        offline, _ = pipe.generate(wavs[1], seed=1, vocode=False)
+        assert mel.shape == offline.shape and np.isfinite(mel).all(), (mel.shape, offline.shape)
+        assert (mel > 0).all() and (offline > 0).all()
+        lf_err = float(np.abs(np.log(mel) - np.log(offline)).max())
+        cs = ChunkStream(pipe, wavs[1], seed=1)
+        seed0, z0, k0, have0 = cs.next_job()
+        T, S_chunk = pipe.chunk_frames, pipe.chunk_samples // pipe.sem_stride
+        z2 = np.concatenate([z0, rng.randn(1, S_chunk, cfg.semantic_dim).astype(np.float32)])
+        k2 = np.concatenate([k0, rng.randn(1, T, cfg.n_mels).astype(np.float32)])
+        rows = [pipe.refine_chunk_batch_seeds(np.asarray([seed0, 6])[:n], z2[:n], k2[:n],
+                                              np.asarray([have0, True])[:n], strength=0.6,
+                                              steps=50, cfg_scale=2.0)[0].cpu() for n in (1, 2)]
+        witness = (rows[0] - rows[1]).abs().max().item()
+        n_chunks = {k: pipe.num_chunks(w.size) for k, w in wavs.items()}
+        lf_bar = max(1e-5, n_chunks[1] * witness * float(cs._std.max()))
+        assert lf_err <= lf_bar, (
+            f"TCP stream vs offline: log-mel max err {lf_err} over {lf_bar} ({n_chunks[1]} "
+            f"chunks x witness {witness} x std {float(cs._std.max())})")
+        print(f"[serve] row-count witness: the 10 s stream's first chunk refined alone vs beside "
+              f"another row (50 steps): max diff {witness:.3g} (normalized); chunk std <= "
+              f"{float(cs._std.max()):.4g}; TCP stream vs offline log-mel bar {lf_bar:.3g}")
+        n_chunks = {k: pipe.num_chunks(w.size) for k, w in wavs.items()}
+        out.update(ttfi_ms=first_ms, tick_ms=lstats["tick_ms_by_rows"], ticks=n_chunks,
+                   gl_ms=float(np.mean(gl_ms)), lf_err=lf_err, lf_bar=lf_bar, witness=witness,
+                   frontend_launches=launches)
+        print(f"[serve] long-form: 10 s (mel) and 6 s (audio) streams, 50 steps, cfg 2.0: time to "
+              f"first increment {first_ms[1]:.3f} / {first_ms[2]:.3f} ms; ms per scheduler tick "
+              f"by rows {lstats['tick_ms_by_rows']}; ticks per stream {n_chunks[1]} / "
+              f"{n_chunks[2]} ({lstats['batches_run']} ticks in all, mean row occupancy "
+              f"{lstats['mean_row_occupancy']}); Griffin-Lim {np.mean(gl_ms):.3f} ms per "
+              f"increment ({len(gl_ms)} increments, 50 iterations); both streams {lf_wall:.3f} s; "
+              f"TCP mel vs offline log-mel max err {lf_err:.3g} (|mel| <= "
+              f"{np.abs(offline).max():.4g}); conv_frontend launches {launches}")
+
+        # The 6 s stream's prep, bucketed (8 s bucket) against exact length.
+        exact = LongFormPipeline(cfg, pipe.schedule, pipe.decoder, pipe.encoder, device=DEVICE)
+        z, mean, std, seeds = exact.stream_prep(wavs[2], seed=2)
+        zb, mean_b, std_b, seeds_b = pipe.stream_prep(wavs[2], seed=2)
+        S = z.shape[1]
+        z_err = float(np.abs(zb[:, :S] - z).max())
+        m_err = float(max(np.abs(mean_b - mean).max(), np.abs(std_b - std).max()))
+        assert z_err <= 1e-4 and m_err <= 1e-5 and np.all(zb[:, S:] == 0.0), (z_err, m_err)
+        assert np.array_equal(seeds, seeds_b)
+        # The kernel route against the module route: FSQ indices.
+        wav_b = torch.zeros((1, pipe.prep_buckets[0]), device=DEVICE)
+        wav_b[0, :wavs[2].size] = torch.from_numpy(wavs[2])
+        n = wavs[2].size + (-wavs[2].size) % pipe.sem_stride
+        with torch.no_grad():
+            feats = ff.conv_frontend(wav_b, pipe.frontend_weights, wav_len=n)
+            idx_k = pipe.encoder(wav_b, wav_len=n, conv_feats=feats)[1][:, :S]
+            idx_m = pipe.encoder(wav_b, wav_len=n)[1][:, :S]
+        tok = (idx_k == idx_m).float().mean().item()
+        assert tok >= 0.99, f"kernel and module routes: tokens equal {tok:.4%}"
+        print(f"[serve] prep of the 6 s stream, 8 s bucket vs exact length: z_q max err "
+              f"{z_err:.3g} ({S} valid latents), chunk mean/std max err {m_err:.3g}; FSQ "
+              f"indices, kernel route vs module route: {tok:.4%} equal")
+
+        # The GroupNorm fold with wav_len, on the card: kernel vs plain under
+        # phase 6's bar, on the bucketed wavs the streams encoded and at
+        # [2, 128000] with wav_len (80000, 128000).
+        wav2 = torch.from_numpy((0.2 * rng.randn(2, 128000)).astype(np.float32)).to(DEVICE)
+        wav2[0, 80000:] = 0.0
+        cases = encoded + [(wav2, torch.tensor([80000, 128000], device=DEVICE))]
+        fold_errs = []
+        for wav_c, n_c in cases:
+            got = ff.conv_frontend(wav_c, pipe.frontend_weights, wav_len=n_c)
+            torch.cuda.synchronize()
+            want = ff.conv_frontend_plain(wav_c, pipe.frontend_weights, wav_len=n_c)
+            err = (got - want).abs().max().item()
+            excess = ((got - want).abs() - 1e-3 * want.abs()).max().item()
+            n_txt = tuple(n_c.tolist()) if torch.is_tensor(n_c) else n_c
+            assert torch.isfinite(got).all() and excess <= 2e-4, (
+                f"frontend with wav_len {n_txt} at {list(wav_c.shape)}: max err {err}, over "
+                f"atol 2e-4 + rtol 1e-3 by {excess}")
+            fold_errs.append(err)
+            print(f"[serve] conv_frontend with wav_len {n_txt} at {list(wav_c.shape)} vs plain: "
+                  f"max_abs_err={err:.3g}")
+        out["fold_err"] = max(fold_errs)
+
+        # The serving premise, in process: at temperature 0 a masked batch of
+        # 8 rows equals each row alone.
+        inf = batcher.inference
+        sem_idx = np.zeros((8, 256), np.int64)
+        sem_mask = np.zeros((8, 256), bool)
+        for i in range(8):
+            sem_idx[i, :lens[i]] = toks[i]
+            sem_mask[i, :lens[i]] = True
+        batched = inf.generate_mel(sem_idx, temperature=0.0, sem_mask=sem_mask)
+        mask_err = max(
+            (batched[i, :2 * lens[i]] - inf.generate_mel(toks[i][None], temperature=0.0)[0])
+            .abs().max().item() for i in range(8))
+        assert mask_err <= 1e-4, f"masked batch vs single rows: max err {mask_err}"
+        out["mask_err"] = mask_err
+        print(f"[serve] masked batch of 8 (padded to 256) vs each row alone, temperature 0: "
+              f"max err {mask_err:.3g}")
+    finally:
+        server.shutdown()
+        batcher.close()
+    seconds = time.perf_counter() - t_phase
+    print(f"[serve] phase 9: {seconds:.3f} s (run_server with its warmup {warm_s:.3f} s)")
+    return out
+
+
 def run(torch) -> None:
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
@@ -834,6 +1099,7 @@ def run(torch) -> None:
     frontend = phase_frontend(torch, encoder)
     frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
     ddpm = phase_ddpm(torch, cfg, decoder)
+    serve = phase_serve(torch, cfg, decoder, encoder)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
@@ -855,7 +1121,7 @@ def run(torch) -> None:
         {"name": "conv_frontend", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
-         "launches": frontend_launches,
+         "launches": frontend_launches + serve["frontend_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
          **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},

@@ -7,9 +7,14 @@ imports nothing of it (nor JAX).  Module names match their JAX counterparts:
   schedule   cosine diffusion tables, DDIM/DDPM steps, DPM-Solver++
   layers     attention (windowed/MLA/cross), AdaLN, SwiGLU, embeddings, convs
   models     EdgeDiffusionDecoder; SemanticEncoder (HuBERT, FSQ, VQ)
-  ops        hand-written CUDA kernels (csrc/) with their plain versions
+  ops        hand-written CUDA kernels (csrc/) with their plain versions;
+             the DSP (mel, resample, Griffin-Lim vocoder)
+  utils      mel normalization
   inference  few-step EdgeInference (eager and fused backends, audio in)
-  weights    JAX param trees and HF HuBERT state dicts -> port state dicts
+  pipeline   long-form chunked generation (LongFormPipeline, ChunkStream)
+  serving    micro-batched TCP server and its clients
+  weights    JAX param trees and HF HuBERT state dicts -> port state dicts;
+             the port's own checkpoints
 """
 
 from .config import CFG, TrainPhase, hubert_num_frames

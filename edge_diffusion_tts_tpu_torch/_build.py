@@ -6,17 +6,19 @@ at the root of the checkout, keyed by a hash of every file in ``csrc/`` and
 the compiler flags, so an edited source builds anew and an unchanged one is
 reused.  ``build_all()`` compiles every missing library at once, one nvcc
 process per source, all started together.  Nothing is compiled or loaded
-at import time.
+at import time.  One lock per process covers every build and load, so
+threads that reach a library's first use together (a server's handler,
+batcher and scheduler threads) build it once and share one handle.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -30,6 +32,9 @@ SOURCES = {
     "conv_frontend": "conv_frontend.cu",
     "fused_ddim": "fused_ddim.cu",  # also holds the DDPM loop (edt_fused_ddpm)
 }
+
+_LOCK = threading.RLock()  # held over every build and load in this process
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -68,6 +73,11 @@ def build_all() -> Dict[str, dict]:
     built (ptxas's register and shared-memory report is in ``log``).  Raises
     RuntimeError with the compiler's output if any build fails.
     """
+    with _LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> Dict[str, dict]:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = {n: s for n, s in SOURCES.items() if not library_path(n).exists()}
@@ -96,12 +106,15 @@ def build_all() -> Dict[str, dict]:
     return results
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``name`` (building all missing libraries first)."""
-    if not library_path(name).exists():
-        build_all()
-    return ctypes.CDLL(str(library_path(name)))
+    """The built library ``name`` (building all missing libraries first),
+    loaded once per process."""
+    with _LOCK:
+        if name not in _LIBS:
+            if not library_path(name).exists():
+                build_all()
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:

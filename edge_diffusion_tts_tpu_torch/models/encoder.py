@@ -59,11 +59,13 @@ class SemanticEncoder(nn.Module):
     def _quantize(self, z: torch.Tensor, train: bool):
         return self.vq(z) if self.cfg.use_fsq else self.vq(z, train=train)
 
-    def forward(self, wav: torch.Tensor, train: bool = False, wav_len=None):
+    def forward(self, wav: torch.Tensor, train: bool = False, wav_len=None, conv_feats=None):
         """``wav_len`` (true sample count) makes zero-padded inputs exact, and
         zeroes the quantized features and indices at padded frames (the
-        projection of a zeroed hidden state is not zero)."""
-        h = self.extract_hubert(wav, wav_len=wav_len)
+        projection of a zeroed hidden state is not zero).  ``conv_feats``
+        replaces the conv frontend's output (``ops/fused_frontend.
+        conv_frontend``, computed with the same ``wav_len``)."""
+        h = self.extract_hubert(wav, conv_feats=conv_feats, wav_len=wav_len)
         out = self._quantize(self._project(h), train)
         if wav_len is None:
             return out

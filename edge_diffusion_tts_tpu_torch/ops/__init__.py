@@ -6,4 +6,7 @@ fused_denoise     the few-step DDIM loop and the full-schedule DDPM loop
                   versions)
 fused_frontend    the HuBERT conv feature extractor (CUDA kernel sequence,
                   plain version) and fast_encode
+mel               STFT, iSTFT, HTK mel filterbank, MelFrontend (torch.fft)
+resample          polyphase windowed-sinc resampling (one strided conv)
+vocoder           Griffin-Lim
 """

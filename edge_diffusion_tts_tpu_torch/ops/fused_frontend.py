@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..models.hubert import HubertConfig, conv_frame_lengths
+from ..models.hubert import HubertConfig, conv_frame_lengths, valid_mask
 
 BASE_KERNELS = (10, 3, 3, 3, 3, 2, 2)
 BASE_STRIDES = (5, 2, 2, 2, 2, 2, 2)
@@ -145,13 +145,24 @@ def frontend_workspace(B: int, plan: List[dict]) -> int:
 
 
 def groupnorm_fold(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor):
+                   beta: torch.Tensor, wav_len=None):
     """conv0's GroupNorm as a per-(batch, channel) ``(scale, shift)`` [B, C]:
     scale = gamma * rsqrt(max(E[x^2] - mean^2, 0) + eps), shift = beta -
-    mean * scale, from the patch mean and Gram (float64)."""
+    mean * scale, from the patch mean and Gram (float64).  ``wav_len`` (true
+    sample count, int or [B]) takes them over each row's first
+    ``(wav_len - 10) // 5 + 1`` patches only, so a zero-padded wav is
+    normalized as its unpadded rows (the module's ``MaskedGroupNorm``)."""
     patches = wav.double().unfold(1, BASE_KERNELS[0], BASE_STRIDES[0])  # [B, T0, 10]
-    mean_p = patches.mean(1)
-    gram = torch.einsum("btj,btk->bjk", patches, patches) / patches.shape[1]
+    T0 = patches.shape[1]
+    if wav_len is None:
+        count = torch.full((wav.shape[0], 1), float(T0), dtype=torch.float64, device=wav.device)
+    else:
+        l0 = conv_frame_lengths(HubertConfig(), torch.as_tensor(wav_len, device=wav.device))[0]
+        mask = valid_mask(T0, l0, wav.device)
+        patches = patches * mask[:, :, None]
+        count = mask.sum(1, keepdim=True).clamp(min=1).double()
+    mean_p = patches.sum(1) / count
+    gram = torch.einsum("btj,btk->bjk", patches, patches) / count[:, :, None]
     w = w0.double().T  # [10, C]
     mu = mean_p @ w
     e2 = torch.einsum("bjk,jc,kc->bc", gram, w, w)
@@ -161,9 +172,10 @@ def groupnorm_fold(wav: torch.Tensor, w0: torch.Tensor, gamma: torch.Tensor,
     return scale.float().contiguous(), shift.float().contiguous()
 
 
-def conv_frontend_plain(wav: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+def conv_frontend_plain(wav: torch.Tensor, w: Dict[str, torch.Tensor],
+                        wav_len=None) -> torch.Tensor:
     """The kernel's computation with ``F.conv1d`` (same inputs, same order)."""
-    scale, shift = groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
+    scale, shift = groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"], wav_len)
     C = w["w0"].shape[0]
     x = F.conv1d(wav[:, None, :].float(), w["w0"][:, None, :], stride=BASE_STRIDES[0])
     x = F.gelu(x * scale[:, :, None] + shift[:, :, None])
@@ -221,14 +233,18 @@ def _splits(plan: List[dict]):
     return (ctypes.c_int * LAYERS)(*(p["splits"] for p in plan))
 
 
-def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None) -> torch.Tensor:
+def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
+                  wav_len=None) -> torch.Tensor:
     """wav [B, Twav] -> conv features [B, frames, C] (``w`` from
     ``pack_frontend_weights``).
 
     CPU tensors take ``conv_frontend_plain``; CUDA tensors launch the kernel
     sequence, counted once per call in ``conv_frontend.launches``.  ``fold``
     is ``groupnorm_fold``'s ``(scale, shift)`` for this wav where the caller
-    has it already (timing the kernels alone); by default it is computed.
+    has it already (timing the kernels alone); by default it is computed,
+    over each row's first ``wav_len`` samples where ``wav_len`` is given (a
+    zero-padded wav; the frames inside the true length then equal an
+    exact-length call's).  The kernels themselves take the fold as it is.
     """
     if wav.dim() != 2:
         raise ValueError(f"wav must be [B, T], got {tuple(wav.shape)}")
@@ -237,7 +253,7 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None) -> t
     if frames < 1:
         raise ValueError(f"{Twav} samples give no frame (hubert-base needs >= 400)")
     if wav.device.type == "cpu":
-        return conv_frontend_plain(wav, w)
+        return conv_frontend_plain(wav, w, wav_len)
     if wav.device.type != "cuda":
         raise ValueError(f"conv_frontend runs on CPU or CUDA, not {wav.device}")
     C = w["w0"].shape[0]
@@ -245,7 +261,7 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None) -> t
         raise ValueError(f"the frontend kernel needs a width that is a multiple of {TILE[1]}, "
                          f"not {C}")
     scale, shift = fold if fold is not None else groupnorm_fold(
-        wav, w["w0"], w["gamma"], w["beta"])
+        wav, w["w0"], w["gamma"], w["beta"], wav_len)
     _check(dict(w, wav=wav, scale=scale, shift=shift),
            {"wav": (B, Twav), "w0": (C, 10), "wk3": (4, C, 3 * C), "wk2": (2, C, 2 * C),
             "gamma": (C,), "beta": (C,), "scale": (B, C), "shift": (B, C)}, wav.device)
@@ -345,3 +361,4 @@ def fast_encode(encoder, wav: torch.Tensor, weights: Dict[str, torch.Tensor]) ->
     check_base_specs(encoder.hubert_cfg)
     wav = wav.float().contiguous()
     return encoder.encode(wav, conv_feats=conv_frontend(wav, weights))
+

@@ -18,13 +18,21 @@ block) to the matching port module's state dict.
 ``hubert_state_dict_from_hf(sd, cfg)`` takes an HF ``HubertModel`` state
 dict (the inverse of the JAX package's ``load_hubert_params_from_torch``)
 and materializes the positional conv's weight norm.
+
+``save_checkpoint`` / ``load_checkpoint`` write and read the port's own
+checkpoint, the directory ``serving.run_server`` serves: ``cfg.json``
+(``CFG.to_json``), ``decoder.pt`` (the decoder's state dict by
+``torch.save``) and, with an encoder, ``hubert.json`` and ``encoder.pt``.
+They are read with ``torch.load(weights_only=True)``: tensors only, no
+pickled code.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from collections.abc import Mapping
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,3 +162,41 @@ def hubert_state_dict_from_hf(state_dict: Mapping, cfg: HubertConfig) -> Dict[st
     if missing:
         raise KeyError(f"HF HuBERT state dict lacks {missing[:5]} ({len(missing)} keys)")
     return {k: sd[k].contiguous() for k in wanted}
+
+
+CKPT_FILES = {"cfg": "cfg.json", "decoder": "decoder.pt", "hubert": "hubert.json",
+              "encoder": "encoder.pt"}
+
+
+def save_checkpoint(path: str, cfg: CFG, decoder, encoder=None) -> None:
+    """Write a port checkpoint directory: ``cfg.json`` and ``decoder.pt``,
+    and for a ``SemanticEncoder`` also ``hubert.json`` and ``encoder.pt``."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, CKPT_FILES["cfg"]), "w") as f:
+        f.write(cfg.to_json())
+    torch.save({k: v.detach().cpu() for k, v in decoder.state_dict().items()},
+               os.path.join(path, CKPT_FILES["decoder"]))
+    if encoder is not None:
+        with open(os.path.join(path, CKPT_FILES["hubert"]), "w") as f:
+            f.write(encoder.hubert_cfg.to_json())
+        torch.save({k: v.detach().cpu() for k, v in encoder.state_dict().items()},
+                   os.path.join(path, CKPT_FILES["encoder"]))
+
+
+def load_checkpoint(path: str, with_encoder: bool = False
+                    ) -> Tuple[CFG, Dict[str, torch.Tensor], Optional[HubertConfig],
+                               Optional[Dict[str, torch.Tensor]]]:
+    """Read a port checkpoint directory: ``(cfg, decoder_state, hubert_cfg,
+    encoder_state)``, the last two None unless ``with_encoder`` (which
+    raises FileNotFoundError when the checkpoint has no encoder)."""
+    with open(os.path.join(path, CKPT_FILES["cfg"])) as f:
+        cfg = CFG.from_json(f.read())
+    dec = torch.load(os.path.join(path, CKPT_FILES["decoder"]), map_location="cpu",
+                     weights_only=True)
+    if not with_encoder:
+        return cfg, dec, None, None
+    with open(os.path.join(path, CKPT_FILES["hubert"])) as f:
+        hubert_cfg = HubertConfig.from_json(f.read())
+    enc = torch.load(os.path.join(path, CKPT_FILES["encoder"]), map_location="cpu",
+                     weights_only=True)
+    return cfg, dec, hubert_cfg, enc

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 port_profile.py [flagship] [longform] [audio] [ddpm]
+    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream]
 
 Profiles (``torch.profiler``, CPU + CUDA activity) a steady window of
 calls of each path named (all four by default) with the weights and inputs
@@ -15,7 +15,12 @@ of chip_smoke.py:
   configs/longform.json, S=2000 -> T=4000, 4 steps (3 calls);
 - audio: ``EdgeInference(backend="fused", encoder=...).generate_from_audio``
   on a 5 s wav (80,000 samples) at B=1, full HuBERT-base width (5 calls);
-- ddpm: ``FusedEdgeInference.sample_ddpm``, 1000 steps at B=1, S=250 (1 call).
+- ddpm: ``FusedEdgeInference.sample_ddpm``, 1000 steps at B=1, S=250 (1 call);
+- stream: the serving path's long-form pieces with the flagship decoder and
+  the full HuBERT-base encoder: one ``LongFormScheduler`` tick, i.e.
+  ``LongFormPipeline.refine_chunk_batch_seeds`` at 1 and 4 rows (50 steps,
+  cfg 2.0, T=201: 50 eager decoder calls of 2 x rows; 3 calls each), and one
+  ``stream_prep`` of a 6 s wav on the 8 s prep bucket (3 calls).
 
 For each it prints the wall time per call, the device busy time (the union
 of the kernels' intervals) and its share of the wall time, the kernels
@@ -62,7 +67,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("flagship", "longform", "audio", "ddpm")
+PATHS = ("flagship", "longform", "audio", "ddpm", "stream")
 
 
 def _device_us(evt) -> float:
@@ -377,6 +382,27 @@ def main() -> int:
             torch, lambda: dengine.sample_ddpm(sem, generator=torch.Generator(device="cuda")
                                                .manual_seed(chip_smoke.SEED)), calls=1)
         report("ddpm_1000", out["ddpm_1000"])
+
+    if "stream" in paths:
+        from edge_diffusion_tts_tpu_torch.pipeline import LongFormPipeline
+
+        encoder = chip_smoke.seeded_encoder(torch, cfg, chip_smoke.SEED).cuda()
+        pipe = LongFormPipeline(cfg, DiffusionSchedule.create(cfg.diff_steps), dec, encoder,
+                                prep_buckets=[8 * cfg.sample_rate])
+        T, S = pipe.chunk_frames, pipe.chunk_samples // pipe.sem_stride
+        rng = np.random.RandomState(9300 + chip_smoke.SEED)
+        for rows in (1, 4):
+            z = rng.randn(rows, S, cfg.semantic_dim).astype(np.float32)
+            known = rng.randn(rows, T, cfg.n_mels).astype(np.float32)
+            have, seeds = np.ones(rows, bool), np.arange(rows)
+            out[f"stream_tick_{rows}_rows"] = profile_calls(
+                torch, lambda: pipe.refine_chunk_batch_seeds(
+                    seeds, z, known, have, strength=0.6, steps=50, cfg_scale=2.0).cpu(), calls=3)
+            report(f"stream_tick_{rows}_rows", out[f"stream_tick_{rows}_rows"])
+        wav = chip_smoke.synthetic_wav(6.0, 9200 + chip_smoke.SEED)
+        out["stream_prep_8s_bucket"] = profile_calls(
+            torch, lambda: pipe.stream_prep(wav, seed=2), calls=3)
+        report("stream_prep_8s_bucket", out["stream_prep_8s_bucket"])
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "port_profile.json"), "w") as f:

@@ -399,3 +399,114 @@ def test_conv_frontend_layer_rejects_what_it_cannot_take(frontend):
         ff.conv_frontend_layer(x.double(), 1, w)
     with pytest.raises(ValueError, match="layer must be"):
         ff.conv_frontend_layer(x, 7, w)
+
+
+@pytest.mark.parametrize("B,samples,wav_len", [(2, 128000, (80000, 128000)), (1, 32000, (20000,)),
+                                               (3, 4321, (4321, 1000, 401))])
+def test_conv_frontend_with_wav_len_matches_plain(frontend, B, samples, wav_len):
+    """A zero-padded wav with the GroupNorm fold over each row's first
+    wav_len samples: the kernel against its plain version (atol 2e-4, rtol
+    1e-3), and each row's frames inside its true length against an
+    exact-length call."""
+    w = frontend
+    lens = torch.as_tensor(wav_len, device="cuda")
+    wav = _frontend_wav(B, samples) * (torch.arange(samples, device="cuda")[None] < lens[:, None])
+    before = ff.conv_frontend.launches
+    got = ff.conv_frontend(wav, w, wav_len=lens)
+    torch.cuda.synchronize()
+    assert ff.conv_frontend.launches == before + 1
+    torch.testing.assert_close(got, ff.conv_frontend_plain(wav, w, wav_len=lens), atol=2e-4,
+                               rtol=1e-3)
+    for i, n in enumerate(wav_len):
+        exact = ff.conv_frontend(wav[i:i + 1, :n].contiguous(), w)
+        torch.testing.assert_close(got[i:i + 1, :exact.shape[1]], exact, atol=2e-4, rtol=1e-3)
+
+
+def _chirp(n, sr=16000):
+    t = np.arange(n) / sr
+    return (0.5 * np.sin(2 * np.pi * (100 * t + 3900 * t ** 2 / (2 * t[-1])))).astype(np.float32)
+
+
+def test_dsp_on_the_card_matches_the_cpu(cuda):
+    """The DSP modules (cuFFT, cuDNN) against themselves on the CPU, at the
+    tolerances their CPU tests hold against the JAX package."""
+    from edge_diffusion_tts_tpu_torch.ops import mel
+    from edge_diffusion_tts_tpu_torch.ops.resample import resample
+    from edge_diffusion_tts_tpu_torch.ops.vocoder import griffin_lim
+    from edge_diffusion_tts_tpu_torch.utils.audio import normalize_mel
+
+    wav = torch.from_numpy(np.stack([_chirp(16000), _chirp(16000)[::-1].copy()]))
+    front_cpu, front = mel.MelFrontend(), mel.MelFrontend().to(cuda)
+    pow_cpu = mel.stft_power(wav)
+    torch.testing.assert_close(mel.stft_power(wav.to(cuda)).cpu(), pow_cpu,
+                               atol=1e-6 * pow_cpu.max().item(), rtol=0)
+    mp = front_cpu.mel_power(wav)
+    torch.testing.assert_close(front.mel_power(wav.to(cuda)).cpu(), mp, atol=1e-6 * mp.max().item(),
+                               rtol=0)
+    torch.testing.assert_close(front(wav.to(cuda)).cpu(), front_cpu(wav), atol=2e-3, rtol=0)
+    re, im = mel.stft_complex(wav)
+    torch.testing.assert_close(mel.istft(re.to(cuda), im.to(cuda)).cpu(), mel.istft(re, im),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(resample(wav.to(cuda), 22050, 16000).cpu(),
+                               resample(wav, 22050, 16000), atol=1e-6, rtol=0)
+    angle = torch.rand(pow_cpu.shape, generator=torch.Generator().manual_seed(0)) * 6.2831855
+    gl = griffin_lim(pow_cpu, n_iter=4, angle=angle)
+    torch.testing.assert_close(griffin_lim(pow_cpu.to(cuda), n_iter=4, angle=angle.to(cuda)).cpu(),
+                               gl, atol=2e-5 * gl.abs().max().item(), rtol=0)
+    for a, b in zip(normalize_mel(front(wav.to(cuda))), normalize_mel(front_cpu(wav))):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-3, rtol=0)
+
+
+def test_refine_on_the_card_matches_the_cpu(cuda):
+    """The long-form refine (the decoder once per step, CFG as one batch)
+    on injected noise: the card against the CPU, atol 1e-4."""
+    from edge_diffusion_tts_tpu_torch.pipeline import LongFormPipeline
+
+    cfg = CFG(hidden=32, layers=2, heads=2, diff_steps=50, dropout=0.0)
+    torch.manual_seed(5)
+    dec = EdgeDiffusionDecoder(cfg)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.02 * torch.randn(p.shape))
+    kw = dict(strength=0.6, steps=4, cfg_scale=2.0)
+    out = {}
+    for device in ("cpu", "cuda"):
+        pipe = LongFormPipeline(cfg, DiffusionSchedule.create(50), dec, device=device)
+        T, S = pipe.chunk_frames, pipe.chunk_samples // pipe.sem_stride
+        r = np.random.RandomState(1)
+        args = (r.randn(2, T, 80), r.randn(2, S, 128), r.randn(2, T, 80), [True, False],
+                r.randn(2, kw["steps"] + 1, T, 80))
+        out[device] = pipe.refine_chunk_batch(*args, **kw).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+def test_two_threads_first_lib_call_load_one_library(cuda, monkeypatch, tmp_path):
+    """Two threads that make the first ``_lib()`` call at once build the
+    libraries once (into a fresh build directory) and share one handle."""
+    import threading
+
+    from edge_diffusion_tts_tpu_torch import _build
+
+    builds = []
+    real = _build._build_missing
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_build_missing", lambda: builds.append(1) or real())
+    ff._lib.cache_clear()
+    barrier, got = threading.Barrier(2), []
+
+    def first_call():
+        barrier.wait()
+        got.append(ff._lib())
+
+    try:
+        threads = [threading.Thread(target=first_call) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        assert len(builds) == 1 and len(got) == 2 and got[0] is got[1]
+        assert str(got[0]._name).startswith(str(tmp_path))
+    finally:
+        ff._lib.cache_clear()
