@@ -90,7 +90,33 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    streams' preps gave it ([1, 256000] with wav_len 160000 and [1, 128000]
    with 96000) and at [2, 128000] with wav_len (80000, 128000), and, in
    process, a masked batch of 8 rows at
-   temperature 0 against each row alone (1e-4).
+   temperature 0 against each row alone (1e-4);
+10. training: a synthetic corpus in the LJSpeech layout (build/phase10: 84
+   utterances of 2.5-4 s at 22,050 Hz int16, so the collate resamples)
+   trained through ``training.train()`` at configs/flagship.json (hidden 160,
+   4 layers, the depthwise pre-net, FSQ, dropout 0.2, cfg dropout 0.1,
+   batch 4 x 2 s, grad_accumulation 8, 1000 steps halved to 4) with the full
+   HuBERT-base frozen on the frontend kernel, epochs cut to 2 diffusion, 1
+   per halving and 1 consistency.  Asserted: every logged loss finite; the
+   HuBERT bit-equal before and after; the decoder unchanged through data step
+   8 (the first update runs at learning rate 0) and moved by step 16; no
+   teacher in phase 1, and in the first halving the teacher bit-equal on
+   every accumulation-only step and moved on every update step; one frontend
+   launch per data step and per validation batch; the phase tags.  Then
+   ``resume="auto"`` from the periodic checkpoint skips the phases its meta
+   records as done; ``precompute_hubert_features`` (the kernel route) writes
+   every utterance's features and ``train_v2`` runs a diffusion epoch on
+   them (no frontend launch; the flagship without the pre-net, which the
+   fused kernel does not implement); one diffusion loss and its gradients
+   at flagship width, dropout 0, on the card against the CPU (loss rtol
+   1e-4, every gradient cosine >= 0.99999); the first run's final model
+   loaded with ``weights.load_checkpoint`` refused by the fused backend
+   (pre-net) and served by the eager one, the precomputed run's served by
+   ``backend="fused"`` (one launch; both finite).  Printed: ms per data step
+   per phase (the mean of the steady steps' host-clock intervals) and
+   utterances/s, the precomputed path apart, peak
+   ``torch.cuda.max_memory_allocated``, wall times.  Its frontend launches
+   and its fused launch join the ``kernels`` line.
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -834,14 +860,14 @@ def phase_ddpm(torch, cfg, decoder):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def synthetic_wav(seconds: float, seed: int) -> np.ndarray:
-    """A voiced-like test signal from ``seed``: a gliding harmonic tone with
-    a slow amplitude envelope, plus a little noise."""
+def synthetic_wav(seconds: float, seed: int, sr: int = 16000) -> np.ndarray:
+    """A voiced-like test signal from ``seed`` at ``sr`` Hz: a gliding
+    harmonic tone with a slow amplitude envelope, plus a little noise."""
     rng = np.random.RandomState(seed)
-    n = int(seconds * 16000)
-    t = np.arange(n) / 16000
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
     f0 = 110 + 40 * rng.rand() + 30 * np.sin(2 * np.pi * (0.3 + 0.2 * rng.rand()) * t)
-    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    phase = 2 * np.pi * np.cumsum(f0) / sr
     tone = sum(np.sin(k * phase) / k for k in (1, 2, 3, 5))
     env = 0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t) ** 2
     return (0.15 * env * tone + 0.01 * rng.randn(n)).astype(np.float32)
@@ -1073,6 +1099,335 @@ def phase_serve(torch, cfg, decoder, encoder):
     return out
 
 
+TRAIN_UTTERANCES = 84  # phase 10's corpus: 80 train, 4 validation utterances
+# Phase 10's cuts of the flagship recipe (configs/flagship.json): epochs only.
+TRAIN_CUTS = dict(diffusion_epochs=2, progressive_epochs_per_halving=1, consistency_epochs=1,
+                  plot_every_steps=0, ckpt_every_steps=70, log_every_steps=5,
+                  val_every_steps=10, val_batches=1)
+
+
+def write_ljspeech(root: str, n: int, seed: int) -> None:
+    """A synthetic corpus in the LJSpeech layout: metadata.csv and wavs/*.wav,
+    22,050 Hz int16 (so the collate resamples), 2.5-4 s each."""
+    from scipy.io import wavfile
+
+    os.makedirs(os.path.join(root, "wavs"), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    with open(os.path.join(root, "metadata.csv"), "w", encoding="utf-8") as f:
+        for i in range(n):
+            uid = f"LJ{i // 100 + 1:03d}-{i % 100 + 1:04d}"
+            wav = synthetic_wav(2.5 + 1.5 * rng.rand(), 10000 + seed + i, sr=22050)
+            wavfile.write(os.path.join(root, "wavs", uid + ".wav"), 22050,
+                          (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16))
+            f.write(f"{uid}|synthetic utterance {i}|synthetic utterance {i}\n")
+
+
+class StepClock:
+    """A training hook stamping the host clock after every data step; the
+    mean interval over a phase's steady steps is its ms per data step."""
+
+    def __init__(self):
+        self.stamps = {}
+
+    def __call__(self, step, state):
+        self.stamps[step] = time.perf_counter()
+
+    def mean_ms(self, first: int, last: int, epoch: int, skip=()) -> float:
+        """Mean of step k's interval (stamp k - stamp k-1) over steps
+        first..last, leaving out each epoch's first two steps (validation and
+        checkpoints run between epochs) and the steps after those in ``skip``
+        (periodic checkpoints, evaluations)."""
+        ms = [(self.stamps[k] - self.stamps[k - 1]) * 1e3 for k in range(first, last + 1)
+              if (k - first) % epoch >= 2 and k - 1 in self.stamps and k - 1 not in skip]
+        assert ms, (first, last)
+        return float(np.mean(ms))
+
+
+def _flat(params) -> "object":
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in params])
+
+
+def phase_train(torch, cuts=None, hubert_cfg=None, utterances: int = TRAIN_UTTERANCES):
+    """Phase 10: training through ``train()`` on a synthetic LJSpeech-layout
+    corpus at the flagship config with the full HuBERT-base (the module
+    docstring's phase 10); returns its conv-frontend and fused-DDIM launches."""
+    import copy
+    import dataclasses
+    import shutil
+
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.data import (CollatePrecomputed, DataLoader,
+                                                   LJSpeechPrecomputedDataset,
+                                                   precompute_hubert_features)
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.models import (EdgeDiffusionDecoder, HubertConfig,
+                                                     SemanticEncoder)
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import (Trainer, TrainState,
+                                                       progressive_step_schedule, train,
+                                                       train_v2)
+    from edge_diffusion_tts_tpu_torch.training.state import trainable_parameters
+    from edge_diffusion_tts_tpu_torch.weights import load_checkpoint
+
+    t_phase = time.perf_counter()
+    hubert_cfg = hubert_cfg or HubertConfig()
+    base = os.path.join(ROOT, "build", "phase10")
+    shutil.rmtree(base, ignore_errors=True)
+    lj = os.path.join(base, "LJSpeech-1.1")
+    t0 = time.perf_counter()
+    write_ljspeech(lj, utterances, SEED)
+    corpus_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "configs", "flagship.json")) as f:
+        flagship = json.load(f)
+    cfg = CFG.from_dict(dict(flagship, **dict(TRAIN_CUTS, **(cuts or {})),
+                             out_dir=os.path.join(base, "out"), run_name="flagship",
+                             ljspeech_dir=lj, data_root=base, ckpt_path=""))
+    B = cfg.batch_size
+    n_val = int(utterances * 0.05)
+    spe = (utterances - n_val) // B
+    val_batches = min(cfg.val_batches, n_val // B)
+    halvings = progressive_step_schedule(cfg.diff_steps, cfg.progressive_target_steps)
+    d_end = spe * cfg.diffusion_epochs
+    p_end = d_end + spe * cfg.progressive_epochs_per_halving * len(halvings)
+    total = p_end + spe * cfg.consistency_epochs
+    print(f"[train] corpus: {utterances} utterances of 2.5-4 s at 22,050 Hz written in "
+          f"{corpus_s:.2f} s; {spe} steps per epoch at batch {B}, grad_accumulation "
+          f"{cfg.grad_accumulation}; hidden {cfg.hidden}, {cfg.layers} layers, "
+          f"depthwise {cfg.use_depthwise}, dropout {cfg.dropout}, cfg dropout "
+          f"{cfg.cfg_dropout}, segment {cfg.segment_len} samples; halvings {halvings}")
+
+    # -- 2. train() at the flagship config ------------------------------------------
+    clock, snaps, checks, tags = StepClock(), {}, [], []
+    first_halving = range(d_end + 1, d_end + spe * cfg.progressive_epochs_per_halving + 1)
+
+    def watch(step, st):
+        if step in (8, 16):
+            snaps[step] = _flat(st.decoder.parameters()).clone()
+        if step == d_end:
+            checks.append(("no teacher in phase 1", st.teacher is None))
+        if step in first_halving:
+            cur = _flat(st.teacher.parameters())
+            accumulating = st.optimizer.mini_step != 0
+            checks.append((accumulating, torch.equal(cur, snaps["teacher"])))
+            snaps["teacher"] = cur.clone()
+
+    def at_phase_end(tag, st):
+        tags.append((tag, st.step))
+        if tag == "init":
+            snaps["init"] = _flat(st.decoder.parameters()).clone()
+            snaps["hubert"] = {k: v.clone() for k, v in st.encoder.hubert.state_dict().items()}
+        if tag == "diffusion":  # the first halving's teacher starts as this decoder
+            snaps["teacher"] = _flat(st.decoder.parameters()).clone()
+        torch.cuda.synchronize()
+        snaps[f"t_{tag}"] = time.perf_counter()
+
+    ff.conv_frontend.launches = fd.fused_ddim.launches = 0  # counts to 0 before the main path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(cfg, hubert_cfg=hubert_cfg, hooks=[clock, watch], phase_end_hook=at_phase_end,
+                  device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    frontend_launches = ff.conv_frontend.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    run_dir = os.path.join(cfg.out_dir, cfg.run_name)
+    evals = (d_end // cfg.val_every_steps) * val_batches
+    validations = (cfg.diffusion_epochs + len(halvings) + cfg.consistency_epochs) * val_batches
+    assert state.step == total, (state.step, total)
+    assert frontend_launches == total + validations + evals, (
+        f"conv_frontend launches {frontend_launches}: expected one per data step ({total}) "
+        f"and per validation batch ({validations} + {evals})")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [v for r in recs for k, v in r.items() if k.endswith("loss")]
+    n_logged = sum(1 for r in recs for k in r if k.endswith("/loss") and "val" not in k)
+    assert n_logged == total // cfg.log_every_steps, (n_logged, total)
+    assert losses and all(math.isfinite(v) for v in losses), "a logged loss is not finite"
+    for k, v in state.encoder.hubert.state_dict().items():
+        assert torch.equal(v, snaps["hubert"][k]), f"the frozen HuBERT's {k} changed"
+    assert torch.equal(snaps[8], snaps["init"]), "the decoder moved by data step 8 (lr 0)"
+    assert not torch.equal(snaps[16], snaps[8]), "the decoder did not move by data step 16"
+    assert checks[0] == ("no teacher in phase 1", True), checks[0]
+    still = [same for acc, same in checks[1:] if acc]
+    moved = [not same for acc, same in checks[1:] if not acc]
+    assert still and all(still), f"the teacher moved on an accumulation-only step: {checks}"
+    assert moved and all(moved), f"the teacher did not move on an update step: {checks}"
+    assert [t for t, _ in tags] == (["init", "diffusion"] + [f"prog{h}" for h in halvings]
+                                    + ["consistency"]), tags
+    ckpt_skip = set(range(0, total + 1, cfg.ckpt_every_steps))
+    ms = {
+        "diffusion": clock.mean_ms(1, d_end, spe,
+                                   ckpt_skip | set(range(0, d_end + 1, cfg.val_every_steps))),
+        # the first halving's steps compare the teacher on the host: left out
+        "progressive": clock.mean_ms(first_halving[-1] + 1, p_end, spe, ckpt_skip),
+        "consistency": clock.mean_ms(p_end + 1, total, spe, ckpt_skip),
+    }
+    walls = {"diffusion": snaps["t_diffusion"] - snaps["t_init"],
+             "progressive": snaps[f"t_prog{halvings[-1]}"] - snaps["t_diffusion"],
+             "consistency": snaps["t_consistency"] - snaps[f"t_prog{halvings[-1]}"]}
+    for name, v in ms.items():
+        print(f"[train] wav path, {name}: {v:.3f} ms per data step (mean of steady steps), "
+              f"{B / v * 1e3:.2f} utterances/s; phase wall {walls[name]:.3f} s (validation "
+              "and checkpoints included)")
+    print(f"[train] train(): {total} data steps in {train_s:.3f} s, peak "
+          f"torch.cuda.max_memory_allocated {peak_gb:.3f} GiB; {len(losses)} logged losses, "
+          f"all finite; HuBERT bit-equal; decoder unchanged through step 8 (lr 0), moved by "
+          f"step 16; teacher from step {d_end + 1}, bit-equal on {len(still)} accumulation-"
+          f"only steps, moved on {len(moved)} update steps; conv_frontend launches "
+          f"{frontend_launches}")
+
+    # -- 3. resume from the periodic checkpoint --------------------------------------
+    with open(os.path.join(cfg.ckpt_path, "meta.json")) as f:
+        meta = json.load(f)
+    print(f"[train] periodic checkpoint meta: phase {meta.get('phase')}, halving "
+          f"{meta.get('halving')}, step {meta.get('step')}")
+    rtags = []
+    ff.conv_frontend.launches = 0
+    t0 = time.perf_counter()
+    resumed = train(dataclasses.replace(cfg, run_name="resumed"), hubert_cfg=hubert_cfg,
+                    resume="auto", device=DEVICE,
+                    phase_end_hook=lambda tag, st: rtags.append(tag))
+    resume_s = time.perf_counter() - t0
+    frontend_launches += ff.conv_frontend.launches
+    order = ["diffusion", "progressive", "consistency"]
+    redo = order[order.index(meta["phase"]):]
+    want_tags = ([f"prog{h}" for h in halvings[halvings.index(meta["halving"]):]]
+                 if meta["phase"] == "progressive" else []) + (
+        ["consistency"] if "consistency" in redo else [])
+    assert rtags == want_tags, (rtags, want_tags)
+    assert meta["phase"] != "diffusion", "the periodic checkpoint is still in phase 1"
+    print(f"[train] resume='auto': skipped {order[:order.index(meta['phase'])]}, ran "
+          f"{rtags} from step {meta['step']} to {resumed.step} in {resume_s:.3f} s")
+
+    # -- 4. the precomputed-features path --------------------------------------------
+    w = ff.pack_frontend_weights(state.encoder.hubert.feature_extractor)
+
+    def hubert_apply(wav):
+        x = torch.from_numpy(wav).to(DEVICE)
+        with torch.no_grad():
+            return state.encoder.extract_hubert(x, conv_feats=ff.conv_frontend(x, w))
+
+    ff.conv_frontend.launches = 0
+    t0 = time.perf_counter()
+    precompute_hubert_features(lj, hubert_apply)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+    assert ff.conv_frontend.launches == utterances, ff.conv_frontend.launches
+    frontend_launches += ff.conv_frontend.launches
+    # The fused DDIM kernel implements no depthwise pre-net (ROADMAP B2.2): the
+    # precomputed run trains the flagship without it, to be served fused below.
+    pcfg = dataclasses.replace(cfg, run_name="precomputed", use_depthwise=False,
+                               diffusion_epochs=1, ckpt_every_steps=0)
+    loaders = [DataLoader(LJSpeechPrecomputedDataset(lj, split), B,
+                          CollatePrecomputed(pcfg, deterministic=split == "val", seed=pcfg.seed),
+                          shuffle=split == "train", seed=pcfg.seed, workers=pcfg.num_workers)
+               for split in ("train", "val")]
+    pclock = StepClock()
+    ff.conv_frontend.launches = 0
+    t0 = time.perf_counter()
+    pstate = train_v2(pcfg, train_loader=loaders[0], val_loader=loaders[1],
+                      hubert_cfg=hubert_cfg, hooks=[pclock], device=DEVICE)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    assert ff.conv_frontend.launches == 0, "the precomputed path ran the frontend"
+    assert pstate.step == spe
+    with open(os.path.join(pcfg.out_dir, pcfg.run_name, "metrics.jsonl")) as f:
+        plosses = [v for line in f for k, v in json.loads(line).items() if k.endswith("loss")]
+    assert plosses and all(math.isfinite(v) for v in plosses)
+    ms["precomputed diffusion"] = pclock.mean_ms(1, spe, spe,
+                                                 set(range(0, spe + 1, pcfg.val_every_steps)))
+    print(f"[train] precomputed path (features by precompute_hubert_features on the kernel "
+          f"route, {utterances} utterances in {precompute_s:.3f} s), diffusion without the "
+          f"pre-net: {ms['precomputed diffusion']:.3f} ms per data step, "
+          f"{B / ms['precomputed diffusion'] * 1e3:.2f} utterances/s; {spe} steps in "
+          f"{pre_s:.3f} s")
+
+    # -- 5. one diffusion loss and its gradients: the card against the CPU ---------------
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, cfg_dropout=0.0)
+    enc_cpu = SemanticEncoder(cfg0, hubert_cfg)
+    enc_cpu.load_state_dict({k: v.cpu() for k, v in state.encoder.state_dict().items()})
+    dec_cpu = EdgeDiffusionDecoder(cfg0)
+    dec_cpu.load_state_dict({k: v.cpu() for k, v in state.decoder.state_dict().items()})
+    from edge_diffusion_tts_tpu_torch.data import Collate, LJSpeechDataset
+
+    ds = LJSpeechDataset(lj, "train")
+    wav = Collate(cfg0, deterministic=True)([ds[i] for i in range(B)])["wav"]
+    with torch.no_grad():
+        x = torch.from_numpy(wav).to(DEVICE)
+        feats = state.encoder.extract_hubert(x, conv_feats=ff.conv_frontend(x, w)).cpu()
+    rs = np.random.RandomState(5000 + SEED)
+    batch = {"wav": wav, "hubert_features": feats, "t": rs.randint(1, cfg0.max_timestep, B),
+             "noise": rs.randn(B, cfg0.segment_mel_frames, cfg0.n_mels).astype(np.float32)}
+    results = {}
+    for device, (enc, dec) in (("cpu", (enc_cpu, dec_cpu)),
+                               (DEVICE, (copy.deepcopy(enc_cpu), copy.deepcopy(dec_cpu)))):
+        trainer = Trainer(cfg0, enc, dec, DiffusionSchedule.create(cfg0.diff_steps),
+                          device=device)
+        st = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
+        st.train()
+        params = trainable_parameters(trainer.encoder, trainer.decoder)
+        loss, _ = trainer.make_diffusion_loss()(st, trainer.put_batch(batch), None)
+        loss.backward()
+        results[device] = (loss.item(), {n: (p.grad if p.grad is not None
+                                             else torch.zeros_like(p)).detach().double().cpu()
+                                         for n, p in params.items()})
+    (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results[DEVICE]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = (1.0, None)
+    for name, a in g_cpu.items():
+        b = g_card[name]
+        na, nb = a.norm().item(), b.norm().item()
+        if na < 1e-12 and nb < 1e-12:
+            continue
+        cos = (a * b).sum().item() / max(na * nb, 1e-300)
+        worst = min(worst, (cos, name))
+    print(f"[train] one flagship diffusion loss on the card vs the CPU (same weights, batch, "
+          f"injected t/noise, dropout 0): loss {l_card:.7g} vs {l_cpu:.7g} (rel {loss_rel:.3g}); "
+          f"{len(g_cpu)} gradient tensors, lowest cosine {worst[0]:.8f} ({worst[1]})")
+    assert loss_rel <= 1e-4, loss_rel
+    assert worst[0] >= 0.99999, worst
+
+    # -- 6. serve the trained models ----------------------------------------------------
+    schedule = DiffusionSchedule.create(cfg.diff_steps)
+    tokens = torch.from_numpy(np.random.RandomState(6000 + SEED)
+                              .randint(0, cfg.effective_codebook_size(), (1, 100))).to(DEVICE)
+    fcfg, dec_sd, _, _ = load_checkpoint(os.path.join(run_dir, "edge_model_final"))
+    dec = EdgeDiffusionDecoder(fcfg)
+    dec.load_state_dict(dec_sd)
+    try:
+        EdgeInference(fcfg, schedule, dec, prediction="v", backend="fused", device=DEVICE)
+        raise AssertionError("the fused backend took a depthwise pre-net")
+    except ValueError as e:
+        assert "depthwise" in str(e), e
+    mel = EdgeInference(fcfg, schedule, dec, prediction="v", device=DEVICE).generate_mel(
+        tokens, num_steps=4)
+    assert mel.shape == (1, 200, cfg.n_mels) and torch.isfinite(mel).all()
+    pcfg_f, pdec_sd, _, _ = load_checkpoint(os.path.join(pcfg.out_dir, pcfg.run_name,
+                                                         "edge_model_final"))
+    pdec = EdgeDiffusionDecoder(pcfg_f)
+    pdec.load_state_dict(pdec_sd)
+    engine = EdgeInference(pcfg_f, schedule, pdec, prediction="v", backend="fused",
+                           device=DEVICE)
+    fd.fused_ddim.launches = 0
+    pmel = engine.generate_mel(tokens, num_steps=4)
+    torch.cuda.synchronize()
+    fused_launches = fd.fused_ddim.launches
+    assert fused_launches == 1 and pmel.shape == mel.shape and torch.isfinite(pmel).all()
+    seconds = time.perf_counter() - t_phase
+    print(f"[train] served: the flagship final model (depthwise) through the eager backend "
+          f"(the fused backend refuses its pre-net), the precomputed run's through "
+          f"backend='fused': finite, fused_ddim launches {fused_launches}")
+    print(f"[train] phase 10: {seconds:.3f} s (train() {train_s:.3f} s, resume {resume_s:.3f} "
+          f"s, precomputed {precompute_s + pre_s:.3f} s); conv_frontend launches "
+          f"{frontend_launches}")
+    return dict(frontend_launches=frontend_launches, fused_launches=fused_launches,
+                ms=ms, peak_gb=peak_gb, seconds=seconds)
+
+
 def run(torch) -> None:
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
@@ -1100,6 +1455,7 @@ def run(torch) -> None:
     frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
     ddpm = phase_ddpm(torch, cfg, decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
+    trained = phase_train(torch)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
@@ -1113,7 +1469,7 @@ def run(torch) -> None:
         {"name": "fused_ddim", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
-         "launches": fused_launches,
+         "launches": fused_launches + trained["fused_launches"],
          "max_abs_err": fused["eps"]["max_abs_err"],
          "ms": fused["eps"]["ms"], "plain_ms": fused["eps"]["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
@@ -1121,7 +1477,8 @@ def run(torch) -> None:
         {"name": "conv_frontend", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
-         "launches": frontend_launches + serve["frontend_launches"],
+         "launches": frontend_launches + serve["frontend_launches"]
+         + trained["frontend_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
          **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},

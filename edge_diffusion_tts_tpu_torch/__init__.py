@@ -9,12 +9,16 @@ imports nothing of it (nor JAX).  Module names match their JAX counterparts:
   models     EdgeDiffusionDecoder; SemanticEncoder (HuBERT, FSQ, VQ)
   ops        hand-written CUDA kernels (csrc/) with their plain versions;
              the DSP (mel, resample, Griffin-Lim vocoder)
-  utils      mel normalization
+  utils      mel normalization, metric logging, divergence guards, plots
+  data       LJSpeech reading, collation, the threaded loader, native
+             ingest, precomputed HuBERT features
+  training   train state + optax-exact AdamW, the three phase steps, the
+             driver (train, train_v2), checkpoints
   inference  few-step EdgeInference (eager and fused backends, audio in)
   pipeline   long-form chunked generation (LongFormPipeline, ChunkStream)
   serving    micro-batched TCP server and its clients
-  weights    JAX param trees and HF HuBERT state dicts -> port state dicts;
-             the port's own checkpoints
+  weights    JAX param trees, train states and HF HuBERT state dicts ->
+             the port's; the port's own inference checkpoints
 """
 
 from .config import CFG, TrainPhase, hubert_num_frames

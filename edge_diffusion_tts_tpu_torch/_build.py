@@ -117,6 +117,23 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel launch.
+
+    The kernels have no backward (nor have the TPU kernels they replace):
+    launched on a tensor that requires a gradient under grad mode, they would
+    hand back a result with no ``grad_fn`` and the gradient would be lost
+    without a word.  ``None`` entries are skipped.
+    """
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} launches a CUDA kernel that has no backward, and an input "
+            "requires a gradient: call it under torch.no_grad() (or on detached "
+            "tensors), or use its plain version, which autograd can follow")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a non-zero ``cudaError_t``."""
     if err != 0:

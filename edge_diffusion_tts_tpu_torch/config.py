@@ -25,6 +25,22 @@ class TrainPhase(Enum):
     CONSISTENCY = "consistency"
 
 
+def set_seed(seed: int, device=None):
+    """Seed python's, numpy's and torch's global generators (module
+    initialization draws from torch's) and return a fresh ``torch.Generator``
+    on ``device`` seeded with ``seed``: the one stream every training draw
+    comes from, where the JAX package returns a PRNG key."""
+    import random
+
+    import numpy as np
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
 def resolve_device(device=None):
     """The ``torch.device`` an entry point runs on.
 
@@ -184,6 +200,29 @@ class CFG:
     def effective_codebook_size(self) -> int:
         """Codebook size actually produced by the configured quantizer."""
         return self.fsq_codebook_size if self.use_fsq else self.codebook_size
+
+    # -- environment ----------------------------------------------------------------
+
+    def setup_environment(self, device=None):
+        """Seed the generators and create the output dirs; returns the step
+        generator on ``device`` (``set_seed``)."""
+        os.makedirs(self.data_root, exist_ok=True)
+        os.makedirs(self.out_dir, exist_ok=True)
+        return set_seed(self.seed, device)
+
+    def print_config(self, device=None):
+        print("=" * 60)
+        print("   EDGE-OPTIMIZED DIFFUSION TTS (PyTorch/CUDA)")
+        print("=" * 60)
+        print(f"Device: {resolve_device(device) if self.device == 'auto' else self.device}")
+        print(f"Segment: {self.segment_len} samples "
+              f"({self.segment_len / self.sample_rate:.2f}s)")
+        print(f"Model hidden: {self.hidden} (edge-optimized)")
+        print(f"Target inference steps: {self.inference_steps}")
+        print("=" * 60)
+
+    def get_run_dir(self) -> str:
+        return os.path.join(self.out_dir, self.run_name)
 
     # -- serialization -------------------------------------------------------------
 

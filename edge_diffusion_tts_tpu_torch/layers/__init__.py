@@ -18,7 +18,7 @@ from .embeddings import (
     sinusoidal_position_table,
     sinusoidal_time_embedding,
 )
-from .ffn import FeedForward, swiglu
+from .ffn import Dropout, FeedForward, dropout, swiglu
 from .norms import AdaLayerNorm, RMSNorm
 from .transformer import DiffusionTransformerBlock
 
@@ -27,6 +27,7 @@ __all__ = [
     "CrossAttention",
     "DepthwiseSeparableConv",
     "DiffusionTransformerBlock",
+    "Dropout",
     "EfficientAttention",
     "FeedForward",
     "MultiHeadLatentAttention",
@@ -34,6 +35,7 @@ __all__ = [
     "SinusoidalPositionalEmb",
     "SinusoidalTimeEmb",
     "apply_rope",
+    "dropout",
     "local_attention_mask",
     "q_chunked_banded_sdpa",
     "q_chunked_sdpa",

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops import window_attention
 from .embeddings import apply_rope
+from .ffn import dropout
 from .norms import RMSNorm
 
 _NEG = torch.finfo(torch.float32).min
@@ -35,18 +36,17 @@ def sdpa(
     mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     training: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention on [B, H, T, D] with a softmax in float32
-    (float64 for float64 inputs)."""
+    (float64 for float64 inputs).  In training, dropout on the probabilities
+    draws its mask from ``generator``."""
     scale = q.shape[-1] ** -0.5
     ft = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
     logits = torch.matmul(q.to(ft), k.to(ft).transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, _NEG)
-    probs = torch.softmax(logits, dim=-1)
-    if dropout_rate > 0.0 and training:
-        keep = torch.bernoulli(torch.full_like(probs, 1.0 - dropout_rate)).bool()
-        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate, training, generator)
     return torch.matmul(probs.to(v.dtype), v)
 
 
@@ -137,9 +137,11 @@ class EfficientAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(
-        self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """``key_mask`` ([B, T] bool, True = real position) excludes padded keys."""
+        """``key_mask`` ([B, T] bool, True = real position) excludes padded keys;
+        ``generator`` draws the training-mode dropout mask."""
         B, T, C = x.shape
         dh = self.dim // self.heads
         qkv = self.qkv(x).reshape(B, T, 3, self.heads, dh).permute(2, 0, 3, 1, 4)
@@ -170,7 +172,7 @@ class EfficientAttention(nn.Module):
             if key_mask is not None:
                 km = key_mask[:, None, None, :]
                 mask = km if mask is None else (mask & km)
-            out = sdpa(q, k, v, mask, self.dropout, self.training)
+            out = sdpa(q, k, v, mask, self.dropout, self.training, generator)
 
         return self.proj(out.transpose(1, 2).reshape(B, T, C))
 
@@ -190,13 +192,14 @@ class CrossAttention(nn.Module):
         self.kv = nn.Linear(context_dim, dim * 2, bias=False)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, C = x.shape
         S = context.shape[1]
         dh = self.dim // self.heads
         q = self.q(x).reshape(B, T, self.heads, dh).transpose(1, 2)
         kv = self.kv(context).reshape(B, S, 2, self.heads, dh).permute(2, 0, 3, 1, 4)
-        out = sdpa(q, kv[0], kv[1], None, self.dropout, self.training)
+        out = sdpa(q, kv[0], kv[1], None, self.dropout, self.training, generator)
         return self.proj(out.transpose(1, 2).reshape(B, T, C))
 
 
@@ -234,8 +237,10 @@ class MultiHeadLatentAttention(nn.Module):
         context: Optional[torch.Tensor] = None,
         cond: Optional[torch.Tensor] = None,
         key_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """``key_mask`` ([B, S] bool over the kv sequence) excludes padded keys."""
+        """``key_mask`` ([B, S] bool over the kv sequence) excludes padded keys;
+        ``generator`` draws the training-mode dropout mask."""
         B, T, C = x.shape
         dh = self.dim // self.heads
         kv_input = context if context is not None else x
@@ -267,5 +272,5 @@ class MultiHeadLatentAttention(nn.Module):
         ):
             out = q_chunked_sdpa(q, k, v, self.q_chunk, key_mask=key_mask)
         else:
-            out = sdpa(q, k, v, mask, self.dropout, self.training)
+            out = sdpa(q, k, v, mask, self.dropout, self.training, generator)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, C))

@@ -62,9 +62,13 @@ class DiffusionTransformerBlock(nn.Module):
         cond: Optional[torch.Tensor] = None,
         mel_mask: Optional[torch.Tensor] = None,
         ctx_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``mel_mask`` ([B, T] bool) / ``ctx_mask`` ([B, S] bool) exclude padded
-        key positions from self-/cross-attention respectively."""
-        x = x + self.attn(self._norm(self.norm1, x, cond), key_mask=mel_mask)
-        x = x + self.cross_attn(self.norm2(x), context=context, key_mask=ctx_mask)
-        return x + self.ffn(self._norm(self.norm3, x, cond))
+        key positions from self-/cross-attention respectively; ``generator``
+        draws every training-mode dropout mask of the block."""
+        x = x + self.attn(self._norm(self.norm1, x, cond), key_mask=mel_mask,
+                          generator=generator)
+        x = x + self.cross_attn(self.norm2(x), context=context, key_mask=ctx_mask,
+                                generator=generator)
+        return x + self.ffn(self._norm(self.norm3, x, cond), generator)

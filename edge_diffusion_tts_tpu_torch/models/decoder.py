@@ -126,14 +126,22 @@ class EdgeDiffusionDecoder(nn.Module):
         t_cond: torch.Tensor,
         mel_mask: Optional[torch.Tensor] = None,
         ctx_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         for block in self.layers:
-            h = block(h, context, cond=t_cond, mel_mask=mel_mask, ctx_mask=ctx_mask)
+            h = block(h, context, cond=t_cond, mel_mask=mel_mask, ctx_mask=ctx_mask,
+                      generator=generator)
         return h
 
     def postlude(self, h: torch.Tensor) -> torch.Tensor:
         """LayerNorm + zero-init output head."""
         return self.out_proj(self.final_norm(h)).float()
+
+    def align_contexts(self, sem_idx: torch.Tensor, sem_features: torch.Tensor):
+        """Both conditioning embeddings of one utterance, ``(token_emb(sem_idx),
+        sem_proj(sem_features))``, without positions: the phase-1 token-
+        alignment loss pulls the first toward the second (training/steps.py)."""
+        return self.token_emb(sem_idx), self.sem_proj(sem_features)
 
     def forward(
         self,
@@ -145,12 +153,16 @@ class EdgeDiffusionDecoder(nn.Module):
         pos_offset: int = 0,
         sem_mask: Optional[torch.Tensor] = None,
         mel_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``sem_mask`` ([B, S] bool) / ``mel_mask`` ([B, T] bool) mark real
-        (non-padded) positions; padded keys are excluded from attention."""
+        (non-padded) positions; padded keys are excluded from attention.  In
+        training mode ``generator`` draws every dropout mask, as the JAX
+        package's ``rngs={"dropout": key}`` does."""
         h, context, t_cond = self.prelude(
             x_t, t, sem_idx=sem_idx, step_idx=step_idx,
             sem_features=sem_features, pos_offset=pos_offset,
         )
-        h = self.backbone(h, context, t_cond, mel_mask=mel_mask, ctx_mask=sem_mask)
+        h = self.backbone(h, context, t_cond, mel_mask=mel_mask, ctx_mask=sem_mask,
+                          generator=generator)
         return self.postlude(h)

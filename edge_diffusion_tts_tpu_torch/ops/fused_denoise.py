@@ -376,6 +376,7 @@ def decoder_gemm(
             t.data_ptr() % 16 for t in (a, w, scale, shift) if t is not None):
         raise ValueError(f"a [..., {K}] and w {tuple(w.shape)}: K must be a multiple of 4, "
                          "a, w, scale and shift 16-byte aligned, pos non-empty")
+    _build.refuse_autograd("decoder_gemm", a, w, bias, pos, residual, out, scale, shift)
     if out is None:
         out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
     elif out.data_ptr() in (a.data_ptr(), w.data_ptr()):
@@ -443,13 +444,15 @@ def fused_ddim(
     as the JAX kernel does.
 
     CPU tensors take ``fused_ddim_plain``; CUDA tensors launch the kernel
-    sequence, counted once per call in ``fused_ddim.launches``.
+    sequence, counted once per call in ``fused_ddim.launches``, and raise
+    under grad mode when one of them requires a gradient (no backward).
     """
     if x_T.device.type == "cpu":
         return fused_ddim_plain(x_T, pos, mods, ckv, coef, w, heads=heads,
                                 window=window, prediction=prediction)
     if x_T.device.type != "cuda":
         raise ValueError(f"fused_ddim runs on CPU or CUDA, not {x_T.device}")
+    _build.refuse_autograd("fused_ddim", x_T, pos, mods, ckv, coef, *w.values())
     _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 4)
     B, T, M = x_T.shape
     steps, L, _, H = mods.shape
@@ -493,6 +496,7 @@ def fused_ddpm(
         return fused_ddpm_plain(x_T, pos, mods, ckv, coef, w, **kw)
     if x_T.device.type != "cuda":
         raise ValueError(f"fused_ddpm runs on CPU or CUDA, not {x_T.device}")
+    _build.refuse_autograd("fused_ddpm", x_T, pos, mods, ckv, coef, noise, *w.values())
     _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 5)
     B, T, M = x_T.shape
     steps, L, _, H = mods.shape

@@ -239,7 +239,8 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
     ``pack_frontend_weights``).
 
     CPU tensors take ``conv_frontend_plain``; CUDA tensors launch the kernel
-    sequence, counted once per call in ``conv_frontend.launches``.  ``fold``
+    sequence, counted once per call in ``conv_frontend.launches``, and raise
+    under grad mode when one of them requires a gradient.  ``fold``
     is ``groupnorm_fold``'s ``(scale, shift)`` for this wav where the caller
     has it already (timing the kernels alone); by default it is computed,
     over each row's first ``wav_len`` samples where ``wav_len`` is given (a
@@ -256,6 +257,7 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
         return conv_frontend_plain(wav, w, wav_len)
     if wav.device.type != "cuda":
         raise ValueError(f"conv_frontend runs on CPU or CUDA, not {wav.device}")
+    _build.refuse_autograd("conv_frontend", wav, *w.values(), *(fold or ()))
     C = w["w0"].shape[0]
     if C % TILE[1]:
         raise ValueError(f"the frontend kernel needs a width that is a multiple of {TILE[1]}, "
@@ -304,6 +306,7 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
     if not 0 <= layer < LAYERS:
         raise ValueError(f"layer must be in [0, {LAYERS}), got {layer}")
     W = layer_weight(w, layer)
+    _build.refuse_autograd("conv_frontend_layer", x, W, scale, shift)
     C = W.shape[0]
     if C % TILE[1]:
         raise ValueError(f"the frontend kernel needs a width that is a multiple of {TILE[1]}, "

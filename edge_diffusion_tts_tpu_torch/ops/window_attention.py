@@ -163,7 +163,9 @@ def banded_attention(
     multiple of 4 up to 64).  ``out_layout="bthd"`` has the result written
     in [B, T, H, d] memory and returns its [B, H, T, d] view.  CPU tensors
     take the plain version; CUDA tensors launch the kernel in the tile of
-    ``band_plan``, counted in ``banded_attention.launches``.
+    ``band_plan``, counted in ``banded_attention.launches``, and raise under
+    grad mode when one of them requires a gradient (the kernel has no
+    backward).
     """
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must share one [B, H, T, d] shape: "
@@ -179,6 +181,7 @@ def banded_attention(
     if q.device.type == "cpu":
         res = banded_attention_plain(q, k, v, window, seq_len)
         return res if out_layout == "bhtd" else res.transpose(1, 2).contiguous().transpose(1, 2)
+    _build.refuse_autograd("banded_attention", q, k, v)
     plan = band_plan(B, H, T, d, window, _sm_count(q.device.index or 0))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_strided(name, t, q.device)

@@ -1,1 +1,2 @@
-"""Utilities of the port: mel normalization (audio)."""
+"""Utilities of the port: mel normalization (audio), metric logging,
+divergence guards (reliability), sample plots (visualization)."""

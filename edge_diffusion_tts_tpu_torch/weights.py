@@ -11,10 +11,14 @@ names follow the reference state-dict keys (``time_emb.1``, ``ffn.net.0``,
 block) to the matching port module's state dict.
 
 ``encoder_state_dict_from_jax(variables)`` does the same for the JAX
-``SemanticEncoder``'s variables (``params``, and for VQ the codebook in
-``vq_state``); HuBERT's modules take the names of transformers'
-``HubertModel`` (``conv_{i}`` -> ``feature_extractor.conv_layers.{i}.conv``,
-``layer_{i}`` -> ``encoder.layers.{i}`` ...).
+``SemanticEncoder``'s variables (``params``, and for VQ every ``vq_state``
+buffer: codebook, EMA statistics, update count); HuBERT's modules take the
+names of transformers' ``HubertModel`` (``conv_{i}`` ->
+``feature_extractor.conv_layers.{i}.conv``, ``layer_{i}`` ->
+``encoder.layers.{i}`` ...).  ``train_state_from_jax(state)`` carries a
+whole JAX ``TrainState`` (params, VQ state, teacher, step, Adam's moments
+and count, the accumulated gradients) into ``training.TrainState``'s
+``state_dict`` layout.
 ``hubert_state_dict_from_hf(sd, cfg)`` takes an HF ``HubertModel`` state
 dict (the inverse of the JAX package's ``load_hubert_params_from_torch``)
 and materializes the positional conv's weight norm.
@@ -57,13 +61,16 @@ def _module_name(name: str) -> str:
 
 
 def _flatten(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax tree -> {dotted port name: float32 tensor}, leaves converted."""
+    """flax tree -> {dotted port name: float32 tensor}, leaves converted;
+    optax's masked-out leaves (``MaskedNode``) are skipped."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: list) -> None:
         for name, child in node.items():
             if isinstance(child, Mapping):
                 walk(child, path + [_module_name(name)])
+                continue
+            if type(child).__name__ == "MaskedNode":
                 continue
             arr = np.array(child, dtype=np.float32)
             if name == "kernel":
@@ -119,9 +126,9 @@ def _hubert_name(name: str) -> str:
 
 def encoder_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``SemanticEncoder`` variables -> the port ``SemanticEncoder``'s
-    state dict (float32 CPU tensors).  ``variables`` holds ``params`` and,
-    for a VQ encoder, ``vq_state`` (only its codebook is carried: the EMA
-    statistics are training state)."""
+    state dict (CPU tensors).  ``variables`` holds ``params`` and, for a VQ
+    encoder, ``vq_state``: the codebook, ``ema_cluster_size``, ``ema_w``
+    (float32) and ``update_count`` (int32) all come across."""
     sd = {}
     for name, t in _flatten(variables["params"]).items():
         if name.startswith("hubert."):
@@ -129,9 +136,72 @@ def encoder_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[name] = t
     vq_state = variables.get("vq_state")
     if vq_state:
-        sd["vq.codebook"] = torch.from_numpy(
-            np.array(vq_state["vq"]["codebook"], dtype=np.float32))
+        for key, value in vq_state["vq"].items():
+            dtype = np.int32 if key == "update_count" else np.float32
+            sd[f"vq.{key}"] = torch.from_numpy(np.array(value, dtype=dtype))
     return sd
+
+
+def _trainable_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """{"encoder": ..., "decoder": ...} param-shaped tree (params, a gradient,
+    an Adam moment) -> the optimizer's names ("encoder.<name>",
+    "decoder.<name>"), the frozen HuBERT left out."""
+    out = {f"encoder.{k}": v
+           for k, v in encoder_state_dict_from_jax({"params": tree["encoder"]}).items()
+           if not k.startswith("hubert.")}
+    out.update({f"decoder.{k}": v for k, v in _flatten(tree["decoder"]).items()})
+    return out
+
+
+def _find_states(node, kinds: tuple, found: dict) -> dict:
+    """Walk optax's nested state tuples; collect the first state of each
+    class name in ``kinds``."""
+    name = type(node).__name__
+    if name in kinds and name not in found:
+        found[name] = node
+    if isinstance(node, Mapping):
+        children = node.values()
+    elif isinstance(node, tuple):
+        children = node
+    else:
+        return found
+    for child in children:
+        _find_states(child, kinds, found)
+    return found
+
+
+def train_state_from_jax(state) -> dict:
+    """A JAX ``training.TrainState`` -> ``training.TrainState.state_dict()``
+    of the port (CPU tensors), so a port trainer can take over mid-run.
+
+    The optimizer state is read out of optax's chain: ``ScaleByAdamState``
+    (mu, nu, count) and, under gradient accumulation, ``MultiStepsState``
+    (mini_step, acc_grads).  Adam's count is the number of inner updates
+    made, which the schedule's count equals."""
+    opt = state.opt_state
+    found = _find_states(opt, ("MultiStepsState", "ScaleByAdamState", "ScaleByScheduleState"),
+                         {})
+    adam = found["ScaleByAdamState"]
+    count = int(np.asarray(adam.count))
+    if "ScaleByScheduleState" in found and int(np.asarray(
+            found["ScaleByScheduleState"].count)) != count:
+        raise ValueError("optax's schedule and Adam counts differ; the port keeps one count")
+    multi = found.get("MultiStepsState")
+    optimizer = {
+        "mu": _trainable_from_jax(adam.mu), "nu": _trainable_from_jax(adam.nu),
+        "acc": None if multi is None else _trainable_from_jax(multi.acc_grads),
+        "count": count, "mini_step": 0 if multi is None else int(np.asarray(multi.mini_step)),
+    }
+    enc_vars = {"params": state.params["encoder"]}
+    if state.vq_state:
+        enc_vars["vq_state"] = state.vq_state["encoder"]
+    return {
+        "step": int(np.asarray(state.step)),
+        "encoder": encoder_state_dict_from_jax(enc_vars),
+        "decoder": _flatten(state.params["decoder"]),
+        "teacher": None if state.teacher is None else _flatten(state.teacher),
+        "optimizer": optimizer,
+    }
 
 
 _POS_CONV = "encoder.pos_conv_embed.conv"

@@ -3,11 +3,11 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream]
+    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream] [train]
 
 Profiles (``torch.profiler``, CPU + CUDA activity) a steady window of
-calls of each path named (all four by default) with the weights and inputs
-of chip_smoke.py:
+calls of each path named (all of them by default) with the weights and
+inputs of chip_smoke.py:
 
 - flagship: ``EdgeInference(backend="fused").generate_mel``, B=1, S=250,
   4 DDIM steps (5 calls);
@@ -20,7 +20,20 @@ of chip_smoke.py:
   the full HuBERT-base encoder: one ``LongFormScheduler`` tick, i.e.
   ``LongFormPipeline.refine_chunk_batch_seeds`` at 1 and 4 rows (50 steps,
   cfg 2.0, T=201: 50 eager decoder calls of 2 x rows; 3 calls each), and one
-  ``stream_prep`` of a 6 s wav on the 8 s prep bucket (3 calls).
+  ``stream_prep`` of a 6 s wav on the 8 s prep bucket (3 calls);
+- train: steady flagship data steps (configs/flagship.json: batch 4 of 2 s,
+  dropout 0.2, grad_accumulation 8, depthwise pre-net) of the diffusion
+  step, on the wav path (the frozen full-width HuBERT-base on the frontend
+  kernel, then the mel, the encoder projection, the decoder forward and
+  backward, the optimizer) and on the precomputed-features path (16 steps
+  each, two optimizer updates among them, after 8 warm-up steps); beside
+  them the host time of one batch's collate (4 LJSpeech-rate wavs resampled
+  and cropped).  Device time is split by the step's ``record_function``
+  ranges (``train:hubert``, ``train:mel``, ``train:encoder``,
+  ``train:decoder``, ``train:backward`` with the autograd engine's
+  functions, ``train:optimizer``): each kernel is charged to the range that
+  encloses the op that launched it; the frontend's kernels (launched
+  through ctypes, no op) by their names.
 
 For each it prints the wall time per call, the device busy time (the union
 of the kernels' intervals) and its share of the wall time, the kernels
@@ -67,7 +80,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("flagship", "longform", "audio", "ddpm", "stream")
+PATHS = ("flagship", "longform", "audio", "ddpm", "stream", "train")
 
 
 def _device_us(evt) -> float:
@@ -75,6 +88,13 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _is_annotation(name: str) -> bool:
+    """The training step's ``record_function`` ranges, which the profiler
+    also reports on the device timeline (spanning their kernels and the
+    gaps between them): not kernels."""
+    return name.startswith("train:")
 
 
 def profile_calls(torch, fn, calls: int) -> dict:
@@ -91,7 +111,8 @@ def profile_calls(torch, fn, calls: int) -> dict:
     kernels, copies = [], 0
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if us > 0 and evt.device_type is not None and "cuda" in str(evt.device_type).lower():
+        if (us > 0 and evt.device_type is not None and "cuda" in str(evt.device_type).lower()
+                and not _is_annotation(evt.key)):
             kernels.append({"name": evt.key[:90], "ms_per_call": us / 1e3 / calls,
                             "count_per_call": evt.count / calls})
             copies += evt.count if "copy" in evt.key.lower() else 0
@@ -99,17 +120,49 @@ def profile_calls(torch, fn, calls: int) -> dict:
     # Busy time is the union of the device intervals: kernels that overlap
     # (cuDNN runs a grouped conv's groups side by side) count once.
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type is not None and "cuda" in str(e.device_type).lower())
+                   if e.device_type is not None and "cuda" in str(e.device_type).lower()
+                   and not _is_annotation(e.name))
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
     busy_ms = busy_us / 1e3 / calls
-    return {"wall_ms_per_call": wall_ms / calls,
+    stages = stage_split(prof, calls)
+    return {"wall_ms_per_call": wall_ms / calls, "stages_ms_per_call": stages,
             "kernel_ms_per_call": sum(k["ms_per_call"] for k in kernels),
             "device_ms_per_call": busy_ms, "busy_share": busy_ms / (wall_ms / calls),
             "launches_per_call": sum(k["count_per_call"] for k in kernels),
             "copies_per_call": copies / calls, "kernels": kernels}
+
+
+FRONTEND_KERNELS = ("conv0_kernel", "conv_slab_kernel", "split_sum_gelu_kernel")
+
+
+def stage_split(prof, calls: int) -> dict:
+    """Device ms per call charged to the training step's ``record_function``
+    ranges: each op that launched kernels is charged to the innermost
+    ``train:*`` range (or autograd engine function: "backward") above it.
+    Empty for paths with no such range."""
+    stages = {}
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None)
+        if not kernels:
+            continue
+        stage, p = None, e
+        while p is not None and stage is None:
+            if p.name.startswith("train:"):
+                stage = p.name[len("train:"):]
+            elif p.name.startswith("autograd::engine::evaluate_function"):
+                stage = "backward"
+            p = p.cpu_parent
+        if stage is None:
+            continue
+        stages[stage] = stages.get(stage, 0.0) + sum(k.duration for k in kernels) / 1e3 / calls
+    if stages:
+        stages["frontend kernels"] = sum(
+            _device_us(evt) / 1e3 / calls for evt in prof.key_averages()
+            if any(k in evt.key for k in FRONTEND_KERNELS))
+    return stages
 
 
 # Kernel-name substrings -> group, first match wins.
@@ -146,8 +199,52 @@ def report(name: str, r: dict) -> None:
           f"kernels per call, {r['copies_per_call']:g} of them copies")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[{name}]   group {ms:.5f} ms  {g}")
+    for g, ms in sorted(r["stages_ms_per_call"].items(), key=lambda kv: -kv[1]):
+        print(f"[{name}]   stage {ms:.5f} ms  {g}")
     for k in r["kernels"][:12]:
         print(f"[{name}]   {k['ms_per_call']:.5f} ms  x{k['count_per_call']:.0f}  {k['name']}")
+
+
+def profile_train(torch) -> dict:
+    """The ``train`` path (the module docstring): steady flagship diffusion
+    data steps on the wav and the precomputed path, and one batch's collate."""
+    import chip_smoke
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.data import Collate
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import Trainer, create_train_state, make_optimizer
+
+    with open(os.path.join(ROOT, "configs", "flagship.json")) as f:
+        cfg = CFG.from_dict(json.load(f))
+    torch.manual_seed(chip_smoke.SEED)
+    encoder = chip_smoke.seeded_encoder(torch, cfg, chip_smoke.SEED)
+    trainer = Trainer(cfg, encoder, EdgeDiffusionDecoder(cfg),
+                      DiffusionSchedule.create(cfg.diff_steps), device="cuda")
+    state = create_train_state(trainer.encoder, trainer.decoder,
+                               make_optimizer(cfg, trainer.encoder, trainer.decoder, 1000))
+    step = trainer.make_diffusion_step()
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    wav22k = [chip_smoke.synthetic_wav(3.0, 9500 + i, sr=22050) for i in range(cfg.batch_size)]
+    collate = Collate(cfg, seed=cfg.seed)
+    batch = collate([(w, 22050) for w in wav22k])
+    t0 = time.perf_counter()
+    for _ in range(20):
+        collate([(w, 22050) for w in wav22k])
+    collate_ms = (time.perf_counter() - t0) * 1e3 / 20
+    print(f"[train] collate of one batch ({cfg.batch_size} wavs of 3 s at 22,050 Hz, resample "
+          f"to 16 kHz, crop to {cfg.segment_len}): {collate_ms:.4f} ms on the host")
+    wav = trainer.put_batch(batch)
+    pre = dict(wav, hubert_features=trainer.hubert_features(state, wav["wav"]))
+    out = {"train_collate_ms_per_batch": collate_ms}
+    for name, b in (("train_wav", wav), ("train_precomputed", pre)):
+        for _ in range(8):  # one accumulation cycle: cuBLAS/cuDNN picks, allocator
+            step(state, b, gen)
+        out[name] = profile_calls(torch, lambda: step(state, b, gen), calls=16)
+        report(name, out[name])
+    out["train_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] peak torch.cuda.max_memory_allocated {out['train_peak_memory_gib']:.3f} GiB")
+    return out
 
 
 TIMER_PHASES = ("issue", "epilogue loads", "norm", "first chunk", "products", "epilogue")
@@ -403,6 +500,9 @@ def main() -> int:
         out["stream_prep_8s_bucket"] = profile_calls(
             torch, lambda: pipe.stream_prep(wav, seed=2), calls=3)
         report("stream_prep_8s_bucket", out["stream_prep_8s_bucket"])
+
+    if "train" in paths:
+        out.update(profile_train(torch))
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "port_profile.json"), "w") as f:

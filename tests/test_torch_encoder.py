@@ -120,8 +120,8 @@ def test_vq_inference_matches_jax():
     z = np.random.RandomState(3).randn(2, 20, 8).astype(np.float32)
     variables = jvq.init({"params": KEY, "vq": KEY}, jnp.asarray(z))
     pvq = VectorQuantizer(8, 32)
-    pvq.load_state_dict({"codebook": torch.from_numpy(
-        np.array(variables["vq_state"]["codebook"]))})
+    pvq.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in variables["vq_state"].items()})
     want = jvq.apply(variables, jnp.asarray(z), train=False)
     got = pvq(torch.from_numpy(z))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
@@ -134,8 +134,10 @@ def test_vq_inference_matches_jax():
     np.testing.assert_array_equal(
         pvq.decode(idx).numpy(),
         np.asarray(jvq.apply(variables, jnp.asarray(idx.numpy()), method=jvq.decode)))
-    with pytest.raises(NotImplementedError, match="EMA"):
-        pvq(torch.from_numpy(z), train=True)
+    # train=True is the training half now (held against JAX in
+    # test_torch_training_losses.py): a finite loss and one EMA update.
+    loss = pvq(torch.from_numpy(z), train=True, generator=torch.Generator().manual_seed(0))[2]
+    assert torch.isfinite(loss) and loss.item() > 0 and pvq.update_count.item() == 1
 
 
 # ---- HuBERT -----------------------------------------------------------------------

@@ -108,3 +108,24 @@ def test_new_wrappers_refuse_other_devices():
     x = torch.zeros(1, 4, 80, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fd.fused_ddpm(x, None, None, None, None, {}, heads=1, window=1)
+
+
+def test_trainer_and_train_need_a_card_unless_told_cpu(tmp_path):
+    from edge_diffusion_tts_tpu_torch.models import HubertConfig, SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.training import Trainer, train
+
+    cfg = CFG(hidden=32, layers=1, heads=2, dropout=0.0, segment_secs=0.1, diff_steps=8,
+              out_dir=str(tmp_path / "out"), data_root=str(tmp_path))
+    enc, dec = SemanticEncoder(cfg, HubertConfig.tiny()), EdgeDiffusionDecoder(cfg)
+    sched = DiffusionSchedule.create(cfg.diff_steps)
+    if torch.cuda.is_available():
+        assert Trainer(cfg, enc, dec, sched).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(cfg, enc, dec, sched)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train(cfg, train_loader=[{"wav": np.zeros((2, cfg.segment_len), np.float32)}],
+                  hubert_cfg=HubertConfig.tiny())
+    trainer = Trainer(cfg, enc, dec, sched, device="cpu")
+    assert trainer.device.type == "cpu" and trainer.encode_route == "modules"
+    assert next(trainer.decoder.parameters()).device.type == "cpu"

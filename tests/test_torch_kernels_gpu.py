@@ -510,3 +510,134 @@ def test_two_threads_first_lib_call_load_one_library(cuda, monkeypatch, tmp_path
         assert str(got[0]._name).startswith(str(tmp_path))
     finally:
         ff._lib.cache_clear()
+
+
+# ---- training ------------------------------------------------------------------------
+
+
+def _seeded_hubert_base_encoder(cfg, seed):
+    """A hubert-base SemanticEncoder with weights from a CPU generator: each
+    matrix N(0, g/fan_in) (g = 2 for the convs), each vector its default +
+    0.02 N(0, 1), as chip_smoke.py seeds its encoder."""
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder
+
+    enc = SemanticEncoder(cfg, HubertConfig())
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if p.dim() >= 2:
+                g = 2.0 if "conv" in name else 1.0
+                p.copy_(torch.randn(p.shape, generator=gen) * (g / p[0].numel()) ** 0.5)
+            else:
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return enc
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """One diffusion loss and its gradients at tiny width (depthwise pre-net
+    on, the tiny HuBERT on its modules), injected t and noise, dropout 0: the
+    card against the CPU, loss rtol 1e-4, every gradient cosine >= 0.99999."""
+    import copy
+
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.training import Trainer, TrainState
+    from edge_diffusion_tts_tpu_torch.training.state import trainable_parameters
+
+    cfg = CFG(hidden=32, layers=1, heads=2, segment_secs=0.1, diff_steps=50, max_timestep=48,
+              dropout=0.0, cfg_dropout=0.0, use_depthwise=True)
+    torch.manual_seed(3)
+    enc, dec = SemanticEncoder(cfg, HubertConfig.tiny()), EdgeDiffusionDecoder(cfg)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.02 * torch.randn(p.shape))
+    rs = np.random.RandomState(4)
+    batch = {"wav": (0.1 * rs.randn(2, cfg.segment_len)).astype(np.float32),
+             "t": np.array([5, 40]),
+             "noise": rs.randn(2, cfg.segment_mel_frames, cfg.n_mels).astype(np.float32)}
+    results = {}
+    for device in ("cpu", cuda):
+        trainer = Trainer(cfg, copy.deepcopy(enc), copy.deepcopy(dec),
+                          DiffusionSchedule.create(cfg.diff_steps), device=device)
+        state = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
+        state.train()
+        loss, _ = trainer.make_diffusion_loss()(state, trainer.put_batch(batch), None)
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+                 for n, p in trainable_parameters(trainer.encoder, trainer.decoder).items()}
+        results[str(device)] = (loss.item(), grads)
+    (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["cuda"]
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    for name, a in g_cpu.items():
+        b = g_card[name]
+        if a.norm() < 1e-12:
+            assert b.norm() < 1e-9, name
+            continue
+        cos = ((a * b).sum() / (a.norm() * b.norm())).item()
+        assert cos >= 0.99999, (name, cos)
+
+
+@pytest.mark.parametrize("route", ["banded_attention", "decoder_gemm", "conv_frontend"])
+def test_kernel_routes_refuse_autograd(cuda, frontend, route):
+    """Under grad mode an input that requires a gradient is refused (the
+    kernels have no backward); under torch.no_grad() the same call runs."""
+    rng = np.random.RandomState(8)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+
+    if route == "banded_attention":
+        q, k, v = t(1, 2, 64, 16), t(1, 2, 64, 16), t(1, 2, 64, 16)
+        call = lambda a: wa.banded_attention(a, k, v, 8)
+    elif route == "decoder_gemm":
+        a, w = t(8, 16), t(16, 16)
+        q = a
+        call = lambda x: fd.decoder_gemm(x, w)
+    else:
+        q = 0.2 * t(1, 8000)
+        call = lambda x: ff.conv_frontend(x, frontend)
+    x = q.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(x)
+    with torch.no_grad():
+        out = call(x)
+    assert torch.isfinite(out).all() and out.grad_fn is None
+    torch.testing.assert_close(out, call(q), atol=0, rtol=0)
+
+
+def test_decoder_kernel_route_refuses_autograd(cuda):
+    """The decoder's banded route (eval mode at the kernel's length) refuses
+    a forward that autograd would follow; the same call under no_grad runs."""
+    cfg = CFG(hidden=32, layers=1, heads=2, dropout=0.0)
+    dec = EdgeDiffusionDecoder(cfg, use_kernel=True).to(cuda).eval()
+    x, t = torch.randn(1, 64, cfg.n_mels, device=cuda), torch.tensor([10], device=cuda)
+    sem = torch.zeros(1, 32, dtype=torch.long, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dec(x, t, sem_idx=sem)
+    with torch.no_grad():
+        assert torch.isfinite(dec(x, t, sem_idx=sem)).all()
+
+
+def test_trainer_kernel_route_encode_matches_modules(cuda):
+    """The trainer's encode route for the hubert-base stack (the frontend
+    kernel at [4, 32000], one launch) against the modules route: layer
+    features atol 1e-3, FSQ tokens >= 99% equal (phase 7's bars)."""
+    from edge_diffusion_tts_tpu_torch.training import Trainer, TrainState
+
+    cfg = CFG(dropout=0.0)
+    enc = _seeded_hubert_base_encoder(cfg, 7)
+    trainer = Trainer(cfg, enc, EdgeDiffusionDecoder(cfg), DiffusionSchedule.create(1000),
+                      device=cuda)
+    assert trainer.encode_route == "kernel"
+    state = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
+    rng = np.random.RandomState(9)
+    wav = torch.from_numpy((0.2 * rng.randn(4, 32000)).astype(np.float32)).to(cuda)
+    before = ff.conv_frontend.launches
+    h_kernel = trainer.hubert_features(state, wav)
+    assert ff.conv_frontend.launches == before + 1
+    with torch.no_grad():
+        h_modules = state.encoder.extract_hubert(wav)
+        tok_k = state.encoder.vq.encode(state.encoder._project(h_kernel))
+        tok_m = state.encoder.vq.encode(state.encoder._project(h_modules))
+    assert h_kernel.shape == (4, 99, 768)
+    assert (h_kernel - h_modules).abs().max().item() <= 1e-3
+    assert (tok_k == tok_m).float().mean().item() >= 0.99
