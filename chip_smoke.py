@@ -116,7 +116,48 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    per phase (the mean of the steady steps' host-clock intervals) and
    utterances/s, the precomputed path apart, peak
    ``torch.cuda.max_memory_allocated``, wall times.  Its frontend launches
-   and its fused launch join the ``kernels`` line.
+   and its fused launch join the ``kernels`` line;
+11. parallel (``parallel/``): two ranks on cuda:0 over gloo (the one-card
+   machine's choice: NCCL refuses two ranks on one device), spawned by
+   ``parallel.launch.spawn`` under a 900 s deadline; each rank returns its
+   results and its kernel launch counts (every count set to 0 just before
+   its run, read just after) through a file the parent reads, and any rank's
+   failure or the deadline fails the phase.  Full width: the flagship
+   decoder, the full HuBERT-base, random weights from SEED, synthetic audio.
+   a. one diffusion, one progressive (a teacher of its own seed) and one
+   consistency data-parallel step at configs/flagship.json (dropout 0, one
+   update per step, AdamW at a constant 1e-3), batch 4 x 2 s, 2 rows per
+   rank, against the single-process step on the whole batch: loss rel 1e-5,
+   every gradient tensor at cosine >= 0.99999 (two summation orders: the
+   bars of the JAX comparisons on the CPU), the replicas' parameters
+   bit-equal; one frontend launch per rank per step; ms per data step
+   beside the single device's.  b. ``train()`` with ``mesh_shape [2, 1]`` on
+   phase 10's corpus, one epoch per phase, the halvings cut to 1000 -> 500
+   -> 250: rank 0 alone writes checkpoints, the parameters are bit-equal
+   across the ranks after every optimizer update.  c. sequence-parallel
+   long-form at T = 8000 (S = 4000; configs/longform.json with its
+   positional tables raised to 8192/4096, printed), 4 DDIM steps and 1,
+   eps, each rank's window Te = 4512 >= 3000 so the band kernel runs in all
+   4 layers x 4 steps, against the single-device call: the max error at
+   1e-4 or 2 times the one-ulp witness, whichever is larger (how far the
+   single call moves when its input moves by one ulp: the first step
+   divides by sqrt(alpha_bar_999) = 1.56e-5, and the seeded decoder carries
+   a difference on from step to step), and at most 0.5% of the elements
+   over 1e-4 (``PAR_WITNESS`` and ``PAR_SEQ_FRAC`` give the readings they
+   were set from).
+   d. the tensor-parallel encode of a 5 s wav on a (1, 2) mesh (6 heads
+   and FFN 1536 per rank, the frontend kernel replicated) against
+   ``fast_encode``: layer-9 features 1e-3, tokens >= 99% equal (phase 7's
+   bars).  e. ``make_dp_generate`` in this process over [cuda:0, cuda:0],
+   8 token rows of 250 at the flagship shape, unmasked (one fused launch
+   per share) and masked, against the unsharded call: phase 3's rule for
+   v prediction, 0.05 on all elements and 2e-4 on 99.9%.  f. one pipeline-parallel
+   diffusion step, 2 stages x 2 microbatches, against the single-process
+   step: a's bars and ``grad_norm`` rel 1e-5.  Printed: every check's
+   error beside its bar, ms per DP step, per sequence-parallel call, per TP
+   encode and per PP step with the single device's beside them, each
+   labelled "two ranks on one card over gloo: no scaling claim".  Its
+   launches join the ``kernels`` line.
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -563,14 +604,14 @@ def phase_longform(torch):
     return launches
 
 
-def seeded_encoder(torch, cfg, seed: int):
-    """A hubert-base SemanticEncoder whose weights come from a CPU
-    torch.Generator(seed): each weight matrix N(0, g/fan_in), g = 2 for the
-    convs (keeps the GELU stack's scale) and 1 elsewhere; every vector (bias,
-    norm affine) its default + 0.02 N(0, 1)."""
+def seeded_encoder(torch, cfg, seed: int, hubert_cfg=None):
+    """A SemanticEncoder (hubert-base unless ``hubert_cfg``) whose weights come
+    from a CPU torch.Generator(seed): each weight matrix N(0, g/fan_in), g = 2
+    for the convs (keeps the GELU stack's scale) and 1 elsewhere; every vector
+    (bias, norm affine) its default + 0.02 N(0, 1)."""
     from edge_diffusion_tts_tpu_torch.models import HubertConfig, SemanticEncoder
 
-    enc = SemanticEncoder(cfg, HubertConfig())
+    enc = SemanticEncoder(cfg, hubert_cfg or HubertConfig())
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in enc.named_parameters():
@@ -1428,6 +1469,534 @@ def phase_train(torch, cuts=None, hubert_cfg=None, utterances: int = TRAIN_UTTER
                 ms=ms, peak_gb=peak_gb, seconds=seconds)
 
 
+
+# -- phase 11: parallel/ on two gloo ranks of one card -----------------------------------
+
+PAR_STEPS = ("diffusion", "progressive", "consistency")  # phase 11a's step kinds
+PAR_TIMED = 5  # data steps (and calls) timed after one warm-up, per path
+PAR_SEQ = dict(S=4000, steps=4)  # phase 11c: T = 8000 mel frames, 4 DDIM steps
+# Phase 11c: the first DDIM step divides by sqrt(alpha_bar_999) = 1.56e-5,
+# so a rounding difference at an element whose first-step x0 stays inside
+# the clip comes out ~6e4 times larger (phase 3), and the seeded decoder
+# carries it on from step to step.  Its max bar is 1e-4 or PAR_WITNESS times
+# how far the same single-device call moves when its input moves by one ulp
+# (``par_witness``), whichever is larger: the largest reading so far is 1.32
+# witnesses (four ranks on four cards, 4 steps).  At most PAR_SEQ_FRAC of the
+# elements may lie over 1e-4: the readings so far are 0.103% (four ranks on
+# the CPU) and 0 (two ranks on one card).  Phase 11e holds make_dp_generate
+# to phase 3's rule for v prediction: 0.05 on all elements, 2e-4 on 99.9%.
+PAR_WITNESS = 2
+PAR_SEQ_FRAC = 5e-3
+
+
+def par_witness(fn, x, want) -> float:
+    """How far ``fn`` (which gave ``want`` on ``x``) moves when every
+    element of ``x`` moves by about one ulp: the amplification a
+    rounding-level difference meets on its way out."""
+    return float((fn(x * (1 + 2.0 ** -23)) - want).abs().max())
+PAR_POSITIONS = dict(max_mel_positions=8192, max_ctx_positions=4096)  # longform.json: 4096/2048
+PAR_TRAIN_CUTS = dict(diffusion_epochs=1, progressive_epochs_per_halving=1,
+                      consistency_epochs=1, progressive_target_steps=250, plot_every_steps=0,
+                      ckpt_every_steps=40, log_every_steps=5, val_every_steps=10,
+                      val_batches=1)
+
+
+def par_flagship_cfg():
+    """configs/flagship.json for phase 11's one-step comparisons: dropout and
+    cfg dropout 0, one data step per update."""
+    from edge_diffusion_tts_tpu_torch.config import CFG
+
+    with open(os.path.join(ROOT, "configs", "flagship.json")) as f:
+        flagship = json.load(f)
+    return CFG.from_dict(dict(flagship, dropout=0.0, cfg_dropout=0.0, grad_accumulation=1,
+                              ckpt_path=""))
+
+
+def par_models(torch, cfg, hubert: dict):
+    """The seeded encoder (HuBERT ``HubertConfig(**hubert)``: hubert-base on
+    the card), decoder and teacher decoder (its own seed) on the host, built
+    once per process: every fresh state copies them."""
+    from edge_diffusion_tts_tpu_torch.models import HubertConfig
+
+    torch.manual_seed(SEED)  # the encoder's vector defaults come from the global stream
+    return (seeded_encoder(torch, cfg, SEED, HubertConfig(**hubert)),
+            seeded_decoder(torch, cfg, SEED), seeded_decoder(torch, cfg, SEED + 1))
+
+
+def par_trainer(torch, cfg, base, with_teacher: bool):
+    """(trainer, state) on the card from copies of ``base`` (``par_models``),
+    AdamW at a constant 1e-3; the teacher where the phase has one."""
+    import copy
+
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import (Trainer, constant_schedule,
+                                                       create_train_state, make_optimizer)
+
+    enc, dec = copy.deepcopy(base[0]), copy.deepcopy(base[1]).train()
+    trainer = Trainer(cfg, enc, dec, DiffusionSchedule.create(cfg.diff_steps), device=DEVICE)
+    state = create_train_state(trainer.encoder, trainer.decoder, make_optimizer(
+        cfg, trainer.encoder, trainer.decoder, 100, learning_rate=constant_schedule(1e-3)))
+    if with_teacher:
+        state.with_teacher()
+        state.teacher.load_state_dict(base[2].state_dict())
+    return trainer, state
+
+
+def par_step(trainer, kind: str, mesh=None):
+    from edge_diffusion_tts_tpu_torch.parallel import (make_dp_consistency_step,
+                                                       make_dp_diffusion_step,
+                                                       make_dp_progressive_step)
+
+    if kind == "diffusion":
+        return make_dp_diffusion_step(trainer, mesh) if mesh else trainer.make_diffusion_step()
+    if kind == "progressive":
+        return (make_dp_progressive_step(trainer, mesh, 4) if mesh
+                else trainer.make_progressive_step(4))
+    return (make_dp_consistency_step(trainer, mesh) if mesh
+            else trainer.make_consistency_step())
+
+
+def par_run_step(torch, trainer, state, kind, batch, mesh=None):
+    """One step: metrics, the gradients the optimizer took (host), the
+    trainable parameters after it (host, flat)."""
+    seen = {}
+    update = state.optimizer.update
+
+    def recording(grads):
+        seen.update({n: (g if g is not None else torch.zeros_like(state.optimizer.params[n]))
+                     .detach().cpu() for n, g in grads.items()})
+        return update(grads)
+
+    state.optimizer.update = recording
+    step = par_step(trainer, kind, mesh)
+    state, metrics = step(state, trainer.put_batch(batch), torch.Generator(
+        device=DEVICE).manual_seed(SEED))
+    state.optimizer.update = update
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": seen,
+            "params": _flat(state.optimizer.params.values()).cpu()}
+
+
+def par_step_ms(torch, step, state, batch, put) -> float:
+    """Host-clock ms per data step over PAR_TIMED steps after one warm-up."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    state, _ = step(state, put(batch), g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        state, _ = step(state, put(batch), g)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+
+
+def par_seq_inputs(torch, cfg, S: int):
+    rng = np.random.RandomState(5000 + SEED)
+    sem = torch.from_numpy(rng.randint(0, cfg.effective_codebook_size(), (1, S))).to(DEVICE)
+    x_T = torch.from_numpy(rng.randn(1, 2 * S, cfg.n_mels).astype(np.float32)).to(DEVICE)
+    return sem, x_T
+
+
+def par_longform_cfg():
+    from edge_diffusion_tts_tpu_torch.config import CFG
+
+    with open(os.path.join(ROOT, "configs", "longform.json")) as f:
+        return CFG.from_dict(dict(json.load(f), **PAR_POSITIONS))
+
+
+def par_rank(rank: int, spec: dict) -> dict:
+    """One rank of phase 11 (of n: two ranks on cuda:0 over gloo as this
+    script runs it; with ``spec["card_per_rank"]`` rank r on cuda:r): a, the
+    DP steps; f, the PP step; c, sequence-parallel long-form; d, the TP
+    encode; b, train() on an [n, 1] mesh.  Returns each run's results and
+    kernel launch counts (every count set to 0 just before its run, read just
+    after).  ``spec["setup"]``, when given, runs first (a CPU rehearsal's
+    stubs)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    global DEVICE
+    if spec.get("setup") is not None:
+        spec["setup"]()
+    n = dist.get_world_size()
+    card = rank if spec["card_per_rank"] else 0
+    DEVICE = f"cuda:{card}" if spec["card_per_rank"] else spec["device"]
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.ops import window_attention as wa
+    from edge_diffusion_tts_tpu_torch.parallel import (PIPE_AXIS, make_mesh,
+                                                       make_seq_parallel_generate,
+                                                       make_tp_encode, shard_batch,
+                                                       shard_encoder_params)
+    from edge_diffusion_tts_tpu_torch.parallel.pipeline_parallel import (create_pp_state,
+                                                                         make_pp_trainer)
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import constant_schedule, train
+
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    cfg = par_flagship_cfg()
+    base = par_models(torch, cfg, spec["hubert"])
+
+    # a. data-parallel steps: this rank's 4 / n of the 4 rows.
+    dp = make_mesh((n, 1))
+    ff.conv_frontend.launches = 0
+    out["dp"] = {}
+    for kind in PAR_STEPS:
+        trainer, state = par_trainer(torch, cfg, base, with_teacher=kind == "progressive")
+        out["dp"][kind] = par_run_step(torch, trainer, state, kind,
+                                       shard_batch(spec["batches"][kind], dp), dp)
+    out["dp_launches"] = ff.conv_frontend.launches
+    trainer, state = par_trainer(torch, cfg, base, with_teacher=False)
+    out["dp_ms"] = par_step_ms(torch, par_step(trainer, "diffusion", dp), state,
+                               spec["batches"]["diffusion"],
+                               lambda b: trainer.put_batch(shard_batch(b, dp)))
+    out["dp_timed_launches"] = ff.conv_frontend.launches - out["dp_launches"]
+
+    # f. one pipeline-parallel diffusion step: n stages x 2 microbatches.
+    pipe = make_mesh((n,), (PIPE_AXIS,))
+    trainer, _ = par_trainer(torch, cfg, base, with_teacher=False)
+    pp = make_pp_trainer(trainer, pipe, 2)
+    state = create_pp_state(pp, 100, learning_rate=constant_schedule(1e-3))
+    ff.conv_frontend.launches = 0
+    res = par_run_step(torch, pp, state, "diffusion", spec["batches"]["diffusion"])
+    k = len(state.decoder.layers)
+    res["grads"] = {(f"decoder.layers.{rank * k + int(n.split('.')[2])}.{n.split('.', 3)[3]}"
+                     if n.startswith("decoder.layers.") else n): g
+                    for n, g in res["grads"].items()}
+    res.pop("params")
+    out["pp"] = res
+    out["pp_ms"] = par_step_ms(torch, pp.make_diffusion_step(), state,
+                               spec["batches"]["diffusion"], pp.put_batch)
+    out["pp_launches"] = ff.conv_frontend.launches
+
+    # c. sequence-parallel long-form: T = 8000 split n ways (two: the band kernel per shard).
+    lcfg = par_longform_cfg()
+    dec = seeded_decoder(torch, lcfg, SEED).to(DEVICE)
+    lsched = DiffusionSchedule.create(lcfg.diff_steps).to(DEVICE)
+    gen = make_seq_parallel_generate(lcfg, dec, lsched, dp, PAR_SEQ["steps"], prediction="eps")
+    sem, x_T = par_seq_inputs(torch, lcfg, spec["seq_S"])
+    wa.banded_attention.launches = 0
+    x0 = gen(sem, x_T)
+    torch.cuda.synchronize()
+    out["seq"] = {"x0": x0.cpu(), "launches": wa.banded_attention.launches}
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        gen(sem, x_T)
+    torch.cuda.synchronize()
+    out["seq"]["ms"] = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    out["seq"]["timed_launches"] = wa.banded_attention.launches - out["seq"]["launches"]
+    one = make_seq_parallel_generate(lcfg, dec, lsched, dp, 1, prediction="eps")
+    launched = wa.banded_attention.launches
+    out["seq"]["x0_one_step"] = one(sem, x_T).cpu()
+    out["seq"]["one_step_launches"] = wa.banded_attention.launches - launched
+    del dec
+
+    # d. the tensor-parallel encode of a 5 s wav: 12 / n heads and FFN 3072 / n per rank.
+    enc = base[0].to(DEVICE)
+    tp = make_mesh((1, n))
+    params = shard_encoder_params(enc, tp)
+    encode = make_tp_encode(enc, tp)
+    wav = torch.from_numpy(spec["tp_wav"]).to(DEVICE)
+    ff.conv_frontend.launches = 0
+    tokens = encode(params, wav)
+    feats = encode.features(params, wav)
+    torch.cuda.synchronize()
+    out["tp"] = {"tokens": tokens.cpu(), "features": feats.cpu(),
+                 "launches": ff.conv_frontend.launches,
+                 "q_rows": tuple(params["hubert.encoder.layers.0.attention.q_proj.weight"].shape),
+                 "ffn_rows": tuple(params[
+                     "hubert.encoder.layers.0.feed_forward.intermediate_dense.weight"].shape)}
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        encode(params, wav)
+    torch.cuda.synchronize()
+    out["tp"]["ms"] = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    out["tp"]["timed_launches"] = ff.conv_frontend.launches - out["tp"]["launches"]
+    del enc, params
+
+    # b. train() with mesh_shape [n, 1] on phase 10's corpus, one epoch per phase.
+    import edge_diffusion_tts_tpu_torch.training.checkpoint as ckpt
+
+    writes, hashes = [], []
+    save = ckpt.torch.save
+
+    def counting(obj, path, *a, **kw):
+        writes.append(os.path.basename(os.path.dirname(str(path))))
+        return save(obj, path, *a, **kw)
+
+    def watch(step, st):  # the parameters after every optimizer update
+        if st.optimizer.mini_step == 0:
+            flat = _flat(st.optimizer.params.values()).cpu().numpy()
+            hashes.append((step, hashlib.sha1(flat.tobytes()).hexdigest()))
+
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.models import HubertConfig
+
+    with open(os.path.join(ROOT, "configs", "flagship.json")) as f:
+        flagship = json.load(f)
+    tcfg = CFG.from_dict(dict(flagship, **spec["train_cuts"], mesh_shape=[n, 1],
+                              out_dir=spec["train_out"],
+                              run_name="parallel", ljspeech_dir=spec["corpus"],
+                              data_root=os.path.dirname(spec["corpus"]), ckpt_path=""))
+    ckpt.torch.save = counting
+    ff.conv_frontend.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = train(tcfg, hubert_cfg=HubertConfig(**spec["hubert"]), hooks=[watch],
+                      device=DEVICE)
+    finally:
+        ckpt.torch.save = save
+    torch.cuda.synchronize()
+    out["train"] = {"seconds": time.perf_counter() - t0, "writes": writes, "hashes": hashes,
+                    "step": state.step, "launches": ff.conv_frontend.launches,
+                    "run_dir": tcfg.get_run_dir()}
+    return out
+
+
+def _min_cosine(torch, got: dict, want: dict) -> float:
+    return min(float(torch.nn.functional.cosine_similarity(
+        got[n].double().reshape(1, -1), g.double().reshape(1, -1))[0])
+        for n, g in want.items() if g.norm() > 0)
+
+
+def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
+                   seq_S=PAR_SEQ["S"], setup=None, nranks: int = 2, backend: str = "gloo"):
+    """Phase 11: ``parallel/`` on the card (the module docstring's phase 11);
+    returns the launches of its kernels and its times.  ``nranks`` ranks
+    over ``backend``: two over gloo on cuda:0 as this script runs it; with
+    NCCL each rank takes its own card (``port_profile.py --nccl``), and
+    ``make_dp_generate`` splits over every card.  ``hubert`` (HubertConfig
+    fields), ``train_cuts``, ``seq_S`` and ``setup`` (run first on every
+    rank) are a CPU rehearsal's cuts; the card runs the defaults."""
+    import shutil
+
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.parallel import make_dp_generate
+    from edge_diffusion_tts_tpu_torch.parallel.launch import spawn
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule, ddim_sample
+
+    t_phase = time.perf_counter()
+    n = nranks
+    per_card = backend == "nccl"
+    note = (f"{n} ranks on {n} cards over NCCL" if per_card
+            else f"{n} ranks on one card over {backend}: no scaling claim")
+    fcfg = par_flagship_cfg()
+    hubert = hubert or {}
+    base = par_models(torch, fcfg, hubert)
+    rng = np.random.RandomState(4000 + SEED)
+    wav = (0.2 * rng.randn(4, fcfg.segment_len)).astype(np.float32)
+    trainer, _ = par_trainer(torch, fcfg, base, with_teacher=False)
+    mel_shape = tuple(trainer._mel_normalized(torch.from_numpy(wav).to(DEVICE)).shape)
+    noise = rng.randn(*mel_shape).astype(np.float32)
+    batches = {
+        "diffusion": dict(wav=wav, noise=noise, t=np.array([40, 300, 620, 900])),
+        "progressive": dict(wav=wav, noise=noise, step_indices=np.array([0, 1, 2, 3])),
+        "consistency": dict(wav=wav, noise=noise, t1=np.array([30, 300, 600, 990]),
+                            t2=np.array([980, 20, 310, 620])),
+    }
+    out_dir = os.path.join(ROOT, "build", "phase11")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    corpus = os.path.join(ROOT, "build", "phase10", "LJSpeech-1.1")
+    assert os.path.isfile(os.path.join(corpus, "metadata.csv")), "phase 10's corpus is missing"
+    spec = dict(batches=batches, tp_wav=(0.2 * rng.randn(1, 80000)).astype(np.float32),
+                corpus=corpus, train_out=os.path.join(out_dir, "out"), device=DEVICE,
+                card_per_rank=per_card, hubert=hubert,
+                train_cuts=dict(PAR_TRAIN_CUTS, **(train_cuts or {})), seq_S=seq_S,
+                setup=setup)
+    print(f"[parallel] {note}; longform overrides {PAR_POSITIONS} (T = {2 * seq_S} "
+          f"needs positions past longform.json's 4096/2048)")
+
+    t0 = time.perf_counter()
+    ranks = spawn(par_rank, n, args=(spec,), backend=backend, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    per_rank = lambda f: " / ".join(f"{f(r):.3f}" for r in ranks)  # noqa: E731
+    out = {"note": note, "ranks_s": ranks_s}
+
+    # a. each DP step against the single-process step on the whole batch.
+    bars = {"loss_rel": 1e-5, "cos": 0.99999}
+    for kind in PAR_STEPS:
+        trainer, state = par_trainer(torch, fcfg, base, with_teacher=kind == "progressive")
+        one = par_run_step(torch, trainer, state, kind, batches[kind])
+        got = r0["dp"][kind]
+        for r in ranks:
+            assert r["dp"][kind]["metrics"] == got["metrics"]
+            assert torch.equal(r["dp"][kind]["params"], got["params"]), f"{kind}: replicas differ"
+        loss_rel = abs(got["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+            one["metrics"]["loss"])
+        cos = _min_cosine(torch, got["grads"], one["grads"])
+        print(f"[parallel] a. DP {kind} step: loss {got['metrics']['loss']:.6g} vs "
+              f"{one['metrics']['loss']:.6g} rel {loss_rel:.3g} (bar {bars['loss_rel']}), "
+              f"min gradient cosine {cos:.8f} (bar {bars['cos']}), replicas bit-equal")
+        assert loss_rel <= bars["loss_rel"] and cos >= bars["cos"], (kind, loss_rel, cos)
+    dp_launches = [r["dp_launches"] for r in ranks]
+    assert dp_launches == [len(PAR_STEPS)] * n, dp_launches
+    trainer, state = par_trainer(torch, fcfg, base, with_teacher=False)
+    single_ms = par_step_ms(torch, trainer.make_diffusion_step(), state,
+                            batches["diffusion"], trainer.put_batch)
+    out.update(dp_ms=[r["dp_ms"] for r in ranks], single_step_ms=single_ms)
+    print(f"[parallel] a. ms per data step, batch 4 x 2 s: DP {per_rank(lambda r: r['dp_ms'])} "
+          f"(rank 0 .. {n - 1}, {4 // n} rows each), single device {single_ms:.3f} ({note}); "
+          f"frontend launches per rank {dp_launches}")
+
+    # f. the PP step against the single-process step.
+    trainer, state = par_trainer(torch, fcfg, base, with_teacher=False)
+    one = par_run_step(torch, trainer, state, "diffusion", batches["diffusion"])
+    got = {}
+    for r in ranks:
+        assert r["pp"]["metrics"] == r0["pp"]["metrics"]
+        got.update(r["pp"]["grads"])
+    assert set(got) == set(one["grads"])
+    loss_rel = abs(r0["pp"]["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+        one["metrics"]["loss"])
+    cos = _min_cosine(torch, got, one["grads"])
+    norm_rel = abs(r0["pp"]["metrics"]["grad_norm"] - one["metrics"]["grad_norm"]) / one[
+        "metrics"]["grad_norm"]
+    out.update(pp_ms=[r["pp_ms"] for r in ranks])
+    print(f"[parallel] f. PP diffusion step ({n} stages x 2 microbatches): loss rel "
+          f"{loss_rel:.3g} (bar {bars['loss_rel']}), min gradient cosine {cos:.8f} (bar "
+          f"{bars['cos']}), grad_norm rel {norm_rel:.3g} (bar 1e-5); ms per step "
+          f"{per_rank(lambda r: r['pp_ms'])}, single device {single_ms:.3f} ({note})")
+    assert loss_rel <= bars["loss_rel"] and cos >= bars["cos"] and norm_rel <= 1e-5
+
+    # c. sequence parallel against the single-device call at T = 8000.
+    lcfg = par_longform_cfg()
+    ldec = seeded_decoder(torch, lcfg, SEED).to(DEVICE)
+    lsched = DiffusionSchedule.create(lcfg.diff_steps).to(DEVICE)
+    sem, x_T = par_seq_inputs(torch, lcfg, seq_S)
+
+    @torch.inference_mode()
+    def single_seq(x=x_T, steps=PAR_SEQ["steps"]):
+        return ddim_sample(lsched, lambda x, t, si: ldec(x, t, sem_idx=sem, step_idx=si), x,
+                           steps, prediction="eps")
+
+    want = single_seq()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        single_seq()
+    torch.cuda.synchronize()
+    seq_single_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    want_one = single_seq(steps=1)
+    for r in ranks:
+        assert torch.equal(r["seq"]["x0"], r0["seq"]["x0"])
+    te = min(2 * seq_S, 2 * seq_S // n + 2 * lcfg.layers * lcfg.attn_window_size)
+    out.update(seq_ms=[r["seq"]["ms"] for r in ranks], seq_single_ms=seq_single_ms)
+    checks = []
+    for label, got, ref, steps in (("1 step", r0["seq"]["x0_one_step"], want_one, 1),
+                                   (f"{PAR_SEQ['steps']} steps", r0["seq"]["x0"], want,
+                                    PAR_SEQ["steps"])):
+        witness = par_witness(lambda x: single_seq(x, steps), x_T, ref)
+        bar = max(1e-4, PAR_WITNESS * witness)
+        diff = (got - ref.cpu()).abs()
+        err, frac = float(diff.max()), float((diff > 1e-4).float().mean())
+        checks.append((err, bar, frac))
+        print(f"[parallel] c. sequence-parallel T={2 * seq_S}, eps, Te={te} per rank, "
+              f"{label}: max err {err:.3g} (bar {bar:.3g}: 1e-4 or {PAR_WITNESS} x the "
+              f"one-ulp witness {witness:.3g}), fraction over 1e-4 {frac:.3e} (bar "
+              f"{PAR_SEQ_FRAC})")
+    print(f"[parallel] c. band launches per rank {[r['seq']['launches'] for r in ranks]}; ms "
+          f"per call {per_rank(lambda r: r['seq']['ms'])}, single device "
+          f"{seq_single_ms:.3f} ({note})")
+    assert all(err <= bar and frac <= PAR_SEQ_FRAC for err, bar, frac in checks), checks
+    # The eager decoder takes the band kernel from pallas_min_seq_len frames on.
+    seq_launches = lcfg.layers * PAR_SEQ["steps"] * (te >= lcfg.pallas_min_seq_len)
+    for r in ranks:
+        assert r["seq"]["launches"] == seq_launches, r["seq"]["launches"]
+        assert r["seq"]["timed_launches"] == seq_launches * PAR_TIMED
+        assert r["seq"]["one_step_launches"] == seq_launches // PAR_SEQ["steps"]
+    del ldec
+
+    # d. the TP encode against fast_encode on one device.
+    enc = base[0].to(DEVICE)
+    w = ff.pack_frontend_weights(enc.hubert.feature_extractor)
+    tp_wav = torch.from_numpy(spec["tp_wav"]).to(DEVICE)
+    with torch.inference_mode():
+        tokens = ff.fast_encode(enc, tp_wav, w)
+        feats = enc.extract_hubert(tp_wav, conv_feats=ff.conv_frontend(tp_wav, w))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_TIMED):
+            ff.fast_encode(enc, tp_wav, w)
+        torch.cuda.synchronize()
+    tp_single_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    feat_err = float((r0["tp"]["features"] - feats.cpu()).abs().max())
+    tok = float((r0["tp"]["tokens"] == tokens.cpu()).float().mean())
+    out.update(tp_ms=[r["tp"]["ms"] for r in ranks], tp_single_ms=tp_single_ms)
+    print(f"[parallel] d. TP encode of a 5 s wav, mesh (1, {n}), q_proj rows "
+          f"{r0['tp']['q_rows']}, FFN rows {r0['tp']['ffn_rows']} per rank: layer-9 feature "
+          f"max err {feat_err:.3g} (bar 1e-3; features up to "
+          f"{float(feats.abs().max()):.3g}), tokens equal {tok:.4%} (bar 99%); ms per encode "
+          f"{per_rank(lambda r: r['tp']['ms'])}, single-device fast_encode "
+          f"{tp_single_ms:.3f} ({note}); frontend launches per rank "
+          f"{[r['tp']['launches'] for r in ranks]}")
+    assert all(torch.equal(r["tp"]["tokens"], r0["tp"]["tokens"]) for r in ranks)
+    assert feat_err <= 1e-3 and tok >= 0.99
+    hc = base[0].hubert_cfg
+    assert r0["tp"]["q_rows"] == (hc.hidden_size // n, hc.hidden_size)
+    assert r0["tp"]["ffn_rows"] == (hc.intermediate_size // n, hc.hidden_size)
+    assert all(r["tp"]["launches"] == 2 for r in ranks)  # the encode and the features
+    assert all(r["tp"]["timed_launches"] == PAR_TIMED for r in ranks)
+    del enc
+
+    # b. train() on the [n, 1] mesh: rank 0 writes, the replicas agree after every update.
+    t0 = r0["train"]
+    assert all(r["train"]["writes"] == [] for r in ranks[1:])
+    assert "checkpoint_final" in {x.removesuffix(".tmp") for x in t0["writes"]}
+    assert t0["hashes"] and all(r["train"]["hashes"] == t0["hashes"] for r in ranks), \
+        "replicas differ after an update"
+    assert os.path.isfile(os.path.join(t0["run_dir"], "edge_model_final", "decoder.pt"))
+    out.update(train_s=t0["seconds"], train_steps=t0["step"])
+    print(f"[parallel] b. train() on mesh [{n}, 1]: {t0['step']} data steps, "
+          f"{len(t0['hashes'])} updates, parameters bit-equal across ranks after each; rank 0 "
+          f"wrote {len(t0['writes'])} checkpoint states, the others none; "
+          f"{t0['seconds']:.3f} s ({note}); frontend launches per rank "
+          f"{[r['train']['launches'] for r in ranks]}")
+
+    # e. make_dp_generate in this process: 8 flagship token rows over a device list.
+    engine = EdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), decoder,
+                           backend="fused", device=DEVICE)
+    rows = torch.from_numpy(rng.randint(0, cfg.effective_codebook_size(), (8, 250))).to(DEVICE)
+    x8 = torch.from_numpy(rng.randn(8, 500, cfg.n_mels).astype(np.float32)).to(DEVICE)
+    mask = torch.ones(rows.shape, dtype=torch.bool, device=DEVICE)
+    for i in range(8):
+        mask[i, 250 - 20 * i:] = False
+    devices = [f"cuda:{i}" for i in range(n)] if per_card else [DEVICE, DEVICE]
+    unmasked, masked = make_dp_generate(engine, devices), make_dp_generate(
+        engine, devices, masked=True)
+    want_u = engine.generate_mel(rows, 4, x_T=x8)
+    want_m = engine.generate_mel(rows, 4, x_T=x8, sem_mask=mask)
+    fd.fused_ddim.launches = 0
+    got_u = unmasked(rows, 4, x_T=x8)
+    torch.cuda.synchronize()
+    fused_launches = fd.fused_ddim.launches
+    got_m = masked(rows, 4, x_T=x8, sem_mask=mask)
+    torch.cuda.synchronize()
+    assert fd.fused_ddim.launches == fused_launches == len(devices), fd.fused_ddim.launches
+    for label, got, want in (("unmasked (fused)", got_u, want_u), ("masked", got_m, want_m)):
+        diff = (got - want).abs()
+        err, frac = float(diff.max()), float((diff > 2e-4).float().mean())
+        print(f"[parallel] e. make_dp_generate {label}, 8 rows over {devices}, 4 steps: "
+              f"max err {err:.3g} (bar 0.05), fraction over 2e-4 {frac:.3e} (bar 1e-3; "
+              f"phase 3's rule for v)")
+        assert err <= 0.05 and frac <= 1e-3 and torch.isfinite(got).all()
+
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase 11: {out['seconds']:.3f} s (the ranks {ranks_s:.3f} s)")
+    out["frontend_launches"] = sum(
+        r["dp_launches"] + r["dp_timed_launches"] + r["pp_launches"] + r["tp"]["launches"]
+        + r["tp"]["timed_launches"] + r["train"]["launches"] for r in ranks)
+    out["banded_launches"] = sum(r["seq"]["launches"] + r["seq"]["timed_launches"]
+                                 + r["seq"]["one_step_launches"] for r in ranks)
+    out["fused_launches"] = fused_launches
+    return out
+
+
 def run(torch) -> None:
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
@@ -1456,20 +2025,21 @@ def run(torch) -> None:
     ddpm = phase_ddpm(torch, cfg, decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
     trained = phase_train(torch)
+    par = phase_parallel(torch, cfg, decoder)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
         {"name": "banded_attention", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/band_attention.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/window_attention.py:48",
-         "launches": banded_launches,
+         "launches": banded_launches + par["banded_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in banded.values()),
          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
          "bound_by": b["bound_by"], "library_ms": b["library_ms"]},
         {"name": "fused_ddim", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
-         "launches": fused_launches + trained["fused_launches"],
+         "launches": fused_launches + trained["fused_launches"] + par["fused_launches"],
          "max_abs_err": fused["eps"]["max_abs_err"],
          "ms": fused["eps"]["ms"], "plain_ms": fused["eps"]["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
@@ -1478,7 +2048,7 @@ def run(torch) -> None:
          "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
          "launches": frontend_launches + serve["frontend_launches"]
-         + trained["frontend_launches"],
+         + trained["frontend_launches"] + par["frontend_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
          **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},

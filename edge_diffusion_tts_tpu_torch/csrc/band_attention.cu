@@ -43,6 +43,7 @@
 #include <math.h>
 
 #include "cp_async.cuh"
+#include "device.cuh"
 
 // A diagnostic build (port_profile.py --band-strip N, -DEDT_BAND_STRIP=N)
 // leaves work out to show where the time goes: 1 every product and the
@@ -284,12 +285,15 @@ template <int DP, int ROWS>
 int launch(const BandArgs& a, int batch, cudaStream_t stream) {
   const auto kernel = band_tile_kernel<DP, ROWS>;
   constexpr long long bytes = smem_bytes(ROWS, DP);
-  static bool opted_in = false;  // above 48 KB only after opting in, once per instance
-  if (bytes > 48 * 1024 && !opted_in) {
+  // Above 48 KB only after opting in, once per instance on each device.
+  static bool opted_in[edt::kMaxDevices] = {};
+  const int dev = edt::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (bytes > 48 * 1024 && !opted_in[dev]) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   const dim3 grid((a.T + ROWS - 1) / ROWS, batch * a.heads);
   kernel<<<grid, threads_for(ROWS), bytes, stream>>>(a);

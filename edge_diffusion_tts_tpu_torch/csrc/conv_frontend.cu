@@ -57,6 +57,7 @@
 #include <math.h>
 
 #include "cp_async.cuh"
+#include "device.cuh"
 
 namespace {
 
@@ -283,12 +284,15 @@ __global__ void split_sum_gelu_kernel(const float4* __restrict__ part, float4* _
 template <int KT>
 int conv_slab(const float* in, int Tin, int C, const float* W, float* out, float* part, int M,
               int B, int splits, cudaStream_t st) {
-  static bool smem_set = false;  // the attribute is set once, before any graph capture
-  if (!smem_set) {
+  // The attribute is per device: set once on each, before any graph capture.
+  static bool smem_set[edt::kMaxDevices] = {};
+  const int dev = edt::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
     const int err = (int)cudaFuncSetAttribute(
         conv_slab_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Stage<KT>::BYTES);
     if (err) return err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   const dim3 grid(C / BN, (M + BM - 1) / BM, B * splits);
   conv_slab_kernel<KT><<<grid, THREADS, Stage<KT>::BYTES, st>>>(

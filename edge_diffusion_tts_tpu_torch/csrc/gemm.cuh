@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "device.cuh"
 
 namespace edt {
 
@@ -119,14 +120,14 @@ inline long long gemm_blocks(int tile, int M, int N) {
 }
 
 inline int sm_count() {
-  static int n = 0;  // the process's device is fixed for its life here
-  if (n <= 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-      n = 132;
-  }
-  return n;
+  static int n[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return 132;
+  if (n[dev] <= 0 &&
+      (cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+       n[dev] <= 0))
+    n[dev] = 132;
+  return n[dev];
 }
 
 // The tile the host picks for an M x N output.
@@ -367,12 +368,14 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
 
 template <int BM, int BN, bool SWIGLU>
 int launch_gemm_tile(const GemmArgs& g, int smem, cudaStream_t st) {
-  static bool opted_in = false;  // the kernel may use more than 48 KB
-  if (!opted_in) {
+  static bool opted_in[kMaxDevices] = {};  // the kernel may use more than 48 KB
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         gemm_kernel<BM, BN, SWIGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
   gemm_kernel<BM, BN, SWIGLU><<<grid, GEMM_THREADS, smem, st>>>(g);

@@ -191,25 +191,27 @@ class Attention(nn.Module):
     def __init__(self, cfg: HubertConfig):
         super().__init__()
         H = cfg.hidden_size
-        self.heads = cfg.num_heads
+        self.head_dim = H // cfg.num_heads
         self.q_proj = nn.Linear(H, H)
         self.k_proj = nn.Linear(H, H)
         self.v_proj = nn.Linear(H, H)
         self.out_proj = nn.Linear(H, H)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
-        B, T, H = x.shape
-        dh = H // self.heads
+        # The head count follows q_proj's rows, so a tensor-parallel rank
+        # holding a slice of them runs its own heads (parallel/tensor_parallel.py).
+        B, T, _ = x.shape
+        dh = self.head_dim
 
         def split(t):
-            return t.reshape(B, T, self.heads, dh).transpose(1, 2)
+            return t.reshape(B, T, -1, dh).transpose(1, 2)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
         logits = (q @ k.transpose(-1, -2)) * dh ** -0.5
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :], MASK_LOGIT)
         attn = torch.softmax(logits, dim=-1) @ v
-        return self.out_proj(attn.transpose(1, 2).reshape(B, T, H))
+        return self.out_proj(attn.transpose(1, 2).reshape(B, T, -1))
 
 
 class FeedForward(nn.Module):

@@ -7,6 +7,13 @@ collection; here they are buffers (``codebook``, ``ema_cluster_size``,
 under no gradient.  Dead-code resets permute the batch rows with an explicit
 ``torch.Generator`` where JAX draws from its ``"vq"`` key; a test hands in
 JAX's own permutation through ``perm``.
+
+Data-parallel training sets ``group`` (a ``parallel.mesh.Axis``, the
+counterpart of the JAX module's ``axis_name``) for the duration of a step:
+the counts ``n`` and sums ``dw`` are summed over the group before the EMA
+blend, so the update equals the big-batch one on every rank; the reset's
+candidate pool is every rank's rows in rank order and its permutation is
+rank 0's draw, so the codebook stays bit-equal across ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ class VectorQuantizer(nn.Module):
         self.register_buffer("ema_cluster_size", torch.ones(codebook_size))
         self.register_buffer("ema_w", init.clone())
         self.register_buffer("update_count", torch.zeros((), dtype=torch.int32))
+        self.group = None  # a parallel.mesh.Axis under data-parallel training
 
     def _nearest(self, flat: torch.Tensor) -> torch.Tensor:
         cb = self.codebook
@@ -84,16 +92,27 @@ class VectorQuantizer(nn.Module):
 
         The reset draws a permutation of the batch rows every update, from
         ``generator`` unless ``perm`` [rows] is given; each dead code takes
-        the row at its rank among the dead codes."""
+        the row at its rank among the dead codes.  With ``group`` the
+        statistics are the group's sums, the pool is every rank's rows in
+        rank order (``perm`` then indexes that pool) and the drawn
+        permutation is the group's first rank's."""
         one_hot = torch.nn.functional.one_hot(idx, self.codebook_size).float()
         n = one_hot.sum(0)
         dw = one_hot.T @ flat
+        group = self.group
+        if group is not None:
+            # Global-batch statistics: n and dw are sums over rows, so the
+            # big-batch reduction is a SUM of the raw statistics, one bucket.
+            bucket = group.all_reduce(torch.cat([n[:, None], dw], 1))
+            n, dw = bucket[:, 0], bucket[:, 1:]
         ema_n = self.ema_cluster_size * self.decay + n * (1.0 - self.decay)
         ema_w = self.ema_w * self.decay + dw * (1.0 - self.decay)
         codebook = ema_w / ema_n.clamp(min=self.epsilon)[:, None]
         count = self.update_count + 1
 
         if self.reset_unused_every > 0:
+            if group is not None:
+                flat = group.all_gather(flat, 0)
             rows = flat.shape[0]
             do_reset = (count % self.reset_unused_every) == 0
             dead = ema_n < 1.0
@@ -102,6 +121,8 @@ class VectorQuantizer(nn.Module):
                     raise ValueError("the VQ dead-code reset draws its permutation from an "
                                      "explicit torch.Generator: pass generator= (or perm=)")
                 perm = torch.randperm(rows, generator=generator, device=flat.device)
+                if group is not None:
+                    group.broadcast(perm)
             perm = perm.to(flat.device).long()
             dead_rank = torch.cumsum(dead.int(), 0) - 1
             replacement = flat[perm[dead_rank.clamp(0, rows - 1)]]

@@ -30,13 +30,18 @@ this).  Its bits may: cuBLAS picks its GEMM kernels by the row count, and
 two kernels sum in two orders, so on the card a chunk refined beside other
 streams differs from its solo refine by float32 rounding (a few 1e-6 after
 50 steps on the H100).  ``row_quantum`` is 1, as in the JAX package
-without a mesh: no row is padded.  The vocoder's start phase comes from
-``fold_seed(seed, 1)`` (offline) or ``fold_seed(seed, 1, w0)`` (per
-streaming window), where JAX folds the same integers into its key.
+without a mesh: no row is padded.  With ``mesh`` (a list of devices) the
+refine splits its rows over the devices, a decoder replica on each, and
+pads the row count to a multiple of the list's length (``row_quantum``),
+as the JAX package pads to its data axis: a padding row repeats row 0's
+inputs, inpaints nothing, and is dropped.  The vocoder's start phase
+comes from ``fold_seed(seed, 1)`` (offline) or ``fold_seed(seed, 1, w0)``
+(per streaming window), where JAX folds the same integers into its key.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Optional, Tuple
 
@@ -79,8 +84,9 @@ class LongFormPipeline:
     ``encoder_apply`` a callable ``(wav [1, T], wav_len=None) -> z_q [1, S,
     D]`` in its place.  ``prep_buckets`` (sample counts) pads every stream's
     encode to the smallest bucket that holds it, exactly (``wav_len``); a
-    longer stream warns and is encoded at its own length.  The pipeline runs on ``device`` (the card unless told otherwise); ``mesh=``
-    raises: the port runs on one card.
+    longer stream warns and is encoded at its own length.  The pipeline
+    runs on ``device`` (the card unless told otherwise); ``mesh``, a list of
+    devices (one may repeat), splits each refine's rows over them.
     """
 
     def __init__(
@@ -97,9 +103,6 @@ class LongFormPipeline:
         device=None,
         encoder_apply=None,
     ):
-        if mesh is not None:
-            raise ValueError("the port runs on one card: LongFormPipeline takes no mesh "
-                             "(parallel/ is not ported)")
         if encoder is not None and encoder_apply is not None:
             raise ValueError("pass an encoder or an encoder_apply, not both")
         self.device = resolve_device(device)
@@ -130,10 +133,20 @@ class LongFormPipeline:
         self.prep_buckets = (
             tuple(sorted(int(b) for b in prep_buckets)) if prep_buckets else None
         )
+        # Rows a refine runs in multiples of: the mesh's length, 1 without.
+        self.mesh = None
+        self.row_quantum = 1
+        if mesh is not None:
+            from .parallel.data_parallel import DeviceShares  # parallel/ imports this module
 
-    # Rows a refine runs in multiples of: the JAX package's data-axis size,
-    # 1 without a mesh.  The port runs on one card.
-    row_quantum = 1
+            try:
+                devices = list(mesh)
+            except TypeError:
+                raise ValueError("LongFormPipeline's mesh is a list of devices to split the "
+                                 "refine's rows over") from None
+            self.mesh = DeviceShares(devices, self.device, (self.decoder, self.schedule),
+                                     lambda r, d: (copy.deepcopy(r[0]).to(d), r[1].to(d)))
+            self.row_quantum = len(self.mesh)
 
     def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
         if torch.is_tensor(a):
@@ -147,31 +160,48 @@ class LongFormPipeline:
                 steps: int, cfg_scale: float) -> torch.Tensor:
         """noise [B, steps + 2, T, M] (coarse start, initial q_sample, one per
         step) -> refined chunk [B, T, M].  Reference semantics:
-        inpaint_teacher_refine (JAX ``pipeline.py:126-246``)."""
+        inpaint_teacher_refine (JAX ``pipeline.py:126-246``).  Under a mesh
+        the rows are padded to ``row_quantum`` and split over its devices."""
         sem = self._tensor(sem_features)
         known = self._tensor(known_mel)
         have = torch.as_tensor(np.asarray(have_known, bool).reshape(-1), device=self.device)
-        sched, B, T = self.schedule, noise.shape[0], noise.shape[2]
+        kw = dict(strength=strength, steps=steps, cfg_scale=cfg_scale)
+        if self.mesh is None:
+            return self._refine_rows(self.decoder, self.schedule, noise, sem, known, have, **kw)
+        n, q = noise.shape[0], self.row_quantum
+        pad = (q - n % q) % q
+        if pad:
+            rep = lambda a: torch.cat([a, a[:1].expand(pad, *a.shape[1:])])  # noqa: E731
+            noise, sem, known = rep(noise), rep(sem), rep(known)
+            have = torch.cat([have, torch.zeros(pad, dtype=torch.bool, device=have.device)])
+        return self.mesh.run(lambda rep, *share: self._refine_rows(*rep, *share, **kw),
+                             noise, sem, known, have)[:n]
+
+    def _refine_rows(self, decoder, sched, noise, sem, known, have, *, strength: float,
+                     steps: int, cfg_scale: float) -> torch.Tensor:
+        """The refine of ``noise``'s rows on their device."""
+        device = noise.device
+        B, T = noise.shape[0], noise.shape[2]
         t_start = int(self.cfg.diff_steps * strength)
         grid = np.linspace(t_start, 0, steps + 1).astype(np.int64)[:-1]
         t_next = np.concatenate([grid[1:], [0]])
-        x, _ = sched.q_sample(noise[:, 0], torch.full((B,), t_start, device=self.device),
+        x, _ = sched.q_sample(noise[:, 0], torch.full((B,), t_start, device=device),
                               noise[:, 1])
-        overlap = (torch.arange(T, device=self.device) < self.overlap_frames)
+        overlap = (torch.arange(T, device=device) < self.overlap_frames)
         overlap = overlap[None, :, None] & have[:, None, None]
         sem_both = torch.cat([sem, torch.zeros_like(sem)])
-        s_idx = torch.zeros(2 * B, dtype=torch.long, device=self.device)
+        s_idx = torch.zeros(2 * B, dtype=torch.long, device=device)
         for j, (t, tn) in enumerate(zip(grid.tolist(), t_next.tolist())):
-            t_b = torch.full((B,), t, dtype=torch.long, device=self.device)
+            t_b = torch.full((B,), t, dtype=torch.long, device=device)
             known_noisy, _ = sched.q_sample(known, t_b, noise[:, 2 + j])
             x = torch.where(overlap, known_noisy, x)
             if cfg_scale != 1.0:
-                v2 = self.decoder(torch.cat([x, x]), torch.cat([t_b, t_b]),
-                                  sem_features=sem_both, step_idx=s_idx)
+                v2 = decoder(torch.cat([x, x]), torch.cat([t_b, t_b]),
+                             sem_features=sem_both, step_idx=s_idx)
                 v_cond, v_uncond = v2[:B], v2[B:]
                 v = v_uncond + cfg_scale * (v_cond - v_uncond)
             else:
-                v = self.decoder(x, t_b, sem_features=sem, step_idx=s_idx[:B])
+                v = decoder(x, t_b, sem_features=sem, step_idx=s_idx[:B])
             x0 = sched.predict_x0_from_v(x, t_b, v).clamp(-3.0, 3.0)
             eps = sched.predict_eps_from_v(x, t_b, v)
             ab_next = sched.alpha_bar[tn]

@@ -17,9 +17,10 @@
   works against either server.
 
 The server runs one batcher thread, one scheduler thread and one handler
-thread per client, all on one card.  Every CUDA library is built and
-loaded by ``run_server`` before it accepts connections (and the build is
-locked: ``_build.py``).  A stream's prep (``LongFormPipeline.stream_prep``)
+thread per client, on one card, or with ``run_server(mesh=N)`` on the
+first N cards, every batch's rows split over them.  Every CUDA library is
+built and loaded by ``run_server`` before it accepts connections (and the
+build is locked: ``_build.py``).  A stream's prep (``LongFormPipeline.stream_prep``)
 runs synchronously on its handler thread, at submit.
 """
 
@@ -373,6 +374,12 @@ class LongFormScheduler:
     def __init__(self, pipe, max_streams: int = 4):
         self.pipe = pipe
         self.max_streams = int(max_streams)
+        # Under a mesh the refine splits rows over its devices: every tick's
+        # row count is padded to that quantum, and full ticks must fit it.
+        self.row_quantum = int(getattr(pipe, "row_quantum", 1))
+        if self.max_streams % self.row_quantum:
+            raise ValueError(f"max_streams={max_streams} must be a multiple of the pipeline's "
+                             f"row_quantum={self.row_quantum} (the mesh's device count)")
         self._inbox: "queue.Queue[Optional[_LFStream]]" = queue.Queue()
         self._active: list = []
         self._closed = False
@@ -745,8 +752,10 @@ def run_server(
     shutdown (``server.shutdown(); batcher.close()``).  Buckets beyond the
     checkpoint's positional capacity are dropped up front.  The decoder's
     output is read per the checkpoint's objective (``cfg.use_v_prediction``).
-    Runs on ``device`` (the card unless told otherwise); ``mesh`` must be 0:
-    the port serves from one card.
+    Runs on ``device`` (the card unless told otherwise).  ``mesh=N`` shards
+    every micro-batch's rows (and, with ``longform``, every refine's) over
+    the first N CUDA devices (``parallel.make_dp_generate``); ``max_batch``
+    (and ``longform_streams``) must divide by N.
 
     Seeds: a batch's start noise comes from a torch generator seeded with
     ``fold_seed(seed, n)`` for the server's n-th batch, so repeated requests
@@ -766,9 +775,19 @@ def run_server(
         if verbose:
             print(msg, flush=True)
 
+    mesh_devices = None
     if mesh:
-        raise ValueError("the port serves from one card: mesh must be 0 "
-                         "(parallel/ is not ported)")
+        if max_batch % mesh:
+            raise ValueError("max_batch must be divisible by mesh")
+        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if found < mesh:
+            raise ValueError(f"mesh={mesh} shards over {mesh} CUDA devices; {found} found")
+        mesh_devices = [torch.device("cuda", i) for i in range(mesh)]
+        if device is not None and torch.device(device) not in (torch.device("cuda"),
+                                                               mesh_devices[0]):
+            raise ValueError(f"mesh={mesh} serves from cuda:0 to cuda:{mesh - 1}, "
+                             f"not device={device!r}")
+        device = mesh_devices[0]
     cfg, dec_state, hubert_cfg, enc_state = load_checkpoint(checkpoint, with_encoder=longform)
     decoder = EdgeDiffusionDecoder(cfg)
     decoder.load_state_dict(dec_state)
@@ -790,11 +809,16 @@ def run_server(
         raise ValueError(f"no serve bucket fits the checkpoint's positional capacity "
                          f"({cap} tokens): pass smaller buckets")
 
+    generate = inf.generate_mel
+    if mesh_devices is not None:
+        from .parallel import make_dp_generate
+
+        generate = make_dp_generate(inf, mesh_devices, masked=True)
+
     def generate_fn(sem_idx, sem_mask):
         # Only the batcher's worker thread calls this, one batch at a time.
         g = torch.Generator(device=inf.device).manual_seed(fold_seed(seed, next(batch_counter)))
-        return inf.generate_mel(sem_idx, num_steps=steps, generator=g,
-                                sem_mask=sem_mask).cpu().numpy()
+        return generate(sem_idx, num_steps=steps, generator=g, sem_mask=sem_mask).cpu().numpy()
 
     longform_fn = pipe = None
     if longform:
@@ -809,7 +833,7 @@ def run_server(
             prep_buckets=[int(s * cfg.sample_rate) for s in longform_prep_buckets]
             if longform_prep_buckets else None,
             # Chunk -> latent slicing follows the checkpoint's conv stack.
-            sem_stride=hubert_cfg.total_stride, device=inf.device)
+            sem_stride=hubert_cfg.total_stride, device=inf.device, mesh=mesh_devices)
         longform_fn = make_longform_fn(pipe, max_streams=longform_streams)
 
     if inf.device.type == "cuda":

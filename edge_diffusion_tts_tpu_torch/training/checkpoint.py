@@ -71,15 +71,19 @@ def _write_json(path: str, text: str) -> None:
 def save_checkpoint(path: str, state: TrainState, cfg: CFG, meta: Optional[dict] = None,
                     frozen_host: Optional[Dict[str, torch.Tensor]] = None,
                     hubert_cfg: Optional[HubertConfig] = None,
-                    dedup_frozen: bool = False) -> None:
+                    dedup_frozen: bool = False, write: bool = True) -> None:
     """Save the full train state + cfg (+ free-form meta) at ``path``.
 
     ``frozen_host`` is ``frozen_hubert_host(state)`` fetched once by the
     caller: it is written in place of a fresh device fetch of bit-identical
     frozen weights.  ``dedup_frozen`` writes it once to the ``frozen_hubert/``
-    sibling and records that in the meta."""
+    sibling and records that in the meta.  ``write=False`` builds the state
+    and writes nothing: a pipeline stage's ``state_dict`` is collective, so
+    every rank builds it and one writes it."""
     path = os.path.abspath(path)
     d = state.state_dict(with_hubert=False)
+    if not write:
+        return
     meta = dict(meta or {})
     frozen = frozen_host if frozen_host is not None else frozen_hubert_host(state)
     if dedup_frozen:

@@ -93,12 +93,28 @@ class Optimizer:
         self.acc = zeros() if self.accumulation > 1 else None
         self.count = 0  # inner updates applied (optax's adam and schedule counts)
         self.mini_step = 0  # MultiSteps' data steps since the last update
+        # (names, tensors) -> the global norm the clip reads; a pipeline stage
+        # holds only its blocks and sums their squares over the stages.
+        self.norm_fn: Callable = lambda names, tensors: global_norm(tensors)
+        self.clip_norm: Optional[torch.Tensor] = None  # the last inner update's norm
+
+    def _named(self, grads: Dict[str, torch.Tensor]):
+        names = list(self.params)
+        return names, [grads[n] if grads.get(n) is not None
+                       else torch.zeros_like(self.params[n]) for n in names]
+
+    @torch.no_grad()
+    def step_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of one data step's gradients (the steps'
+        ``grad_norm`` metric), called after ``update(grads)``: with one data
+        step per update it is the norm that update clipped with."""
+        if self.acc is None:
+            return self.clip_norm
+        return self.norm_fn(*self._named(grads))
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor]) -> bool:
-        names = list(self.params)
-        g = [grads[n] if grads.get(n) is not None else torch.zeros_like(self.params[n])
-             for n in names]
+        names, g = self._named(grads)
         if self.acc is not None:
             acc = [self.acc[n] for n in names]
             diff = torch._foreach_sub(g, acc)
@@ -110,7 +126,7 @@ class Optimizer:
                 return False
             g = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
-        norm = global_norm(g)
+        self.clip_norm = norm = self.norm_fn(names, g)
         keep = norm < self.max_norm
         g = [torch.where(keep, x, (x / norm) * self.max_norm) for x in g]
         self.count += 1

@@ -35,7 +35,7 @@ from ..ops.fused_frontend import conv_frontend, kernel_serves, pack_frontend_wei
 from ..ops.mel import MelFrontend
 from ..schedule import DiffusionSchedule, DPMSolverPP, _bcast, ddim_sample
 from ..utils.audio import normalize_mel
-from .state import TrainState, ema_update, freeze_hubert, global_norm
+from .state import TrainState, ema_update, freeze_hubert
 
 Batch = Dict[str, torch.Tensor]
 
@@ -114,6 +114,17 @@ class Trainer:
         with record_function("train:encoder"):
             return state.encoder.from_features(feats, train=train, generator=generator)
 
+    def _decode(self, decoder, x_t: torch.Tensor, t: torch.Tensor, **cond) -> torch.Tensor:
+        """Every decoder forward of the losses and the validation goes
+        through here (the student and the teacher alike), so that a
+        pipeline-parallel trainer can stage it (parallel/pipeline_parallel.py)."""
+        return decoder(x_t, t, **cond)
+
+    def _backward(self, loss: torch.Tensor) -> None:
+        """The step's backward pass; a pipeline-parallel trainer schedules
+        its stages' backward explicitly."""
+        loss.backward()
+
     def _mel_normalized(self, wav: torch.Tensor) -> torch.Tensor:
         with torch.no_grad(), record_function("train:mel"):
             return normalize_mel(self.mel_frontend(wav))[0]
@@ -136,13 +147,12 @@ class Trainer:
             state.train()
             loss, metrics = loss_fn(state, batch, generator)
             with record_function("train:backward"):
-                loss.backward()
+                self._backward(loss)
             with record_function("train:optimizer"):
                 grads = {n: p.grad for n, p in params.items()}
-                if with_grad_norm:
-                    metrics["grad_norm"] = global_norm(
-                        [g for g in grads.values() if g is not None])
                 applied = state.optimizer.update(grads)
+                if with_grad_norm:
+                    metrics["grad_norm"] = state.optimizer.step_norm(grads)
                 if ema is not None and state.teacher is not None:
                     ema_update(state.teacher, state.decoder, self._teacher_decay(applied, ema))
             for p in params.values():
@@ -176,7 +186,7 @@ class Trainer:
                 noise = batch["noise"] if "noise" in batch else torch.randn(
                     mel_n.shape, device=mel_n.device, generator=g)
                 x_t, _ = schedule.q_sample(mel_n, t, noise)
-                pred = state.decoder(x_t, t, sem_features=z_q,
+                pred = self._decode(state.decoder, x_t, t, sem_features=z_q,
                                      step_idx=torch.zeros_like(t), generator=g)
                 if cfg.use_v_prediction:
                     target = schedule.get_v_target(mel_n, noise, t)
@@ -220,13 +230,13 @@ class Trainer:
                 noise = batch["noise"] if "noise" in batch else torch.randn(
                     mel_n.shape, device=dev, generator=g)
                 x_t, _ = schedule.q_sample(mel_n, t, noise)
-                v_student = state.decoder(x_t, t, sem_idx=sem_idx, step_idx=step_indices,
-                                          generator=g)
+                v_student = self._decode(state.decoder, x_t, t, sem_idx=sem_idx,
+                                         step_idx=step_indices, generator=g)
                 x0_student = schedule.predict_x0_from_v(x_t, t, v_student)
                 if state.teacher is not None and num_steps < cfg.diff_steps:
                     with torch.no_grad():
-                        v_teacher = state.teacher(x_t, t, sem_idx=sem_idx,
-                                                  step_idx=step_indices)
+                        v_teacher = self._decode(state.teacher, x_t, t, sem_idx=sem_idx,
+                                                 step_idx=step_indices)
                         x0_teacher = schedule.predict_x0_from_v(x_t, t, v_teacher)
                     loss = _mse(x0_student, x0_teacher)
                 else:
@@ -262,7 +272,8 @@ class Trainer:
                 x_t, _ = schedule.q_sample(mel_n, t, noise)
 
                 def teacher_ddim(x, t_a, t_b):
-                    v = state.teacher(x, t_a, sem_idx=sem_idx, step_idx=step_indices)
+                    v = self._decode(state.teacher, x, t_a, sem_idx=sem_idx,
+                                     step_idx=step_indices)
                     eps = schedule.predict_eps_from_v(x, t_a, v)
                     return schedule.get_ddim_step(x, t_a, t_b, eps, eta=0.0)[0]
 
@@ -275,8 +286,8 @@ class Trainer:
                     denom = sab_n - s1m_n * sab_t / s1m_t
                     denom = torch.where(denom.abs() < 1e-6, 1e-6, denom)
                     x0_target = ((x_tgt - (s1m_n / s1m_t) * x_t) / denom).clamp(-3.0, 3.0)
-                v_student = state.decoder(x_t, t, sem_idx=sem_idx, step_idx=step_indices,
-                                          generator=g)
+                v_student = self._decode(state.decoder, x_t, t, sem_idx=sem_idx,
+                                         step_idx=step_indices, generator=g)
                 x0_student = schedule.predict_x0_from_v(x_t, t, v_student)
                 loss = _mse(x0_student, x0_target) + vq_weight * vq_loss
                 metrics = {"loss": loss.detach(), "vq_loss": vq_loss.detach(),
@@ -316,8 +327,10 @@ class Trainer:
                 x_t1, _ = schedule.q_sample(mel_n, t1, noise)
                 x_t2, _ = schedule.q_sample(mel_n, t2, noise)
                 step_idx = torch.zeros_like(t1)
-                v1 = state.decoder(x_t1, t1, sem_idx=sem_idx, step_idx=step_idx, generator=g)
-                v2 = state.decoder(x_t2, t2, sem_idx=sem_idx, step_idx=step_idx, generator=g)
+                v1 = self._decode(state.decoder, x_t1, t1, sem_idx=sem_idx, step_idx=step_idx,
+                                  generator=g)
+                v2 = self._decode(state.decoder, x_t2, t2, sem_idx=sem_idx, step_idx=step_idx,
+                                  generator=g)
                 x0_1 = schedule.predict_x0_from_v(x_t1, t1, v1)
                 x0_2 = schedule.predict_x0_from_v(x_t2, t2, v2)
                 consistency = _mse(x0_1, x0_2.detach())
@@ -354,10 +367,12 @@ class Trainer:
                 x_hi, _ = schedule.q_sample(mel_n, t_hi, noise)
                 x_lo, _ = schedule.q_sample(mel_n, t_lo, noise)
                 step_idx = torch.zeros_like(t_hi)
-                v_s = state.decoder(x_hi, t_hi, sem_idx=sem_idx, step_idx=step_idx, generator=g)
+                v_s = self._decode(state.decoder, x_hi, t_hi, sem_idx=sem_idx,
+                                   step_idx=step_idx, generator=g)
                 x0_s = schedule.predict_x0_from_v(x_hi, t_hi, v_s)
                 with torch.no_grad():
-                    v_t = state.teacher(x_lo, t_lo, sem_idx=sem_idx, step_idx=step_idx)
+                    v_t = self._decode(state.teacher, x_lo, t_lo, sem_idx=sem_idx,
+                                       step_idx=step_idx)
                     x0_t = schedule.predict_x0_from_v(x_lo, t_lo, v_t).clamp(-3.0, 3.0)
                 consistency = _mse(x0_s, x0_t)
                 loss = consistency_weight * consistency + vq_weight * vq_loss
@@ -464,7 +479,7 @@ class Trainer:
                 kw = cond(z_q, sem_idx)
 
                 def model_fn(x, t, step_idx):
-                    return state.decoder(x, t, step_idx=step_idx, **kw)
+                    return self._decode(state.decoder, x, t, step_idx=step_idx, **kw)
 
                 x0 = solver.sample(model_fn, x_T, num_steps, max_t=cfg.max_timestep)
                 return {"val_cos": _cosine_sim(x0, mel_n), "val_mse": _mse(x0, mel_n)}
@@ -485,7 +500,7 @@ class Trainer:
                 kw = cond(z_q, sem_idx)
 
                 def model_fn(x, t, step_idx):
-                    return state.decoder(x, t, step_idx=step_idx, **kw)
+                    return self._decode(state.decoder, x, t, step_idx=step_idx, **kw)
 
                 x0 = ddim_sample(schedule, model_fn, x_T, num_steps,
                                  prediction="v" if cfg.use_v_prediction else "eps")
@@ -507,7 +522,8 @@ class Trainer:
                 t = torch.randint(1, cfg.max_timestep, (B,), device=dev, generator=generator)
                 noise = torch.randn(mel_n.shape, device=dev, generator=generator)
                 x_t, _ = schedule.q_sample(mel_n, t, noise)
-                pred = state.decoder(x_t, t, sem_idx=sem_idx, step_idx=torch.zeros_like(t))
+                pred = self._decode(state.decoder, x_t, t, sem_idx=sem_idx,
+                                    step_idx=torch.zeros_like(t))
                 target = schedule.get_v_target(mel_n, noise, t) if cfg.use_v_prediction \
                     else noise
                 return {"val_eps_mse": _mse(pred, target)}

@@ -15,10 +15,21 @@ Phases:
   3. consistency training for ``consistency_epochs``.
 
 Resume (``resume="auto"``) picks the newest complete periodic checkpoint
-and skips the phases (and halvings) its meta records as done.  Data-parallel
-meshes and pipeline stages are ``parallel/``'s, which the port does not have
-yet (ROADMAP Queue A item 6), and ``export`` is ``utils/export.py``'s (item
-7): asking for either raises.
+and skips the phases (and halvings) its meta records as done.
+
+Parallel runs (``parallel/``), one process per rank under an initialized
+process group (``torchrun`` + ``parallel.init_multihost()``):
+
+- ``cfg.mesh_shape`` with a product > 1: every phase step runs data-parallel
+  over the mesh's data axis (``parallel/data_parallel.py``).  Every rank
+  walks the same global batch order and takes its rows of each batch.
+- ``cfg.pipeline_stages`` > 1: the decoder's blocks are staged over a pipe
+  axis (``parallel/pipeline_parallel.py``); checkpoints carry the packed
+  layout and the final model is written canonical.
+
+Rank 0 alone writes checkpoints, metrics and plots; a barrier follows every
+write, and resume loads on every rank.  ``export`` is ``utils/export.py``'s
+(ROADMAP Queue A item 7): asking for it raises.
 """
 
 from __future__ import annotations
@@ -29,12 +40,14 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CFG, resolve_device
 from ..models import EdgeDiffusionDecoder, HubertConfig, SemanticEncoder
 from ..schedule import DiffusionSchedule, ddim_sample
 from ..utils.logging import MetricWriter
 from ..utils.reliability import make_nan_guard
+from ..weights import save_checkpoint as save_weights
 from .checkpoint import (
     frozen_hubert_host,
     resolve_checkpoint_dir,
@@ -71,18 +84,55 @@ def init_models(cfg: CFG, hubert_cfg: Optional[HubertConfig] = None,
     return encoder, decoder
 
 
-def _refuse_unported(cfg: CFG, export: bool) -> None:
-    if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={cfg.mesh_shape}: the port trains on one device; data-parallel "
-            "meshes belong to parallel/, not ported yet (ROADMAP Queue A item 6)")
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"pipeline_stages={cfg.pipeline_stages}: pipeline parallelism belongs to "
-            "parallel/, not ported yet (ROADMAP Queue A item 6)")
+def _refuse_unported(export: bool) -> None:
     if export:
         raise NotImplementedError(
             "export=True: utils/export.py is not ported yet (ROADMAP Queue A item 7)")
+
+
+def _need_ranks(n: int, what: str) -> None:
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"{what} runs one process per rank: initialize a process group of {n} ranks "
+            "first (torchrun + parallel.init_multihost(), or parallel.launch.spawn)")
+    if dist.get_world_size() != n:
+        raise ValueError(f"{what} needs {n} ranks, the process group has "
+                         f"{dist.get_world_size()}")
+
+
+def _parallel_layout(cfg: CFG):
+    """``(data-parallel mesh or None, pipe mesh or None, microbatches)`` from
+    ``cfg.mesh_shape`` and ``cfg.pipeline_stages``, with the JAX package's
+    ``train()`` checks."""
+    from ..parallel import make_mesh
+    from ..parallel.pipeline_parallel import PIPE_AXIS
+
+    dp = pipe = None
+    n_mb = 0
+    if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
+        n_mesh = int(np.prod(cfg.mesh_shape))
+        if cfg.pipeline_stages > 1:
+            raise ValueError("pipeline_stages and mesh_shape are mutually exclusive in "
+                             "train(); compose DP x PP through PPTrainer(data_axis=...)")
+        _need_ranks(n_mesh, f"mesh_shape={cfg.mesh_shape}")
+        if cfg.batch_size % cfg.mesh_shape[0]:
+            raise ValueError(f"batch_size={cfg.batch_size} must divide over the data axis "
+                             f"({cfg.mesh_shape[0]} shards)")
+        dp = make_mesh(cfg.mesh_shape, tuple(cfg.mesh_axis_names))
+    if cfg.pipeline_stages > 1:
+        n_stages = cfg.pipeline_stages
+        _need_ranks(n_stages, f"pipeline_stages={n_stages}")
+        if cfg.layers % n_stages:
+            raise ValueError(f"layers={cfg.layers} must divide by pipeline_stages={n_stages}")
+        n_mb = cfg.pipeline_microbatches or n_stages
+        if cfg.batch_size % n_mb:
+            raise ValueError(f"batch_size={cfg.batch_size} must divide by "
+                             f"pipeline_microbatches={n_mb}")
+        pipe = make_mesh((n_stages,), (PIPE_AXIS,))
+    if (dp is not None or pipe is not None) and max(int(cfg.steps_per_dispatch), 1) > 1:
+        raise ValueError("steps_per_dispatch > 1 is a single-device fast path; combine it "
+                         "with a mesh or pipeline through the Trainer factories directly")
+    return dp, pipe, n_mb
 
 
 def _run_epoch(step_fn: Callable, state: TrainState, loader, generator,
@@ -106,13 +156,16 @@ def _run_epoch(step_fn: Callable, state: TrainState, loader, generator,
     return state, metrics
 
 
-def make_visualization_hook(cfg: CFG, trainer: Trainer, val_batch, run_dir: str) -> Callable:
+def make_visualization_hook(cfg: CFG, trainer: Trainer, val_batch, run_dir: str,
+                            write: bool = True, rows: int = 1) -> Callable:
     """Every ``plot_every_steps``: the ground-truth mel of the first
     validation row against 4-, 8- and 16-step DDIM generations, as a PNG
-    (utils/visualization.py)."""
+    (utils/visualization.py).  The generations run on the first ``rows``
+    rows (a pipeline's microbatch count).  With ``write`` False they run (a
+    pipeline stage's share of them) and nothing is drawn."""
     from ..utils.visualization import visualize_generation
 
-    batch1 = trainer.put_batch({k: np.asarray(v)[:1] for k, v in val_batch.items()})
+    batch1 = trainer.put_batch({k: np.asarray(v)[:rows] for k, v in val_batch.items()})
     prediction = "v" if cfg.use_v_prediction else "eps"
 
     def hook(step: int, state: TrainState):
@@ -127,12 +180,16 @@ def make_visualization_hook(cfg: CFG, trainer: Trainer, val_batch, run_dir: str)
                 x_T = torch.randn(mel_n.shape, device=mel_n.device, generator=g)
 
                 def model_fn(x, t, si):
-                    return state.decoder(x, t, sem_idx=sem_idx, step_idx=si)
+                    return trainer._decode(state.decoder, x, t, sem_idx=sem_idx, step_idx=si)
 
                 return ddim_sample(trainer.schedule, model_fn, x_T, num_steps,
                                    prediction=prediction)[0]
 
-            visualize_generation(gen, mel_n[0], step, run_dir)
+            if write:
+                visualize_generation(gen, mel_n[0], step, run_dir)
+            else:
+                for n in (4, 8, 16):  # visualize_generation's steps, in its order
+                    gen(n)
 
     hook.every = cfg.plot_every_steps
     return hook
@@ -174,13 +231,41 @@ def train(
     ``phase_end_hook(tag, state)`` once per finished stage: "init" (fresh runs
     only), "diffusion", "prog{N}" per halving, "consistency".  Runs on the
     card unless ``device`` names another device, and raises without one.
+
+    ``cfg.mesh_shape`` (product > 1) and ``cfg.pipeline_stages`` (> 1) need
+    a process group of that many ranks, each rank calling ``train`` with the
+    same arguments (see the module docstring); hooks run on every rank.
     """
-    _refuse_unported(cfg, export)
+    _refuse_unported(export)
+    dp, pipe, n_mb = _parallel_layout(cfg)
+    from ..parallel.data_parallel import (
+        make_dp_consistency_step,
+        make_dp_diffusion_step,
+        make_dp_progressive_step,
+    )
+
+    parallel = dp is not None or pipe is not None
+    primary = not parallel or dist.get_rank() == 0
+    if parallel:
+        # One run directory for every rank: rank 0's (run_name has a clock).
+        names = [cfg.run_name]
+        dist.broadcast_object_list(names, src=0)
+        cfg.run_name = names[0]
+
+    def say(*args):
+        if primary:
+            print(*args)
+
+    def barrier():
+        if parallel:
+            dist.barrier()
+
     device = resolve_device(device)
     generator = cfg.setup_environment(device)
-    cfg.print_config(device)
+    if primary:
+        cfg.print_config(device)
     run_dir = cfg.get_run_dir()
-    writer = MetricWriter(run_dir)
+    writer = MetricWriter(run_dir) if primary else None
     phases = phases or ["diffusion", "progressive", "consistency"]
 
     if train_loader is None:
@@ -202,10 +287,34 @@ def train(
     # The schedule advances once per optimizer update: size it in updates.
     total_updates = -(-total_steps // max(cfg.grad_accumulation, 1))
     trainer = Trainer(cfg, encoder, decoder, schedule, device=device)
-    state = create_train_state(trainer.encoder, trainer.decoder,
-                               make_optimizer(cfg, trainer.encoder, trainer.decoder,
-                                              total_updates))
+    if pipe is not None:
+        from ..parallel.pipeline_parallel import create_pp_state, make_pp_trainer
+
+        trainer = make_pp_trainer(trainer, pipe, n_mb)
+        state = create_pp_state(trainer, total_updates)
+        say(f"Pipeline-parallel: {cfg.pipeline_stages} stages, {n_mb} microbatches")
+    else:
+        state = create_train_state(trainer.encoder, trainer.decoder,
+                                   make_optimizer(cfg, trainer.encoder, trainer.decoder,
+                                                  total_updates))
     put_batch = trainer.put_batch
+    if dp is not None:
+        from ..models.encoder import is_hubert_param
+        from ..parallel import replicate, shard_batch
+
+        replicate(state.decoder, dp)
+        replicate([t for n, t in list(state.encoder.named_parameters())
+                   + list(state.encoder.named_buffers()) if not is_hubert_param(n)], dp)
+        # Training steps take this rank's rows; validation runs whole on every rank.
+        put_batch = lambda b: trainer.put_batch(shard_batch(b, dp))  # noqa: E731
+        say(f"Data-parallel mesh: {dp.shape}")
+
+    def _save(path: str, st: TrainState, meta: dict, dedup: bool = True) -> None:
+        """Every rank builds the state (a pipeline stage's is collective),
+        rank 0 writes it, and the ranks wait for the write."""
+        save_checkpoint(path, st, cfg, meta, frozen_host=_frozen_host(st),
+                        hubert_cfg=hubert_cfg, dedup_frozen=dedup, write=primary)
+        barrier()
 
     def _enter_distillation():
         """A constant ``lr_consistency`` from the first halving on; the
@@ -221,7 +330,7 @@ def train(
                              "loader exposing .wavs; streaming/random-crop loaders run one "
                              "step per call")
         corpus = {"wav": torch.as_tensor(np.asarray(wavs, np.float32), device=device)}
-        print(f"Chained steps: {chain} per call, corpus {tuple(corpus['wav'].shape)} "
+        say(f"Chained steps: {chain} per call, corpus {tuple(corpus['wav'].shape)} "
               f"on {device}")
 
     if resume == "auto":
@@ -229,7 +338,7 @@ def train(
     resume_meta = {}
     if resume:
         state, _, resume_meta = restore_checkpoint(resume, state)
-        print(f"Resumed from {resume} at step {state.step}"
+        say(f"Resumed from {resume} at step {state.step}"
               + (f" (phase {resume_meta['phase']})" if resume_meta.get("phase") else ""))
 
     order = ["diffusion", "progressive", "consistency"]
@@ -264,14 +373,13 @@ def train(
     if hooks is None and val_loader is not None and cfg.plot_every_steps > 0:
         first_val = next(iter(val_loader), None)
         hooks = [] if first_val is None else [
-            make_visualization_hook(cfg, trainer, first_val, run_dir)]
+            make_visualization_hook(cfg, trainer, first_val, run_dir, write=primary,
+                                    rows=max(n_mb, 1))]
 
     if cfg.ckpt_every_steps > 0:
         def _periodic_ckpt(step: int, st: TrainState):
             if step % cfg.ckpt_every_steps == 0:
-                save_checkpoint(cfg.ckpt_path, st, cfg, {"step": step, **progress},
-                                frozen_host=_frozen_host(st), hubert_cfg=hubert_cfg,
-                                dedup_frozen=True)
+                _save(cfg.ckpt_path, st, {"step": step, **progress})
 
         _periodic_ckpt.every = cfg.ckpt_every_steps
         hooks = (hooks or []) + [_periodic_ckpt]
@@ -286,7 +394,7 @@ def train(
         for i, b in enumerate(val_loader):
             if i >= cfg.val_batches:
                 break
-            eval_batches.append(put_batch(b))
+            eval_batches.append(trainer.put_batch(b))
         best_eval = [float("inf")]
 
         def _mid_epoch_eval(step: int, st: TrainState):
@@ -295,13 +403,12 @@ def train(
             vals = [float(eval_eps(st, b, torch.Generator(device=device).manual_seed(step + i))
                           ["val_eps_mse"]) for i, b in enumerate(eval_batches)]
             mean = float(np.mean(vals))
-            writer.write(step, {"val_eps_mse": mean}, prefix="eval/")
+            if writer is not None:
+                writer.write(step, {"val_eps_mse": mean}, prefix="eval/")
             if mean < best_eval[0]:
                 best_eval[0] = mean
-                save_checkpoint(os.path.join(run_dir, "best_diffusion"), st, cfg,
-                                {"val_eps_mse": mean, "step": step},
-                                frozen_host=_frozen_host(st), hubert_cfg=hubert_cfg,
-                                dedup_frozen=True)
+                _save(os.path.join(run_dir, "best_diffusion"), st,
+                      {"val_eps_mse": mean, "step": step})
 
         _mid_epoch_eval.every = cfg.val_every_steps
         diffusion_hooks = (hooks or []) + [_mid_epoch_eval]
@@ -315,17 +422,16 @@ def train(
         for i, batch in enumerate(val_loader):
             if i >= cfg.val_batches:
                 break
-            vals.append(validate(st, put_batch(batch), generator))
+            vals.append(validate(st, trainer.put_batch(batch), generator))
         if not vals:
             return
         agg = {k: float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
-        writer.write(st.step, agg, prefix=f"{tag}/")
+        if writer is not None:
+            writer.write(st.step, agg, prefix=f"{tag}/")
         if agg.get("val_cos", -1e9) > best_val_cos + cfg.best_min_delta:
             best_val_cos = agg["val_cos"]
-            save_checkpoint(os.path.join(run_dir, "best_model"), st, cfg,
-                            {"val_cos": best_val_cos, "phase": tag},
-                            frozen_host=_frozen_host(st), hubert_cfg=hubert_cfg,
-                            dedup_frozen=True)
+            _save(os.path.join(run_dir, "best_model"), st,
+                  {"val_cos": best_val_cos, "phase": tag})
 
     def _run_phase_chained(step_fn, st, epochs, prefix, tag, phase_hooks):
         """A phase in calls of ``chain`` steps: shuffled passes over the
@@ -367,7 +473,7 @@ def train(
             every = max(int(cfg.validate_every_epochs), 1) * spe
             if step // every > prev // every:
                 done = step - start
-                print(f"  [{tag}] epoch {done // spe}/{epochs} step {step} "
+                say(f"  [{tag}] epoch {done // spe}/{epochs} step {step} "
                       f"loss={metrics.get('loss', float('nan')):.4f} "
                       f"({done * B / max(time.time() - t0, 1e-9):.0f} utt/s)")
                 _maybe_validate(st, tag)
@@ -382,34 +488,34 @@ def train(
 
     # ---- Phase 1: diffusion ---------------------------------------------------
     if "diffusion" in phases and _phase_done("diffusion"):
-        print("Phase 1: diffusion - already complete in checkpoint, skipping")
+        say("Phase 1: diffusion - already complete in checkpoint, skipping")
     elif "diffusion" in phases:
         progress["phase"] = "diffusion"
-        print(f"Phase 1: diffusion ({cfg.diffusion_epochs} epochs)")
+        say(f"Phase 1: diffusion ({cfg.diffusion_epochs} epochs)")
         if chain > 1:
             state, metrics = _run_phase_chained(
                 trainer.make_chained_step(kind="diffusion"), state, cfg.diffusion_epochs,
                 "train/", "diffusion", diffusion_hooks)
         else:
-            step_fn = trainer.make_diffusion_step()
+            step_fn = (make_dp_diffusion_step(trainer, dp) if dp is not None
+                       else trainer.make_diffusion_step())
             for epoch in range(cfg.diffusion_epochs):
                 t0 = time.time()
                 state, metrics = _run_epoch(
                     step_fn, state, train_loader, generator, writer, cfg.log_every_steps,
                     diffusion_hooks, prefix="train/", nan_guard=nan_guard,
                     put_batch=put_batch)
-                print(f"  epoch {epoch + 1}/{cfg.diffusion_epochs} "
+                say(f"  epoch {epoch + 1}/{cfg.diffusion_epochs} "
                       f"loss={float(metrics.get('loss', float('nan'))):.4f} "
                       f"({time.time() - t0:.1f}s)")
                 _maybe_validate(state, "diffusion")
-        save_checkpoint(os.path.join(run_dir, "checkpoint_phase1"), state, cfg,
-                        {"phase_complete": "diffusion"}, frozen_host=_frozen_host(state),
-                        hubert_cfg=hubert_cfg)
+        _save(os.path.join(run_dir, "checkpoint_phase1"), state,
+              {"phase_complete": "diffusion"}, dedup=False)
         _phase_end("diffusion", state)
 
     # ---- Phase 2: progressive distillation -------------------------------------
     if "progressive" in phases and _phase_done("progressive"):
-        print("Phase 2: progressive - already complete in checkpoint, skipping")
+        say("Phase 2: progressive - already complete in checkpoint, skipping")
     elif "progressive" in phases:
         progress["phase"] = "progressive"
         halvings = progressive_step_schedule(cfg.diff_steps, cfg.progressive_target_steps)
@@ -417,8 +523,8 @@ def train(
             skipped = halvings[: halvings.index(resume_halving)]
             halvings = halvings[halvings.index(resume_halving):]
             if skipped:
-                print(f"  resume: skipping completed halvings {skipped}")
-        print(f"Phase 2: progressive distillation {cfg.diff_steps} -> {halvings}")
+                say(f"  resume: skipping completed halvings {skipped}")
+        say(f"Phase 2: progressive distillation {cfg.diff_steps} -> {halvings}")
         _enter_distillation()
         for target_steps in halvings:
             progress["halving"] = target_steps
@@ -430,28 +536,30 @@ def train(
                     state, cfg.progressive_epochs_per_halving, f"prog{target_steps}/",
                     f"prog{target_steps}", hooks)
             else:
-                step_fn = trainer.make_progressive_step(target_steps,
-                                                        exact=cfg.progressive_exact)
+                step_fn = (make_dp_progressive_step(trainer, dp, target_steps,
+                                                    exact=cfg.progressive_exact)
+                           if dp is not None else
+                           trainer.make_progressive_step(target_steps,
+                                                         exact=cfg.progressive_exact))
                 for _ in range(cfg.progressive_epochs_per_halving):
                     state, metrics = _run_epoch(
                         step_fn, state, train_loader, generator, writer,
                         cfg.log_every_steps, hooks, prefix=f"prog{target_steps}/",
                         nan_guard=nan_guard, put_batch=put_batch)
-            print(f"  target={target_steps} "
+            say(f"  target={target_steps} "
                   f"loss={float(metrics.get('loss', float('nan'))):.4f}")
             _maybe_validate(state, f"prog{target_steps}")
             _phase_end(f"prog{target_steps}", state)
-        save_checkpoint(os.path.join(run_dir, "checkpoint_phase2"), state, cfg,
-                        {"phase_complete": "progressive"}, frozen_host=_frozen_host(state),
-                        hubert_cfg=hubert_cfg)
+        _save(os.path.join(run_dir, "checkpoint_phase2"), state,
+              {"phase_complete": "progressive"}, dedup=False)
 
     # ---- Phase 3: consistency -----------------------------------------------------
     if "consistency" in phases and _phase_done("consistency"):
-        print("Phase 3: consistency - already complete in checkpoint, skipping")
+        say("Phase 3: consistency - already complete in checkpoint, skipping")
     elif "consistency" in phases:
         progress["phase"] = "consistency"
         progress["halving"] = None
-        print(f"Phase 3: consistency ({cfg.consistency_epochs} epochs)")
+        say(f"Phase 3: consistency ({cfg.consistency_epochs} epochs)")
         _enter_distillation()
         if cfg.consistency_exact and state.teacher is None:
             state = state.with_teacher()
@@ -461,22 +569,33 @@ def train(
                                           consistency_weight=cfg.consistency_weight),
                 state, cfg.consistency_epochs, "consistency/", "consistency", hooks)
         else:
-            step_fn = trainer.make_consistency_step(exact=cfg.consistency_exact,
-                                                    consistency_weight=cfg.consistency_weight)
+            step_fn = (make_dp_consistency_step(trainer, dp, exact=cfg.consistency_exact,
+                                                consistency_weight=cfg.consistency_weight)
+                       if dp is not None else
+                       trainer.make_consistency_step(exact=cfg.consistency_exact,
+                                                     consistency_weight=cfg.consistency_weight))
             for epoch in range(cfg.consistency_epochs):
                 state, metrics = _run_epoch(
                     step_fn, state, train_loader, generator, writer, cfg.log_every_steps,
                     hooks, prefix="consistency/", nan_guard=nan_guard, put_batch=put_batch)
-                print(f"  epoch {epoch + 1}/{cfg.consistency_epochs} "
+                say(f"  epoch {epoch + 1}/{cfg.consistency_epochs} "
                       f"loss={float(metrics.get('loss', float('nan'))):.4f}")
                 _maybe_validate(state, "consistency")
         _phase_end("consistency", state)
 
-    save_final_model(os.path.join(run_dir, "edge_model_final"), state, cfg)
-    save_checkpoint(os.path.join(run_dir, "checkpoint_final"), state, cfg,
-                    {"phase_complete": "consistency"}, frozen_host=_frozen_host(state),
-                    hubert_cfg=hubert_cfg)
-    writer.close()
+    final = os.path.join(run_dir, "edge_model_final")
+    if pipe is not None:
+        from ..parallel.pipeline_parallel import canonical_decoder
+
+        decoder = canonical_decoder(state)  # collective: every stage's blocks
+        if primary:
+            save_weights(final, cfg, decoder, state.encoder)
+    elif primary:
+        save_final_model(final, state, cfg)
+    _save(os.path.join(run_dir, "checkpoint_final"), state,
+          {"phase_complete": "consistency"}, dedup=False)
+    if writer is not None:
+        writer.close()
     return state
 
 

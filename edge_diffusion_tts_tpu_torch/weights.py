@@ -18,7 +18,8 @@ names of transformers' ``HubertModel`` (``conv_{i}`` ->
 ``encoder.layers.{i}`` ...).  ``train_state_from_jax(state)`` carries a
 whole JAX ``TrainState`` (params, VQ state, teacher, step, Adam's moments
 and count, the accumulated gradients) into ``training.TrainState``'s
-``state_dict`` layout.
+``state_dict`` layout; the train state of a data-parallel run is an ordinary
+one, and a pipeline run's packed decoder, teacher and moments are unpacked.
 ``hubert_state_dict_from_hf(sd, cfg)`` takes an HF ``HubertModel`` state
 dict (the inverse of the JAX package's ``load_hubert_params_from_torch``)
 and materializes the positional conv's weight norm.
@@ -60,10 +61,34 @@ def _module_name(name: str) -> str:
     return _MODULE_NAMES.get(name, name)
 
 
+def _index_tree(node, i: int):
+    if isinstance(node, Mapping):
+        return {k: _index_tree(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def _unpack_pp(tree):
+    """A pipeline run's packed decoder tree (``{"pp_stack": [L, ...] tree,
+    "pp_rest": ...}``, JAX ``pp_pack_decoder``) -> the canonical one with
+    ``layers_{i}``; any other tree unchanged."""
+    if not (isinstance(tree, Mapping) and "pp_stack" in tree):
+        return tree
+    stack = tree["pp_stack"]
+    leaf = stack
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    out = dict(tree["pp_rest"])
+    for i in range(np.shape(leaf)[0]):
+        out[f"layers_{i}"] = _index_tree(stack, i)
+    return out
+
+
 def _flatten(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax tree -> {dotted port name: float32 tensor}, leaves converted;
-    optax's masked-out leaves (``MaskedNode``) are skipped."""
+    optax's masked-out leaves (``MaskedNode``) are skipped; a pipeline
+    run's packed decoder tree is unpacked first."""
     sd: Dict[str, torch.Tensor] = {}
+    params = _unpack_pp(params)
 
     def walk(node: Mapping, path: list) -> None:
         for name, child in node.items():

@@ -68,6 +68,16 @@ CUDA graph (stamps on), the kernel's span, and the median cycles per phase
 over blocks: issuing the staging copies, loading the epilogue's operands,
 the row-norm prologue, the wait for the first K-chunk, the products (with
 the waits for the later chunks), the epilogue.
+
+    python3 port_profile.py --nccl
+
+runs chip_smoke.py's phase 11 (``parallel/``: DP steps, ``train()`` on a
+mesh, sequence-parallel long-form at T = 8000, the TP encode, a PP step,
+``make_dp_generate``) with one rank per card over NCCL, on every card of
+the machine (at least 2), each program against the single-device run on
+cuda:0 with phase 11's bars, and writes its times to
+build/port_profile_parallel.json.  It writes phase 10's corpus first (84
+synthetic utterances under build/phase10).
 """
 
 from __future__ import annotations
@@ -379,6 +389,32 @@ def gemm_timers(torch) -> int:
     return 0
 
 
+def parallel_nccl(torch) -> int:
+    """chip_smoke.py's phase 11 with one rank per card over NCCL."""
+    import chip_smoke
+    from edge_diffusion_tts_tpu_torch.config import CFG
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"port_profile --nccl: {n} CUDA device(s); one rank per card needs 2+",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.phase_build()
+    chip_smoke.write_ljspeech(os.path.join(ROOT, "build", "phase10", "LJSpeech-1.1"),
+                              chip_smoke.TRAIN_UTTERANCES, chip_smoke.SEED)
+    cfg = CFG(dropout=0.0)
+    dec = chip_smoke.seeded_decoder(torch, cfg, chip_smoke.SEED).cuda()
+    out = chip_smoke.phase_parallel(torch, cfg, dec, nranks=n, backend="nccl")
+    out["devices"] = [torch.cuda.get_device_name(i) for i in range(n)]
+    path = os.path.join(ROOT, "build", "port_profile_parallel.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -386,6 +422,8 @@ def main() -> int:
         print("port_profile: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--nccl" in sys.argv[1:]:
+        return parallel_nccl(torch)
     if "--gemm-timers" in sys.argv[1:]:
         return gemm_timers(torch)
     if "--band-strip" in sys.argv[1:]:

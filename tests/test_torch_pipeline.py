@@ -378,7 +378,7 @@ def test_sem_stride_guard_and_errors(small):
     none = LongFormPipeline(small["pcfg"], PSchedule.create(50), small["pdec"], device="cpu")
     with pytest.raises(ValueError, match="without an encoder"):
         none.stream_prep(wav)
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="list of devices"):
         LongFormPipeline(small["pcfg"], PSchedule.create(50), small["pdec"], device="cpu",
                          mesh=object())
     with pytest.raises(ValueError, match="not both"):

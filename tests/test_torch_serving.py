@@ -208,7 +208,7 @@ def test_run_server_loads_a_port_checkpoint(served):
     assert pipe.encode_route == "modules" and pipe.sem_stride == 320
     assert pipe.prep_buckets == (12800, 25600)
     assert pipe.row_quantum == 1  # no refine is padded
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="2 CUDA devices"):
         serving.run_server(ckpt, mesh=2, device="cpu", verbose=False)
 
 
