@@ -157,7 +157,38 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    error beside its bar, ms per DP step, per sequence-parallel call, per TP
    encode and per PP step with the single device's beside them, each
    labelled "two ranks on one card over gloo: no scaling claim".  Its
-   launches join the ``kernels`` line.
+   launches join the ``kernels`` line;
+12. the command line (``cli.main`` in this process, each subcommand's wall
+   time printed; build/phase12), from phase 9's checkpoint (the flagship
+   decoder, phase 7's full HuBERT-base) and phase 10's corpus; every command
+   runs on the card by default (no ``--device``).  a. ``generate --wav
+   <5 s> --steps 4``: a 16-bit wav of (2S - 1) hops, not silent, one
+   frontend launch, the mel it vocodes equal to ``generate_from_audio``
+   with the same generator seed (1e-5); ``--oracle`` (the input's length,
+   no launch) and ``--post-filter`` too; ``--sampler dpmpp`` on an eps copy
+   of the checkpoint exits with the JAX package's message.  b. ``export``
+   (``.pt2``): loaded on the card, against the eager decoder at (1,500,250)
+   and (2,200,100), 1e-5.  c. ``export --format weight-int8``: the report;
+   the fused kernel on the dequantized weights against the eager decoder on
+   them under phase 3's rule; the 4-step mel L1 of int8 against float32
+   printed beside the JAX package's stated 1e-2 budget (random weights, no
+   quality claim; asserted finite only).  d. ``bench``: its JSON line
+   parsed, one fused launch per fused call.  e. ``longform <10 s>
+   --stream``: a RIFF file whose size grows with every increment and whose
+   header fields hold at the end, 160,000 samples, the first-audio line;
+   one frontend launch.  f. ``precompute`` phase 10's corpus ``--limit 4``:
+   one frontend launch per utterance, finite [frames, 768] features.  g.
+   ``migrate`` of a reference-layout (v1, FSQ) ``.pt`` made of the
+   checkpoint's weights: the decoder, projection and FSQ bit-equal, no
+   HuBERT weights written, ``use_depthwise`` turned off, and ``generate``
+   on it exits naming ``--hubert-id``.  h. ``python -m
+   edge_diffusion_tts_tpu_torch.cli serve`` as a subprocess (bucket 128,
+   started first, stopped at the end of the phase): one ``request_tts``
+   answered.  i. ``train --config build/phase12/cfg.json --export``:
+   configs/flagship.json on phase 10's corpus cut as phase 11b (one epoch
+   per phase, halvings 1000 -> 500 -> 250: 80 data steps); the run's
+   ``edge_model.pt2`` against its final decoder, 1e-5.  Its frontend and
+   fused launches join the ``kernels`` line.
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -1997,6 +2028,377 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
     return out
 
 
+PHASE12_TIMEOUT_S = 300  # the serve subprocess's wait for "serving on"
+
+
+def _cli(argv, tag: str):
+    """``cli.main(argv)`` in this process: its standard output (echoed with
+    ``tag``) and its wall time in s."""
+    import contextlib
+    import io
+
+    from edge_diffusion_tts_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[cli] {tag}| {line}")
+    print(f"[cli] {tag}: {secs:.3f} s wall")
+    return out, secs
+
+
+def _refused(argv, tag: str, words: str) -> None:
+    """``cli.main(argv)`` must exit with a message holding ``words``."""
+    from edge_diffusion_tts_tpu_torch import cli
+
+    try:
+        cli.main(argv)
+    except SystemExit as e:
+        assert words in str(e), f"{tag}: exit message {e}"
+        print(f"[cli] {tag}: exits with {str(e)[:110]!r}")
+        return
+    raise AssertionError(f"{tag}: ran instead of exiting")
+
+
+def _write_wav16(path: str, wav) -> str:
+    from scipy.io import wavfile
+
+    wavfile.write(path, 16000, (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16))
+    return path
+
+
+def _start_server(ckpt: str, dev_flag: list):
+    """``python -m edge_diffusion_tts_tpu_torch.cli serve`` on a free port with
+    one bucket; returns (process, port, queue of its output lines)."""
+    import queue
+    import socket
+    import threading
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "edge_diffusion_tts_tpu_torch.cli", "serve", ckpt, "--port",
+         str(port), "--buckets", "128"] + dev_flag,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line.rstrip())
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, port, lines
+
+
+def _await_server(proc, lines, t_start: float) -> float:
+    """Wait for the server's "serving on" line; its seconds since start."""
+    import queue
+
+    deadline = t_start + PHASE12_TIMEOUT_S
+    while True:
+        left = deadline - time.perf_counter()
+        assert left > 0, "serve: no 'serving on' line in time"
+        try:
+            line = lines.get(timeout=min(left, 1.0))
+        except queue.Empty:
+            assert proc.poll() is None, f"serve exited with {proc.returncode}"
+            continue
+        print(f"[cli] serve| {line}")
+        if line.startswith("serving on"):
+            return time.perf_counter() - t_start
+
+
+def _decoder_vs_program(torch, program, decoder, shapes, seed: int) -> float:
+    """Largest |program - decoder| over ``shapes`` (B, T, S) on the card."""
+    rng = np.random.RandomState(seed)
+    err = 0.0
+    for B, T, S in shapes:
+        x = torch.from_numpy(rng.randn(B, T, 80).astype(np.float32)).to(DEVICE)
+        t = torch.from_numpy(rng.randint(0, 1000, B)).to(DEVICE)
+        sem = torch.from_numpy(rng.randint(0, 2304, (B, S))).to(DEVICE)
+        step = torch.from_numpy(rng.randint(0, 4, B)).to(DEVICE)
+        with torch.no_grad():
+            got = program(x, t, sem, step)
+            want = decoder(x, t, sem_idx=sem, step_idx=step)
+        assert got.shape == want.shape == (B, T, 80) and torch.isfinite(got).all()
+        err = max(err, (got - want).abs().max().item())
+    return err
+
+
+def phase_cli(torch, train_cuts=None):
+    """Phase 12: the command line on the card (the module docstring's phase
+    12) from phase 9's checkpoint and phase 10's corpus; returns its
+    conv-frontend and fused-DDIM launches and the subcommands' wall times."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    from edge_diffusion_tts_tpu_torch import bench, demo
+    from edge_diffusion_tts_tpu_torch.config import hubert_num_frames
+    from edge_diffusion_tts_tpu_torch.data import load_wav
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder, SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.pipeline import LongFormPipeline
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.serving import request_tts
+    from edge_diffusion_tts_tpu_torch.utils.audio import denormalize_mel, normalize_mel
+    from edge_diffusion_tts_tpu_torch.utils.export import load_exported
+    from edge_diffusion_tts_tpu_torch.utils.quantize import load_quantized
+    from edge_diffusion_tts_tpu_torch.weights import load_checkpoint
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(ROOT, "build", "serve_checkpoint")
+    lj = os.path.join(ROOT, "build", "phase10", "LJSpeech-1.1")
+    base = os.path.join(ROOT, "build", "phase12")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    # The card is every command's default; a CPU rehearsal names its device.
+    dev_flag = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    launches = {"frontend": 0, "fused": 0}
+    walls = {}
+
+    def count(**expected):
+        """Add this run's launches (their counts set to 0 before it)."""
+        got = {"frontend": ff.conv_frontend.launches, "fused": fd.fused_ddim.launches}
+        for k, want in expected.items():
+            assert got[k] == want, f"{k} launches {got[k]}, expected {want}"
+        for k in launches:
+            launches[k] += got[k]
+
+    def zero():
+        ff.conv_frontend.launches = fd.fused_ddim.launches = 0
+
+    t_serve = time.perf_counter()
+    proc, port, lines = _start_server(ckpt, dev_flag)  # warms while the rest runs
+    try:
+        cfg, dec_sd, hubert_cfg, enc_sd = load_checkpoint(ckpt, with_encoder=True)
+        decoder = EdgeDiffusionDecoder(cfg)
+        decoder.load_state_dict(dec_sd)
+        encoder = SemanticEncoder(cfg, hubert_cfg)
+        encoder.load_state_dict(enc_sd)
+        schedule = DiffusionSchedule.create(cfg.diff_steps)
+        prediction = "v" if cfg.use_v_prediction else "eps"
+        engine = EdgeInference(cfg, schedule, decoder, prediction=prediction, device=DEVICE,
+                               encoder=encoder)
+        assert engine.encode_route == "kernel", engine.encode_route
+
+        # -- a. generate ------------------------------------------------------------
+        w5 = _write_wav16(os.path.join(base, "ref_5s.wav"), synthetic_wav(5.0, 12000 + SEED))
+        wav5 = torch.as_tensor(load_wav(w5)[0], device=DEVICE)
+        mels, vocode = [], demo.vocode_mel
+
+        def capture(cfg_, mel_log, *a, **kw):
+            mels.append(mel_log.clone())
+            return vocode(cfg_, mel_log, *a, **kw)
+
+        demo.vocode_mel = capture
+        try:
+            for flags in ([], ["--oracle"], ["--post-filter"]):
+                out_wav = os.path.join(base, f"generated{''.join(flags)}.wav")
+                zero()
+                _, walls[f"generate{' '.join([''] + flags)}"] = _cli(
+                    ["generate", ckpt, "--wav", w5, "--steps", "4", "--out", out_wav] + flags
+                    + dev_flag, f"generate{' '.join([''] + flags)}")
+                count(frontend=0 if flags == ["--oracle"] else 1)
+                sr, got = wavfile.read(out_wav)
+                n = wav5.shape[0] if flags == ["--oracle"] else (
+                    2 * hubert_num_frames(wav5.shape[0]) - 1) * cfg.hop_length
+                assert sr == cfg.sample_rate and got.dtype == np.int16 and got.shape == (n,), (
+                    sr, got.dtype, got.shape)
+                assert np.abs(got).max() > 0, "a silent wav"
+        finally:
+            demo.vocode_mel = vocode
+        mel_n = engine.generate_from_audio(
+            wav5, num_steps=4, generator=torch.Generator(device=DEVICE).manual_seed(0))
+        _, mean, std = normalize_mel(demo._mel_frontend(cfg, DEVICE)(wav5[None]))
+        gen_err = (mels[0] - denormalize_mel(mel_n, mean, std)).abs().max().item()
+        print(f"[cli] generate: its mel vs generate_from_audio (seed 0): max err {gen_err:.3g} "
+              f"(bar 1e-5); wav of {n} samples")
+        assert gen_err <= 1e-5, gen_err
+        eps_ckpt = os.path.join(base, "eps_checkpoint")
+        shutil.copytree(ckpt, eps_ckpt, copy_function=os.link)
+        with open(os.path.join(eps_ckpt, "cfg.json"), "w") as f:
+            f.write(type(cfg).from_dict(dict(cfg.to_dict(), use_v_prediction=False)).to_json())
+        _refused(["generate", eps_ckpt, "--wav", w5, "--sampler", "dpmpp", "--out",
+                  os.path.join(base, "never.wav")] + dev_flag, "generate --sampler dpmpp (eps)",
+                 "v-prediction")
+
+        # -- b. export --format pt2 -------------------------------------------------
+        pt2 = os.path.join(base, "edge_model.pt2")
+        _, walls["export pt2"] = _cli(["export", ckpt, "--out", pt2] + dev_flag, "export pt2")
+        program = load_exported(pt2, device=DEVICE)
+        pt2_err = _decoder_vs_program(torch, program, engine.decoder,
+                                      ((1, 500, 250), (2, 200, 100)), 12100 + SEED)
+        print(f"[cli] export pt2: {os.path.getsize(pt2) / 1e6:.2f} MB; on the card vs the eager "
+              f"decoder at (1,500,250), (2,200,100): max err {pt2_err:.3g} (bar 1e-5)")
+        assert pt2_err <= 1e-5, pt2_err
+
+        # -- c. export --format weight-int8 ------------------------------------------
+        npz = os.path.join(base, "edge_model.int8.npz")
+        out, walls["export weight-int8"] = _cli(
+            ["export", ckpt, "--format", "weight-int8", "--out", npz] + dev_flag,
+            "export weight-int8")
+        report = json.loads(out.splitlines()[0])
+        deq = EdgeDiffusionDecoder(cfg)
+        deq.load_state_dict(load_quantized(npz))
+        rng = np.random.RandomState(12200 + SEED)
+        sem = torch.from_numpy(rng.randint(0, cfg.effective_codebook_size(), (1, 250)))
+        x_T = torch.from_numpy(rng.randn(1, 500, cfg.n_mels).astype(np.float32))
+        runs = {}
+        zero()
+        for name, dec, backend in (("int8 fused", deq, "fused"), ("int8 eager", deq, "eager"),
+                                   ("f32 fused", engine.decoder, "fused")):
+            runs[name] = EdgeInference(cfg, schedule, dec, prediction=prediction,
+                                       backend=backend, device=DEVICE).generate_mel(
+                sem, num_steps=4, x_T=x_T)
+        torch.cuda.synchronize()
+        count(fused=2)
+        diff = (runs["int8 fused"] - runs["int8 eager"]).abs()
+        err, frac = diff.max().item(), (diff > 2e-4).float().mean().item()
+        # Phase 3's rule (eps: 2e-4 on all; v: 2e-4 on 99.9%, 0.05 on all).
+        assert (err <= 2e-4) if prediction == "eps" else (frac <= 1e-3 and err <= 0.05), (
+            err, frac)
+        l1 = (runs["int8 fused"] - runs["f32 fused"]).abs().mean().item()
+        assert np.isfinite(l1)
+        print(f"[cli] weight-int8: report {json.dumps(report)[:200]}; fused vs eager on the "
+              f"dequantized weights ({prediction}): max err {err:.3g}, {frac:.2e} of elements "
+              f"over 2e-4 (phase 3's rule); 4-step mel L1 int8 vs float32 {l1:.4g} beside the "
+              f"JAX package's stated budget 1e-2 (random weights, no quality claim)")
+
+        # -- d. bench ---------------------------------------------------------------
+        zero()
+        out, walls["bench"] = _cli(["bench"] + dev_flag, "bench")
+        line = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+        assert line["metric"] == "4step_melgen_latency_5s" and line["unit"] == "ms"
+        assert line["backend"] in bench.BACKENDS and line["value"] > 0, line
+        count(fused=bench.WARMUP + 2 * bench.RUNS)
+
+        # -- e. longform --stream ---------------------------------------------------
+        w10 = _write_wav16(os.path.join(base, "ref_10s.wav"), synthetic_wav(10.0, 12300 + SEED))
+        lf_out = os.path.join(base, "longform.wav")
+        sizes, stream = [], LongFormPipeline.generate_streaming_audio
+
+        def watched(self, *a, **kw):
+            for item in stream(self, *a, **kw):
+                sizes.append(os.path.getsize(lf_out))
+                yield item
+            sizes.append(os.path.getsize(lf_out))
+
+        LongFormPipeline.generate_streaming_audio = watched
+        try:
+            zero()
+            out, walls["longform --stream"] = _cli(
+                ["longform", ckpt, w10, "--stream", "--out", lf_out] + dev_flag,
+                "longform --stream")
+            count(frontend=1)
+        finally:
+            LongFormPipeline.generate_streaming_audio = stream
+        with open(lf_out, "rb") as f:
+            head = f.read(44)
+        n_data = int(np.frombuffer(head[40:44], "<u4")[0])
+        assert head[:4] == b"RIFF" and head[8:16] == b"WAVEfmt " and head[36:40] == b"data"
+        assert int(np.frombuffer(head[4:8], "<u4")[0]) == 36 + n_data == sizes[-1] - 8
+        assert sizes[0] == 44 and all(b > a for a, b in zip(sizes, sizes[1:])), sizes
+        sr, got = wavfile.read(lf_out)
+        assert sr == 16000 and got.shape == (160000,), got.shape
+        first = [ln for ln in out.splitlines() if "first audio" in ln]
+        assert first, "no first-audio line"
+        print(f"[cli] longform --stream: {len(sizes) - 1} increments, the file {sizes} bytes "
+              f"as each was asked for; {first[0].strip()}")
+
+        # -- f. precompute ----------------------------------------------------------
+        shutil.rmtree(os.path.join(lj, "hubert_features"), ignore_errors=True)
+        zero()
+        _, walls["precompute --limit 4"] = _cli(["precompute", lj, "--limit", "4"] + dev_flag,
+                                                "precompute --limit 4")
+        count(frontend=4)
+        feats = sorted(os.listdir(os.path.join(lj, "hubert_features")))
+        assert len(feats) == 4, feats
+        for name in feats:
+            a = np.load(os.path.join(lj, "hubert_features", name)).astype(np.float32)
+            assert a.ndim == 2 and a.shape[1] == 768 and np.isfinite(a).all(), (name, a.shape)
+
+        # -- g. migrate -------------------------------------------------------------
+        pt = os.path.join(base, "edge_model_final.pt")
+        torch.save({
+            "decoder": dec_sd,
+            "encoder_proj": {f"{i}.{p}": enc_sd[f"{m}.{p}"] for i, m in
+                             (("0", "proj_fc1"), ("2", "proj_ln"), ("3", "proj_fc2"))
+                             for p in ("weight", "bias")},
+            "encoder_vq": {k[len("vq."):]: v for k, v in enc_sd.items() if k.startswith("vq.")},
+            "cfg": dict(cfg.to_dict(), use_depthwise=True),
+        }, pt)
+        migrated = os.path.join(base, "migrated")
+        _, walls["migrate"] = _cli(["migrate", pt, migrated], "migrate")
+        mcfg, mdec, _, _ = load_checkpoint(migrated)
+        assert set(mdec) == set(dec_sd) and all(torch.equal(mdec[k], v)
+                                                for k, v in dec_sd.items())
+        menc = torch.load(os.path.join(migrated, "encoder.pt"), weights_only=True)
+        assert not any(k.startswith("hubert.") for k in menc), "HuBERT weights written"
+        assert all(torch.equal(menc[k], enc_sd[k]) for k in menc)
+        assert mcfg.use_depthwise is False
+        _refused(["generate", migrated, "--wav", w5, "--out", os.path.join(base, "never.wav")]
+                 + dev_flag, "generate (migrated, no HuBERT)", "--hubert-id")
+        print(f"[cli] migrate: decoder bit-equal ({len(mdec)} tensors), encoder projection and "
+              f"FSQ bit-equal ({len(menc)} tensors), no HuBERT weights")
+
+        # -- h. serve (the subprocess started above) --------------------------------
+        ready_s = _await_server(proc, lines, t_serve)
+        toks = np.random.RandomState(12400 + SEED).randint(0, cfg.effective_codebook_size(), 100)
+        t0 = time.perf_counter()
+        mel = request_tts(toks, port=port)
+        req_ms = (time.perf_counter() - t0) * 1e3
+        assert mel.shape == (200, cfg.n_mels) and np.isfinite(mel).all(), mel.shape
+        walls["serve ready"] = ready_s
+        print(f"[cli] serve (subprocess, bucket 128): ready {ready_s:.3f} s after start; one "
+              f"request_tts of 100 tokens answered in {req_ms:.3f} ms")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+    # -- i. train --config ... --export --------------------------------------------
+    with open(os.path.join(ROOT, "configs", "flagship.json")) as f:
+        flagship = json.load(f)
+    tcfg = dict(flagship, **dict(PAR_TRAIN_CUTS, **(train_cuts or {})),
+                out_dir=os.path.join(base, "out"), run_name="cli", ljspeech_dir=lj,
+                data_root=os.path.dirname(lj), ckpt_path="")
+    cfg_path = os.path.join(base, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(tcfg, f)
+    zero()
+    _, walls["train --export"] = _cli(["train", "--config", cfg_path, "--export"] + dev_flag,
+                                      "train --export")
+    train_frontend = ff.conv_frontend.launches
+    assert train_frontend >= 80 or train_cuts, train_frontend
+    count()
+    run_dir = os.path.join(base, "out", "cli")
+    tcfg_, tdec_sd, _, _ = load_checkpoint(os.path.join(run_dir, "edge_model_final"))
+    tdec = EdgeDiffusionDecoder(tcfg_)
+    tdec.load_state_dict(tdec_sd)
+    program = load_exported(os.path.join(run_dir, "edge_model.pt2"), device=DEVICE)
+    train_err = _decoder_vs_program(torch, program, tdec.to(DEVICE).eval(),
+                                    ((1, 500, 250), (2, 200, 100)), 12500 + SEED)
+    print(f"[cli] train --export: {train_frontend} frontend launches; edge_model.pt2 vs the "
+          f"final decoder: max err {train_err:.3g} (bar 1e-5)")
+    assert train_err <= 1e-5, train_err
+    walls["phase"] = time.perf_counter() - t_phase
+    print(f"[cli] phase 12: {walls['phase']:.3f} s; walls "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; launches {launches}")
+    return dict(launches=launches, walls=walls)
+
+
 def run(torch) -> None:
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
@@ -2026,6 +2428,7 @@ def run(torch) -> None:
     serve = phase_serve(torch, cfg, decoder, encoder)
     trained = phase_train(torch)
     par = phase_parallel(torch, cfg, decoder)
+    cli_run = phase_cli(torch)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
@@ -2039,7 +2442,8 @@ def run(torch) -> None:
         {"name": "fused_ddim", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
-         "launches": fused_launches + trained["fused_launches"] + par["fused_launches"],
+         "launches": fused_launches + trained["fused_launches"] + par["fused_launches"]
+         + cli_run["launches"]["fused"],
          "max_abs_err": fused["eps"]["max_abs_err"],
          "ms": fused["eps"]["ms"], "plain_ms": fused["eps"]["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
@@ -2048,7 +2452,8 @@ def run(torch) -> None:
          "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
          "launches": frontend_launches + serve["frontend_launches"]
-         + trained["frontend_launches"] + par["frontend_launches"],
+         + trained["frontend_launches"] + par["frontend_launches"]
+         + cli_run["launches"]["frontend"],
          "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
          **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},

@@ -9,8 +9,10 @@ from .attention import (
     q_chunked_sdpa,
     sdpa,
 )
-from .conv import DepthwiseSeparableConv
+from .conv import ConvBlock, DepthwiseSeparableConv
 from .embeddings import (
+    LearnedPositionalEmb,
+    LearnedTimeEmb,
     SinusoidalPositionalEmb,
     SinusoidalTimeEmb,
     apply_rope,
@@ -24,12 +26,15 @@ from .transformer import DiffusionTransformerBlock
 
 __all__ = [
     "AdaLayerNorm",
+    "ConvBlock",
     "CrossAttention",
     "DepthwiseSeparableConv",
     "DiffusionTransformerBlock",
     "Dropout",
     "EfficientAttention",
     "FeedForward",
+    "LearnedPositionalEmb",
+    "LearnedTimeEmb",
     "MultiHeadLatentAttention",
     "RMSNorm",
     "SinusoidalPositionalEmb",

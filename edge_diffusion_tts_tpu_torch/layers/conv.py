@@ -1,4 +1,5 @@
-"""Depthwise-separable 1-D conv (counterpart of ``edge_diffusion_tts_tpu/layers/conv.py``).
+"""1-D conv blocks, depthwise-separable and standard (counterpart of
+``edge_diffusion_tts_tpu/layers/conv.py``).
 
 The public layout stays channels-last [B, T, C] as in the JAX package;
 convolutions run channels-first inside.  Padding is "SAME" (left gets the
@@ -42,3 +43,22 @@ class DepthwiseSeparableConv(nn.Module):
         h = self.norm(self.pointwise(h))
         return F.gelu(h).transpose(1, 2)
 
+
+
+class ConvBlock(nn.Module):
+    """Conv1d (SAME padding, ``stride``) + GroupNorm(<=8) + GELU.
+
+    A library component: the decoder does not use it.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.conv = nn.Conv1d(in_ch, out_ch, kernel_size, stride=stride)
+        self.norm = nn.GroupNorm(min(8, out_ch), out_ch, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            torch.backends.cudnn.allow_tf32 = False
+        h = self.conv(_same_pad(x.transpose(1, 2), self.kernel_size, self.stride))
+        return F.gelu(self.norm(h)).transpose(1, 2)

@@ -1,4 +1,5 @@
-"""Embeddings: diffusion-timestep, sinusoidal positional table and RoPE.
+"""Embeddings: diffusion-timestep (fixed and learned), positional (fixed
+sinusoidal table and learned) and RoPE.
 
 Counterpart of ``edge_diffusion_tts_tpu/layers/embeddings.py``.  The time
 embedding is concat(sin, cos) with denominator ``half - 1``; the positional
@@ -8,7 +9,7 @@ table is *interleaved* (even columns sin, odd columns cos).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +33,25 @@ class SinusoidalTimeEmb(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         return sinusoidal_time_embedding(t, self.dim)
+
+
+class LearnedTimeEmb(nn.Module):
+    """Sinusoidal embedding refined by a 2-layer MLP: fc1 -> exact GELU -> fc2,
+    hidden width ``hidden_dim`` (4 x ``dim`` by default).
+
+    fc1 and fc2 are ``net.0`` and ``net.3`` (index 2 is empty), the names
+    under which ``weights.state_dict_from_jax`` carries flax's ``fc1``/``fc2``.
+    """
+
+    def __init__(self, dim: int, hidden_dim: Optional[int] = None):
+        super().__init__()
+        self.dim = dim
+        hidden = hidden_dim or dim * 4
+        self.net = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(), nn.Identity(),
+                                 nn.Linear(hidden, dim))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return self.net(sinusoidal_time_embedding(t, self.dim))
 
 
 def sinusoidal_position_table(max_len: int, dim: int) -> torch.Tensor:
@@ -69,6 +89,24 @@ class SinusoidalPositionalEmb(nn.Module):
                 f"{self.max_len} rows"
             )
         return x + self.table[offset:offset + T][None].to(x.dtype)
+
+
+class LearnedPositionalEmb(nn.Module):
+    """A learned table ``emb`` [max_len, dim] added over positions 0..T-1.
+
+    A library component: the decoder uses the sinusoidal table.
+    """
+
+    def __init__(self, max_len: int, dim: int):
+        super().__init__()
+        self.max_len = max_len
+        self.emb = nn.Embedding(max_len, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        T = x.shape[1]
+        if T > self.max_len:
+            raise ValueError(f"{T} positions exceed the table's {self.max_len} rows")
+        return x + self.emb.weight[:T][None].to(x.dtype)
 
 
 def rope_tables(max_len: int, dim: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -28,8 +28,9 @@ process group (``torchrun`` + ``parallel.init_multihost()``):
   layout and the final model is written canonical.
 
 Rank 0 alone writes checkpoints, metrics and plots; a barrier follows every
-write, and resume loads on every rank.  ``export`` is ``utils/export.py``'s
-(ROADMAP Queue A item 7): asking for it raises.
+write, and resume loads on every rank.  ``export=True`` writes the final
+decoder as ``edge_model.pt2`` (``utils/export.py``) beside ``edge_model_final``,
+where the JAX package writes ``edge_model.stablehlo``.
 """
 
 from __future__ import annotations
@@ -82,12 +83,6 @@ def init_models(cfg: CFG, hubert_cfg: Optional[HubertConfig] = None,
     if hubert_state is not None:
         encoder.hubert.load_state_dict(hubert_state)
     return encoder, decoder
-
-
-def _refuse_unported(export: bool) -> None:
-    if export:
-        raise NotImplementedError(
-            "export=True: utils/export.py is not ported yet (ROADMAP Queue A item 7)")
 
 
 def _need_ranks(n: int, what: str) -> None:
@@ -236,7 +231,6 @@ def train(
     a process group of that many ranks, each rank calling ``train`` with the
     same arguments (see the module docstring); hooks run on every rank.
     """
-    _refuse_unported(export)
     dp, pipe, n_mb = _parallel_layout(cfg)
     from ..parallel.data_parallel import (
         make_dp_consistency_step,
@@ -590,8 +584,14 @@ def train(
         decoder = canonical_decoder(state)  # collective: every stage's blocks
         if primary:
             save_weights(final, cfg, decoder, state.encoder)
-    elif primary:
-        save_final_model(final, state, cfg)
+    else:
+        decoder = state.decoder
+        if primary:
+            save_final_model(final, state, cfg)
+    if export and primary:
+        from ..utils.export import export_for_edge
+
+        export_for_edge(cfg, decoder, os.path.join(run_dir, "edge_model.pt2"))
     _save(os.path.join(run_dir, "checkpoint_final"), state,
           {"phase_complete": "consistency"}, dedup=False)
     if writer is not None:

@@ -263,9 +263,12 @@ CKPT_FILES = {"cfg": "cfg.json", "decoder": "decoder.pt", "hubert": "hubert.json
               "encoder": "encoder.pt"}
 
 
-def save_checkpoint(path: str, cfg: CFG, decoder, encoder=None) -> None:
+def save_checkpoint(path: str, cfg: CFG, decoder, encoder=None, hubert: bool = True) -> None:
     """Write a port checkpoint directory: ``cfg.json`` and ``decoder.pt``,
-    and for a ``SemanticEncoder`` also ``hubert.json`` and ``encoder.pt``."""
+    and for a ``SemanticEncoder`` also ``hubert.json`` and ``encoder.pt``.
+    ``hubert=False`` leaves the frozen HuBERT's weights out of ``encoder.pt``
+    (a reference checkpoint migrated without pretrained HuBERT weights);
+    ``load_checkpoint`` refuses such an encoder."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, CKPT_FILES["cfg"]), "w") as f:
         f.write(cfg.to_json())
@@ -274,7 +277,8 @@ def save_checkpoint(path: str, cfg: CFG, decoder, encoder=None) -> None:
     if encoder is not None:
         with open(os.path.join(path, CKPT_FILES["hubert"]), "w") as f:
             f.write(encoder.hubert_cfg.to_json())
-        torch.save({k: v.detach().cpu() for k, v in encoder.state_dict().items()},
+        torch.save({k: v.detach().cpu() for k, v in encoder.state_dict().items()
+                    if hubert or not k.startswith("hubert.")},
                    os.path.join(path, CKPT_FILES["encoder"]))
 
 
@@ -283,7 +287,8 @@ def load_checkpoint(path: str, with_encoder: bool = False
                                Optional[Dict[str, torch.Tensor]]]:
     """Read a port checkpoint directory: ``(cfg, decoder_state, hubert_cfg,
     encoder_state)``, the last two None unless ``with_encoder`` (which
-    raises FileNotFoundError when the checkpoint has no encoder)."""
+    raises FileNotFoundError when the checkpoint has no encoder, and
+    ValueError when its encoder has no HuBERT weights)."""
     with open(os.path.join(path, CKPT_FILES["cfg"])) as f:
         cfg = CFG.from_json(f.read())
     dec = torch.load(os.path.join(path, CKPT_FILES["decoder"]), map_location="cpu",
@@ -294,4 +299,8 @@ def load_checkpoint(path: str, with_encoder: bool = False
         hubert_cfg = HubertConfig.from_json(f.read())
     enc = torch.load(os.path.join(path, CKPT_FILES["encoder"]), map_location="cpu",
                      weights_only=True)
+    if not any(k.startswith("hubert.") for k in enc):
+        raise ValueError(
+            f"{path} holds no HuBERT weights (a reference checkpoint migrated without "
+            "--hubert-id): migrate it again with --hubert-id to run the encoder")
     return cfg, dec, hubert_cfg, enc

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream] [train]
+    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream] [train] [cli]
 
 Profiles (``torch.profiler``, CPU + CUDA activity) a steady window of
 calls of each path named (all of them by default) with the weights and
@@ -33,7 +33,12 @@ inputs of chip_smoke.py:
   ``train:decoder``, ``train:backward`` with the autograd engine's
   functions, ``train:optimizer``): each kernel is charged to the range that
   encloses the op that launched it; the frontend's kernels (launched
-  through ctypes, no op) by their names.
+  through ctypes, no op) by their names;
+- cli: the command line's ``generate`` as it runs (``demo.generate_sample``:
+  the checkpoint read from disk, a 5 s wav encoded on the frontend kernel,
+  4 eager DDIM steps, the mel denormalized, 100 Griffin-Lim iterations, the
+  wav written) from a checkpoint of the flagship decoder and the full
+  HuBERT-base written to build/port_profile_cli/ (3 calls).
 
 For each it prints the wall time per call, the device busy time (the union
 of the kernels' intervals) and its share of the wall time, the kernels
@@ -90,7 +95,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("flagship", "longform", "audio", "ddpm", "stream", "train")
+PATHS = ("flagship", "longform", "audio", "ddpm", "stream", "train", "cli")
 
 
 def _device_us(evt) -> float:
@@ -541,6 +546,20 @@ def main() -> int:
 
     if "train" in paths:
         out.update(profile_train(torch))
+
+    if "cli" in paths:
+        from edge_diffusion_tts_tpu_torch import demo
+        from edge_diffusion_tts_tpu_torch.weights import save_checkpoint
+
+        base = os.path.join(ROOT, "build", "port_profile_cli")
+        encoder = chip_smoke.seeded_encoder(torch, cfg, chip_smoke.SEED)
+        save_checkpoint(os.path.join(base, "ckpt"), cfg, dec, encoder)
+        wav = chip_smoke._write_wav16(os.path.join(base, "ref_5s.wav"),
+                                      chip_smoke.synthetic_wav(5.0, 12000 + chip_smoke.SEED))
+        out["cli_generate"] = profile_calls(torch, lambda: demo.generate_sample(
+            os.path.join(base, "ckpt"), wav_path=wav, num_steps=4,
+            out_path=os.path.join(base, "generated.wav")), calls=3)
+        report("cli_generate", out["cli_generate"])
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "port_profile.json"), "w") as f:

@@ -641,3 +641,72 @@ def test_trainer_kernel_route_encode_matches_modules(cuda):
     assert h_kernel.shape == (4, 99, 768)
     assert (h_kernel - h_modules).abs().max().item() <= 1e-3
     assert (tok_k == tok_m).float().mean().item() >= 0.99
+
+
+def _perturbed(module, seed):
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.02 * torch.randn(p.shape))
+    return module
+
+
+def test_generate_sample_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """demo.generate_sample on the card against the CPU on the same noise:
+    the mel it vocodes (DPM-Solver++, well conditioned; a small HuBERT with
+    a 320-sample hop on the modules route, so no token sits on a
+    kernel-vs-plain edge), 1e-4."""
+    from scipy.io import wavfile
+
+    from edge_diffusion_tts_tpu_torch import demo
+    from edge_diffusion_tts_tpu_torch import inference as pinference
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.weights import save_checkpoint
+
+    cfg = CFG(hidden=32, layers=2, heads=2, dropout=0.0)
+    dec = _perturbed(EdgeDiffusionDecoder(cfg), 3)
+    enc = _perturbed(SemanticEncoder(cfg, HubertConfig.tiny320()), 4)
+    save_checkpoint(str(tmp_path / "ck"), cfg, dec, enc)
+    wav = str(tmp_path / "in.wav")
+    wavfile.write(wav, 16000, (_chirp(16000) * 32767).astype(np.int16))
+    def noise(sem, *a, **kw):
+        B, S = sem.shape
+        x = np.random.RandomState(5).randn(B, 2 * S, 80).astype(np.float32)
+        return torch.from_numpy(x).to(sem.device)
+
+    monkeypatch.setattr(pinference, "start_noise", noise)
+    mels = {}
+
+    def capture(cfg, mel_log, *a, **kw):
+        mels[mel_log.device.type] = mel_log.cpu()
+        return np.zeros((1, 160), np.float32)
+
+    monkeypatch.setattr(demo, "vocode_mel", capture)
+    for device in ("cpu", "cuda"):
+        demo.generate_sample(str(tmp_path / "ck"), wav_path=wav, num_steps=4,
+                             out_path=str(tmp_path / f"{device}.wav"), sampler="dpmpp",
+                             device=device)
+    assert mels["cuda"].shape == mels["cpu"].shape and mels["cpu"].shape[1] > 50
+    torch.testing.assert_close(mels["cuda"], mels["cpu"], atol=1e-4, rtol=0)
+
+
+def test_exported_program_on_the_card(cuda, tmp_path):
+    """The .pt2 (utils/export.py) loaded on the card against the eager
+    decoder on the card, at (1, 37, 19) and (2, 500, 250): atol 1e-5."""
+    from edge_diffusion_tts_tpu_torch.utils.export import export_for_edge, load_exported
+
+    cfg = CFG(hidden=32, layers=2, heads=2, dropout=0.0)
+    dec = _perturbed(EdgeDiffusionDecoder(cfg), 6).eval()
+    program = load_exported(export_for_edge(cfg, dec, str(tmp_path / "dec.pt2")), device=cuda)
+    dec = dec.to(cuda)
+    rng = np.random.RandomState(7)
+    for B, T, S in ((1, 37, 19), (2, 500, 250)):
+        x = torch.from_numpy(rng.randn(B, T, 80).astype(np.float32)).to(cuda)
+        t = torch.from_numpy(rng.randint(0, 1000, B)).to(cuda)
+        sem = torch.from_numpy(rng.randint(0, 2304, (B, S))).to(cuda)
+        step = torch.from_numpy(rng.randint(0, 4, B)).to(cuda)
+        with torch.no_grad():
+            got = program(x, t, sem, step)
+            want = dec(x, t, sem_idx=sem, step_idx=step)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

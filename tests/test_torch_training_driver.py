@@ -5,7 +5,8 @@ after it) serves most checks: finite losses in every phase, periodic,
 phase-end, best and final artifacts, the distillation learning rate, phase
 skipping on ``resume="auto"``, and the final model served by
 ``EdgeInference``.  Checkpoints round-trip with the teacher's arity fitted;
-the chained step equals single steps; unported options raise.
+the chained step equals single steps; a mesh or pipeline stages without a
+process group raise; ``export=True`` writes the final decoder as a ``.pt2``.
 """
 
 import dataclasses
@@ -221,14 +222,12 @@ def test_chained_step_equals_single_steps(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [(dict(mesh_shape=[2, 1]), "process group"),
-                                      (dict(pipeline_stages=2), "process group"),
-                                      (dict(export=True), "item 7")])
+                                      (dict(pipeline_stages=2), "process group")])
 def test_unported_options_raise(tmp_path, kw, match):
-    """export is not ported; a mesh or pipeline stages need a process group."""
-    export = kw.pop("export", False)
+    """A mesh or pipeline stages need a process group."""
     cfg = tiny_cfg(tmp_path, **kw)
-    with pytest.raises(NotImplementedError if export else RuntimeError, match=match):
-        train(cfg, train_loader=[], device="cpu", export=export)
+    with pytest.raises(RuntimeError, match=match):
+        train(cfg, train_loader=[], device="cpu")
 
 
 def test_missing_corpus_raises_from_train(tmp_path):
@@ -296,3 +295,29 @@ def test_train_with_chained_steps(tmp_path):
     with pytest.raises(ValueError, match="wavs"):
         train(cfg, train_loader=[{"wav": wavs[:2]}], hubert_cfg=HubertConfig.tiny(),
               device="cpu")
+
+
+def test_train_export_writes_pt2(tmp_path):
+    """export=True: the run directory holds edge_model.pt2 (utils/export.py),
+    which loads and computes what the final decoder computes (1e-6: the same
+    ops on the same CPU)."""
+    from edge_diffusion_tts_tpu_torch.utils.export import load_exported
+
+    cfg = tiny_cfg(tmp_path, dropout=0.0)
+    wavs = (np.random.RandomState(1).randn(6, cfg.segment_len) * 0.1).astype(np.float32)
+    state = train(cfg, train_loader=_CorpusLoader(wavs, cfg.batch_size),
+                  hubert_cfg=HubertConfig.tiny(), phases=["diffusion"], device="cpu",
+                  export=True)
+    path = os.path.join(cfg.out_dir, cfg.run_name, "edge_model.pt2")
+    assert os.path.getsize(path) > 0
+    program = load_exported(path, device="cpu")
+    rng = np.random.RandomState(2)
+    for B, T, S in ((1, 20, 10), (2, 37, 19)):
+        x = torch.from_numpy(rng.randn(B, T, cfg.n_mels).astype(np.float32))
+        t = torch.from_numpy(rng.randint(0, cfg.diff_steps, B))
+        sem = torch.from_numpy(rng.randint(0, cfg.effective_codebook_size(), (B, S)))
+        step = torch.from_numpy(rng.randint(0, 4, B))
+        with torch.no_grad():
+            want = state.decoder.eval()(x, t, sem_idx=sem, step_idx=step)
+            got = program(x, t, sem, step)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
