@@ -90,7 +90,25 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    streams' preps gave it ([1, 256000] with wav_len 160000 and [1, 128000]
    with 96000) and at [2, 128000] with wav_len (80000, 128000), and, in
    process, a masked batch of 8 rows at
-   temperature 0 against each row alone (1e-4);
+   temperature 0 against each row alone (1e-4).  The stream prep is
+   dispatched on the pipeline's side stream (``stream_prep_async``) and
+   fetched at a stream's first tick: b. with the two streams done, a third
+   (10 s) ticks and, after its second increment, four 6 s streams are
+   requested from four threads at once; each submit's return ms and the
+   handler thread's CPU ms inside it (the same for its dispatch), the
+   pinned host blocks and device segments the burst made, each new
+   stream's time to first increment, and the ticking stream's tick ms
+   inside the window of the four preps (first submit to last fetch) and
+   outside it are printed; a synchronizing CUDA call on a submitting thread
+   fails the phase (``set_sync_debug_mode("warn")`` over the burst, the
+   warnings read per thread); each new stream's mel is held to its offline
+   ``pipe.generate`` under the row-count witness bar; these five streams'
+   frontend launches count with the traffic's, equal to the encodes
+   recorded from every thread.  a. on the 6 s wav (8 s bucket),
+   ``stream_prep`` against ``stream_prep_async(...)()`` and the same work
+   run inline on the default stream, bit for bit, with the median of 5 of
+   ``stream_prep``'s ms, the dispatch's ms and the ms to fetch a finished
+   prep; and one dispatch under ``torch.cuda.set_sync_debug_mode("error")``;
 10. training: a synthetic corpus in the LJSpeech layout (build/phase10: 84
    utterances of 2.5-4 s at 22,050 Hz int16, so the collate resamples)
    trained through ``training.train()`` at configs/flagship.json (hidden 160,
@@ -1047,12 +1065,14 @@ def phase_serve(torch, cfg, decoder, encoder):
             t.join(timeout=600)
         lf_wall = time.perf_counter() - t0
         pipe.vocode = vocode
-        pipe.encode = encode
         assert sorted(streams) == [1, 2], f"long-form streams {sorted(streams)}"
-        launches = ff.conv_frontend.launches
-        assert launches >= 2 and launches == len(encoded), (
-            f"conv_frontend launches {launches} for 2 streams, {len(encoded)} encodes")
         lstats = sched.stats()
+        # b. Four preps dispatched beside a ticking stream (counted with the traffic).
+        burst = serve_burst(torch, sched, host, port)
+        pipe.encode = encode
+        launches = ff.conv_frontend.launches
+        assert launches >= 7 and launches == len(encoded), (
+            f"conv_frontend launches {launches} for 7 streams, {len(encoded)} encodes")
         mel = np.concatenate([s for s, _ in streams[1]], axis=1)
         audio = streams[2]
         offs = [o for _, o in audio]
@@ -1089,7 +1109,17 @@ def phase_serve(torch, cfg, decoder, encoder):
         print(f"[serve] row-count witness: the 10 s stream's first chunk refined alone vs beside "
               f"another row (50 steps): max diff {witness:.3g} (normalized); chunk std <= "
               f"{float(cs._std.max()):.4g}; TCP stream vs offline log-mel bar {lf_bar:.3g}")
+        for seed, (mel_b, wav_b) in burst["streams"].items():  # b's new streams
+            off_b, _ = pipe.generate(wav_b, seed=seed, vocode=False)
+            cs_b = ChunkStream(pipe, wav_b, seed=seed)
+            cs_b.next_job()
+            bar_b = max(1e-5, pipe.num_chunks(wav_b.size) * witness * float(cs_b._std.max()))
+            err_b = float(np.abs(np.log(mel_b) - np.log(off_b)).max())
+            assert mel_b.shape == off_b.shape and err_b <= bar_b, (seed, mel_b.shape, err_b, bar_b)
+            print(f"[serve] burst stream {seed} (6 s) vs offline: log-mel max err {err_b:.3g} "
+                  f"(bar {bar_b:.3g})")
         n_chunks = {k: pipe.num_chunks(w.size) for k, w in wavs.items()}
+        out.update(burst={k: v for k, v in burst.items() if k != "streams"})
         out.update(ttfi_ms=first_ms, tick_ms=lstats["tick_ms_by_rows"], ticks=n_chunks,
                    gl_ms=float(np.mean(gl_ms)), lf_err=lf_err, lf_bar=lf_bar, witness=witness,
                    frontend_launches=launches)
@@ -1111,6 +1141,42 @@ def phase_serve(torch, cfg, decoder, encoder):
         m_err = float(max(np.abs(mean_b - mean).max(), np.abs(std_b - std).max()))
         assert z_err <= 1e-4 and m_err <= 1e-5 and np.all(zb[:, S:] == 0.0), (z_err, m_err)
         assert np.array_equal(seeds, seeds_b)
+        # a. The async prep against the synchronous prep and against the same
+        # work inline on the default stream, bit for bit; the medians of 5.
+        with torch.inference_mode():
+            inline = pipe._prep(torch.from_numpy(wavs[2][None]).to(DEVICE),
+                                pipe.num_chunks(wavs[2].size), pipe.prep_buckets[0])
+            inline = [t.cpu().numpy() for t in inline] + [seeds_b]
+        sync_ms, dispatch_ms, fetch_ms = [], [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sync = pipe.stream_prep(wavs[2], seed=2)
+            sync_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            realize = pipe.stream_prep_async(wavs[2], seed=2)
+            dispatch_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()  # the prep has finished
+            t = time.perf_counter()
+            fetched = realize()
+            fetch_ms.append((time.perf_counter() - t) * 1e3)
+            for a, b, c in zip(sync, fetched, inline):
+                assert np.array_equal(a, b) and np.array_equal(a, c), "async prep != sync prep"
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            realize = pipe.stream_prep_async(wavs[2], seed=2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert all(np.array_equal(a, b) for a, b in zip(realize(), sync))
+        med = {k: float(np.median(v)) for k, v in
+               (("stream_prep", sync_ms), ("dispatch", dispatch_ms), ("fetch", fetch_ms))}
+        out["prep_ms"] = med
+        print(f"[serve] async prep of the 6 s stream (8 s bucket): stream_prep = "
+              f"stream_prep_async(...)() = the work inline on the default stream, bit for bit; "
+              f"medians of 5: stream_prep {med['stream_prep']:.3f} ms, dispatch "
+              f"{med['dispatch']:.3f} ms, fetch of a finished prep {med['fetch']:.4f} ms; one "
+              f"dispatch under set_sync_debug_mode('error') raised nothing")
         # The kernel route against the module route: FSQ indices.
         wav_b = torch.zeros((1, pipe.prep_buckets[0]), device=DEVICE)
         wav_b[0, :wavs[2].size] = torch.from_numpy(wavs[2])
@@ -1168,6 +1234,142 @@ def phase_serve(torch, cfg, decoder, encoder):
         batcher.close()
     seconds = time.perf_counter() - t_phase
     print(f"[serve] phase 9: {seconds:.3f} s (run_server with its warmup {warm_s:.3f} s)")
+    return out
+
+
+def serve_burst(torch, sched, host: str, port: int) -> dict:
+    """Phase 9b: one 10 s stream ticking through the server; after its second
+    increment four 6 s streams are requested from four threads at once.
+    Returns each submit's return ms and the handler thread's CPU ms inside
+    it (the rest of its wall is waiting), the same two for the prep's
+    dispatch, each new stream's time to first increment, the ticking
+    stream's tick ms inside and outside the window of the four preps (first
+    submit to last fetch), the pinned host blocks and device segments the
+    burst made, and the new streams' mels with their wavs.  Fails if a submit made a
+    synchronizing CUDA call (``set_sync_debug_mode("warn")`` over the
+    burst, read on the submitting thread)."""
+    import threading
+    import warnings
+
+    from edge_diffusion_tts_tpu_torch import serving
+
+    pipe = sched.pipe
+    wavs = {20: synthetic_wav(10.0, 9300 + SEED)}
+    wavs.update({s: synthetic_wav(6.0, 9400 + SEED + s) for s in (21, 22, 23, 24)})
+    ticks, submits, dispatches, fetched, syncs = [], {}, {}, {}, []
+    run_batch, submit, dispatch = sched._run_batch, sched.submit, pipe.stream_prep_async
+    in_submit = threading.local()
+
+    def timed_batch(batch, group):
+        t0 = time.perf_counter()
+        run_batch(batch, group)
+        ticks.append((t0, time.perf_counter(), len(batch),
+                      any(s.chunk.total == wavs[20].size for s in batch)))
+
+    def timed_submit(wav, *, seed=0, **kw):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        in_submit.seed = seed
+        try:
+            it = submit(wav, seed=seed, **kw)
+        finally:
+            in_submit.seed = None
+        submits[seed] = (t0, time.perf_counter(), (time.thread_time() - c0) * 1e3)
+        return it
+
+    def timed_dispatch(wav, seed=0):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        realize = dispatch(wav, seed)
+        dispatches[seed] = ((time.perf_counter() - t0) * 1e3, (time.thread_time() - c0) * 1e3)
+
+        def timed_realize():
+            result = realize()
+            fetched[seed] = time.perf_counter()
+            return result
+
+        return timed_realize
+
+    sched._run_batch, sched.submit, pipe.stream_prep_async = timed_batch, timed_submit, \
+        timed_dispatch
+    mels, started, first_at = {}, {}, {}
+    second = threading.Event()
+
+    def client(seed):
+        started[seed] = time.perf_counter()
+        segs = []
+        for seg, _ in serving.request_longform(wavs[seed], host=host, port=port, seed=seed):
+            if not segs:
+                first_at[seed] = time.perf_counter()
+            segs.append(seg)
+            if seed == 20 and len(segs) == 2:
+                second.set()
+        mels[seed] = np.concatenate(segs, axis=1)
+
+    host0, dev0 = torch.cuda.host_memory_stats(), torch.cuda.memory_stats()
+    try:
+        with warnings.catch_warnings():
+            # Every synchronizing call warns; those on a submitting thread are
+            # recorded, the scheduler's own (its fetches) dropped.
+            warnings.filterwarnings("always", message=".*synchronizing CUDA")
+            show = warnings.showwarning
+
+            def record_sync(message, category, filename, lineno, *a, **kw):
+                if "synchronizing CUDA" not in str(message):
+                    show(message, category, filename, lineno, *a, **kw)
+                elif getattr(in_submit, "seed", None) is not None:
+                    syncs.append((in_submit.seed, f"{filename}:{lineno}"))
+
+            warnings.showwarning = record_sync
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                main = threading.Thread(target=client, args=(20,))
+                main.start()
+                assert second.wait(timeout=300), "the ticking stream gave no second increment"
+                burst = [threading.Thread(target=client, args=(s,)) for s in (21, 22, 23, 24)]
+                for t in burst:
+                    t.start()
+                for t in [main] + burst:
+                    t.join(timeout=600)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        del sched._run_batch, sched.submit, pipe.stream_prep_async
+    host1, dev1 = torch.cuda.host_memory_stats(), torch.cuda.memory_stats()
+    assert sorted(mels) == [20, 21, 22, 23, 24], f"burst streams {sorted(mels)}"
+    assert not syncs, f"synchronizing CUDA calls inside a submit (seed, site): {syncs}"
+    new = (21, 22, 23, 24)
+    lo, hi = min(submits[s][0] for s in new), max(fetched[s] for s in new)
+    # The ticking stream's ticks as (ms, rows), inside the window or outside it.
+    split = {"inside": [], "outside": []}
+    for t0, t1, rows, mine in ticks:
+        if mine:
+            split["inside" if t0 < hi and t1 > lo else "outside"].append(((t1 - t0) * 1e3, rows))
+    out = {"submit_ms": {s: (submits[s][1] - submits[s][0]) * 1e3 for s in new},
+           "submit_cpu_ms": {s: submits[s][2] for s in new},
+           "dispatch_ms": {s: dispatches[s][0] for s in new},
+           "dispatch_cpu_ms": {s: dispatches[s][1] for s in new},
+           "pinned_blocks_made": host1["num_host_alloc"] - host0["num_host_alloc"],
+           "pinned_alloc_ms": (host1["host_alloc_time.total"]
+                               - host0["host_alloc_time.total"]) / 1e3,
+           "device_segments_made": dev1["num_device_alloc"] - dev0["num_device_alloc"],
+           "ttfi_ms": {s: (first_at[s] - started[s]) * 1e3 for s in new},
+           "window_ms": (hi - lo) * 1e3, "tick_ms_rows_inside": split["inside"],
+           "tick_ms_rows_outside": split["outside"],
+           "ticking_stream_s": max(t1 for _, t1, _, mine in ticks if mine) - started[20],
+           "streams": {s: (mels[s], wavs[s]) for s in new}}
+    ms = lambda v: "[" + ", ".join(f"{x:.3f}" for x in v) + "]"  # noqa: E731
+    ms_rows = lambda v: "[" + ", ".join(f"{x:.3f} ({r} rows)" for x, r in v) + "]"  # noqa: E731
+    print(f"[serve] burst: a 10 s stream ticking; after its 2nd increment four 6 s streams "
+          f"requested from four threads: submit returned in "
+          f"{ms(out['submit_ms'].values())} ms, the handler thread on the CPU "
+          f"{ms(out['submit_cpu_ms'].values())} ms of it (the prep's dispatch "
+          f"{ms(out['dispatch_ms'].values())} ms, on the CPU {ms(out['dispatch_cpu_ms'].values())}"
+          f" ms); no synchronizing CUDA call inside a submit; pinned host blocks made "
+          f"{out['pinned_blocks_made']} in {out['pinned_alloc_ms']:.3f} ms, device segments "
+          f"(cudaMalloc) {out['device_segments_made']}; time to first "
+          f"increment "
+          f"{ms(out['ttfi_ms'].values())} ms; the four preps' window {out['window_ms']:.3f} ms; "
+          f"the ticking stream's tick ms inside it {ms_rows(split['inside'])}, outside it "
+          f"{ms_rows(split['outside'])}; the ticking stream took {out['ticking_stream_s']:.3f} s")
     return out
 
 

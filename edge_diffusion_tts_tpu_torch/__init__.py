@@ -31,8 +31,57 @@ Not ported: the JAX package's TFLite export and utils/tflite_surgery.py
 (they need jax2tf and TensorFlow).
 """
 
-from .config import CFG, TrainPhase, hubert_num_frames
+from .config import CFG, TrainPhase, hubert_num_frames, resolve_device, set_seed
 
 __version__ = "0.1.0"
 
-__all__ = ["CFG", "TrainPhase", "hubert_num_frames"]
+
+def __getattr__(name):  # the JAX package's lazy top-level API
+    if name in ("DiffusionSchedule", "DPMSolverPP", "ddim_sample", "ddpm_sample"):
+        from . import schedule
+
+        return getattr(schedule, name)
+    if name in ("SemanticEncoder", "EdgeDiffusionDecoder", "VectorQuantizer",
+                "FSQ", "FSQEncoder", "HubertEncoder"):
+        from . import models
+
+        return getattr(models, name)
+    if name == "EdgeInference":
+        from .inference import EdgeInference
+
+        return EdgeInference
+    if name == "LongFormPipeline":
+        from .pipeline import LongFormPipeline
+
+        return LongFormPipeline
+    if name in ("MicroBatcher", "serve_tcp", "request_tts"):
+        from . import serving
+
+        return getattr(serving, name)
+    if name in ("Trainer", "ConsistencyTrainer", "train", "train_v2"):
+        from . import training
+
+        # ConsistencyTrainer: the JAX package's alias of Trainer, which holds
+        # the EMA teacher and the progressive and consistency losses.
+        return training.Trainer if name == "ConsistencyTrainer" else getattr(training, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# The JAX package's names; resolve_device stands for its get_device.
+__all__ = [
+    "CFG",
+    "TrainPhase",
+    "resolve_device",
+    "set_seed",
+    "DiffusionSchedule",
+    "SemanticEncoder",
+    "EdgeDiffusionDecoder",
+    "VectorQuantizer",
+    "EdgeInference",
+    "MicroBatcher",
+    "ConsistencyTrainer",
+    "LongFormPipeline",
+    "Trainer",
+    "__version__",
+    "hubert_num_frames",
+]

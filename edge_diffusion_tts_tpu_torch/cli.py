@@ -261,7 +261,8 @@ def _train(args, device) -> None:
     if (cfg.mesh_shape and max(cfg.mesh_shape) > 1) or cfg.pipeline_stages > 1:
         from .parallel import init_multihost
 
-        init_multihost()
+        # Ranks on the CPU talk over gloo; on cards, NCCL when each owns one.
+        init_multihost(backend="gloo" if device.type == "cpu" else None)
     # getattr defaults: a bare command line (command None) trains with a
     # namespace that has none of the train subparser's attributes.
     resume = getattr(args, "resume", None)

@@ -66,8 +66,12 @@ class FSQ(nn.Module):
 
 
 def count_code_usage(indices: torch.Tensor, num_codes: int) -> torch.Tensor:
-    """Float32 histogram of code usage over every index."""
-    return torch.bincount(indices.reshape(-1), minlength=num_codes).float()
+    """Float32 histogram of code usage over every index (in [0, num_codes)),
+    as a scatter-add: ``bincount`` on the card reads the largest index back
+    to the host."""
+    flat = indices.reshape(-1)
+    counts = torch.zeros(num_codes, dtype=torch.int64, device=flat.device)
+    return counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int64)).float()
 
 
 def usage_metrics(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

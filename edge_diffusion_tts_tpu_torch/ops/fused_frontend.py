@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, List, Optional
 
 import torch
@@ -279,12 +280,14 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
             w["wk3"].data_ptr(), w["wk2"].data_ptr(), scale.data_ptr(), shift.data_ptr(),
             B, Twav, C, splits, stream,
         )
-    conv_frontend.launches += 1
+    with _LAUNCHES_LOCK:  # handler threads launch it at once (stream preps)
+        conv_frontend.launches += 1
     _build.check(err, "conv_frontend")
     return out
 
 
 conv_frontend.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],

@@ -133,6 +133,14 @@ class LongFormPipeline:
         self.prep_buckets = (
             tuple(sorted(int(b) for b in prep_buckets)) if prep_buckets else None
         )
+        # stream_prep_async's stream on the card, beside the refine's, and the
+        # point on the building thread's stream after which the weights and
+        # buffers the prep reads are on the card.
+        self.prep_stream = self.weights_ready = None
+        if self.device.type == "cuda":
+            self.prep_stream = torch.cuda.Stream(self.device)
+            self.weights_ready = torch.cuda.Event()
+            self.weights_ready.record(torch.cuda.current_stream(self.device))
         # Rows a refine runs in multiples of: the mesh's length, 1 without.
         self.mesh = None
         self.row_quantum = 1
@@ -267,7 +275,6 @@ class LongFormPipeline:
     def num_chunks(self, total: int) -> int:
         return max(1, -(-(total - self.overlap_samples) // self.hop_samples))
 
-    @torch.inference_mode()
     def stream_prep(self, wav: np.ndarray, seed: int = 0):
         """A long-form stream's prep: ``wav [1, total]`` -> host numpy
         ``(z_q_global [1, S, D], mean [N, 1, M], std [N, 1, M], seeds [N])``
@@ -276,14 +283,31 @@ class LongFormPipeline:
         ``wav_len``), every chunk's denormalization statistics
         (``normalize_mel(mel_frontend(chunk))``), and every chunk's refine
         seed, drawn in order from a CPU generator seeded with ``seed``.
-        The prep runs synchronously: nothing overlaps it with the refine yet."""
+        ``stream_prep_async``'s result, fetched at once."""
+        return self.stream_prep_async(wav, seed)()
+
+    @torch.inference_mode()
+    def stream_prep_async(self, wav: np.ndarray, seed: int = 0):
+        """Dispatch ``stream_prep`` without waiting for it: returns a zero-arg
+        ``realize()`` that gives ``stream_prep``'s tuple, bit for bit.
+
+        On a CUDA device the prep is enqueued on the pipeline's side stream
+        (``prep_stream``), after ``weights_ready`` (the weights' upload when
+        the pipeline was built) and after nothing else: the wav goes up from
+        pinned memory, the results come down into pinned memory, and an
+        event recorded after them is what ``realize()`` waits on.  Nothing
+        between the dispatch and that event waits for the card, so streams
+        submitted from several threads queue their preps back to back beside
+        the refine that the scheduler queues on the default stream.  A
+        caller that rewrites the weights in place afterwards orders that
+        write itself (``torch.cuda.synchronize()``).  On the CPU the prep
+        runs here and ``realize()`` returns its result.  The seeds are drawn
+        here, in either case."""
         if self.encoder is None and self.encoder_apply is None:
             raise ValueError("pipeline constructed without an encoder")
         wav_np = np.asarray(wav, np.float32).reshape(1, -1)
         total = wav_np.shape[1]
         n = self.num_chunks(total)
-        st = self.sem_stride
-        enc_len = total + (st - total % st) % st
         pad_to = None
         if self.prep_buckets:
             pad_to = next((b for b in self.prep_buckets if b >= total), None)
@@ -291,19 +315,50 @@ class LongFormPipeline:
                 warnings.warn(
                     f"stream of {total} samples exceeds the largest prep bucket "
                     f"{self.prep_buckets[-1]}; encoding it at its own length", stacklevel=2)
-        wav_t = torch.tensor(wav_np, device=self.device)
+        seeds = torch.randint(0, (1 << 63) - 1, (n,), generator=torch.Generator().manual_seed(
+            int(seed)), dtype=torch.int64).numpy()
+        if self.device.type != "cuda":
+            out = tuple(t.cpu().numpy() for t in self._prep(
+                torch.tensor(wav_np, device=self.device), n, pad_to)) + (seeds,)
+            return lambda: out
+        host_wav = torch.empty(wav_np.shape, dtype=torch.float32, pin_memory=True)
+        host_wav.numpy()[:] = wav_np
+        side = self.prep_stream
+        side.wait_event(self.weights_ready)
+        with torch.cuda.stream(side):
+            dev = self._prep(host_wav.to(self.device, non_blocking=True), n, pad_to)
+            out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in dev)
+            for o, t in zip(out, dev):
+                o.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+
+        def realize(keep=host_wav):  # the pinned wav lives until its upload is done
+            done.synchronize()
+            return tuple(o.numpy() for o in out) + (seeds,)
+
+        return realize
+
+    def _prep(self, wav_t: torch.Tensor, n: int, pad_to: Optional[int]):
+        """``stream_prep``'s device work on ``wav_t [1, total]`` on the current
+        stream: ``(z_q_global, mean, std)`` as tensors."""
+        total = wav_t.shape[1]
+        st = self.sem_stride
+        enc_len = total + (st - total % st) % st
         if pad_to is None:
             z = self.encode(F.pad(wav_t, (0, enc_len - total)))
         else:
+            if self.encoder is not None:
+                # On the device already: a Python int would go up to the card
+                # with a blocking copy inside the encoder.
+                enc_len = torch.full((1,), enc_len, dtype=torch.long, device=wav_t.device)
             z = self.encode(F.pad(wav_t, (0, pad_to - total)), wav_len=enc_len)
         cs, hop = self.chunk_samples, self.hop_samples
         padded = F.pad(wav_t[0], (0, max(0, (n - 1) * hop + cs - total)))
-        idx = (torch.arange(n, device=self.device) * hop)[:, None] + torch.arange(
-            cs, device=self.device)[None, :]
+        idx = (torch.arange(n, device=wav_t.device) * hop)[:, None] + torch.arange(
+            cs, device=wav_t.device)[None, :]
         _, mean, std = normalize_mel(self.mel_frontend(padded[idx]))
-        seeds = torch.randint(0, (1 << 63) - 1, (n,), generator=torch.Generator().manual_seed(
-            int(seed)), dtype=torch.int64)
-        return z.cpu().numpy(), mean.cpu().numpy(), std.cpu().numpy(), seeds.numpy()
+        return z, mean, std
 
     # -- full pipeline ----------------------------------------------------------
 
@@ -433,9 +488,11 @@ class ChunkStream:
       crossfade accumulator and returns the newly final ``(linear_mel_seg,
       frame_offset)`` increments (possibly none).
 
-    The prep (``stream_prep``: encode, every chunk's statistics and seed)
-    runs once per stream, when it is built; after that everything is host
-    numpy around one refine per chunk.
+    The prep (``stream_prep_async``: encode, every chunk's statistics and
+    seed) is dispatched when the stream is built and fetched at its first
+    ``next_job()`` or ``complete()``, where the encoder's latent rate is
+    checked; after that everything is host numpy around one refine per
+    chunk.
     """
 
     def __init__(self, pipe: LongFormPipeline, wav: np.ndarray, strength: float = 0.6,
@@ -457,11 +514,20 @@ class ChunkStream:
         self.prev_tail = None
         self.emitted = 0
         self.i = 0
-        self.z_q_global, self._mean, self._std, self._seeds = pipe.stream_prep(self.wav, seed)
+        # Dispatched, not waited for: the prep's results are fetched at the
+        # first next_job() or complete().
+        self._prep = pipe.stream_prep_async(self.wav, seed)
+
+    def _ensure_prep(self):
+        """Fetch the prep and check the encoder's latent rate; the prep is
+        kept, and never fetched again, once it passes."""
+        if self._prep is None:
+            return
+        prep = self._prep()
         # An encoder whose latent rate is not pipe.sem_stride would slice the
-        # wrong features for every chunk: fail loudly.  The encode input is
-        # the wav padded to a whole latent (or to its bucket).
-        n_lat = self.z_q_global.shape[1]
+        # wrong features for every chunk: fail loudly, at every call.  The
+        # encode input is the wav padded to a whole latent (or to its bucket).
+        n_lat = prep[0].shape[1]
         st = self.pipe.sem_stride
         buckets = self.pipe.prep_buckets
         padded = next((b for b in buckets if b >= self.total), self.total) \
@@ -472,6 +538,8 @@ class ChunkStream:
                 f"encoder produced {n_lat} latents for {padded} samples but "
                 f"pipe.sem_stride={st} expects ~{expect}: construct LongFormPipeline with "
                 f"sem_stride=hubert_cfg.total_stride")
+        self.z_q_global, self._mean, self._std, self._seeds = prep
+        self._prep = None
 
     @property
     def done(self) -> bool:
@@ -481,6 +549,7 @@ class ChunkStream:
         """Chunk ``i``'s refine inputs (host numpy; ``i`` does not advance)."""
         if self.done:
             raise RuntimeError("stream exhausted")
+        self._ensure_prep()
         pipe = self.pipe
         lat0 = self.i * pipe.hop_samples // pipe.sem_stride
         z_chunk = self.z_q_global[:, lat0:lat0 + self.sem_per_chunk, :]
@@ -498,6 +567,7 @@ class ChunkStream:
     def complete(self, x_ref: np.ndarray):
         """Fold the refined chunk (host numpy [1, T, M]) in; return the newly
         final increments."""
+        self._ensure_prep()
         pipe = self.pipe
         i, num_chunks = self.i, self.num_chunks
         x_ref = np.asarray(x_ref)

@@ -20,8 +20,10 @@ The server runs one batcher thread, one scheduler thread and one handler
 thread per client, on one card, or with ``run_server(mesh=N)`` on the
 first N cards, every batch's rows split over them.  Every CUDA library is
 built and loaded by ``run_server`` before it accepts connections (and the
-build is locked: ``_build.py``).  A stream's prep (``LongFormPipeline.stream_prep``)
-runs synchronously on its handler thread, at submit.
+build is locked: ``_build.py``).  A stream's prep
+(``LongFormPipeline.stream_prep_async``) is dispatched by its handler
+thread at submit, on the pipeline's side stream, and fetched by the
+scheduler at the stream's first tick.
 """
 
 from __future__ import annotations
@@ -426,9 +428,12 @@ class LongFormScheduler:
                cfg_scale: float = 2.0, seed: int = 0):
         """Enqueue one stream; returns an iterator of (mel_seg, frame_offset).
 
-        The stream's prep (encode, chunk statistics, seeds) runs here, in the
-        caller's thread.  Abandoning the iterator (close, GC, a transport
-        error) cancels the stream: its remaining chunks are never scheduled.
+        The stream's prep (encode, chunk statistics, seeds) is dispatched
+        here, in the caller's thread, and not waited for: the scheduler
+        fetches it at the stream's first tick, and a prep that fails there
+        fails that stream alone.  Abandoning the iterator (close, GC, a
+        transport error) cancels the stream: its remaining chunks are never
+        scheduled.
         """
         from .pipeline import ChunkStream
 
@@ -507,6 +512,16 @@ class LongFormScheduler:
         # wait behind established streams' later chunks.
         batch.sort(key=lambda s: s.chunk.i > 0)
         batch = batch[:self.max_streams]
+        for s in batch:  # a fresh stream's prep, fetched here, fails it alone
+            try:
+                s.chunk._ensure_prep()
+            except Exception as e:
+                s.finish(e)
+                s.cancelled = True
+        self._active = [s for s in self._active if not s.cancelled]
+        batch = [s for s in batch if not s.cancelled]
+        if not batch:
+            return
         try:
             self._run_batch(batch, group)
         except Exception as e:  # fail the batch's streams, keep serving
@@ -855,6 +870,8 @@ def run_server(
             longform_fn.scheduler.warmup()
             longform_fn.scheduler.reset_stats()
             say(f"serve: long-form refine warm (rows 1 to {longform_streams})")
+            # Through the side stream: its cuBLAS workspace and cuDNN plans
+            # are made here, before the server accepts a connection.
             for b in pipe.prep_buckets or ():
                 pipe.stream_prep(np.zeros((1, b), np.float32), 0)
                 say(f"serve: long-form prep bucket {b} warm")

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream] [train] [cli]
+    python3 port_profile.py [flagship] [longform] [audio] [ddpm] [stream] [burst] [train]
+                            [cli]
 
 Profiles (``torch.profiler``, CPU + CUDA activity) a steady window of
 calls of each path named (all of them by default) with the weights and
@@ -20,7 +21,19 @@ inputs of chip_smoke.py:
   the full HuBERT-base encoder: one ``LongFormScheduler`` tick, i.e.
   ``LongFormPipeline.refine_chunk_batch_seeds`` at 1 and 4 rows (50 steps,
   cfg 2.0, T=201: 50 eager decoder calls of 2 x rows; 3 calls each), and one
-  ``stream_prep`` of a 6 s wav on the 8 s prep bucket (3 calls);
+  ``stream_prep`` of a 6 s wav on the 8 s prep bucket (3 calls), then
+  ``stream_prep_async``'s dispatch and its ``realize()`` apart (3 calls from
+  an idle card): the host ms of each, the device busy ms inside each and its
+  busy share;
+- burst: chip_smoke.py's phase 9b (``serve_burst``: a 10 s stream ticking
+  through ``run_server`` at phase 9's settings, four 6 s streams requested
+  from four threads after its second increment) three times: from a cold
+  pinned-memory cache, warm, and warm under the profiler on every thread
+  after one dispatch on the idle server, each prep's dispatch in a
+  ``record_function`` range.  Per
+  dispatch: its wall ms, the ms inside the torch ops it called on its
+  thread (the dispatcher and the CUDA launches, run with the GIL released)
+  and the rest (Python, and taking the GIL back after each op);
 - train: steady flagship data steps (configs/flagship.json: batch 4 of 2 s,
   dropout 0.2, grad_accumulation 8, depthwise pre-net) of the diffusion
   step, on the wav path (the frozen full-width HuBERT-base on the frontend
@@ -95,7 +108,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PATHS = ("flagship", "longform", "audio", "ddpm", "stream", "train", "cli")
+PATHS = ("flagship", "longform", "audio", "ddpm", "stream", "burst", "train", "cli")
 
 
 def _device_us(evt) -> float:
@@ -106,10 +119,29 @@ def _device_us(evt) -> float:
 
 
 def _is_annotation(name: str) -> bool:
-    """The training step's ``record_function`` ranges, which the profiler
-    also reports on the device timeline (spanning their kernels and the
-    gaps between them): not kernels."""
-    return name.startswith("train:")
+    """The ``record_function`` ranges (the training step's, the stream
+    prep's), which the profiler also reports on the device timeline
+    (spanning their kernels and the gaps between them): not kernels."""
+    return name.startswith(("train:", "prep:"))
+
+
+def _device_spans(prof) -> list:
+    """Sorted (start, end) µs of every device activity but the annotations."""
+    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type is not None and "cuda" in str(e.device_type).lower()
+                  and not _is_annotation(e.name))
+
+
+def _busy_us(spans, lo: float = float("-inf"), hi: float = float("inf")) -> float:
+    """The union of ``spans`` clipped to [lo, hi]: kernels that overlap (cuDNN
+    runs a grouped conv's groups side by side) count once."""
+    busy, end = 0.0, lo
+    for a, b in spans:
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
 
 
 def profile_calls(torch, fn, calls: int) -> dict:
@@ -132,22 +164,96 @@ def profile_calls(torch, fn, calls: int) -> dict:
                             "count_per_call": evt.count / calls})
             copies += evt.count if "copy" in evt.key.lower() else 0
     kernels.sort(key=lambda k: -k["ms_per_call"])
-    # Busy time is the union of the device intervals: kernels that overlap
-    # (cuDNN runs a grouped conv's groups side by side) count once.
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type is not None and "cuda" in str(e.device_type).lower()
-                   and not _is_annotation(e.name))
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy_ms = busy_us / 1e3 / calls
+    busy_ms = _busy_us(_device_spans(prof)) / 1e3 / calls
     stages = stage_split(prof, calls)
     return {"wall_ms_per_call": wall_ms / calls, "stages_ms_per_call": stages,
             "kernel_ms_per_call": sum(k["ms_per_call"] for k in kernels),
             "device_ms_per_call": busy_ms, "busy_share": busy_ms / (wall_ms / calls),
             "launches_per_call": sum(k["count_per_call"] for k in kernels),
             "copies_per_call": copies / calls, "kernels": kernels}
+
+
+def profile_prep_split(torch, pipe, wav, calls: int = 3) -> dict:
+    """``stream_prep_async`` with its dispatch and its fetch apart: each call
+    from an idle card, the dispatch and then ``realize()`` at once, each in a
+    ``record_function`` range.  Per call: the host ms of each range, the
+    device busy ms inside it, its busy share, and the prep's device busy ms
+    in all."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    pipe.stream_prep_async(wav, seed=2)()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            with record_function("prep:dispatch"):
+                realize = pipe.stream_prep_async(wav, seed=2)
+            with record_function("prep:realize"):
+                realize()
+    spans = _device_spans(prof)
+    out = {"device_ms_per_call": _busy_us(spans) / 1e3 / calls}
+    for part in ("dispatch", "realize"):
+        ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.name == f"prep:{part}" and e.device_type is not None
+                  and "cpu" in str(e.device_type).lower()]
+        assert len(ranges) == calls, (part, len(ranges))
+        wall = sum(b - a for a, b in ranges) / 1e3 / calls
+        busy = sum(_busy_us(spans, a, b) for a, b in ranges) / 1e3 / calls
+        out[part] = {"wall_ms_per_call": wall, "device_ms_per_call": busy,
+                     "busy_share": busy / wall}
+    return out
+
+
+def profile_burst(torch, cfg, dec) -> dict:
+    """The ``burst`` path (module docstring): ``serve_burst``'s readings of
+    each burst (``cold``, ``warm``, ``profiled``) and, keyed by its stream's
+    seed (19: the idle server's, 20: the ticking stream's, 21-24: the
+    burst's), each profiled dispatch's
+    ``wall_ms``, ``in_ops_ms``, ``rest_ms`` and ``ops``."""
+    import chip_smoke
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from edge_diffusion_tts_tpu_torch import serving
+    from edge_diffusion_tts_tpu_torch.weights import save_checkpoint
+
+    ckpt = os.path.join(ROOT, "build", "burst_checkpoint")
+    save_checkpoint(ckpt, cfg, dec, chip_smoke.seeded_encoder(torch, cfg, chip_smoke.SEED))
+    server, batcher = serving.run_server(ckpt, port=0, buckets=(128, 256), max_batch=8,
+                                         longform=True, longform_streams=2, verbose=False)
+    sched = server.longform_fn.scheduler
+    pipe, host_port = sched.pipe, server.server_address
+    dispatch = pipe.stream_prep_async
+
+    def ranged(wav, seed=0):
+        with record_function(f"burst:dispatch:{seed}"):
+            return dispatch(wav, seed)
+
+    out = {}
+    try:
+        for name in ("cold", "warm"):  # the second with the pinned blocks cached
+            out[name] = chip_smoke.serve_burst(torch, sched, *host_port)
+            out[name].pop("streams")
+        pipe.stream_prep_async = ranged  # serve_burst wraps it, then drops the wrappers
+        wav = chip_smoke.synthetic_wav(6.0, 9200 + chip_smoke.SEED)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            pipe.stream_prep_async(wav, seed=19)()
+            out["profiled"] = chip_smoke.serve_burst(torch, sched, *host_port)
+            out["profiled"].pop("streams")
+    finally:
+        if "stream_prep_async" in vars(pipe):
+            del pipe.stream_prep_async
+        server.shutdown()
+        batcher.close()
+    for e in prof.events():
+        if e.name.startswith("burst:dispatch:") and "cpu" in str(e.device_type).lower():
+            wall = e.time_range.elapsed_us() / 1e3
+            in_ops = sum(c.time_range.elapsed_us() for c in e.cpu_children) / 1e3
+            out[int(e.name.rsplit(":", 1)[1])] = {
+                "wall_ms": wall, "in_ops_ms": in_ops, "rest_ms": wall - in_ops,
+                "ops": len(e.cpu_children)}
+    return out
 
 
 FRONTEND_KERNELS = ("conv0_kernel", "conv_slab_kernel", "split_sum_gelu_kernel")
@@ -543,6 +649,22 @@ def main() -> int:
         out["stream_prep_8s_bucket"] = profile_calls(
             torch, lambda: pipe.stream_prep(wav, seed=2), calls=3)
         report("stream_prep_8s_bucket", out["stream_prep_8s_bucket"])
+        split = out["stream_prep_async_split"] = profile_prep_split(torch, pipe, wav)
+        for part in ("dispatch", "realize"):
+            r = split[part]
+            print(f"[stream_prep_async] {part}: wall {r['wall_ms_per_call']:.4f} ms/call, "
+                  f"device busy inside it {r['device_ms_per_call']:.4f} ms/call, busy share "
+                  f"{r['busy_share']:.3f}")
+        print(f"[stream_prep_async] the prep's device busy in all "
+              f"{split['device_ms_per_call']:.4f} ms/call")
+
+    if "burst" in paths:
+        out["burst"] = profile_burst(torch, cfg, dec)
+        for seed, r in out["burst"].items():
+            if isinstance(seed, int):
+                print(f"[burst] dispatch of stream {seed}{' (idle server)' * (seed == 19)}: "
+                      f"wall {r['wall_ms']:.4f} ms, inside its {r['ops']} torch ops "
+                      f"{r['in_ops_ms']:.4f} ms, the rest {r['rest_ms']:.4f} ms")
 
     if "train" in paths:
         out.update(profile_train(torch))

@@ -710,3 +710,124 @@ def test_exported_program_on_the_card(cuda, tmp_path):
             want = dec(x, t, sem_idx=sem, step_idx=step)
         assert got.device.type == "cuda"
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def prep_pipe():
+    """A long-form pipeline on the card with the hubert-base conv stack (the
+    frontend kernel's route) under a 2-layer transformer, prep buckets of
+    8/16 s; and a 6 s wav (the 8 s bucket)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.pipeline import LongFormPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CFG(hidden=32, layers=1, heads=2, dropout=0.0)
+    torch.manual_seed(12)
+    enc = SemanticEncoder(cfg, HubertConfig(num_layers=2, hidden_size=64, num_heads=2,
+                                            intermediate_size=128))
+    pipe = LongFormPipeline(cfg, DiffusionSchedule.create(cfg.diff_steps),
+                            EdgeDiffusionDecoder(cfg), enc, prep_buckets=(128000, 256000),
+                            device="cuda")
+    assert pipe.encode_route == "kernel"
+    wav = (0.2 * np.random.RandomState(13).randn(1, 96000)).astype(np.float32)
+    return pipe, wav
+
+
+def _default_stream_prep(pipe, wav, seed):
+    """The prep's device work run inline on the default stream."""
+    with torch.inference_mode():
+        z, mean, std = pipe._prep(torch.from_numpy(wav).cuda(), pipe.num_chunks(wav.shape[1]),
+                                  pipe.prep_buckets[0])
+        out = [t.cpu().numpy() for t in (z, mean, std)]
+    g = torch.Generator().manual_seed(seed)
+    return out + [torch.randint(0, (1 << 63) - 1, (len(out[1]),), generator=g).numpy()]
+
+
+def test_async_prep_on_the_card_equals_the_default_stream_prep(prep_pipe):
+    """The side stream's prep (and ``stream_prep``, its fetch) equals the
+    same work on the default stream bit for bit, at the 8 s bucket."""
+    pipe, wav = prep_pipe
+    got = pipe.stream_prep_async(wav, seed=3)()
+    want = _default_stream_prep(pipe, wav, 3)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(pipe.stream_prep(wav, seed=3), want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_async_prep_launches_the_frontend_on_the_side_stream(prep_pipe, monkeypatch):
+    pipe, wav = prep_pipe
+    streams = []
+    launch = ff.conv_frontend
+
+    def recording(*a, **kw):
+        streams.append(torch.cuda.current_stream())
+        return launch(*a, **kw)
+
+    recording.launches = 0  # the wrapper counts under the module's name
+    monkeypatch.setattr(ff, "conv_frontend", recording)
+    pipe.stream_prep_async(wav, seed=1)()
+    assert recording.launches == 1
+    assert streams == [pipe.prep_stream] and streams[0] != torch.cuda.default_stream()
+
+
+def test_async_prep_dispatch_does_not_wait_for_the_card(prep_pipe):
+    """Once warm, the dispatch makes no synchronizing CUDA call."""
+    pipe, wav = prep_pipe
+    want = pipe.stream_prep(wav, seed=2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        realize = pipe.stream_prep_async(wav, seed=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, w in zip(realize(), want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_async_prep_runs_beside_the_default_streams_queued_work(prep_pipe):
+    """The side stream waits for the weights, not for what the caller's
+    stream queued before the dispatch: the fetch returns while a kernel
+    queued earlier on the default stream still spins.  The first dispatch
+    makes new pinned blocks (``want``'s views hold the cached ones)."""
+    pipe, wav = prep_pipe
+    want = pipe.stream_prep(wav, seed=4)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second on the default stream
+    for _ in range(2):
+        got = pipe.stream_prep_async(wav, seed=4)()
+        assert not torch.cuda.default_stream().query(), "the prep waited for the default stream"
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    torch.cuda.synchronize()
+
+
+def test_async_preps_from_four_threads_equal_each_alone(prep_pipe):
+    """Four threads dispatch at once while the default stream is busy;
+    each fetch equals that stream's prep alone."""
+    import threading
+
+    pipe, wav = prep_pipe
+    wavs = [wav[:, :n] for n in (96000, 90000, 80000, 70000)]
+    alone = [pipe.stream_prep(w, seed=i) for i, w in enumerate(wavs)]
+    busy = torch.randn((4096, 4096), device="cuda")
+    realizes = {}
+
+    def submit(i):
+        realizes[i] = pipe.stream_prep_async(wavs[i], seed=i)
+
+    for _ in range(8):
+        busy = busy @ busy / 64.0
+    threads = [threading.Thread(target=submit, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    for i, w in enumerate(alone):
+        for g, a in zip(realizes[i](), w):
+            np.testing.assert_array_equal(g, a)
+    assert torch.isfinite(busy).all()
