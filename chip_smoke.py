@@ -207,6 +207,28 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    per phase, halvings 1000 -> 500 -> 250: 80 data steps); the run's
    ``edge_model.pt2`` against its final decoder, 1e-5.  Its frontend and
    fused launches join the ``kernels`` line.
+13. the TFLite edge export on this machine, which has no TensorFlow (the
+   export needs none: the port lowers the decoder's static program and
+   writes the flatbuffer itself; nothing runs the artifact here).  A
+   checkpoint of configs/flagship.json (the depthwise pre-net on; phase 9's
+   decoder is the default config, without it) with ``seeded_decoder``'s
+   weights goes to build/phase13.  At (1,200,100) and (1,500,250), for
+   each mode "", "weight_int8" and "dynamic": ``export_tflite``; the
+   artifact read back with the port's reader; every float constant named
+   after a decoder weight equal to that weight (the dequantized one for
+   weight_int8) or a transpose of it, bit for bit, and every weight but
+   ``sem_proj`` (not in the graph) present; every int8 tensor and its
+   per-channel scales equal to ``quantize_decoder_params``'s codes (for
+   dynamic, where the pass also takes the sensitive weights, to the same
+   rule, ``symmetric_per_channel``, on the float weight), bit for bit; a
+   second export byte-equal.  ``cli.main(["export", ..., "--format",
+   "tflite"])`` writes the API's bytes (float at the default shape, dynamic
+   with ``--t-frames 500 --s-tokens 250``), and ``--quantize int8`` exits
+   naming QUANT_r05.json's ``tflite_full_int8_mode_status``.  TensorFlow is
+   never imported.  Printed per mode and shape: export s (both exports),
+   bytes and the first 16 hex digits of their sha256, operators, int8
+   tensors.  No kernel launches: the ``kernels``
+   line is unchanged.
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -343,8 +365,8 @@ def seeded_decoder(torch, cfg, seed: int):
 
     with torch.no_grad():
         for m in dec.modules():
-            if isinstance(m, nn.Linear):
-                b = 1.0 / np.sqrt(m.in_features)
+            if isinstance(m, (nn.Linear, nn.Conv1d)):  # the pre-net's convolutions too
+                b = 1.0 / np.sqrt(m.weight[0].numel())  # fan-in
                 put(m.weight, rng.uniform(-b, b, m.weight.shape))
                 if m.bias is not None:
                     put(m.bias, rng.uniform(-b, b, m.bias.shape))
@@ -2601,6 +2623,124 @@ def phase_cli(torch, train_cuts=None):
     return dict(launches=launches, walls=walls)
 
 
+TFLITE_SHAPES = ((1, 200, 100), (1, 500, 250))  # phase 13's (B, T, S)
+
+
+def _weight_views(w: np.ndarray) -> list:
+    """The layouts a weight can take in the artifact: as is, transposed (a
+    Linear in FULLY_CONNECTED), a 1-D conv's filter as CONV_2D or
+    DEPTHWISE_CONV_2D hold it."""
+    views = [w]
+    if w.ndim == 2:
+        views.append(w.T)
+    if w.ndim == 3:
+        views += [w.transpose(0, 2, 1), w.reshape(w.shape[0], -1).T]
+    return [np.ascontiguousarray(v).tobytes() for v in views]
+
+
+def _check_tflite(blob: bytes, sd: dict, qflat: dict, mode: str) -> dict:
+    """Phase 13's checks of one artifact against the decoder's state dict
+    ``sd`` (its weights as exported) and ``quantize_decoder_params``'s
+    ``qflat``; returns the artifact's counts."""
+    from edge_diffusion_tts_tpu_torch.utils import tflite_surgery as ts
+
+    model = ts.read_model(blob)
+    sg = model.subgraphs[0]
+    floats = int8 = 0
+    seen = set()
+    for t in sg.tensors:
+        value = ts.constant(model, t)
+        if value is None:
+            continue
+        if t.type == ts.FLOAT32 and t.name in sd:
+            assert value.tobytes() in _weight_views(sd[t.name]), f"{mode}: {t.name} differs"
+            floats += 1
+            seen.add(t.name)
+        elif t.type == ts.INT8:
+            name = t.name[:-len("_int8")] if mode == "weight_int8" else t.name
+            qp = t.quantization
+            if f"q8:{name}" in qflat:
+                q, sc = qflat[f"q8:{name}"], qflat[f"sc:{name}"]
+            else:  # dynamic: a sensitive weight, to the converter's rule
+                assert mode == "dynamic", (mode, t.name)
+                q, sc = ts.symmetric_per_channel(sd[name].reshape(sd[name].shape[0], -1))
+            assert value.tobytes() == np.ascontiguousarray(q).tobytes(), f"{mode}: {name} codes"
+            assert qp.scale.tobytes() == np.asarray(sc, np.float32).tobytes(), (
+                f"{mode}: {name} scales")
+            assert np.all(qp.zero_point == 0), name
+            int8 += 1
+            seen.add(name)
+    missing = {k for k in sd if not k.startswith("sem_proj.")} - seen
+    assert not missing, f"{mode}: weights not in the artifact: {sorted(missing)}"
+    return dict(bytes=len(blob), ops=len(sg.operators), int8=int8, float_weights=floats)
+
+
+def phase_tflite(torch) -> dict:
+    """Phase 13: the TFLite export (the module docstring's phase 13); returns
+    its numbers per shape and mode."""
+    import hashlib
+    import shutil
+
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.utils.export import export_tflite
+    from edge_diffusion_tts_tpu_torch.utils.quantize import (
+        dequantize_decoder_params, quantize_decoder_params,
+    )
+    from edge_diffusion_tts_tpu_torch.weights import save_checkpoint
+
+    t_phase = time.perf_counter()
+    base = os.path.join(ROOT, "build", "phase13")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    with open(os.path.join(ROOT, "configs", "flagship.json")) as f:
+        cfg = CFG.from_json(f.read())
+    assert cfg.use_depthwise
+    decoder = seeded_decoder(torch, cfg, SEED)
+    ckpt = os.path.join(base, "checkpoint")
+    save_checkpoint(ckpt, cfg, decoder)
+    qflat = quantize_decoder_params(decoder)
+    sds = {"": decoder.state_dict(), "dynamic": decoder.state_dict(),
+           "weight_int8": dequantize_decoder_params(qflat)}
+    sds = {m: {k: v.detach().cpu().numpy() for k, v in sd.items()} for m, sd in sds.items()}
+    dev_flag = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    out = {}
+    for shape in TFLITE_SHAPES:
+        for mode in ("", "weight_int8", "dynamic"):
+            blobs, secs = [], []
+            for k in range(2):
+                tag = f"{'x'.join(map(str, shape))}_{mode or 'float'}{k}"
+                path = os.path.join(base, f"{tag}.tflite")
+                t0 = time.perf_counter()
+                export_tflite(cfg, decoder, path, *shape, quantize=mode)
+                secs.append(time.perf_counter() - t0)
+                with open(path, "rb") as f:
+                    blobs.append(f.read())
+            assert blobs[0] == blobs[1], f"{shape} {mode!r}: two exports differ"
+            r = _check_tflite(blobs[0], sds[mode], qflat, mode or "float")
+            r.update(export_s=secs, path=path)
+            out[(shape, mode)] = r
+            print(f"[tflite] {shape} {mode or 'float'}: export {secs[0]:.3f} s, again "
+                  f"{secs[1]:.3f} s (byte-equal); {r['bytes']} bytes, sha256 "
+                  f"{hashlib.sha256(blobs[0]).hexdigest()[:16]}, {r['ops']} operators, "
+                  f"{r['int8']} int8 tensors, {r['float_weights']} float weights = the "
+                  "decoder's bit for bit")
+    for argv, key in ((["--format", "tflite"], ((1, 200, 100), "")),
+                      (["--format", "tflite", "--t-frames", "500", "--s-tokens", "250",
+                        "--quantize", "dynamic"], ((1, 500, 250), "dynamic"))):
+        path = os.path.join(base, "cli.tflite")
+        _, wall = _cli(["export", ckpt, "--out", path] + argv + dev_flag,
+                       f"export {' '.join(argv)}")
+        with open(path, "rb") as f, open(out[key]["path"], "rb") as g:
+            assert f.read() == g.read(), f"cli {argv}: other bytes than export_tflite"
+        print(f"[tflite] cli export {' '.join(argv)}: {wall:.3f} s, the API's bytes")
+    _refused(["export", ckpt, "--format", "tflite", "--quantize", "int8"] + dev_flag,
+             "export --format tflite --quantize int8", "tflite_full_int8_mode_status")
+    assert "tensorflow" not in sys.modules, "the export imported TensorFlow"
+    print(f"[tflite] phase 13: {time.perf_counter() - t_phase:.3f} s; TensorFlow not "
+          "imported")
+    return out
+
+
 def run(torch) -> None:
     from edge_diffusion_tts_tpu_torch.config import CFG
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
@@ -2631,6 +2771,7 @@ def run(torch) -> None:
     trained = phase_train(torch)
     par = phase_parallel(torch, cfg, decoder)
     cli_run = phase_cli(torch)
+    phase_tflite(torch)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [

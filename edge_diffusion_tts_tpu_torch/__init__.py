@@ -11,7 +11,8 @@ imports nothing of it (nor JAX).  Module names match their JAX counterparts:
   ops        hand-written CUDA kernels (csrc/) with their plain versions;
              the DSP (mel, resample, Griffin-Lim vocoder)
   utils      mel normalization, metric logging, divergence guards, plots,
-             timing and profiling (speed), the decoder's .pt2 export,
+             timing and profiling (speed), the decoder's .pt2 and TFLite
+             exports (the flatbuffer written without TensorFlow),
              weight-only int8 (quantize), reference checkpoints (torch_compat)
   data       LJSpeech reading, collation, the threaded loader, native
              ingest, precomputed HuBERT features
@@ -27,8 +28,8 @@ imports nothing of it (nor JAX).  Module names match their JAX counterparts:
   cli        the command line (edge-tts-torch): train, bench, precompute,
              generate, longform, export, serve, migrate
 
-Not ported: the JAX package's TFLite export and utils/tflite_surgery.py
-(they need jax2tf and TensorFlow).
+Not ported: the calibrated full-integer TFLite mode (``export_tflite(
+quantize="int8")``), whose JAX artifact aborts a stock interpreter at invoke.
 """
 
 from .config import CFG, TrainPhase, hubert_num_frames, resolve_device, set_seed

@@ -12,8 +12,9 @@ written for it parses here:
               random HuBERT-base on the conv-frontend kernel
   generate    one sample from a port checkpoint (``demo.generate_sample``)
   longform    chunked long-audio generation (``pipeline.LongFormPipeline``)
-  export      the decoder as a ``.pt2`` (``utils/export.py``) or a
-              weight-only int8 ``.npz`` (``utils/quantize.py``)
+  export      the decoder as a ``.pt2`` or a TFLite flatbuffer
+              (``utils/export.py``), or a weight-only int8 ``.npz``
+              (``utils/quantize.py``)
   serve       the micro-batched TCP server (``serving.run_server``)
   migrate     a reference ``.pt`` -> a port checkpoint (``utils/torch_compat``)
 
@@ -27,9 +28,11 @@ Where the port differs:
   ``device=``; ``cfg.device`` is not read.  ``bench`` times the card and
   refuses ``cpu``; ``export`` traces a CPU copy of the decoder whatever the
   device.
-- ``export --format`` adds ``pt2``, the default; ``stablehlo`` and
-  ``tflite`` exit naming ``pt2`` in their place, and ``--quantize`` (the
-  TFLite converter's) exits naming ``--format weight-int8``.
+- ``export --format`` adds ``pt2``, the default; ``stablehlo`` exits
+  naming ``pt2`` in its place.  ``--format tflite`` writes the port's own
+  flatbuffer (``export_tflite``) with ``--quantize dynamic``; ``--quantize
+  int8`` exits with the reason it is not ported, and ``--quantize`` with
+  another format exits naming ``--format weight-int8``.
 - ``serve --compile-cache`` exits: the port compiles no XLA programs (its
   CUDA kernels are built once, into ``build/kernels/``).
 - ``train --mesh``/``--pipeline`` run one process per rank: start the CLI
@@ -143,16 +146,16 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("checkpoint", type=str, help="port checkpoint directory")
     ex.add_argument("--format", choices=["pt2", "weight-int8", "stablehlo", "tflite"],
                     default="pt2",
-                    help="pt2 = torch.export program; stablehlo and tflite are the JAX "
-                         "package's (refused)")
+                    help="pt2 = torch.export program; tflite = static-shape TFLite "
+                         "flatbuffer; stablehlo is the JAX package's (refused)")
     ex.add_argument("--out", type=str, default=None)
     ex.add_argument("--t-frames", type=int, default=200,
                     help="static mel length (tflite only)")
     ex.add_argument("--s-tokens", type=int, default=100,
                     help="static context length (tflite only)")
     ex.add_argument("--quantize", choices=["dynamic", "int8"], default="",
-                    help="TFLite post-training quantization (refused); the selective "
-                         "weight-only artifact is --format weight-int8")
+                    help="post-training quantization (tflite only; int8 is not ported); "
+                         "the selective weight-only artifact is --format weight-int8")
     _add_device(ex)
 
     sv = sub.add_parser(
@@ -213,10 +216,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     if args.command == "export":
-        if args.format in ("stablehlo", "tflite"):
-            raise SystemExit(f"export --format {args.format} is the JAX package's; the port "
+        if args.format == "stablehlo":
+            raise SystemExit("export --format stablehlo is the JAX package's; the port "
                              "exports a torch.export program: --format pt2")
-        if args.quantize:
+        if args.format == "tflite" and args.quantize == "int8":
+            raise SystemExit(
+                "export --format tflite --quantize int8: the calibrated full-integer TFLite "
+                "mode is not ported (QUANT_r05.json, tflite_full_int8_mode_status: the JAX "
+                "package's artifact in that mode aborts a stock interpreter at invoke); use "
+                "--quantize dynamic, or export_tflite(quantize='weight_int8')")
+        if args.quantize and args.format != "tflite":
             raise SystemExit("export --quantize is the TFLite converter's and has no "
                              "counterpart here; the selective weight-only int8 artifact is "
                              "--format weight-int8")
@@ -370,6 +379,11 @@ def _export(args) -> None:
         final, report = save_quantized(args.out or "edge_model.int8.npz", decoder)
         print(json.dumps(report))
         print(f"Exported weight-int8 decoder -> {final}")
+    elif args.format == "tflite":
+        from .utils.export import export_tflite
+
+        export_tflite(cfg, decoder, args.out or "edge_model.tflite", t_frames=args.t_frames,
+                      s_tokens=args.s_tokens, quantize=args.quantize)
     else:
         from .utils.export import export_for_edge
 

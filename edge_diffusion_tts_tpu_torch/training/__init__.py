@@ -4,6 +4,8 @@ checkpoints (counterpart of ``edge_diffusion_tts_tpu/training``)."""
 from .checkpoint import (
     resolve_checkpoint_dir,
     restore_checkpoint,
+    restore_final_model,
+    restore_hubert_config,
     save_checkpoint,
     save_final_model,
 )
@@ -32,6 +34,8 @@ __all__ = [
     "progressive_step_schedule",
     "resolve_checkpoint_dir",
     "restore_checkpoint",
+    "restore_final_model",
+    "restore_hubert_config",
     "save_checkpoint",
     "save_final_model",
     "train",

@@ -17,7 +17,12 @@ code.  The JAX package's behaviours are kept:
 - restore fits the teacher's arity to the checkpoint's (a checkpoint saved
   in a distillation phase has one);
 - ``save_final_model`` writes the inference artifact in the layout
-  ``weights.load_checkpoint`` and ``serving.run_server`` read.
+  ``weights.load_checkpoint`` and ``serving.run_server`` read;
+  ``restore_final_model`` and ``restore_hubert_config`` read it back as the
+  JAX package's functions of those names do.  The JAX package's
+  ``encoder_variables`` (flax's ``{"params", "vq_state"}`` split) has no
+  counterpart: the VQ codebook and its statistics ride in the encoder's
+  state dict.
 """
 
 from __future__ import annotations
@@ -143,3 +148,27 @@ def save_final_model(path: str, state: TrainState, cfg: CFG) -> None:
     statistics ride in the encoder's state dict), as
     ``weights.save_checkpoint`` writes them."""
     weights.save_checkpoint(path, cfg, state.decoder, state.encoder)
+
+
+def restore_final_model(path: str) -> Tuple[Dict[str, Dict[str, torch.Tensor]], CFG]:
+    """``({"decoder": state dict, "encoder": state dict}, cfg)`` of a final
+    model (``"encoder"`` only when the artifact holds one), CPU tensors."""
+    path = os.path.abspath(path)
+    cfg, dec, _, _ = weights.load_checkpoint(path)
+    state = {"decoder": dec}
+    enc_path = os.path.join(path, weights.CKPT_FILES["encoder"])
+    if os.path.exists(enc_path):
+        state["encoder"] = torch.load(enc_path, map_location="cpu", weights_only=True)
+    return state, cfg
+
+
+def restore_hubert_config(path: str) -> HubertConfig:
+    """The HuBERT architecture a checkpoint's encoder was built for, from its
+    ``hubert.json``; the full-size default for an artifact without the file
+    (one that predates it, or a reference-migrated one, always full size)."""
+    path = resolve_checkpoint_dir(path) or os.path.abspath(path)
+    p = os.path.join(path, _HUBERT_FILE)
+    if os.path.exists(p):
+        with open(p) as f:
+            return HubertConfig.from_json(f.read())
+    return HubertConfig()

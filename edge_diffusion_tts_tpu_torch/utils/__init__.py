@@ -1,7 +1,8 @@
 """Utilities of the port: mel normalization (audio), metric logging (logging),
 divergence guards (reliability), timing and profiling (speed), the decoder's
-``.pt2`` export (export), weight-only int8 (quantize), reference-checkpoint
-conversion (torch_compat), sample plots (visualization)."""
+``.pt2`` and TFLite exports (export; the TFLite lowering and flatbuffer in
+tflite_lower and tflite_surgery), weight-only int8 (quantize),
+reference-checkpoint conversion (torch_compat), sample plots (visualization)."""
 
 from .audio import denormalize_mel, normalize_mel
 from .logging import MetricWriter
@@ -14,7 +15,8 @@ def __getattr__(name):  # lazy: these pull matplotlib / torch.export
         from .visualization import visualize_generation
 
         return visualize_generation
-    if name in ("export_for_edge", "load_exported"):
+    if name in ("export_for_edge", "load_exported", "export_tflite", "load_tflite",
+                "synthetic_representative_batches"):
         from . import export
 
         return getattr(export, name)
@@ -28,11 +30,14 @@ __all__ = [
     "benchmark",
     "denormalize_mel",
     "export_for_edge",
+    "export_tflite",
+    "load_tflite",
     "make_nan_guard",
     "memory_stats",
     "normalize_mel",
     "profile_trace",
     "remat_decoder",
     "retry_transient",
+    "synthetic_representative_batches",
     "visualize_generation",
 ]
