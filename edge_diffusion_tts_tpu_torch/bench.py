@@ -6,7 +6,9 @@ The flagship decoder (``CFG()``: hidden 160, 4 layers, eps prediction,
 weights from ``torch.manual_seed(0)``) generates B=1, S=250 tokens -> T=500
 mel frames in 4 DDIM steps through ``EdgeInference.generate_mel`` on two
 backends, ``"fused"`` (the fused DDIM kernel, one launch per call) and
-``"eager"`` (the module loop).  Per backend: the host-clock median of
+``"eager"`` (the module loop).  The fused backend also takes the configs
+under configs/, whose depthwise pre-net adds three launches per step; the
+benchmark keeps ``CFG()`` so that its readings stay comparable.  Per backend: the host-clock median of
 ``RUNS`` calls, each ending in a synchronize, and the device time per call
 by CUDA events around ``RUNS`` back-to-back calls.  A failing backend fails
 the command: nothing falls back.

@@ -9,8 +9,13 @@
 // the whole loop in one launch with every weight resident in VMEM.  On the
 // H100 the ~6 MB of f32 weights do not fit a block's 227 KB of shared
 // memory, so a step is a fixed sequence of hand-written kernels, each over
-// all B*T rows (2 + 8L + 1 launches: 35 at L = 4):
+// all B*T rows (2 + 8L + 1 launches: 35 at L = 4; 3 more with the depthwise
+// pre-net, 38 at L = 4):
 //   in_proj GEMM (+bias +positional row)
+//     or, with the pre-net (use_depthwise): in_proj GEMM (+bias) -> depthwise
+//     k=3 conv along T within each batch row (rows outside [0, T) zero) ->
+//     pointwise GEMM (+bias) -> GroupNorm statistics per (batch row, group)
+//     and h + gelu_erf(norm * scale + shift) + positional row, one pass
 //   L x [ qkv GEMM with an AdaLN-RMS prologue -> banded self-attention
 //         (|i-j|<=w, key<T) -> attn-proj GEMM (+bias +residual) -> cross-q
 //         GEMM with an RMS x n2w prologue -> cross-attention over the
@@ -48,8 +53,17 @@
 // keys: the float32 sums of one warp per row and of the 64-row tile, the
 // summation order the 1000-step DDPM parity rule was set on.  An order with
 // 8 threads per row crossed that rule's elementwise bar.
-// Activations live in one workspace.  One persistent launch, a CUDA graph,
-// and wgmma/TMA or tensor-core tiles are later work.
+// The pre-net's GroupNorm takes one block per (batch row, group) and sums
+// in a fixed order (each thread's elements in sequence, then a warp tree,
+// then the warps in order; no atomics): the mean first, then the variance
+// around it, so the same input gives the same bits.  At the flagship shape
+// that is 8 blocks of 10,000 elements each, a few us; the pre-net adds
+// 2*500*160*160 = 25.6 MFLOP per forward, all in the pointwise GEMM.
+// Activations live in one workspace; the pre-net's two [B*T, H] scratch
+// tensors (the depthwise output and the pointwise output) reuse the
+// attention-output and cross-query buffers, which the step fills only
+// after the pre-net.  One persistent launch, a CUDA graph, and wgmma/TMA
+// or tensor-core tiles are later work.
 //
 // DDPM noise: the TPU kernel draws from the core's hardware PRNG.  Here it
 // is Philox4x32-10 (Salmon et al., SC'11; Random123's constants), written
@@ -135,6 +149,87 @@ __global__ void ddpm_kernel(float* __restrict__ x, const float* __restrict__ pre
   x[idx] = __fadd_rn(mean, __fmul_rn(coef[4], z));
 }
 
+// The depthwise pre-net's first kernel: d[b, t, c] = w[c, 0] h[b, t-1, c] +
+// w[c, 1] h[b, t, c] + w[c, 2] h[b, t+1, c], the rows outside [0, T) of the
+// same b read as zero (flax's SAME padding, 1 and 1), no bias.  Each product
+// and sum rounded on its own, in the plain version's order.
+__global__ void depthwise3_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                                  float* __restrict__ out, int T, int H, long long n) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int c = (int)(idx % H);
+  const int t = (int)((idx / H) % T);
+  const float prev = t > 0 ? h[idx - H] : 0.f;
+  const float next = t + 1 < T ? h[idx + H] : 0.f;
+  out[idx] = __fadd_rn(__fadd_rn(__fmul_rn(prev, w[3 * c]), __fmul_rn(h[idx], w[3 * c + 1])),
+                       __fmul_rn(next, w[3 * c + 2]));
+}
+
+constexpr int PRENET_GROUPS = 8;     // GroupNorm groups (GroupNorm(min(8, H)), H % 8 == 0)
+constexpr int PRENET_THREADS = 1024;  // one block per (batch row, group)
+
+// The block's sum of each thread's v, in a fixed order: a 32-lane
+// __shfl_xor tree per warp, then the warps' sums in warp order by thread 0.
+__device__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int i = 0; i < PRENET_THREADS / 32; ++i) s += red[i];
+    red[32] = s;
+  }
+  __syncthreads();
+  const float s = red[32];
+  __syncthreads();  // red is reused by the next call
+  return s;
+}
+
+// The pre-net's last kernel, block (g, b): GroupNorm statistics of u over
+// the T rows x H/8 channels of group g in batch row b (mean, then the mean
+// square around it, eps 1e-6), then
+//   out[b, t, c] = hin[b, t, c] + gelu_erf((u - mean) rstd gs[c] + gb[c])
+//                  + pos[t, c]
+// for the group's channels.  out may alias hin (each element is read and
+// written by one thread).
+__global__ void __launch_bounds__(PRENET_THREADS)
+    prenet_norm_kernel(const float* hin, float* out, const float* __restrict__ u,
+                       const float* __restrict__ pos, const float* __restrict__ gs,
+                       const float* __restrict__ gb, int T, int H) {
+  __shared__ float red[33];
+  const int cg = H / PRENET_GROUPS;
+  const int c0 = blockIdx.x * cg;
+  const long long base = (long long)blockIdx.y * T * H + c0;
+  const int n = T * cg;
+  float s = 0.f;
+  for (int e = threadIdx.x; e < n; e += PRENET_THREADS) {
+    const int t = e / cg;
+    s += u[base + (long long)t * H + (e - t * cg)];
+  }
+  const float mean = block_sum(s, red) / (float)n;
+  s = 0.f;
+  for (int e = threadIdx.x; e < n; e += PRENET_THREADS) {
+    const int t = e / cg;
+    const float d = u[base + (long long)t * H + (e - t * cg)] - mean;
+    s = fmaf(d, d, s);
+  }
+  const float rstd = 1.f / sqrtf(block_sum(s, red) / (float)n + 1e-6f);
+  for (int e = threadIdx.x; e < n; e += PRENET_THREADS) {
+    const int t = e / cg, c = c0 + (e - t * cg);
+    const long long i = base + (long long)t * H + (e - t * cg);
+    const float y = (u[i] - mean) * rstd * gs[c] + gb[c];
+    const float act = 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
+    out[i] = hin[i] + act + pos[(long long)t * H + c];
+  }
+}
+
+// The depthwise pre-net's weights (all null: no pre-net): taps [H, 3],
+// pointwise weight [H, H] and bias [H], GroupNorm scale and shift [H].
+struct Prenet {
+  const float *dw, *pw, *pb, *gs, *gb;
+};
+
 // The decoder's step-invariant weights and per-call buffers (see
 // edt_fused_ddim for the layouts).
 struct Decoder {
@@ -143,6 +238,7 @@ struct Decoder {
   int B, T, S, M, H, L, F;
   float *h, *qkv, *ao, *cq, *f, *pred, *x;  // workspace
   edt::AttnArgs self_attn, cross;
+  Prenet pre;
 };
 
 Decoder make_decoder(float* work, const float* pos, const float* in_w, const float* in_b,
@@ -233,17 +329,58 @@ edt::GemmArgs rows_gemm(const Decoder& d, const float* A, const float* W, float*
   return g;
 }
 
+// The pre-net on hin [B*T, H] into out (may alias hin): the depthwise
+// kernel into d1, the pointwise GEMM (+bias) into d2, then the GroupNorm /
+// GELU / residual / positional pass.  Three launches.
+int prenet(const Prenet& p, const float* hin, float* out, float* d1, float* d2,
+           const float* pos, int B, int T, int H, cudaStream_t st) {
+  const long long n = (long long)B * T * H;
+  constexpr int threads = 256;
+  ++g_launches;
+  depthwise3_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, st>>>(hin, p.dw, d1,
+                                                                                T, H, n);
+  EDT_TRY((int)cudaGetLastError());
+  edt::GemmArgs g;
+  g.A = d1;
+  g.W = p.pw;
+  g.C = d2;
+  g.M = B * T;
+  g.N = H;
+  g.K = H;
+  g.bias = p.pb;
+  EDT_LAUNCH(edt::gemm(g, st));
+  ++g_launches;
+  prenet_norm_kernel<<<dim3(PRENET_GROUPS, B), PRENET_THREADS, 0, st>>>(hin, out, d2, pos, p.gs,
+                                                                       p.gb, T, H);
+  return (int)cudaGetLastError();
+}
+
+// Checks a pre-net's pointers: all null (no pre-net) or none, and a hidden
+// width the GroupNorm kernel takes.  Returns a cudaError_t.
+int check_prenet(const Prenet& p, int H) {
+  const bool any = p.dw || p.pw || p.pb || p.gs || p.gb;
+  const bool all = p.dw && p.pw && p.pb && p.gs && p.gb;
+  if (any && (!all || H % PRENET_GROUPS)) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 // One decoder forward of x [B, T, M] with this step's AdaLN table md
 // [L, 4, H] (norm1 scale, norm1 shift, norm3 scale, norm3 shift); the
-// prediction lands in d.pred.  26 GEMMs, 8 attentions at L = 4.
+// prediction lands in d.pred.  26 GEMMs, 8 attentions at L = 4, and the
+// pre-net's 3 launches when the decoder has one.
 int decoder_step(Decoder& d, const float* x, const float* md, cudaStream_t st) {
   const int H = d.H, F = d.F;
   const long long HH = (long long)H * H;
   edt::GemmArgs g = rows_gemm(d, x, d.in_w, d.h, H, d.M);
   g.bias = d.in_b;
-  g.pos = d.pos;
-  g.pos_rows = d.T;
-  EDT_LAUNCH(edt::gemm(g, st));
+  if (d.pre.pw) {
+    EDT_LAUNCH(edt::gemm(g, st));
+    EDT_TRY(prenet(d.pre, d.h, d.h, d.ao, d.cq, d.pos, d.B, d.T, H, st));
+  } else {
+    g.pos = d.pos;
+    g.pos_rows = d.T;
+    EDT_LAUNCH(edt::gemm(g, st));
+  }
   for (int l = 0; l < d.L; ++l) {
     const float* ml = md + (long long)l * 4 * H;
     g = rows_gemm(d, d.h, d.qkv_w + l * 3 * HH, d.qkv, 3 * H, H);
@@ -327,6 +464,22 @@ extern "C" int edt_decoder_gemm(const float* A, const float* W, const float* bia
   return 0;
 }
 
+// The pre-net's three kernels alone, as a test and timing hook: out [B, T,
+// H] = hin + gelu_erf(GroupNorm(pointwise(depthwise3(hin)) + pb)) + pos (see
+// prenet_norm_kernel); work holds 2 B*T*H floats; out may alias hin.
+// Weights as edt_fused_ddim's pre-net.  Returns a cudaError_t.
+extern "C" int edt_decoder_prenet(const float* hin, float* out, float* work, const float* pos,
+                                  const float* pc_dw, const float* pc_pw, const float* pc_pb,
+                                  const float* pc_gs, const float* pc_gb, int B, int T, int H,
+                                  void* stream) {
+  const Prenet p{pc_dw, pc_pw, pc_pb, pc_gs, pc_gb};
+  if (!pc_pw || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  EDT_TRY(check_prenet(p, H));
+  float* d1 = work;
+  float* d2 = work + (long long)B * T * H;
+  return prenet(p, hin, out, d1, d2, pos, B, T, H, (cudaStream_t)stream);
+}
+
 // The rows and columns (bm_bn[0], bm_bn[1]) of the output tile the host
 // picks for an M x N output of edt_decoder_gemm and the decoder step.
 extern "C" void edt_decoder_gemm_tile(int M, int N, int* bm_bn) {
@@ -368,6 +521,10 @@ extern "C" int edt_gemm_timers(long long* out, int blocks) {
 //   cq_w [L, H, H]; ckv [L, B, S, 2H] (cross K = first H columns, V = last H)
 //   co_w [L, H, H]; fc1_w [L, 2F, H]; fc1_b [L, 2F]; fc2_w [L, H, F]; fc2_b [L, H]
 //   fn_s, fn_b [H]; out_w [M, H]; out_b [M]; coef [steps, 4]
+//   pc_dw [H, 3] (tap 0 reads row t-1); pc_pw [H, H]; pc_pb, pc_gs, pc_gb [H]:
+//        the depthwise pre-net (use_depthwise; H % 8 == 0), all null for a
+//        decoder without it, whose launches are then those of the step
+//        without a pre-net, unchanged
 // Returns the first non-zero cudaError_t of any launch, else 0.
 extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, float* work, const float* pos,
                               const float* in_w, const float* in_b, const float* mods,
@@ -376,13 +533,16 @@ extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, float* work, cons
                               const float* co_w, const float* fc1_w, const float* fc1_b,
                               const float* fc2_w, const float* fc2_b, const float* fn_s,
                               const float* fn_b, const float* out_w, const float* out_b,
-                              const float* coef, int B, int T, int S, int M, int H, int heads,
-                              int L, int F, int window, int steps, int v_pred, float x0_clip,
-                              void* stream) {
+                              const float* coef, const float* pc_dw, const float* pc_pw,
+                              const float* pc_pb, const float* pc_gs, const float* pc_gb, int B,
+                              int T, int S, int M, int H, int heads, int L, int F, int window,
+                              int steps, int v_pred, float x0_clip, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Decoder d = make_decoder(work, pos, in_w, in_b, n2w, qkv_w, proj_w, proj_b, cq_w, ckv, co_w,
                            fc1_w, fc1_b, fc2_w, fc2_b, fn_s, fn_b, out_w, out_b, B, T, S, M, H,
                            heads, L, F, window);
+  d.pre = Prenet{pc_dw, pc_pw, pc_pb, pc_gs, pc_gb};
+  EDT_TRY(check_prenet(d.pre, H));
   const long long n_out = (long long)B * T * M;
   cudaMemcpyAsync(d.x, x_T, sizeof(float) * n_out, cudaMemcpyDeviceToDevice, st);
   EDT_TRY((int)cudaGetLastError());
@@ -403,7 +563,8 @@ extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, float* work, cons
 //   coef [steps, 5] = (sqrt ab, sqrt(1-ab), 1/sqrt(alpha), beta/sqrt(1-ab),
 //        sigma) of t = steps-1-i, sigma = 0 at t = 0;
 //   noise [B, steps, T, M] injects the draws, or is null for Philox with the
-//        key (key0, key1).
+//        key (key0, key1);
+//   the pre-net's pointers follow noise.
 extern "C" int edt_fused_ddpm(const float* x_T, float* x_out, float* work, const float* pos,
                               const float* in_w, const float* in_b, const float* mods,
                               const float* n2w, const float* qkv_w, const float* proj_w,
@@ -411,13 +572,17 @@ extern "C" int edt_fused_ddpm(const float* x_T, float* x_out, float* work, const
                               const float* co_w, const float* fc1_w, const float* fc1_b,
                               const float* fc2_w, const float* fc2_b, const float* fn_s,
                               const float* fn_b, const float* out_w, const float* out_b,
-                              const float* coef, const float* noise, int B, int T, int S, int M,
-                              int H, int heads, int L, int F, int window, int steps, int v_pred,
-                              unsigned key0, unsigned key1, void* stream) {
+                              const float* coef, const float* noise, const float* pc_dw,
+                              const float* pc_pw, const float* pc_pb, const float* pc_gs,
+                              const float* pc_gb, int B, int T, int S, int M, int H, int heads,
+                              int L, int F, int window, int steps, int v_pred, unsigned key0,
+                              unsigned key1, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Decoder d = make_decoder(work, pos, in_w, in_b, n2w, qkv_w, proj_w, proj_b, cq_w, ckv, co_w,
                            fc1_w, fc1_b, fc2_w, fc2_b, fn_s, fn_b, out_w, out_b, B, T, S, M, H,
                            heads, L, F, window);
+  d.pre = Prenet{pc_dw, pc_pw, pc_pb, pc_gs, pc_gb};
+  EDT_TRY(check_prenet(d.pre, H));
   const long long per_b = (long long)T * M;
   const long long n_out = B * per_b;
   cudaMemcpyAsync(x_out, x_T, sizeof(float) * n_out, cudaMemcpyDeviceToDevice, st);

@@ -14,7 +14,10 @@ backends:
   forward per step; long sequences route their windowed self-attention to
   the banded-attention kernel as the config says;
 - ``"fused"``: the whole DDIM loop in one call of the fused CUDA kernel
-  sequence (ops/fused_denoise.py).
+  sequence (ops/fused_denoise.py), for any AdaLN config, the depthwise
+  pre-net (``use_depthwise``, set by every config under configs/)
+  included.  It runs the kernels or raises; it never falls back to the
+  module loop.
 
 Masked (variable-length batch) calls always take the module loop, as in the
 JAX package.  The entry point runs on CUDA unless ``device`` names another

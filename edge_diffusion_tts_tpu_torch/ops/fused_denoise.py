@@ -12,11 +12,14 @@ sequence of hand-written float32 kernels on PyTorch's current stream; both
 loops share one decoder step of 2 + 8L launches plus the update: GEMMs
 (``csrc/gemm.cuh``) with the row norms in their prologue and the bias,
 SwiGLU, positional and residual terms in their epilogue, and the banded
-attention of ``csrc/attention.cuh``.
+attention of ``csrc/attention.cuh``.  A decoder with the depthwise pre-net
+(``use_depthwise``) adds three launches to the step: the depthwise conv,
+the pointwise GEMM and the GroupNorm / GELU / residual / positional pass.
 
-``decoder_gemm`` launches that GEMM alone (a test and timing hook, never on
-the main path); ``decoder_gemm_plain`` is its plain version, and
-``decoder_step_plain`` calls it in the kernel's order.
+``decoder_gemm`` launches that GEMM alone and ``decoder_prenet`` the
+pre-net's three kernels alone (test and timing hooks, never on the main
+path); ``decoder_gemm_plain`` and ``decoder_prenet_plain`` are their plain
+versions, and ``decoder_step_plain`` calls them in the kernels' order.
 
 As in the JAX package, everything that does not depend on x is computed once
 per call outside the loop with plain tensor ops: context embedding and the
@@ -56,18 +59,24 @@ WEIGHT_NAMES = (
     "in_w", "in_b", "n2w", "qkv_w", "proj_w", "proj_b", "cq_w", "co_w",
     "fc1_w", "fc1_b", "fc2_w", "fc2_b", "fn_s", "fn_b", "out_w", "out_b",
 )
+# The depthwise pre-net's (``use_depthwise``), packed after WEIGHT_NAMES:
+# depthwise taps [H, 3] (tap 0 reads row t-1), pointwise weight [H, H] and
+# bias [H], GroupNorm scale and bias [H].
+PRENET_NAMES = ("pc_dw", "pc_pw", "pc_pb", "pc_gs", "pc_gb")
+PRENET_GROUPS = 8  # GroupNorm(min(8, H)) groups; the kernel takes H % 8 == 0
 
 
 def pack_decoder_weights(decoder) -> Dict[str, torch.Tensor]:
     """The decoder's step-invariant weights, stacked over layers, contiguous.
 
-    Linear weights keep torch's [out, in] layout.  Only the default decoder
-    (AdaLN, no depthwise pre-net) has a fused form.
+    Linear weights keep torch's [out, in] layout.  The fused form is the
+    AdaLN decoder (``use_adaln=True``); with ``use_depthwise`` the pre-net's
+    weights follow under ``PRENET_NAMES`` (kernel size 3, stride 1, hidden
+    a multiple of 8, so 8 GroupNorm groups).
     """
     cfg = decoder.cfg
-    if cfg.use_depthwise or not cfg.use_adaln:
-        raise ValueError("the fused loop implements the AdaLN decoder without "
-                         "the depthwise pre-net (use_adaln=True, use_depthwise=False)")
+    if not cfg.use_adaln:
+        raise ValueError("the fused loop implements the AdaLN decoder (use_adaln=True)")
     blocks = list(decoder.layers)
 
     def stack(get):
@@ -91,6 +100,18 @@ def pack_decoder_weights(decoder) -> Dict[str, torch.Tensor]:
         "out_w": decoder.out_proj.weight,
         "out_b": decoder.out_proj.bias,
     }
+    if cfg.use_depthwise:
+        pc = decoder.pre_conv
+        H = cfg.hidden
+        if pc.kernel_size != 3 or pc.stride != 1:
+            raise ValueError(f"the fused pre-net takes a depthwise kernel of 3 at stride 1, "
+                             f"not {pc.kernel_size} at stride {pc.stride}")
+        if pc.norm.num_groups != PRENET_GROUPS:  # GroupNorm(min(8, H)): H < 8
+            raise ValueError(f"the fused pre-net takes {PRENET_GROUPS} GroupNorm groups over a "
+                             f"hidden width that is a multiple of {PRENET_GROUPS}, not "
+                             f"{pc.norm.num_groups} over {H}")
+        w.update(pc_dw=pc.depthwise.weight[:, 0, :], pc_pw=pc.pointwise.weight[:, :, 0],
+                 pc_pb=pc.pointwise.bias, pc_gs=pc.norm.weight, pc_gb=pc.norm.bias)
     return {k: v.detach().float().contiguous() for k, v in w.items()}
 
 
@@ -197,9 +218,30 @@ def decoder_gemm_plain(
     return c
 
 
+def decoder_prenet_plain(h, pos, w) -> torch.Tensor:
+    """The depthwise pre-net and the positional rows on h [B, T, H], in the
+    kernels' order: d = the k=3 depthwise conv along T within each row of
+    the batch (rows outside [0, T) read as zero), u = d @ pc_pw.T + pc_pb,
+    GroupNorm over each (batch row, group of H/8 channels) with the mean
+    first and the variance around it (eps 1e-6), then h + gelu_erf(norm(u) *
+    pc_gs + pc_gb) + pos.  Keeps h's dtype."""
+    B, T, H = h.shape
+    dw = w["pc_dw"]
+    hp = F.pad(h, (0, 0, 1, 1))
+    d = hp[:, :-2] * dw[:, 0] + hp[:, 1:-1] * dw[:, 1] + hp[:, 2:] * dw[:, 2]
+    u = decoder_gemm_plain(d, w["pc_pw"], bias=w["pc_pb"])
+    g = u.reshape(B, T, PRENET_GROUPS, H // PRENET_GROUPS)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    c = g - mean
+    rstd = 1.0 / torch.sqrt(c.square().mean(dim=(1, 3), keepdim=True) + 1e-6)
+    y = (c * rstd).reshape(B, T, H) * w["pc_gs"] + w["pc_gb"]
+    return h + F.gelu(y) + pos
+
+
 def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> torch.Tensor:
     """One decoder forward of x [B, T, M] with this step's AdaLN table
-    ``mods_i`` [L, 4, H], in plain tensor ops in the kernel's order."""
+    ``mods_i`` [L, 4, H], in plain tensor ops in the kernel's order; the
+    pre-net runs when ``w`` holds its weights."""
     B, T, M = x.shape
     H = pos.shape[1]
     L, S = ckv.shape[0], ckv.shape[2]
@@ -212,7 +254,10 @@ def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> to
         return t.transpose(1, 2).reshape(B, T, H)
 
     gemm = decoder_gemm_plain
-    h = gemm(x, w["in_w"], bias=w["in_b"], pos=pos)
+    if "pc_pw" in w:
+        h = decoder_prenet_plain(gemm(x, w["in_w"], bias=w["in_b"]), pos, w)
+    else:
+        h = gemm(x, w["in_w"], bias=w["in_b"], pos=pos)
     for l in range(L):
         m = mods_i[l]
         qkv = gemm(h, w["qkv_w"][l], norm="rms", scale=m[0], shift=m[1])
@@ -309,12 +354,14 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.edt_fused_ddim_workspace.argtypes = [i, i, i, i, i]
     lib.edt_fused_ddim_workspace.restype = ctypes.c_longlong
-    lib.edt_fused_ddim.argtypes = [p] * 23 + [i] * 11 + [ctypes.c_float, p]
+    lib.edt_fused_ddim.argtypes = [p] * 28 + [i] * 11 + [ctypes.c_float, p]
     lib.edt_fused_ddim.restype = ctypes.c_int
-    lib.edt_fused_ddpm.argtypes = [p] * 24 + [i] * 11 + [ctypes.c_uint] * 2 + [p]
+    lib.edt_fused_ddpm.argtypes = [p] * 29 + [i] * 11 + [ctypes.c_uint] * 2 + [p]
     lib.edt_fused_ddpm.restype = ctypes.c_int
     lib.edt_decoder_gemm.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.edt_decoder_gemm.restype = ctypes.c_int
+    lib.edt_decoder_prenet.argtypes = [p] * 9 + [i] * 3 + [p]
+    lib.edt_decoder_prenet.restype = ctypes.c_int
     lib.edt_decoder_gemm_tile.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.edt_decoder_gemm_tile.restype = None
     lib.edt_kernel_launches.argtypes = []
@@ -324,7 +371,7 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_launches() -> int:
     """Kernels the loop library has launched in this process (every GEMM,
-    attention and update launch, the loops' and ``decoder_gemm``'s)."""
+    attention, pre-net and update launch, the loops' and the hooks')."""
     return int(_lib().edt_kernel_launches())
 
 
@@ -401,6 +448,54 @@ def decoder_gemm(
 decoder_gemm.launches = 0
 
 
+def _check_prenet(T: int, H: int, device, pos, w) -> None:
+    """Raise unless pos and the pre-net weights in ``w`` fit [T, H] rows on
+    ``device`` as the kernels take them."""
+    expected = {"pos": (pos, (T, H)), "pc_dw": (w["pc_dw"], (H, 3)),
+                "pc_pw": (w["pc_pw"], (H, H)), **{n: (w[n], (H,)) for n in PRENET_NAMES[2:]}}
+    for name, (t, shape) in expected.items():
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{name}: expected contiguous float32 {shape} on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if H % PRENET_GROUPS:
+        raise ValueError(f"hidden {H}: the fused pre-net takes a multiple of "
+                         f"{PRENET_GROUPS} (its GroupNorm groups)")
+
+
+def decoder_prenet(h, pos, w) -> torch.Tensor:
+    """One run of the pre-net's three kernels (depthwise conv, pointwise
+    GEMM, GroupNorm / GELU / residual / positional pass) on h [B, T, H], as
+    ``decoder_prenet_plain`` computes it; returns a new tensor.
+
+    A test and timing hook: CUDA tensors only (contiguous float32), it
+    raises on anything else, CPU tensors included; it never falls back.
+    Counted in ``decoder_prenet.launches``.
+    """
+    if h.device.type != "cuda":
+        raise ValueError(f"decoder_prenet runs on CUDA tensors only, not {h.device} "
+                         "(its plain version is decoder_prenet_plain)")
+    if h.dim() != 3 or h.dtype != torch.float32 or not h.is_contiguous():
+        raise ValueError(f"h: expected contiguous float32 [B, T, H], got {h.dtype} "
+                         f"{tuple(h.shape)}")
+    _check_prenet(h.shape[1], h.shape[2], h.device, pos, w)
+    _build.refuse_autograd("decoder_prenet", h, pos, *(w[n] for n in PRENET_NAMES))
+    B, T, H = h.shape
+    out = torch.empty_like(h)
+    work = torch.empty(2 * B * T * H, dtype=torch.float32, device=h.device)
+    lib = _lib()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.edt_decoder_prenet(h.data_ptr(), out.data_ptr(), work.data_ptr(),
+                                     pos.data_ptr(), *_prenet_ptrs(w), B, T, H, stream)
+    decoder_prenet.launches += 1
+    _build.check(err, "decoder_prenet")
+    return out
+
+
+decoder_prenet.launches = 0
+
+
 def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> None:
     """Raise unless every tensor has the shape, type and device the loop
     kernels take."""
@@ -429,10 +524,22 @@ def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> N
     if M % 4 or F2 % 8:
         raise ValueError(f"n_mels {M} and ffn width {F2 // 2} must be multiples of 4 (the "
                          "kernels stage rows as 16-byte copies)")
+    if any(n in w for n in PRENET_NAMES):
+        missing = [n for n in PRENET_NAMES if n not in w]
+        if missing:
+            raise ValueError(f"pre-net weights {missing} missing: pack them with "
+                             "pack_decoder_weights")
+        _check_prenet(T, H, x_T.device, pos, w)
 
 
 def _weight_ptrs(w, first: int, last: Optional[int] = None):
     return [w[n].data_ptr() for n in WEIGHT_NAMES[first:last]]
+
+
+def _prenet_ptrs(w):
+    """The pre-net weights' pointers in the C functions' order, or five nulls
+    for a decoder without it."""
+    return [w[n].data_ptr() if n in w else None for n in PRENET_NAMES]
 
 
 def fused_ddim(
@@ -467,7 +574,7 @@ def fused_ddim(
         err = lib.edt_fused_ddim(
             x_T.data_ptr(), out.data_ptr(), work.data_ptr(), pos.data_ptr(),
             *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
-            ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(),
+            ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(), *_prenet_ptrs(w),
             B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
             X0_CLIP, stream,
         )
@@ -518,7 +625,7 @@ def fused_ddpm(
             x_T.data_ptr(), out.data_ptr(), work.data_ptr(), pos.data_ptr(),
             *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
             ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(),
-            None if noise is None else noise.data_ptr(),
+            None if noise is None else noise.data_ptr(), *_prenet_ptrs(w),
             B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
             k0, k1, stream,
         )

@@ -196,7 +196,7 @@ def make_dp_generate(engine: EdgeInference, devices: Sequence, masked: bool = Fa
     generator=None, sem_mask=None, x_T=None) -> mel`` on ``engine``'s
     device.  ``sem_mask`` is required with ``masked`` (the serving batches'
     module loop) and refused without it (the engine's backend: the fused
-    DDIM kernel for ``backend="fused"``).  The row count must divide by the
+    DDIM kernel for ``backend="fused"``, the depthwise pre-net included).  The row count must divide by the
     number of devices.  A device listed twice runs two shares on one device:
     that exercises the split and the gather where only one device exists.
     """

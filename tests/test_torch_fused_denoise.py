@@ -83,8 +83,12 @@ def test_fused_facade_and_packing(setup):
     w = inf.weights
     assert tuple(w) == pf.WEIGHT_NAMES
     assert w["qkv_w"].shape == (2, 96, 32) and w["fc1_w"].shape == (2, 128, 32)
-    with pytest.raises(ValueError, match="depthwise"):
-        pf.pack_decoder_weights(PDecoder(PCFG(**dict(SMALL, use_depthwise=True))))
+    pw = pf.pack_decoder_weights(PDecoder(PCFG(**dict(SMALL, use_depthwise=True))))
+    assert tuple(pw) == pf.WEIGHT_NAMES + pf.PRENET_NAMES
+    assert {n: tuple(pw[n].shape) for n in pf.PRENET_NAMES} == {
+        "pc_dw": (32, 3), "pc_pw": (32, 32), "pc_pb": (32,), "pc_gs": (32,), "pc_gb": (32,)}
+    with pytest.raises(ValueError, match="use_adaln"):
+        pf.pack_decoder_weights(PDecoder(PCFG(**dict(SMALL, use_adaln=False))))
     ts, coef = pf.ddim_coefficients(PSchedule.create(1000), 4)
     assert ts == [999, 749, 499, 249] and coef.shape == (4, 4)
 

@@ -311,6 +311,139 @@ def test_fused_ddpm_kernel_matches_plain(cuda, prediction, noise_mode):
     torch.testing.assert_close(got, fd.fused_ddpm_plain(*args, **kw), rtol=1e-4, atol=1e-3)
 
 
+def _prenet_decoder(cuda, seed, layers=2):
+    """A small decoder with the depthwise pre-net (hidden 32, 2 heads of 16,
+    window 8), every weight moved by 0.02 N(0, 1) from its init."""
+    cfg = CFG(hidden=32, layers=layers, heads=2, dropout=0.0, attn_window_size=8,
+              use_depthwise=True)
+    torch.manual_seed(seed)
+    dec = EdgeDiffusionDecoder(cfg)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.02 * torch.randn(p.shape))
+    return cfg, dec.to(cuda).eval()
+
+
+@pytest.mark.parametrize("B,T", [(2, 41), (2, 1), (1, 500)])
+def test_decoder_prenet_kernels_match_plain(cuda, B, T):
+    """The pre-net's three kernels alone (``decoder_prenet``) against
+    ``decoder_prenet_plain``: odd T at B=2 (the depthwise taps stop at each
+    batch row's edges), T=1 (both taps outside), and 500 rows at hidden 32;
+    atol 1e-5 (float32 sums in two orders over 32 channels and T x 4
+    GroupNorm elements)."""
+    _, dec = _prenet_decoder(cuda, 5)
+    w = fd.pack_decoder_weights(dec)
+    rng = np.random.RandomState(T)
+    h = torch.from_numpy(rng.randn(B, T, 32).astype(np.float32)).to(cuda)
+    pos = dec.pos_emb.table[:T].contiguous()
+    before = fd.decoder_prenet.launches
+    got = fd.decoder_prenet(h, pos, w)
+    torch.cuda.synchronize()
+    assert fd.decoder_prenet.launches == before + 1
+    torch.testing.assert_close(got, fd.decoder_prenet_plain(h, pos, w), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="pc_dw"):
+        fd.decoder_prenet(h, pos, dict(w, pc_dw=w["pc_dw"].t().contiguous()))
+
+
+def _prenet_step_args(cuda, dec, B, S, T, t):
+    """One DDIM step from t (a well-conditioned coefficient row: the first
+    step's t = 999 would divide by sqrt(alpha_bar) = 1.56e-5)."""
+    sched = DiffusionSchedule.create(1000)
+    ab = sched.alpha_bar[t].item()
+    coef = torch.tensor([[ab ** 0.5, (1 - ab) ** 0.5, 1.0, 0.0]], device=cuda)
+    rng = np.random.RandomState(B * 1000 + T)
+    sem_idx = torch.from_numpy(rng.randint(0, 2304, (B, S))).to(cuda)
+    x_T = torch.from_numpy(rng.randn(B, T, 80).astype(np.float32)).to(cuda)
+    loop = fd.prepare_loop_inputs(dec, sem_idx, T, [t])
+    return (x_T, loop["pos"], loop["mods"], loop["ckv"], coef, fd.pack_decoder_weights(dec))
+
+
+@pytest.mark.parametrize("prediction", ["eps", "v"])
+def test_fused_step_with_prenet_matches_plain(cuda, prediction):
+    """One decoder step with the pre-net in the fused loop (one DDIM step
+    from t = 500, x0 = (x - sqrt(1-ab) eps) / sqrt(ab), sqrt(ab) ~ 0.28)
+    against ``decoder_step_plain`` through ``fused_ddim_plain``, B=2, odd T
+    = 41: atol 1e-4; two calls bit-equal."""
+    cfg, dec = _prenet_decoder(cuda, 0)
+    args = _prenet_step_args(cuda, dec, 2, 21, 41, 500)
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction)
+    before = fd.fused_ddim.launches
+    got = fd.fused_ddim(*args, **kw)
+    again = fd.fused_ddim(*args, **kw)
+    torch.cuda.synchronize()
+    assert fd.fused_ddim.launches == before + 2
+    assert torch.equal(got, again), "the pre-net step differs between two calls"
+    torch.testing.assert_close(got, fd.fused_ddim_plain(*args, **kw), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("prediction", ["eps", "v"])
+def test_fused_kernel_with_prenet_matches_plain(cuda, prediction):
+    """The 4-step DDIM loop with the pre-net, B=2, S=40, under the rule of
+    ``test_fused_kernel_matches_plain``: at most 0.1% of elements beyond
+    2e-4, none beyond 0.05."""
+    cfg, dec = _prenet_decoder(cuda, 0)
+    rng = np.random.RandomState(3)
+    sem_idx = torch.from_numpy(rng.randint(0, 2304, (2, 40))).to(cuda)
+    x_T = torch.from_numpy(rng.randn(2, 80, 80).astype(np.float32)).to(cuda)
+    ts, coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), 4)
+    loop = fd.prepare_loop_inputs(dec, sem_idx, 80, ts)
+    args = (x_T, loop["pos"], loop["mods"], loop["ckv"], coef.to(cuda),
+            fd.pack_decoder_weights(dec))
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction)
+    got = fd.fused_ddim(*args, **kw)
+    torch.cuda.synchronize()
+    diff = (got - fd.fused_ddim_plain(*args, **kw)).abs()
+    assert torch.isfinite(got).all()
+    assert (diff > 2e-4).float().mean().item() <= 1e-3 and diff.max().item() <= 0.05
+
+
+@pytest.mark.parametrize("prediction", ["eps", "v"])
+def test_fused_ddpm_kernel_with_prenet_matches_plain(cuda, prediction):
+    """The 50-step DDPM loop with the pre-net, B=2, S=20, injected noise,
+    under ``test_fused_ddpm_kernel_matches_plain``'s bar (rtol 1e-4, atol
+    1e-3)."""
+    cfg, dec = _prenet_decoder(cuda, 1)
+    rng = np.random.RandomState(4)
+    sem_idx = torch.from_numpy(rng.randint(0, 2304, (2, 20))).to(cuda)
+    x_T = torch.from_numpy(rng.randn(2, 40, 80).astype(np.float32)).to(cuda)
+    noise = torch.from_numpy(rng.randn(2, 50, 40, 80).astype(np.float32)).to(cuda)
+    loop = fd.prepare_loop_inputs(dec, sem_idx, 40, list(range(49, -1, -1)),
+                                  step_idx=torch.zeros(50, dtype=torch.long))
+    args = (x_T, loop["pos"], loop["mods"], loop["ckv"],
+            fd.ddpm_coefficients(DiffusionSchedule.create(50)).to(cuda),
+            fd.pack_decoder_weights(dec))
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction,
+              noise=noise)
+    got = fd.fused_ddpm(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, fd.fused_ddpm_plain(*args, **kw), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("loop", ["ddim", "ddpm"])
+def test_fused_loops_launch_3_more_kernels_per_step_with_the_prenet(cuda, loop):
+    """At 4 layers a step with the pre-net is 35 + 3 = 38 launches (its
+    update included); the same decoder without the pre-net's weights (the
+    step of a config without it) launches today's 35."""
+    cfg, dec = _prenet_decoder(cuda, 2, layers=4)
+    B, S, T, steps = 1, 8, 16, 3
+    sem_idx = torch.zeros(B, S, dtype=torch.long, device=cuda)
+    x_T = torch.zeros(B, T, 80, device=cuda)
+    ts = list(range(steps - 1, -1, -1))
+    pre = fd.pack_decoder_weights(dec)
+    plain = {k: v for k, v in pre.items() if k not in fd.PRENET_NAMES}
+    loop_in = fd.prepare_loop_inputs(dec, sem_idx, T, ts)
+    coef = (fd.ddim_coefficients(DiffusionSchedule.create(1000), steps)[1] if loop == "ddim"
+            else fd.ddpm_coefficients(DiffusionSchedule.create(steps))).to(cuda)
+    run = fd.fused_ddim if loop == "ddim" else fd.fused_ddpm
+    for w, per_step in ((pre, 38), (plain, 35)):
+        before = fd.kernel_launches()
+        run(x_T, loop_in["pos"], loop_in["mods"], loop_in["ckv"], coef, w, heads=cfg.heads,
+            window=cfg.attn_window_size)
+        torch.cuda.synchronize()
+        assert fd.kernel_launches() - before == steps * per_step
+
+
 # Shapes whose plan reaches every path of the frontend kernels on a 132-SM
 # H100: one split (GELU in the GEMM's epilogue), even and uneven split-K (2,
 # 4, 5, 8, 11, 16 and 32 splits; 32 = one chunk per split, fewer than the
