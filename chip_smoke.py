@@ -56,6 +56,19 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    its GEMM shape (im2col not built), TF32 off (yardsticks the port never
    calls), and, for a layer the plan keeps to one wave, the split factors
    that would give >= one block per SM and twice the plan's;
+   6b. the frontend's bf16 variant (``compute_dtype=torch.bfloat16``: conv0
+   in float32, conv1-6 on tensor cores, bf16 activations) at [1, 80000] and
+   [256, 32000] (a training batch), without and with a per-row ``wav_len``:
+   against ``conv_frontend_plain(compute_dtype=bf16)`` on the card, within
+   1e-2 normwise, and against the float32 plain version by the witness rule
+   (no farther than 1.5 times the bf16 plain version's distance + 1e-3:
+   rounding flips in the two summation orders compound over six layers, so
+   no elementwise bar holds); two calls bit-equal; device time by CUDA-graph
+   replay beside the float32 kernels' at the same shape, the plain
+   version's, and the bound at 989 TFLOP/s; then each layer alone (1e-3
+   normwise, at most 1e-4 of the elements over 2^-7 of their value + 1e-5)
+   with its µs, TFLOP/s and bound beside ``F.conv1d`` on the same bf16
+   operands (a yardstick the port never calls);
 7. the audio path: ``EdgeInference(backend="fused", encoder=...)`` at full
    HuBERT-base width answers three ``generate_from_audio`` requests (5 s at
    B=1, the same at temperature 0.7, 2 s at B=2), each one frontend and one
@@ -243,6 +256,33 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    bytes and the first 16 hex digits of their sha256, operators, int8
    tensors.  No kernel launches: the ``kernels``
    line is unchanged.
+14. training at configs/tpu_large_batch.json (batch 256 x 2 s, compute
+   bf16, parameters float32, the depthwise pre-net) on a synthetic
+   LJSpeech-layout corpus (build/phase14: 560 utterances, two full batches
+   per epoch), epochs cut to one per phase (2 diffusion, 16 progressive
+   over 8 halvings, 2 consistency data steps) and a periodic checkpoint at
+   step 12; the full HuBERT-base frozen on the frontend's bf16 variant.  a.
+   ``train()``: the phase tags, every logged loss finite, the modules bf16
+   and the parameters float32 at every phase end, one bf16 frontend launch
+   per data step and no float32 one (the counts set to 0 just before,
+   read just after: the bf16 kernel's main path); ms per data step per
+   phase (host clock, the intervals after a step of the same epoch), peak
+   memory, one batch's collate on the host.  b. ``resume="auto"`` from the
+   periodic checkpoint reruns the halvings its meta leaves and the
+   consistency phase.  c. the same batch in float32 (``compute_dtype``
+   alone changed), two diffusion epochs through ``train()``: ms per data
+   step beside bf16's.  d. the device-resident diffusion step (a collated
+   batch on the card, no loader) in bf16 and in float32: mean ms of 5
+   after two warm-ups, peak memory.  e. one diffusion loss and its
+   gradients at batch 4 on the trained weights (injected t and noise,
+   HuBERT features given, dropout 0) in bf16 against float32 on the card,
+   by the witness rule with the same pair on the CPU as the witness (loss
+   1.5x + 1e-3; every gradient's cosine within 0.01 of the CPU's).  f. the
+   final model (float32 parameters) served through float32 modules by
+   ``backend="fused"``: one launch, held to the eager backend by phase 4's
+   bar.  Its launches join the ``kernels`` line, the bf16 frontend's as a
+   row of its own (``conv_frontend_bf16``, whose numbers are phase 6b's at
+   [256, 32000]).
 
 Why the DDIM tolerances are stated as they are: the DDIM grid starts at
 t=999 where sqrt(alpha_bar) = 1.56e-5, and the update divides by it.  With
@@ -293,6 +333,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK_FLOPS = 67e12  # H100 SXM float32 without tensor cores (NVIDIA data sheet)
+BF16_PEAK_FLOPS = 989e12  # H100 SXM bf16 on tensor cores, dense (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 SEED = 7  # first-step x0 fully clipped for these weights and inputs (see above)
 PRENET_SEED = 9  # the same for configs/flagship.json's decoder (the pre-net on)
@@ -301,8 +342,8 @@ BAND_SHAPES = ((1, 500), (1, 4000), (2, 4000))  # phase 2's (B, T) at [B, 4, T, 
 CROSSOVER_T = (500, 1000, 2000, 3000, 4000)  # phase 2's band kernel vs SDPA, [1, 4, T, 40]
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / F32_PEAK_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = F32_PEAK_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -881,6 +922,104 @@ def phase_frontend(torch, encoder):
               f"{flops / 1e9:.3f} GFLOP, {flops / kernels_ms / 1e9:.2f} TFLOP/s; "
               f"bound_ms={bound_ms:.5f} ({bound_by})")
     return results
+
+
+FRONTEND_BF16_SHAPES = ((1, 80000), (256, 32000))  # phase 6b: a 5 s request, a training batch
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def frontend_bf16(torch, encoder):
+    """Phase 6b: the frontend's bf16 variant (tensor cores) against
+    ``conv_frontend_plain(compute_dtype=bf16)`` on the card (the module
+    docstring's phase 6b).  Returns the [256, 32000] row for the ``kernels``
+    line, the main path's shape."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    bf16 = torch.bfloat16
+    fe = encoder.hubert.feature_extractor
+    w32, wb = ff.pack_frontend_weights(fe), ff.pack_frontend_weights(fe, bf16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for B, n in FRONTEND_BF16_SHAPES:
+        rng = np.random.RandomState(n + B + 1)
+        wav = torch.from_numpy((0.2 * rng.randn(B, n)).astype(np.float32)).to(DEVICE)
+        lens = torch.from_numpy(rng.randint(n // 2, n + 1, B)).to(DEVICE)
+        lens[0] = n
+        errs = []
+        for wav_len in (None, lens):
+            got = ff.conv_frontend(wav, wb, wav_len=wav_len, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            plain = ff.conv_frontend_plain(wav, wb, wav_len, compute_dtype=bf16)
+            f32 = ff.conv_frontend_plain(wav, w32, wav_len)
+            e_k, e_p, e_kp = _rel(got, f32), _rel(plain, f32), _rel(got, plain)
+            label = f"bf16 frontend [{B},{n}]" + (" with wav_len" if wav_len is not None else "")
+            assert got.dtype == torch.float32 and torch.isfinite(got).all(), label
+            assert e_k <= 1.5 * e_p + 1e-3, f"{label}: {e_k} from float32, plain bf16 {e_p}"
+            assert e_kp <= 1e-2, f"{label}: {e_kp} from the bf16 plain version"
+            assert torch.equal(got, ff.conv_frontend(wav, wb, wav_len=wav_len,
+                                                     compute_dtype=bf16)), f"{label}: two calls"
+            errs.append((got - plain).abs().max().item())
+            print(f"[frontend-bf16] {label}: vs float32 plain {e_k:.4g} (bf16 plain {e_p:.4g}, "
+                  f"bar {1.5 * e_p + 1e-3:.4g}), vs bf16 plain {e_kp:.4g} (bar 1e-2), max abs "
+                  f"{errs[-1]:.4g}; two calls bit-equal")
+            del got, plain, f32
+        fold = ff.groupnorm_fold(wav, w32["w0"], w32["gamma"], w32["beta"])
+        big = B > 8
+        n_cap, reps = (4, 3) if big else (50, 10)
+        ms = graph_ms(torch, lambda: ff.conv_frontend(wav, wb, fold=fold, compute_dtype=bf16),
+                      n=n_cap, replays=reps)
+        ms32 = graph_ms(torch, lambda: ff.conv_frontend(wav, w32, fold=fold), n=n_cap,
+                        replays=2 if big else reps)
+        plain_ms = timed_ms(torch, lambda: ff.conv_frontend_plain(wav, wb, compute_dtype=bf16),
+                            iters=2 if big else 10, warmup=1)
+        flops = frontend_flops(B, n)
+        nbytes = (4 * (wav.numel() + w32["w0"].numel() + B * ff.frame_counts(n)[-1] * 512)
+                  + 2 * (wb["wk3"].numel() + wb["wk2"].numel()))
+        bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK_FLOPS)
+        print(f"[frontend-bf16] [{B},{n}]: kernels {ms:.5f} ms by CUDA-graph replay "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), the float32 kernels {ms32:.5f} ms; plain "
+              f"{plain_ms:.4f} ms; bf16 bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{bound_ms / ms:.3f} of it")
+        plan = ff.frontend_plan(B, n, sms=sms, dtype=bf16)
+        x = wav
+        for p in plan:
+            i = p["layer"]
+            extra = fold if i == 0 else ()
+            got = ff.conv_frontend_layer(x, i, wb, *extra, compute_dtype=bf16)
+            want = ff.conv_frontend_layer_plain(x, i, wb, *extra, compute_dtype=bf16)
+            e = _rel(got, want)
+            over = ((got.float() - want.float()).abs()
+                    > 2.0 ** -7 * want.float().abs() + 1e-5).float().mean().item()
+            assert e <= 1e-3 and over <= 1e-4, f"bf16 layer {i} [{B},{n}]: {e}, {over}"
+            us = 1e3 * graph_ms(torch, lambda: ff.conv_frontend_layer(
+                x, i, wb, *extra, compute_dtype=bf16), n=4 if big else 20, replays=3)
+            W = ff.layer_weight(wb, i)
+            if i == 0:
+                xc, wc, s = x[:, None, :], W[:, None, :].float(), ff.BASE_STRIDES[0]
+            else:
+                xc = x.transpose(1, 2).contiguous()
+                wc, s = W.reshape(512, -1, 512).permute(0, 2, 1).contiguous(), ff.BASE_STRIDES[i]
+            conv_us = 1e3 * graph_ms(torch, lambda: F.conv1d(xc, wc, stride=s),
+                                     n=4 if big else 20, replays=3)
+            fl = 2 * B * p["M"] * p["N"] * p["K"]
+            b_us = 1e3 * bound(fl, x.element_size() * x.numel() + W.element_size() * W.numel()
+                               + got.element_size() * got.numel(), BF16_PEAK_FLOPS)[0]
+            print(f"[frontend-bf16] [{B},{n}] conv{i}: M={p['M']} K={p['K']} splits "
+                  f"{p['splits']}, {p['blocks']} blocks: {us:.3f} us, {fl / us / 1e6:.2f} "
+                  f"TFLOP/s; bound {b_us:.3f} us; F.conv1d ({xc.dtype}) {conv_us:.3f} us "
+                  f"({fl / conv_us / 1e6:.2f} TFLOP/s); vs plain {e:.3g}")
+            x = want
+            del got, xc, wc
+        rows[(B, n)] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, f32_ms=ms32)
+        del wav, fold, x
+        torch.cuda.empty_cache()
+    return rows[FRONTEND_BF16_SHAPES[1]]
 
 
 def phase_audio(torch, cfg, decoder, schedule, encoder):
@@ -1849,6 +1988,277 @@ def phase_train(torch, cuts=None, hubert_cfg=None, utterances: int = TRAIN_UTTER
                 ms=ms, peak_gb=peak_gb, seconds=seconds)
 
 
+
+
+# -- phase 14: configs/tpu_large_batch.json in bf16 ---------------------------------------
+
+LARGE_UTTERANCES = 560  # phase 14's corpus: 532 train (two batches of 256), 28 validation
+# Phase 14's cuts of configs/tpu_large_batch.json: epochs only (and no plots).
+LARGE_CUTS = dict(diffusion_epochs=1, progressive_epochs_per_halving=1, consistency_epochs=1,
+                  plot_every_steps=0, ckpt_every_steps=12, log_every_steps=1)
+LARGE_TIMED = 5  # device-resident data steps timed per dtype, after two warm-up steps
+
+
+def _steady_ms(clock: StepClock, first: int, last: int, spe: int, skip=()) -> float:
+    """Mean host-clock interval of the data steps first..last whose previous
+    step ran in the same epoch (with two steps per epoch: every second one),
+    leaving out the steps after those in ``skip`` (periodic checkpoints)."""
+    ms = [(clock.stamps[k] - clock.stamps[k - 1]) * 1e3 for k in range(first, last + 1)
+          if (k - 1) % spe and k - 1 in clock.stamps and k - 1 not in skip]
+    assert ms, (first, last)
+    return float(np.mean(ms))
+
+
+def _witness_step(torch, cfg, hubert_cfg, enc_sd, dec_sd, batch) -> dict:
+    """One diffusion loss and its gradients at float32 and bf16, on the CPU
+    and on the card: ``{(device, dtype): (loss, {name: gradient})}``."""
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder, SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import Trainer, TrainState
+    from edge_diffusion_tts_tpu_torch.training.state import trainable_parameters
+
+    out = {}
+    for device in ("cpu", DEVICE):
+        for dtype in (torch.float32, torch.bfloat16):
+            enc = SemanticEncoder(cfg, hubert_cfg, dtype=dtype)
+            enc.load_state_dict(enc_sd)
+            dec = EdgeDiffusionDecoder(cfg, dtype=dtype)
+            dec.load_state_dict(dec_sd)
+            trainer = Trainer(cfg, enc, dec, DiffusionSchedule.create(cfg.diff_steps),
+                              device=device)
+            st = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
+            st.train()
+            loss, _ = trainer.make_diffusion_loss()(st, trainer.put_batch(batch), None)
+            loss.backward()
+            out[(device, dtype)] = (loss.item(), {
+                n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().double().cpu()
+                for n, p in trainable_parameters(trainer.encoder, trainer.decoder).items()})
+    return out
+
+
+def phase_large_batch(torch, cuts=None, hubert_cfg=None, utterances: int = LARGE_UTTERANCES):
+    """Phase 14: ``train()`` at configs/tpu_large_batch.json (batch 256,
+    compute bf16) with the full HuBERT-base frozen on the frontend's bf16
+    variant (the module docstring's phase 14); returns its launches."""
+    import dataclasses
+    import shutil
+
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.data import Collate, LJSpeechDataset
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder, HubertConfig
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import (Trainer, create_train_state, init_models,
+                                                       make_optimizer,
+                                                       progressive_step_schedule, train)
+    from edge_diffusion_tts_tpu_torch.weights import load_checkpoint
+
+    t_phase = time.perf_counter()
+    hubert_cfg = hubert_cfg or HubertConfig()
+    base = os.path.join(ROOT, "build", "phase14")
+    shutil.rmtree(base, ignore_errors=True)
+    lj = os.path.join(base, "LJSpeech-1.1")
+    t0 = time.perf_counter()
+    write_ljspeech(lj, utterances, SEED + 14)
+    corpus_s = time.perf_counter() - t0
+    with open(os.path.join(ROOT, "configs", "tpu_large_batch.json")) as f:
+        large = json.load(f)
+    cfg = CFG.from_dict(dict(large, **dict(LARGE_CUTS, **(cuts or {})),
+                             out_dir=os.path.join(base, "out"), run_name="bf16",
+                             ljspeech_dir=lj, data_root=base, ckpt_path=""))
+    assert cfg.compute_dtype == "bfloat16" and cfg.param_dtype == "float32"
+    B = cfg.batch_size
+    spe = (utterances - int(utterances * 0.05)) // B
+    assert spe >= 2, f"{spe} steps per epoch: the corpus needs two full batches"
+    halvings = progressive_step_schedule(cfg.diff_steps, cfg.progressive_target_steps)
+    d_end = spe * cfg.diffusion_epochs
+    p_end = d_end + spe * cfg.progressive_epochs_per_halving * len(halvings)
+    total = p_end + spe * cfg.consistency_epochs
+    ds = LJSpeechDataset(lj, "train")
+    collate = Collate(cfg, deterministic=True)
+    t0 = time.perf_counter()
+    host_batch = collate([ds[i] for i in range(B)])
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[large] corpus: {utterances} utterances of 2.5-4 s at 22,050 Hz in {corpus_s:.2f} s; "
+          f"configs/tpu_large_batch.json: batch {B} x {cfg.segment_len} samples, compute "
+          f"{cfg.compute_dtype}, params {cfg.param_dtype}, {spe} steps per epoch, halvings "
+          f"{halvings}, {total} data steps; one batch's collate on the host {collate_ms:.3f} ms")
+
+    # -- a. train() in bf16, all three phases ---------------------------------------------
+    clock, tags, dtypes_seen = StepClock(), [], {}
+
+    def at_phase_end(tag, st):
+        tags.append((tag, st.step))
+        dtypes_seen[tag] = ({q.dtype for q in st.decoder.parameters()}, st.decoder.dtype,
+                            st.encoder.dtype)
+
+    ff.conv_frontend.launches = ff.conv_frontend.bf16_launches = 0  # counts to 0: the main path
+    fd.fused_ddim.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(cfg, hubert_cfg=hubert_cfg, hooks=[clock], phase_end_hook=at_phase_end,
+                  device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    bf16_launches, f32_launches = ff.conv_frontend.bf16_launches, ff.conv_frontend.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    run_dir = os.path.join(cfg.out_dir, cfg.run_name)
+    assert state.step == total, (state.step, total)
+    assert f32_launches == 0, f"the bf16 trainer launched the float32 frontend {f32_launches}x"
+    assert bf16_launches == total, f"bf16 frontend launches {bf16_launches}, data steps {total}"
+    assert [t for t, _ in tags] == (["init", "diffusion"] + [f"prog{h}" for h in halvings]
+                                    + ["consistency"]), tags
+    assert all(v == ({torch.float32}, torch.bfloat16, torch.bfloat16)
+               for v in dtypes_seen.values()), dtypes_seen
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [v for r in recs for k, v in r.items() if k.endswith("loss")]
+    assert losses and all(math.isfinite(v) for v in losses), "a logged loss is not finite"
+    skip = set(range(0, total + 1, cfg.ckpt_every_steps))
+    ms = {"diffusion": _steady_ms(clock, 1, d_end, spe, skip),
+          "progressive": _steady_ms(clock, d_end + 1, p_end, spe, skip),
+          "consistency": _steady_ms(clock, p_end + 1, total, spe, skip)}
+    for name, v in ms.items():
+        print(f"[large] bf16 train(), {name}: {v:.3f} ms per data step (host clock, the steps "
+              f"after a step of the same epoch), {B / v * 1e3:.1f} utterances/s")
+    print(f"[large] bf16 train(): {total} data steps in {train_s:.3f} s, {len(losses)} logged "
+          f"losses, all finite; bf16 frontend launches {bf16_launches} (one per data step), "
+          f"float32 frontend 0; parameters float32, modules bf16; peak "
+          f"torch.cuda.max_memory_allocated {peak_gb:.3f} GiB")
+
+    # -- b. resume from the periodic checkpoint -----------------------------------------------
+    with open(os.path.join(cfg.ckpt_path, "meta.json")) as f:
+        meta = json.load(f)
+    rtags = []
+    ff.conv_frontend.bf16_launches = 0
+    t0 = time.perf_counter()
+    resumed = train(dataclasses.replace(cfg, run_name="resumed"), hubert_cfg=hubert_cfg,
+                    resume="auto", device=DEVICE, phase_end_hook=lambda tag, st: rtags.append(tag))
+    resume_s = time.perf_counter() - t0
+    bf16_launches += ff.conv_frontend.bf16_launches
+    assert meta["phase"] == "progressive", meta
+    want_tags = [f"prog{h}" for h in halvings[halvings.index(meta["halving"]):]] + ["consistency"]
+    assert rtags == want_tags, (rtags, want_tags)
+    print(f"[large] resume='auto' from step {meta['step']} (halving {meta['halving']}): ran "
+          f"{rtags} to step {resumed.step} in {resume_s:.3f} s")
+    del resumed
+
+    # -- c. the same batch in float32 through train(), compute_dtype alone changed -----------
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", run_name="f32", diffusion_epochs=2,
+                                ckpt_every_steps=0)
+    clock32 = StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    ff.conv_frontend.launches = 0
+    t0 = time.perf_counter()
+    train(cfg32, hubert_cfg=hubert_cfg, hooks=[clock32], phases=["diffusion"], device=DEVICE)
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    f32_launches = ff.conv_frontend.launches
+    assert f32_launches == 2 * spe, f32_launches
+    peak32_gb = torch.cuda.max_memory_allocated() / 2**30
+    ms["float32 diffusion"] = _steady_ms(clock32, 1, 2 * spe, spe)
+    print(f"[large] float32 train(), diffusion: {ms['float32 diffusion']:.3f} ms per data step "
+          f"({B / ms['float32 diffusion'] * 1e3:.1f} utterances/s) against bf16's "
+          f"{ms['diffusion']:.3f}; {2 * spe} steps in {f32_s:.3f} s; peak {peak32_gb:.3f} GiB")
+
+    # -- d. the device-resident step: the batch on the card, no collate ----------------------
+    wav = torch.from_numpy(np.asarray(host_batch["wav"])).to(DEVICE)
+    resident = {}
+    for name, c in (("bfloat16", cfg), ("float32", cfg32)):
+        torch.manual_seed(SEED)
+        enc, dec = init_models(c, hubert_cfg)
+        trainer = Trainer(c, enc, dec, DiffusionSchedule.create(c.diff_steps), device=DEVICE)
+        st = create_train_state(trainer.encoder, trainer.decoder,
+                                make_optimizer(c, trainer.encoder, trainer.decoder, 100))
+        step = trainer.make_diffusion_step()
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        for _ in range(2):
+            st, _ = step(st, {"wav": wav}, gen)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LARGE_TIMED):
+            st, metrics = step(st, {"wav": wav}, gen)
+        torch.cuda.synchronize()
+        resident[name] = ((time.perf_counter() - t0) * 1e3 / LARGE_TIMED,
+                          torch.cuda.max_memory_allocated() / 2**30)
+        assert math.isfinite(float(metrics["loss"]))
+        del enc, dec, trainer, st, step
+        torch.cuda.empty_cache()
+    ms["resident bf16"], ms["resident float32"] = resident["bfloat16"][0], resident["float32"][0]
+    print(f"[large] device-resident diffusion step at batch {B} (mean of {LARGE_TIMED} after two "
+          f"warm-ups, host clock around synchronize): bf16 {resident['bfloat16'][0]:.3f} ms "
+          f"(peak {resident['bfloat16'][1]:.3f} GiB), float32 {resident['float32'][0]:.3f} ms "
+          f"(peak {resident['float32'][1]:.3f} GiB)")
+
+    # -- e. one bf16 step against float32, on the card and on the CPU (the witness) ----------
+    W = min(4, B)
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, cfg_dropout=0.0, batch_size=W)
+    enc_sd = {k: v.cpu() for k, v in state.encoder.state_dict().items()}
+    dec_sd = {k: v.cpu() for k, v in state.decoder.state_dict().items()}
+    w32 = ff.pack_frontend_weights(state.encoder.hubert.feature_extractor)
+    x = wav[:W]
+    with torch.no_grad():
+        enc32 = init_models(cfg32, hubert_cfg)[0]
+        enc32.load_state_dict(enc_sd)
+        enc32 = enc32.to(DEVICE).eval()
+        ff.conv_frontend.launches = 0
+        feats = enc32.extract_hubert(x, conv_feats=ff.conv_frontend(x, w32)).cpu()
+        f32_launches += ff.conv_frontend.launches
+        del enc32
+    rs = np.random.RandomState(14000 + SEED)
+    batch = {"wav": x.cpu().numpy(), "hubert_features": feats,
+             "t": rs.randint(1, cfg0.max_timestep, W),
+             "noise": rs.randn(W, cfg0.segment_mel_frames, cfg0.n_mels).astype(np.float32)}
+    res = _witness_step(torch, cfg0, hubert_cfg, enc_sd, dec_sd, batch)
+    f32, bf = torch.float32, torch.bfloat16
+    (l32c, g32c), (lbc, gbc) = res[("cpu", f32)], res[("cpu", bf)]
+    (l32g, g32g), (lbg, gbg) = res[(DEVICE, f32)], res[(DEVICE, bf)]
+    e_card, e_cpu = abs(lbg - l32g) / abs(l32g), abs(lbc - l32c) / abs(l32c)
+    assert e_card <= 1.5 * e_cpu + 1e-3, (e_card, e_cpu)
+
+    def cos(a, b):
+        return (a * b).sum().item() / max(a.norm().item() * b.norm().item(), 1e-300)
+
+    worst = (1.0, None)
+    for name in g32g:
+        if g32g[name].norm() < 1e-12 or gbc[name].norm() < 1e-12:
+            continue
+        c_card, c_cpu = cos(gbg[name], g32g[name]), cos(gbc[name], g32c[name])
+        assert c_card >= c_cpu - 0.01, (name, c_card, c_cpu)
+        worst = min(worst, (c_card, name))
+    print(f"[large] one diffusion loss at batch {W} (the trained weights, injected t and noise, "
+          f"HuBERT features given, dropout 0): bf16 vs float32 on the card rel {e_card:.4g}, "
+          f"on the CPU (the witness) {e_cpu:.4g}, bar {1.5 * e_cpu + 1e-3:.4g}; lowest gradient "
+          f"cosine bf16 vs float32 on the card {worst[0]:.6f} ({worst[1]}), every one within "
+          "0.01 of the CPU's")
+
+    # -- f. serve the final model through backend="fused" -------------------------------------
+    fcfg, dec_sd_final, _, _ = load_checkpoint(os.path.join(run_dir, "edge_model_final"))
+    dec = EdgeDiffusionDecoder(fcfg)  # float32 modules, as the JAX package serves
+    dec.load_state_dict(dec_sd_final)
+    schedule = DiffusionSchedule.create(fcfg.diff_steps)
+    engine = EdgeInference(fcfg, schedule, dec, prediction="v", backend="fused", device=DEVICE)
+    tokens = torch.from_numpy(np.random.RandomState(14100 + SEED)
+                              .randint(0, fcfg.effective_codebook_size(), (1, 100))).to(DEVICE)
+    x_T = torch.from_numpy(np.random.RandomState(14200 + SEED).randn(1, 200, fcfg.n_mels)
+                           .astype(np.float32)).to(DEVICE)
+    fd.fused_ddim.launches = 0
+    mel = engine.generate_mel(tokens, num_steps=4, x_T=x_T)
+    torch.cuda.synchronize()
+    fused_launches = fd.fused_ddim.launches
+    assert fused_launches == 1 and mel.shape == (1, 200, fcfg.n_mels)
+    eager = EdgeInference(fcfg, schedule, dec, prediction="v", device=DEVICE)
+    err = v_rule("the large-batch final model, fused vs eager", mel,
+                 eager.generate_mel(tokens, num_steps=4, x_T=x_T))
+    seconds = time.perf_counter() - t_phase
+    print(f"[large] the final model (float32 parameters) served through backend='fused': one "
+          f"launch, finite, vs the eager backend max err {err:.3g} (bar 0.05, and 2e-4 on "
+          f"99.9%); phase 14: {seconds:.3f} s")
+    return dict(bf16_launches=bf16_launches, frontend_launches=f32_launches,
+                fused_launches=fused_launches, ms=ms, peak_gb=peak_gb, seconds=seconds)
 
 # -- phase 11: parallel/ on two gloo ranks of one card -----------------------------------
 
@@ -2893,6 +3303,7 @@ def run(torch) -> None:
     banded_launches = phase_longform(torch)
     encoder = seeded_encoder(torch, cfg, SEED).to(DEVICE)
     frontend = phase_frontend(torch, encoder)
+    frontend16 = frontend_bf16(torch, encoder)
     frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
     ddpm = phase_ddpm(torch, cfg, decoder, pre_decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
@@ -2900,6 +3311,7 @@ def run(torch) -> None:
     par = phase_parallel(torch, cfg, decoder)
     cli_run = phase_cli(torch)
     phase_tflite(torch)
+    large = phase_large_batch(torch)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
@@ -2914,7 +3326,7 @@ def run(torch) -> None:
          "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
          "launches": fused_launches + trained["fused_launches"] + par["fused_launches"]
-         + cli_run["launches"]["fused"],
+         + cli_run["launches"]["fused"] + large["fused_launches"],
          "max_abs_err": fused["eps"]["max_abs_err"],
          "ms": fused["eps"]["ms"], "plain_ms": fused["eps"]["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
@@ -2924,9 +3336,17 @@ def run(torch) -> None:
          "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
          "launches": frontend_launches + serve["frontend_launches"]
          + trained["frontend_launches"] + par["frontend_launches"]
-         + cli_run["launches"]["frontend"],
+         + cli_run["launches"]["frontend"] + large["frontend_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
          **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
+        # the same TPU kernel at compute_dtype bf16: phase 14's trainer (batch 256) runs it;
+        # its numbers are at that shape, [256, 32000] (phase 6b)
+        {"name": "conv_frontend_bf16", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
+         "launches": large["bf16_launches"],
+         **{k: frontend16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
         {"name": "fused_ddpm", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",

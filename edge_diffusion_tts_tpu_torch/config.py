@@ -41,6 +41,22 @@ def set_seed(seed: int, device=None):
     return torch.Generator(device=resolve_device(device)).manual_seed(seed)
 
 
+DTYPES = ("float32", "bfloat16")  # the compute_dtype / param_dtype values the port takes
+
+
+def torch_dtype(name):
+    """``CFG.compute_dtype`` / ``param_dtype`` ("float32" or "bfloat16", or
+    that torch dtype itself) -> the torch dtype; anything else raises."""
+    import torch
+
+    table = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if isinstance(name, torch.dtype) and name in table.values():
+        return name
+    if isinstance(name, str) and name in table:
+        return table[name]
+    raise ValueError(f"the port computes and stores parameters in one of {DTYPES}, not {name!r}")
+
+
 def resolve_device(device=None):
     """The ``torch.device`` an entry point runs on.
 

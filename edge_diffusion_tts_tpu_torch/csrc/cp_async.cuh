@@ -1,4 +1,4 @@
-// cp.async (sm_80+) helpers shared by gemm.cuh and attention.cuh: copies from
+// cp.async (sm_80+) helpers shared by the kernels: 16-byte copies from
 // global to shared memory that bypass registers, zero-filled where `full`
 // is false (the source address is then not read, but must be valid), and
 // completed per thread in commit groups.
@@ -8,7 +8,7 @@
 
 namespace edt {
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(full ? 16 : 0));

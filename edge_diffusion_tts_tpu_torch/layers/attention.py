@@ -4,7 +4,10 @@ Counterpart of ``edge_diffusion_tts_tpu/layers/attention.py``.  Masked logits
 take ``finfo(float32).min`` and the softmax runs in float32.  The windowed
 self-attention of ``EfficientAttention`` routes to the banded-attention
 kernel (ops/window_attention.py) on the same conditions as the JAX package
-routes to its Pallas kernel.
+routes to its Pallas kernel.  ``dtype`` is the layers' compute dtype (flax's
+``dtype``): the projections run at it and the logits and softmax stay
+float32; the banded kernel takes float32 only (a bf16 layer raises there on
+the card, ROADMAP Queue B, B3.4).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from ..ops import window_attention
 from .embeddings import apply_rope
+from .dtypes import Linear
 from .ffn import dropout
 from .norms import RMSNorm
 
@@ -126,6 +130,7 @@ class EfficientAttention(nn.Module):
         use_kernel: bool = False,
         kernel_min_seq: int = 0,
         band_q_chunk: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.dim, self.heads, self.dropout = dim, heads, dropout
@@ -133,8 +138,8 @@ class EfficientAttention(nn.Module):
         self.use_kernel = use_kernel
         self.kernel_min_seq = kernel_min_seq
         self.band_q_chunk = band_q_chunk
-        self.qkv = nn.Linear(dim, dim * 3, bias=False)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3, bias=False, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(
         self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
@@ -184,13 +189,13 @@ class CrossAttention(nn.Module):
     """
 
     def __init__(self, dim: int, context_dim: Optional[int] = None, heads: int = 4,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim, self.heads, self.dropout = dim, heads, dropout
         context_dim = context_dim or dim
-        self.q = nn.Linear(dim, dim, bias=False)
-        self.kv = nn.Linear(context_dim, dim * 2, bias=False)
-        self.proj = nn.Linear(dim, dim)
+        self.q = Linear(dim, dim, bias=False, compute_dtype=dtype)
+        self.kv = Linear(context_dim, dim * 2, bias=False, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -219,17 +224,18 @@ class MultiHeadLatentAttention(nn.Module):
         dropout: float = 0.1,
         window_size: Optional[int] = None,
         q_chunk: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.dim, self.heads, self.dropout = dim, heads, dropout
         self.window_size = window_size
         self.q_chunk = q_chunk
         rank = kv_lora_rank or dim // 2
-        self.q_proj = nn.Linear(dim, dim, bias=False)
-        self.kv_down_proj = nn.Linear(dim, rank, bias=False)
+        self.q_proj = Linear(dim, dim, bias=False, compute_dtype=dtype)
+        self.kv_down_proj = Linear(dim, rank, bias=False, compute_dtype=dtype)
         self.kv_norm = RMSNorm(rank)
-        self.kv_up_proj = nn.Linear(rank, dim * 2, bias=False)
-        self.out_proj = nn.Linear(dim, dim, bias=False)
+        self.kv_up_proj = Linear(rank, dim * 2, bias=False, compute_dtype=dtype)
+        self.out_proj = Linear(dim, dim, bias=False, compute_dtype=dtype)
 
     def forward(
         self,

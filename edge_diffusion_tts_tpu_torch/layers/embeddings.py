@@ -3,7 +3,10 @@ sinusoidal table and learned) and RoPE.
 
 Counterpart of ``edge_diffusion_tts_tpu/layers/embeddings.py``.  The time
 embedding is concat(sin, cos) with denominator ``half - 1``; the positional
-table is *interleaved* (even columns sin, odd columns cos).
+table is *interleaved* (even columns sin, odd columns cos).  The time
+embedding is made in float32 and then cast to the module's ``dtype``, as
+JAX's decoder casts it; the fixed positional tables are cast to the input's
+dtype.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from .dtypes import Embedding, Linear, cast
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -27,12 +32,12 @@ def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class SinusoidalTimeEmb(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim = dim
+        self.dim, self.dtype = dim, dtype
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return sinusoidal_time_embedding(t, self.dim)
+        return cast(sinusoidal_time_embedding(t, self.dim), self.dtype)
 
 
 class LearnedTimeEmb(nn.Module):
@@ -43,15 +48,16 @@ class LearnedTimeEmb(nn.Module):
     under which ``weights.state_dict_from_jax`` carries flax's ``fc1``/``fc2``.
     """
 
-    def __init__(self, dim: int, hidden_dim: Optional[int] = None):
+    def __init__(self, dim: int, hidden_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim = dim
+        self.dim, self.dtype = dim, dtype
         hidden = hidden_dim or dim * 4
-        self.net = nn.Sequential(nn.Linear(dim, hidden), nn.GELU(), nn.Identity(),
-                                 nn.Linear(hidden, dim))
+        self.net = nn.Sequential(Linear(dim, hidden, compute_dtype=dtype), nn.GELU(),
+                                 nn.Identity(), Linear(hidden, dim, compute_dtype=dtype))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.net(sinusoidal_time_embedding(t, self.dim))
+        return self.net(cast(sinusoidal_time_embedding(t, self.dim), self.dtype))
 
 
 def sinusoidal_position_table(max_len: int, dim: int) -> torch.Tensor:
@@ -94,19 +100,21 @@ class SinusoidalPositionalEmb(nn.Module):
 class LearnedPositionalEmb(nn.Module):
     """A learned table ``emb`` [max_len, dim] added over positions 0..T-1.
 
-    A library component: the decoder uses the sinusoidal table.
+    A library component: the decoder uses the sinusoidal table.  The rows
+    come out at ``dtype`` and are added to ``x`` as JAX adds them (a bf16
+    table and a float32 ``x`` give float32).
     """
 
-    def __init__(self, max_len: int, dim: int):
+    def __init__(self, max_len: int, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_len = max_len
-        self.emb = nn.Embedding(max_len, dim)
+        self.emb = Embedding(max_len, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         T = x.shape[1]
         if T > self.max_len:
             raise ValueError(f"{T} positions exceed the table's {self.max_len} rows")
-        return x + self.emb.weight[:T][None].to(x.dtype)
+        return x + cast(self.emb.weight[:T], self.emb.compute_dtype)[None]
 
 
 def rope_tables(max_len: int, dim: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -6,7 +6,10 @@ reference state dict: ``net.0`` is fc1 and ``net.3`` is fc2.
 
 Dropout draws its mask from an explicit ``torch.Generator``, as the JAX
 package draws it from a key: a training-mode call with a non-zero rate and
-no generator raises rather than read torch's global random stream.
+no generator raises rather than read torch's global random stream.  The
+mask is drawn at float32 probabilities whatever the input's dtype, as
+``jax.random.bernoulli`` draws it; a bf16 input is divided by the keep
+probability rounded to bf16, as flax divides by its weakly-typed scalar.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .dtypes import Linear
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -28,8 +33,12 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if generator is None:
         raise ValueError("training-mode dropout draws its mask from an explicit "
                          "torch.Generator: pass generator=")
-    keep = torch.bernoulli(torch.full_like(x, 1.0 - rate), generator=generator).bool()
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    keep_prob = 1.0 - rate
+    keep = torch.bernoulli(torch.full_like(x, keep_prob, dtype=torch.float32),
+                           generator=generator).bool()
+    if x.dtype in (torch.bfloat16, torch.float16):
+        keep_prob = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def swiglu(x: torch.Tensor) -> torch.Tensor:
@@ -56,16 +65,18 @@ class Dropout(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Linear(dim -> 2*mult*dim) -> SwiGLU -> Dropout -> Linear -> Dropout."""
+    """Linear(dim -> 2*mult*dim) -> SwiGLU -> Dropout -> Linear -> Dropout, the
+    linears at ``dtype``."""
 
-    def __init__(self, dim: int, mult: int = 2, dropout: float = 0.1):
+    def __init__(self, dim: int, mult: int = 2, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = dim * mult
         self.net = nn.Sequential(
-            nn.Linear(dim, hidden * 2),
+            Linear(dim, hidden * 2, compute_dtype=dtype),
             SwiGLU(),
             Dropout(dropout),
-            nn.Linear(hidden, dim),
+            Linear(hidden, dim, compute_dtype=dtype),
             Dropout(dropout),
         )
 

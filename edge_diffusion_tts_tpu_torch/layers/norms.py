@@ -2,13 +2,17 @@
 
 Counterpart of ``edge_diffusion_tts_tpu/layers/norms.py``: eps 1e-6 with
 float32 statistics; AdaLN computes ``rms(x) * w * (1 + scale) + shift`` with
-its [cond -> 2*dim] projection split scale first, then shift.
+its [cond -> 2*dim] projection split scale first, then shift.  RMSNorm works
+at its input's dtype (its output is rounded to it, as in JAX); AdaLN's
+projection computes at ``dtype``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from .dtypes import Linear
 
 
 def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -37,10 +41,10 @@ class AdaLayerNorm(nn.Module):
     vector, so at init the layer is an identity RMSNorm.
     """
 
-    def __init__(self, dim: int, cond_dim: int):
+    def __init__(self, dim: int, cond_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = RMSNorm(dim)
-        self.proj = nn.Linear(cond_dim, dim * 2)
+        self.proj = Linear(cond_dim, dim * 2, compute_dtype=dtype)
         nn.init.zeros_(self.proj.weight)
         nn.init.zeros_(self.proj.bias)
 

@@ -6,6 +6,8 @@ Pre-norm residual block with three sub-layers:
 2. RMSNorm + MLA cross-attention on the semantic context (full attention;
    the block passes no ``cond`` to it)
 3. AdaLN(timestep cond) + SwiGLU feed-forward
+
+``dtype`` is the block's compute dtype (flax's ``dtype``).
 """
 
 from __future__ import annotations
@@ -34,23 +36,25 @@ class DiffusionTransformerBlock(nn.Module):
         kernel_min_seq: int = 0,
         cross_q_chunk: int = 0,
         band_q_chunk: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         cond_dim = cond_dim or dim
         self.use_adaln = use_adaln
-        norm = (lambda: AdaLayerNorm(dim, cond_dim)) if use_adaln else (lambda: RMSNorm(dim))
+        norm = ((lambda: AdaLayerNorm(dim, cond_dim, dtype)) if use_adaln
+                else (lambda: RMSNorm(dim)))
         self.norm1 = norm()
         self.attn = EfficientAttention(
             dim, heads, dropout, window_size=window_size, use_kernel=use_kernel,
-            kernel_min_seq=kernel_min_seq, band_q_chunk=band_q_chunk,
+            kernel_min_seq=kernel_min_seq, band_q_chunk=band_q_chunk, dtype=dtype,
         )
         self.norm2 = RMSNorm(dim)
         self.cross_attn = MultiHeadLatentAttention(
             dim, heads, kv_lora_rank=dim // 2, dropout=dropout, window_size=None,
-            q_chunk=cross_q_chunk,
+            q_chunk=cross_q_chunk, dtype=dtype,
         )
         self.norm3 = norm()
-        self.ffn = FeedForward(dim, ffn_mult, dropout)
+        self.ffn = FeedForward(dim, ffn_mult, dropout, dtype)
 
     def _norm(self, norm: nn.Module, x: torch.Tensor, cond) -> torch.Tensor:
         return norm(x, cond) if self.use_adaln else norm(x)

@@ -6,6 +6,11 @@ indices or continuous features; an optional few-step stage index adds a
 learned embedding (clamped to the 16-row table) to the time conditioning.
 Parameter names are the reference decoder's state-dict keys
 (``time_emb.1``/``.3``, ``layers.{i}.norm1.proj``, ``final_norm`` ...).
+
+``dtype`` is the compute dtype, as the JAX module's: float32 by default;
+with bfloat16 every layer computes in bf16 (the residual stream too) but
+for the float32 spots JAX keeps (attention logits and softmax, the norms'
+statistics, the time embedding before its cast), and the output is float32.
 """
 
 from __future__ import annotations
@@ -21,12 +26,15 @@ from ..layers import (
     SinusoidalPositionalEmb,
     SinusoidalTimeEmb,
 )
+from ..layers.dtypes import Embedding, LayerNorm, Linear, cast
 
 MAX_STEP_EMB = 16  # few-step stage embedding table size
 
 
-def backbone_block(cfg: CFG, use_kernel: Optional[bool] = None) -> DiffusionTransformerBlock:
-    """The decoder's transformer block with the kernel routing resolved.
+def backbone_block(cfg: CFG, use_kernel: Optional[bool] = None,
+                   dtype: torch.dtype = torch.float32) -> DiffusionTransformerBlock:
+    """The decoder's transformer block with the kernel routing resolved, at
+    compute ``dtype``.
 
     ``use_kernel=None`` follows the config (``use_flash_attn`` above
     ``pallas_min_seq_len``); True/False force the route at every length.
@@ -47,35 +55,39 @@ def backbone_block(cfg: CFG, use_kernel: Optional[bool] = None) -> DiffusionTran
         kernel_min_seq=kms,
         cross_q_chunk=cfg.cross_q_chunk,
         band_q_chunk=cfg.band_q_chunk,
+        dtype=dtype,
     )
 
 
 class EdgeDiffusionDecoder(nn.Module):
     """Edge-optimized diffusion decoder: prelude -> backbone -> postlude."""
 
-    def __init__(self, cfg: CFG, use_kernel: Optional[bool] = None):
+    def __init__(self, cfg: CFG, use_kernel: Optional[bool] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         H = cfg.hidden
         self.time_emb = nn.Sequential(
-            SinusoidalTimeEmb(H), nn.Linear(H, H), nn.GELU(), nn.Linear(H, H)
+            SinusoidalTimeEmb(H, dtype), Linear(H, H, compute_dtype=dtype), nn.GELU(),
+            Linear(H, H, compute_dtype=dtype),
         )
-        self.step_emb = nn.Embedding(MAX_STEP_EMB, H)
-        self.sem_proj = nn.Linear(cfg.semantic_dim, H)
-        self.token_emb = nn.Embedding(cfg.effective_codebook_size(), H)
+        self.step_emb = Embedding(MAX_STEP_EMB, H, compute_dtype=dtype)
+        self.sem_proj = Linear(cfg.semantic_dim, H, compute_dtype=dtype)
+        self.token_emb = Embedding(cfg.effective_codebook_size(), H, compute_dtype=dtype)
         self.context_pos_emb = SinusoidalPositionalEmb(H, max_len=cfg.max_ctx_positions)
-        self.in_proj = nn.Linear(cfg.n_mels, H)
+        self.in_proj = Linear(cfg.n_mels, H, compute_dtype=dtype)
         if cfg.use_depthwise:
             from ..layers.conv import DepthwiseSeparableConv
 
-            self.pre_conv = DepthwiseSeparableConv(H, H)
+            self.pre_conv = DepthwiseSeparableConv(H, H, dtype=dtype)
         self.pos_emb = SinusoidalPositionalEmb(H, max_len=cfg.max_mel_positions)
         self.layers = nn.ModuleList(
-            [backbone_block(cfg, use_kernel) for _ in range(cfg.layers)]
+            [backbone_block(cfg, use_kernel, dtype) for _ in range(cfg.layers)]
         )
         # flax LayerNorm: eps 1e-6, not torch's default 1e-5.
-        self.final_norm = nn.LayerNorm(H, eps=1e-6)
-        self.out_proj = nn.Linear(H, cfg.n_mels)
+        self.final_norm = LayerNorm(H, eps=1e-6, compute_dtype=dtype)
+        self.out_proj = Linear(H, cfg.n_mels, compute_dtype=dtype)
         nn.init.zeros_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
 
@@ -113,7 +125,7 @@ class EdgeDiffusionDecoder(nn.Module):
         """Embeddings + conditioning: ``(h0, context, t_cond)``."""
         t_cond = self.time_cond(t, step_idx)
         context = self.context(sem_idx, sem_features)
-        h = self.in_proj(x_t.float())
+        h = self.in_proj(cast(x_t.float(), self.dtype))
         if self.cfg.use_depthwise:
             h = h + self.pre_conv(h)
         h = self.pos_emb(h, offset=pos_offset)

@@ -5,7 +5,9 @@ HuBERT runs under ``torch.no_grad()``, as the JAX package stops its
 gradient; the trainer keeps its parameters out of the optimizer.  A
 training-mode call (``train=True``) draws its dropout masks (the
 ``use_dropout`` projection variant) and the VQ's dead-code permutation from
-the ``generator`` it is given.
+the ``generator`` it is given.  ``dtype`` is the compute dtype of HuBERT,
+the projection and the FSQ's projections (the VQ computes in float32, as
+JAX's has no dtype).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import CFG
+from ..layers.dtypes import LayerNorm, Linear
 from ..layers.ffn import dropout
 from .fsq import FSQEncoder
 from .hubert import HubertConfig, HubertEncoder, conv_frame_lengths, valid_mask
@@ -32,18 +35,20 @@ class SemanticEncoder(nn.Module):
     """
 
     def __init__(self, cfg: CFG, hubert_cfg: HubertConfig = HubertConfig(),
-                 use_dropout: bool = False):
+                 use_dropout: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.hubert_cfg = hubert_cfg
         self.use_dropout = use_dropout
+        self.dtype = dtype
         D = cfg.semantic_dim
-        self.hubert = HubertEncoder(hubert_cfg)
-        self.proj_fc1 = nn.Linear(hubert_cfg.hidden_size, D)
-        self.proj_ln = nn.LayerNorm(D, eps=1e-6)  # flax LayerNorm's default eps
-        self.proj_fc2 = nn.Linear(D, D)
+        self.hubert = HubertEncoder(hubert_cfg, dtype)
+        self.proj_fc1 = Linear(hubert_cfg.hidden_size, D, compute_dtype=dtype)
+        # flax LayerNorm's default eps
+        self.proj_ln = LayerNorm(D, eps=1e-6, compute_dtype=dtype)
+        self.proj_fc2 = Linear(D, D, compute_dtype=dtype)
         if cfg.use_fsq:
-            self.vq = FSQEncoder(D, tuple(cfg.fsq_levels))
+            self.vq = FSQEncoder(D, tuple(cfg.fsq_levels), dtype)
         else:
             self.vq = VectorQuantizer(D, cfg.codebook_size, commit=cfg.vq_commit)
 

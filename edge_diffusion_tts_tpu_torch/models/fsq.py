@@ -3,7 +3,10 @@
 FSQ bounds each latent dimension with tanh, rounds it to a fixed number of
 levels, and maps codes <-> flat indices through a mixed-radix basis.  No
 codebook, no EMA, no commitment loss.  ``torch.round`` rounds half to even,
-as ``jnp.round`` does: token identity depends on it.
+as ``jnp.round`` does: token identity depends on it.  The level arithmetic
+runs in float32 whatever the projections' dtype (a bf16 ``tanh`` output is
+promoted by the float32 level table, as in JAX), so a bf16 encoder's
+quantized features come out float32 and its ``proj_up`` casts them back.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..layers.dtypes import Linear
 
 
 class FSQ(nn.Module):
@@ -87,11 +92,12 @@ class FSQEncoder(nn.Module):
     ``forward`` returns the 5-tuple (z_q, indices, loss(=0), perplexity, used).
     """
 
-    def __init__(self, input_dim: int, levels: Sequence[int] = (8, 6, 5, 5, 5)):
+    def __init__(self, input_dim: int, levels: Sequence[int] = (8, 6, 5, 5, 5),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fsq = FSQ(levels)
-        self.proj_down = nn.Linear(input_dim, self.fsq.dim)
-        self.proj_up = nn.Linear(self.fsq.dim, input_dim)
+        self.proj_down = Linear(input_dim, self.fsq.dim, compute_dtype=dtype)
+        self.proj_up = Linear(self.fsq.dim, input_dim, compute_dtype=dtype)
 
     @property
     def codebook_size(self) -> int:

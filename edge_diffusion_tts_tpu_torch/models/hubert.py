@@ -19,6 +19,11 @@ materialized into a plain ``weight``; ``weights.hubert_state_dict_from_hf``
 turns an HF state dict into this module's.  Attention and the dense layers
 are plain tensor ops.  The conv feature extractor has a CUDA kernel
 (``ops/fused_frontend.py``) that ``conv_feats`` takes the output of.
+
+``dtype`` is the compute dtype, as the JAX module's: with bfloat16 the wav
+is cast to bf16 before conv0 and every layer computes in bf16, but for the
+spots JAX keeps in float32: the masked GroupNorm's statistics, the attention
+logits and softmax, and the LayerNorms' statistics.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..layers.dtypes import Conv1d, LayerNorm, Linear, cast
 
 MASK_LOGIT = -1e30  # padded keys' logit: exp underflows to exactly 0 in float32
 
@@ -102,11 +109,12 @@ def valid_mask(n: int, lengths, device) -> torch.Tensor:
 class MaskedGroupNorm(nn.Module):
     """Per-channel norm over time (GroupNorm with one group per channel) whose
     statistics, given ``length``, cover only each row's true frames, so a
-    zero-padded batch is normalized as its unpadded rows.  Input [B, C, T]."""
+    zero-padded batch is normalized as its unpadded rows.  Input [B, C, T];
+    computed in float32, the output at ``dtype``."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dtype = eps, dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -121,15 +129,16 @@ class MaskedGroupNorm(nn.Module):
             mean = (x * m).sum(2, keepdim=True) / cnt
             var = ((x - mean).square() * m).sum(2, keepdim=True) / cnt
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight[None, :, None] + self.bias[None, :, None]
+        return cast(y * self.weight[None, :, None] + self.bias[None, :, None], self.dtype)
 
 
 class ConvLayer(nn.Module):
-    def __init__(self, c_in: int, c_out: int, k: int, s: int, norm: bool):
+    def __init__(self, c_in: int, c_out: int, k: int, s: int, norm: bool,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv1d(c_in, c_out, k, stride=s, bias=False)
+        self.conv = Conv1d(c_in, c_out, k, stride=s, bias=False, compute_dtype=dtype)
         if norm:
-            self.layer_norm = MaskedGroupNorm(c_out)
+            self.layer_norm = MaskedGroupNorm(c_out, dtype=dtype)
 
 
 class FeatureExtractor(nn.Module):
@@ -139,17 +148,17 @@ class FeatureExtractor(nn.Module):
     zero-padded tail samples; every conv is VALID, so frames inside the true
     length then equal an exact-length forward's."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = (1,) + tuple(cfg.conv_dim)
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         self.conv_layers = nn.ModuleList(
-            ConvLayer(dims[i], dims[i + 1], k, s, norm=i == 0)
+            ConvLayer(dims[i], dims[i + 1], k, s, norm=i == 0, dtype=dtype)
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride))
         )
 
     def forward(self, wav: torch.Tensor, wav_len=None) -> torch.Tensor:
-        x = wav[:, None, :].float()
+        x = cast(wav[:, None, :].float(), self.dtype)
         for i, layer in enumerate(self.conv_layers):
             x = layer.conv(x)
             if i == 0:
@@ -161,10 +170,11 @@ class FeatureExtractor(nn.Module):
 
 
 class FeatureProjection(nn.Module):
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.layer_norm = LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps,
+                                    compute_dtype=dtype)
+        self.projection = Linear(cfg.conv_dim[-1], cfg.hidden_size, compute_dtype=dtype)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         return self.projection(self.layer_norm(feats))
@@ -173,11 +183,11 @@ class FeatureProjection(nn.Module):
 class PositionalConvEmbedding(nn.Module):
     """Grouped conv positional embedding; an even kernel trims its last frame."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         k = cfg.num_conv_pos_embeddings
-        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
-                              groups=cfg.num_conv_pos_embedding_groups)
+        self.conv = Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
+                           groups=cfg.num_conv_pos_embedding_groups, compute_dtype=dtype)
         self.trim = k % 2 == 0
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
@@ -188,14 +198,17 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: HubertConfig):
+    """Multi-head self-attention; the logits and softmax in float32 whatever
+    the compute dtype (JAX's ``preferred_element_type=float32``)."""
+
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         H = cfg.hidden_size
         self.head_dim = H // cfg.num_heads
-        self.q_proj = nn.Linear(H, H)
-        self.k_proj = nn.Linear(H, H)
-        self.v_proj = nn.Linear(H, H)
-        self.out_proj = nn.Linear(H, H)
+        self.q_proj = Linear(H, H, compute_dtype=dtype)
+        self.k_proj = Linear(H, H, compute_dtype=dtype)
+        self.v_proj = Linear(H, H, compute_dtype=dtype)
+        self.out_proj = Linear(H, H, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
         # The head count follows q_proj's rows, so a tensor-parallel rank
@@ -207,18 +220,20 @@ class Attention(nn.Module):
             return t.reshape(B, T, -1, dh).transpose(1, 2)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
-        logits = (q @ k.transpose(-1, -2)) * dh ** -0.5
+        f32 = torch.float32
+        logits = (cast(q, f32) @ cast(k, f32).transpose(-1, -2)) * dh ** -0.5
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :], MASK_LOGIT)
-        attn = torch.softmax(logits, dim=-1) @ v
+        attn = cast(torch.softmax(logits, dim=-1), v.dtype) @ v
         return self.out_proj(attn.transpose(1, 2).reshape(B, T, -1))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = Linear(cfg.hidden_size, cfg.intermediate_size,
+                                         compute_dtype=dtype)
+        self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.output_dense(F.gelu(self.intermediate_dense(x)))
@@ -227,12 +242,13 @@ class FeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-LN transformer layer: MHA -> +res -> LN -> FFN -> +res -> LN."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attention = Attention(cfg)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.feed_forward = FeedForward(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        eps = cfg.layer_norm_eps
+        self.attention = Attention(cfg, dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, eps=eps, compute_dtype=dtype)
+        self.feed_forward = FeedForward(cfg, dtype)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=eps, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
         x = self.layer_norm(x + self.attention(x, key_mask))
@@ -240,22 +256,22 @@ class EncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pos_conv_embed = PositionalConvEmbedding(cfg)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.pos_conv_embed = PositionalConvEmbedding(cfg, dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, compute_dtype=dtype)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype) for _ in range(cfg.num_layers))
 
 
 class HubertEncoder(nn.Module):
     """Full HuBERT; ``forward`` returns the hidden states (HF indices)."""
 
-    def __init__(self, cfg: HubertConfig = HubertConfig()):
+    def __init__(self, cfg: HubertConfig = HubertConfig(), dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cfg = cfg
-        self.feature_extractor = FeatureExtractor(cfg)
-        self.feature_projection = FeatureProjection(cfg)
-        self.encoder = TransformerEncoder(cfg)
+        self.cfg, self.dtype = cfg, dtype
+        self.feature_extractor = FeatureExtractor(cfg, dtype)
+        self.feature_projection = FeatureProjection(cfg, dtype)
+        self.encoder = TransformerEncoder(cfg, dtype)
 
     def forward(
         self,

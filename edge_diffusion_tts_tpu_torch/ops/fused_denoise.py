@@ -637,6 +637,13 @@ def fused_ddpm(
 fused_ddpm.launches = 0
 
 
+def _float32_only(compute_dtype, what: str, item: str) -> None:
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} runs the float32 decoder step only: its {compute_dtype} variant (a "
+            f"tensor-core step in gemm.cuh and attention.cuh) is ROADMAP Queue B item {item}")
+
+
 def fused_generate_mel(
     cfg: CFG,
     schedule: DiffusionSchedule,
@@ -646,13 +653,16 @@ def fused_generate_mel(
     num_steps: int,
     prediction: str = "eps",
     weights: Optional[Dict[str, torch.Tensor]] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """x_T [B, T, n_mels] + tokens [B, S] -> x0 through ``fused_ddim``.
 
     ``weights`` are ``pack_decoder_weights(decoder)``, packed here if not
     given.  The strided grid may hold fewer than ``num_steps`` steps; the loop
-    runs what exists, as the JAX package does.
+    runs what exists, as the JAX package does.  ``compute_dtype`` is the JAX
+    function's: float32 only so far (bf16 raises NotImplementedError).
     """
+    _float32_only(compute_dtype, "fused_generate_mel", "B2.3")
     ts, coef = ddim_coefficients(schedule, num_steps)
     with torch.no_grad():
         w = weights if weights is not None else pack_decoder_weights(decoder)
@@ -674,6 +684,7 @@ def fused_ddpm_sample(
     prediction: str = "eps",
     noise: Optional[torch.Tensor] = None,
     weights: Optional[Dict[str, torch.Tensor]] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Full-schedule (``schedule.T`` steps) ancestral DDPM through ``fused_ddpm``.
 
@@ -683,7 +694,10 @@ def fused_ddpm_sample(
     generator draws them under a 64-bit key taken from ``generator`` (a
     fresh one seeded 0 on ``sem_idx``'s device when None).  ``weights`` are
     ``pack_decoder_weights(decoder)``, packed here if not given.
+    ``compute_dtype`` is the JAX function's: float32 only so far (bf16
+    raises NotImplementedError).
     """
+    _float32_only(compute_dtype, "fused_ddpm_sample", "B1.4")
     coef = ddpm_coefficients(schedule).to(x_T.device)
     ts = list(range(schedule.T - 1, -1, -1))
     key = (0, 0)

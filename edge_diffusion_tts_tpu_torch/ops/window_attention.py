@@ -182,6 +182,10 @@ def banded_attention(
         res = banded_attention_plain(q, k, v, window, seq_len)
         return res if out_layout == "bhtd" else res.transpose(1, 2).contiguous().transpose(1, 2)
     _build.refuse_autograd("banded_attention", q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"the banded-attention kernel takes float32 q, k, v, not {q.dtype}: "
+                         "its bf16 loads are ROADMAP Queue B item B3.4 (a bf16 decoder's "
+                         "long-form windows on the card wait for it)")
     plan = band_plan(B, H, T, d, window, _sm_count(q.device.index or 0))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_strided(name, t, q.device)

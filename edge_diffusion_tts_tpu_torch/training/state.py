@@ -20,6 +20,17 @@ not torch's look-alikes:
 - the frozen HuBERT has no entry at all (optax masks it to zero updates).
 
 Counts live on the host: no step reads the device to decide anything.
+
+Parameters stored in bf16 (``param_dtype="bfloat16"``) are optimized as
+optax optimizes them: the moments and the accumulated gradients are bf16
+(optax makes them ``zeros_like`` the parameters), the global norm is summed
+in the gradients' dtype, every constant (``b1``, ``eps``, the weight decay,
+the bias corrections, the learning rate) is rounded to bf16 as JAX rounds a
+weakly typed scalar, and each operation rounds to bf16, so that the update
+equals optax's wherever XLA rounds after each operation too.  Float32
+parameters take the float32 arithmetic as before.  ``ema_update`` works in
+the teacher's dtype likewise (``decay`` 0.999 rounds to 1.0 in bf16, as in
+JAX).
 """
 
 from __future__ import annotations
@@ -65,9 +76,26 @@ def constant_schedule(value: float) -> Schedule:
     return lambda count: float(np.float32(value))
 
 
+def _at(value: float, dtype: torch.dtype) -> float:
+    """``value`` as a scalar of ``dtype`` takes part in its arithmetic (JAX's
+    weak typing: a Python float meets a bf16 array as a bf16): float32 keeps
+    it, a lower precision rounds it."""
+    if dtype in (torch.float32, torch.float64):
+        return value
+    return torch.tensor(value, dtype=torch.float32).to(dtype).item()
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    """sqrt of the sum of squares over every tensor (optax.global_norm): in
+    float32 for float32 tensors; otherwise each tensor's sum of squares in
+    its dtype, summed in order and promoted as optax's Python ``sum``."""
+    tensors = list(tensors)
+    if all(t.dtype == torch.float32 for t in tensors):
+        return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    total = 0
+    for t in tensors:
+        total = total + t.square().sum()
+    return total.sqrt()
 
 
 class Optimizer:
@@ -128,7 +156,8 @@ class Optimizer:
             torch._foreach_zero_(acc)
         self.clip_norm = norm = self.norm_fn(names, g)
         keep = norm < self.max_norm
-        g = [torch.where(keep, x, (x / norm) * self.max_norm) for x in g]
+        g = [torch.where(keep, x, (x / norm.to(x.dtype)) * _at(self.max_norm, x.dtype))
+             for x in g]
         self.count += 1
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.b1) ** f32(self.count))
@@ -136,11 +165,12 @@ class Optimizer:
         step_size = -self.lr(self.count - 1)
         for n, x in zip(names, g):
             p, mu, nu = self.params[n], self.mu[n], self.nu[n]
-            mu.copy_((1 - self.b1) * x + self.b1 * mu)
-            nu.copy_((1 - self.b2) * x.square() + self.b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            u = u + self.weight_decay * p
-            p.add_(step_size * u)
+            dt = p.dtype  # every constant meets the parameter at its dtype
+            mu.copy_(_at(1 - self.b1, dt) * x + _at(self.b1, dt) * mu)
+            nu.copy_(_at(1 - self.b2, dt) * x.square() + _at(self.b2, dt) * nu)
+            u = (mu / _at(bc1, dt)) / (torch.sqrt(nu / _at(bc2, dt)) + _at(self.eps, dt))
+            u = u + _at(self.weight_decay, dt) * p
+            p.add_(_at(step_size, dt) * u)
         return True
 
     def set_learning_rate(self, schedule: Schedule) -> None:
@@ -193,12 +223,14 @@ def freeze_hubert(encoder: nn.Module) -> None:
 
 @torch.no_grad()
 def ema_update(teacher: nn.Module, student: nn.Module, decay: float = 0.999) -> None:
-    """teacher <- teacher * decay + student * (1 - decay), over parameters;
-    decay 1.0 leaves the teacher bit for bit."""
+    """teacher <- teacher * decay + student * (1 - decay), over parameters,
+    in the teacher's dtype (the scalars rounded to it, as in JAX); decay 1.0
+    leaves the teacher bit for bit."""
     t = list(teacher.parameters())
     s = [p.to(q.dtype) for p, q in zip(student.parameters(), t)]
-    torch._foreach_mul_(t, decay)
-    torch._foreach_add_(t, torch._foreach_mul(s, 1.0 - decay))
+    dt = t[0].dtype if t else torch.float32
+    torch._foreach_mul_(t, _at(decay, dt))
+    torch._foreach_add_(t, torch._foreach_mul(s, _at(1.0 - decay, dt)))
 
 
 class TrainState:

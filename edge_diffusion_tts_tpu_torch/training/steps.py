@@ -16,7 +16,11 @@ The encode route is fixed when the ``Trainer`` is built, by the rule
 ``EdgeInference`` follows: the hubert-base conv stack runs on the
 conv-frontend kernel (``ops/fused_frontend.py::conv_frontend``, under no
 gradient) and hands its features to the frozen HuBERT; any other stack runs
-its modules.  A batch with ``"hubert_features"`` skips HuBERT.
+its modules.  A batch with ``"hubert_features"`` skips HuBERT.  The route
+runs at the encoder's compute dtype: a bf16 encoder's kernel route takes
+the frontend's bf16 variant, which rounds where JAX's frontend kernel rounds
+(conv0 in float32, first rounded at its GELU), not where JAX's bf16 module
+stack does (the wav cast to bf16 before conv0; ROADMAP Queue C 8).
 
 Metrics are 0-d tensors on the device: nothing here reads the device.
 """
@@ -67,7 +71,8 @@ class Trainer:
     The modules move to ``device`` (the card unless ``device="cpu"``); the
     frozen HuBERT stays out of every gradient.  ``encode_route`` is
     ``"kernel"`` when the conv-frontend kernel takes the encoder's conv stack
-    (``kernel_serves``), else ``"modules"``.
+    (``kernel_serves``), else ``"modules"``; ``dtype`` is the encoder's
+    compute dtype, which the kernel route runs at.
     """
 
     def __init__(self, cfg: CFG, encoder, decoder, schedule: DiffusionSchedule, device=None):
@@ -82,7 +87,9 @@ class Trainer:
             win_length=cfg.win_length, n_mels=cfg.n_mels, f_min=cfg.f_min, f_max=cfg.f_max,
         ).to(self.device)
         self.encode_route = "kernel" if kernel_serves(encoder.hubert_cfg) else "modules"
-        self.frontend_weights = (pack_frontend_weights(self.encoder.hubert.feature_extractor)
+        self.dtype = encoder.dtype
+        self.frontend_weights = (pack_frontend_weights(self.encoder.hubert.feature_extractor,
+                                                       self.dtype)
                                  if self.encode_route == "kernel" else None)
 
     # -- shared pieces --------------------------------------------------------
@@ -103,7 +110,8 @@ class Trainer:
         with torch.no_grad(), record_function("train:hubert"):
             conv_feats = None
             if self.encode_route == "kernel":
-                conv_feats = conv_frontend(wav.float().contiguous(), self.frontend_weights)
+                conv_feats = conv_frontend(wav.float().contiguous(), self.frontend_weights,
+                                           compute_dtype=self.dtype)
             return state.encoder.extract_hubert(wav, conv_feats=conv_feats)
 
     def _encode(self, state: TrainState, batch: Batch, generator, train: bool):

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import CFG, resolve_device
+from ..config import CFG, resolve_device, torch_dtype
+from ..layers.dtypes import cast_parameters
 from ..models import EdgeDiffusionDecoder, HubertConfig, SemanticEncoder
 from ..schedule import DiffusionSchedule, ddim_sample
 from ..utils.logging import MetricWriter
@@ -74,15 +75,16 @@ def init_models(cfg: CFG, hubert_cfg: Optional[HubertConfig] = None,
     """``(encoder, decoder)`` initialized from torch's global generator (which
     ``CFG.setup_environment`` seeds).  ``hubert_state`` (a ``HubertEncoder``
     state dict, e.g. ``weights.hubert_state_dict_from_hf``) replaces the
-    random frozen HuBERT."""
-    if cfg.compute_dtype != "float32" or cfg.param_dtype != "float32":
-        raise ValueError("the port trains in float32 only (compute_dtype and param_dtype "
-                         f"are {cfg.compute_dtype!r}, {cfg.param_dtype!r})")
-    encoder = SemanticEncoder(cfg, hubert_cfg or HubertConfig())
-    decoder = EdgeDiffusionDecoder(cfg)
+    random frozen HuBERT.  The modules compute at ``cfg.compute_dtype``;
+    every parameter, the frozen HuBERT's included, is then stored at
+    ``cfg.param_dtype``, as the JAX package casts its parameter tree after
+    init (the VQ's statistics are buffers and stay float32)."""
+    compute, param = torch_dtype(cfg.compute_dtype), torch_dtype(cfg.param_dtype)
+    encoder = SemanticEncoder(cfg, hubert_cfg or HubertConfig(), dtype=compute)
+    decoder = EdgeDiffusionDecoder(cfg, dtype=compute)
     if hubert_state is not None:
         encoder.hubert.load_state_dict(hubert_state)
-    return encoder, decoder
+    return cast_parameters(encoder, param), cast_parameters(decoder, param)
 
 
 def _need_ranks(n: int, what: str) -> None:
@@ -104,6 +106,11 @@ def _parallel_layout(cfg: CFG):
 
     dp = pipe = None
     n_mb = 0
+    multi = (cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1) or cfg.pipeline_stages > 1
+    if multi and (cfg.compute_dtype, cfg.param_dtype) != ("float32", "float32"):
+        raise NotImplementedError(
+            "parallel/ trains in float32 only: bf16 compute or parameters over a mesh or "
+            "pipeline stages is ROADMAP Queue A item A6.4")
     if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
         n_mesh = int(np.prod(cfg.mesh_shape))
         if cfg.pipeline_stages > 1:

@@ -8,7 +8,10 @@ returns the port's ``state_dict``: dense ``kernel`` [in, out] becomes
 ``embedding`` and LayerNorm/GroupNorm ``scale`` become ``weight``, and module
 names follow the reference state-dict keys (``time_emb.1``, ``ffn.net.0``,
 ``layers.{i}`` ...).  The same walk converts any sub-tree (one layer, one
-block) to the matching port module's state dict.
+block) to the matching port module's state dict.  Leaves come across as
+float32, except bf16 ones (a tree cast to ``param_dtype="bfloat16"``), which
+numpy holds as ``ml_dtypes.bfloat16``: their 16 bits are carried over as
+they are into bf16 tensors, with no float round trip.
 
 ``encoder_state_dict_from_jax(variables)`` does the same for the JAX
 ``SemanticEncoder``'s variables (``params``, and for VQ every ``vq_state``
@@ -83,8 +86,23 @@ def _unpack_pp(tree):
     return out
 
 
+def _leaf_array(leaf) -> np.ndarray:
+    """A flax leaf as numpy: bf16 as it is, anything else as float32."""
+    arr = np.asarray(leaf)
+    return arr if arr.dtype.name == "bfloat16" else np.array(leaf, dtype=np.float32)
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor; ``torch.from_numpy`` refuses ``ml_dtypes.bfloat16``,
+    so a bf16 array's bits go across as int16 and are viewed as bf16."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _flatten(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax tree -> {dotted port name: float32 tensor}, leaves converted;
+    """flax tree -> {dotted port name: float32 (or bf16) tensor}, leaves converted;
     optax's masked-out leaves (``MaskedNode``) are skipped; a pipeline
     run's packed decoder tree is unpacked first."""
     sd: Dict[str, torch.Tensor] = {}
@@ -97,20 +115,21 @@ def _flatten(params: Mapping) -> Dict[str, torch.Tensor]:
                 continue
             if type(child).__name__ == "MaskedNode":
                 continue
-            arr = np.array(child, dtype=np.float32)
+            arr = _leaf_array(child)
             if name == "kernel":
                 arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
                 name = "weight"
             elif name in ("embedding", "scale"):
                 name = "weight"
-            sd[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(arr))
+            sd[".".join(path + [name])] = _tensor(arr)
 
     walk(params, [])
     return sd
 
 
 def state_dict_from_jax(params: Mapping, cfg: Optional[CFG] = None) -> Dict[str, torch.Tensor]:
-    """flax param tree -> port state dict (float32 CPU tensors).
+    """flax param tree -> port state dict (CPU tensors: float32, bf16 where
+    the tree's leaves are bf16).
 
     With ``cfg``, the tree must hold exactly ``cfg.layers`` decoder blocks.
     """

@@ -964,3 +964,223 @@ def test_async_preps_from_four_threads_equal_each_alone(prep_pipe):
         for g, a in zip(realizes[i](), w):
             np.testing.assert_array_equal(g, a)
     assert torch.isfinite(busy).all()
+
+
+# -- the conv frontend's bf16 variant (tensor cores) ---------------------------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(scope="module")
+def frontend_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(11)
+    fe = FeatureExtractor(HubertConfig()).to("cuda").eval()
+    return ff.pack_frontend_weights(fe, BF16)
+
+
+def _bf16_close(what, got, want):
+    """Sums in another order than the plain version's flip a bf16 rounding
+    now and then: normwise 1e-3, and at most 1e-4 of the elements farther
+    than 2^-7 of their value (+1e-5) from it."""
+    assert got.dtype == want.dtype and got.shape == want.shape, (what, got.dtype, want.dtype)
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all(), what
+    assert ((g - w).norm() / w.norm()).item() <= 1e-3, what
+    over = ((g - w).abs() > 2.0 ** -7 * w.abs() + 1e-5).float().mean().item()
+    assert over <= 1e-4, (what, over)
+
+
+@pytest.mark.parametrize("layer", range(7))
+@pytest.mark.parametrize("B,samples", FRONTEND_SHAPES)
+def test_conv_frontend_bf16_layer_matches_plain(frontend_bf16, B, samples, layer):
+    """Each bf16 layer alone in the plan's tile and split (bf16 in and out;
+    conv0 takes the float32 wav, conv6 writes float32) on the bf16 plain
+    chain's input for it."""
+    w = frontend_bf16
+    wav = _frontend_wav(B, samples)
+    fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
+    x = wav
+    for i in range(layer):
+        x = ff.conv_frontend_layer_plain(x, i, w, *(fold if i == 0 else ()), compute_dtype=BF16)
+    extra = fold if layer == 0 else ()
+    before = ff.conv_frontend_layer.bf16_launches, ff.conv_frontend_layer.launches
+    got = ff.conv_frontend_layer(x, layer, w, *extra, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (ff.conv_frontend_layer.bf16_launches, ff.conv_frontend_layer.launches) == (
+        before[0] + 1, before[1])
+    want = ff.conv_frontend_layer_plain(x, layer, w, *extra, compute_dtype=BF16)
+    assert got.dtype == (torch.float32 if layer == 6 else BF16)
+    _bf16_close(f"layer {layer} [{B},{samples}]", got, want)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7, 16])
+def test_conv_frontend_bf16_layer_any_split(frontend_bf16, splits):
+    w = frontend_bf16
+    rng = np.random.RandomState(splits)
+    for layer, T in ((2, 801), (5, 300), (6, 300)):
+        x = torch.from_numpy(rng.rand(2, T, 512).astype(np.float32)).to("cuda").to(BF16)
+        got = ff.conv_frontend_layer(x, layer, w, splits=splits, compute_dtype=BF16)
+        _bf16_close(f"layer {layer} splits {splits}", got,
+                    ff.conv_frontend_layer_plain(x, layer, w, compute_dtype=BF16))
+
+
+@pytest.mark.parametrize("B,samples", [(1, 80000), (3, 4321), (4, 32000)])
+def test_conv_frontend_bf16_bits_twice_and_witness(frontend, frontend_bf16, B, samples):
+    """Two bf16 calls give the same bits; the features are held by the
+    witness rule against the float32 plain version, the bf16 plain version
+    as the witness (rounding flips compound over six layers, so no
+    elementwise bar holds), and within 1e-2 of the bf16 plain version."""
+    wav = _frontend_wav(B, samples)
+    before = ff.conv_frontend.bf16_launches, ff.conv_frontend.launches
+    first = ff.conv_frontend(wav, frontend_bf16, compute_dtype=BF16)
+    assert (ff.conv_frontend.bf16_launches, ff.conv_frontend.launches) == (before[0] + 1,
+                                                                          before[1])
+    assert first.dtype == torch.float32
+    assert torch.equal(first, ff.conv_frontend(wav, frontend_bf16, compute_dtype=BF16))
+    plain = ff.conv_frontend_plain(wav, frontend_bf16, compute_dtype=BF16)
+    f32 = ff.conv_frontend_plain(wav, frontend)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    assert rel(first, f32) <= 1.5 * rel(plain, f32) + 1e-3, (rel(first, f32), rel(plain, f32))
+    assert rel(first, plain) <= 1e-2
+
+
+@pytest.mark.parametrize("B,samples", FRONTEND_SHAPES)
+def test_conv_frontend_bf16_workspace_matches_the_plan(frontend_bf16, B, samples):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ff.frontend_plan(B, samples, sms=sms, dtype=BF16)
+    lib = ff._lib()
+    assert lib.edt_conv_frontend_bf16_workspace(B, samples, 512, ff._splits(plan)) == \
+        4 * ff.frontend_workspace(B, plan, BF16)
+
+
+def test_frontend_variants_refuse_each_others_weights(frontend, frontend_bf16):
+    """The float32 entry points refuse bf16 weights and inputs, the bf16 ones
+    float32 weights; the band kernel refuses bf16 q, k, v (ROADMAP B3.4)."""
+    wav = _frontend_wav(1, 8000)
+    with pytest.raises(ValueError, match="float32"):
+        ff.conv_frontend(wav, frontend_bf16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ff.conv_frontend(wav, frontend, compute_dtype=BF16)
+    x = torch.zeros(1, 100, 512, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        ff.conv_frontend_layer(x.to(BF16), 1, frontend)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ff.conv_frontend_layer(x, 1, frontend_bf16, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="splits"):
+        ff.conv_frontend_layer(x.to(BF16), 1, frontend_bf16, splits=17, compute_dtype=BF16)
+    q = torch.zeros(1, 2, 64, 16, device="cuda", dtype=BF16)
+    with pytest.raises(ValueError, match="B3.4"):
+        wa.banded_attention(q, q, q, 8)
+
+
+def test_trainer_bf16_kernel_route_witness(cuda):
+    """A bf16 trainer's encode on the kernel route (the frontend's bf16
+    variant, conv0 in float32) against its bf16 modules route (the wav cast
+    to bf16 before conv0, as JAX's bf16 trainer), at [32, 32000] over six
+    sets of random weights: per set, the layer features by the witness rule
+    with the modules route as the witness and the float32 modules as the
+    reference; over all sets together (19,008 tokens), the share of tokens
+    equal to the float32 tokens within 0.02 of the modules route's.  The
+    paired gap (kernel share minus modules share) of one set of 3,168 tokens
+    ranged from -0.002 to +0.012 over these sets on an H100, and by +-0.03 at
+    396 tokens, so the bar is held on the pooled share; each set's gap is
+    printed."""
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.training import Trainer, TrainState
+
+    cfg = CFG(dropout=0.0)
+    wav = torch.from_numpy((0.2 * np.random.RandomState(9).randn(32, 32000))
+                           .astype(np.float32)).to(cuda)
+    equal = torch.zeros(2, dtype=torch.float64)
+    count = 0
+    for seed in (0, 1, 2, 3, 7, 8):
+        torch.manual_seed(seed)  # the default init the seeding adds to (the biases)
+        enc32 = _seeded_hubert_base_encoder(cfg, seed)
+        enc = SemanticEncoder(cfg, HubertConfig(), dtype=BF16)
+        enc.load_state_dict(enc32.state_dict())
+        trainer = Trainer(cfg, enc, EdgeDiffusionDecoder(cfg, dtype=BF16),
+                          DiffusionSchedule.create(1000), device=cuda)
+        assert trainer.encode_route == "kernel" and trainer.frontend_weights["wk3"].dtype == BF16
+        state = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
+        before = ff.conv_frontend.bf16_launches
+        h_kernel = trainer.hubert_features(state, wav)
+        assert ff.conv_frontend.bf16_launches == before + 1 and h_kernel.dtype == BF16
+        enc32 = enc32.to(cuda).eval()
+        with torch.no_grad():
+            h_modules = state.encoder.extract_hubert(wav)
+            h32 = enc32.extract_hubert(wav)
+            tok = [e.vq.encode(e._project(h)) for e, h in (
+                (state.encoder, h_kernel), (state.encoder, h_modules), (enc32, h32))]
+
+        def rel(a):
+            return ((a.float() - h32).norm() / h32.norm()).item()
+
+        assert rel(h_kernel) <= 1.5 * rel(h_modules) + 1e-3, (seed, rel(h_kernel),
+                                                              rel(h_modules))
+        same = torch.stack([(t == tok[2]).double().sum().cpu() for t in tok[:2]])
+        equal += same
+        count += tok[2].numel()
+        share = (same / tok[2].numel()).tolist()
+        print(f"weights {seed}: token share equal to float32, kernel {share[0]:.4f}, modules "
+              f"{share[1]:.4f}, paired gap {share[0] - share[1]:+.4f} ({tok[2].numel()} tokens); "
+              f"features rel {rel(h_kernel):.5f} vs {rel(h_modules):.5f}")
+        del enc32, enc, trainer, state
+    share = (equal / count).tolist()
+    print(f"pooled over {count} tokens: kernel {share[0]:.4f}, modules {share[1]:.4f}, "
+          f"gap {share[0] - share[1]:+.4f}")
+    assert share[0] >= share[1] - 0.02, share
+
+
+def test_bf16_training_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16 diffusion loss and its gradients at tiny width on the card
+    against the CPU, by the witness rule with the CPU's bf16 run as the
+    witness and its float32 run as the reference: loss (1.5x + 1e-3),
+    every gradient's cosine (- 0.01)."""
+    import copy
+
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.training import Trainer, TrainState
+    from edge_diffusion_tts_tpu_torch.training.state import trainable_parameters
+
+    cfg = CFG(hidden=32, layers=1, heads=2, segment_secs=0.1, diff_steps=50, max_timestep=48,
+              dropout=0.0, cfg_dropout=0.0, use_depthwise=True)
+    torch.manual_seed(3)
+    enc, dec = SemanticEncoder(cfg, HubertConfig.tiny()), EdgeDiffusionDecoder(cfg)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.02 * torch.randn(p.shape))
+    rs = np.random.RandomState(4)
+    batch = {"wav": (0.1 * rs.randn(2, cfg.segment_len)).astype(np.float32),
+             "t": np.array([5, 40]),
+             "noise": rs.randn(2, cfg.segment_mel_frames, cfg.n_mels).astype(np.float32)}
+    results = {}
+    for device, dtype in (("cpu", torch.float32), ("cpu", BF16), (cuda, BF16)):
+        e = SemanticEncoder(cfg, HubertConfig.tiny(), dtype=dtype)
+        e.load_state_dict(enc.state_dict())
+        d = EdgeDiffusionDecoder(cfg, dtype=dtype)
+        d.load_state_dict(copy.deepcopy(dec.state_dict()))
+        trainer = Trainer(cfg, e, d, DiffusionSchedule.create(cfg.diff_steps), device=device)
+        state = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
+        state.train()
+        loss, _ = trainer.make_diffusion_loss()(state, trainer.put_batch(batch), None)
+        loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+                 for n, p in trainable_parameters(trainer.encoder, trainer.decoder).items()}
+        results[(str(device), dtype)] = (loss.item(), grads)
+    (l32, g32), (lw, gw), (lc, gc) = (results[("cpu", torch.float32)], results[("cpu", BF16)],
+                                      results[("cuda", BF16)])
+    assert abs(lc - l32) / abs(l32) <= 1.5 * abs(lw - l32) / abs(l32) + 1e-3, (lc, lw, l32)
+
+    def cos(a, b):
+        return ((a * b).sum() / (a.norm() * b.norm())).item()
+
+    for name, ref in g32.items():
+        if ref.norm() < 1e-12 or gw[name].norm() < 1e-12:
+            continue
+        assert cos(gc[name], ref) >= cos(gw[name], ref) - 0.01, name
