@@ -19,6 +19,15 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    bound and TFLOP/s; at T=4000 the float64 witness (kernel and float32
    plain version against the plain version in float64); then the kernel
    against band-masked SDPA at T = 500 to 4000, [1,4,T,40] (the crossover);
+   then its bf16 instances at [1,4,4000,40] on phase 2's inputs rounded to
+   bf16: against the plain version on the same bf16 q, k, v (within 2e-5 +
+   one bf16 ulp of each output) and against the float32 plain version on
+   the float32 inputs by the witness rule (no farther, normwise, than 1.5
+   times the bf16 plain version's distance + 1e-3, and the two-sided bars
+   of ``witness16``), on strided views (=
+   the contiguous call), two calls bit-equal; graph-replay ms beside the
+   float32 kernel's, the plain version's ms, band-masked SDPA on the same
+   bf16 q, k, v, the bound (the products stay float32 FMA);
 3. the fused DDIM kernel against its plain version at the flagship shape
    (hidden 160, 4 layers, 4 heads of 40, window 64; B=1, S=250, T=500,
    4 steps), eps and v prediction (tolerances below), twice: the default
@@ -34,7 +43,23 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    at the same shape with TF32 off (a yardstick only, never called by the port),
    each as device time: calls captured in a CUDA graph and replayed between
    CUDA events, since one call from Python costs the host more than the
-   kernel costs the card;
+   kernel costs the card.  Then the bf16 variant (``compute_dtype=
+   torch.bfloat16``) for the default decoder at B=1, the pre-net decoder at
+   B=1 and the default decoder at B=8 (4,000 rows): ``fused_generate_mel``
+   at bf16, its launch counted, equal to ``fused_ddim`` on the same inputs;
+   eps and v held by the witness rule against the float32 plain version
+   with the bf16 plain version as the witness (v also by the two-sided
+   bars of ``witness16``; eps's first step clips every x0, and the bf16
+   and float32 trajectories part after it); 35 / 38 launches per step;
+   two calls bit-equal; its ms beside the float32 kernel's at the same
+   shape (CUDA events), the bf16 plain version's, the bound (every product
+   at 989 TFLOP/s, since each takes bf16 operands; the time with the
+   attention at the float32 FMA rate, as this kernel runs it, beside it);
+   without the pre-net
+   each step GEMM's bf16 variant alone (the step's operand and output
+   dtypes; 1e-3 normwise of the bf16 plain version) beside
+   ``F.linear`` on the same bf16 operands, at 500 and 4,000 rows, with the
+   float32 GEMMs at 4,000 rows;
 4. the main path at configs/flagship.json's decoder (the pre-net on, v
    prediction): ``EdgeInference(backend="fused").generate_mel`` answers
    three requests; outputs finite, one fused launch per request; the two
@@ -44,7 +69,11 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
 5. the long-form shape (configs/longform.json, S=2000 -> T=4000) through
    ``backend="eager"``, 4 steps: one banded launch per layer per step, and
    the same output as with the banded route forced to its plain version
-   (atol 1e-4), with the call's time on each route;
+   (atol 1e-4), with the call's time on each route; then the same call
+   with the decoder built at compute bf16 (its float32 weights): 16 launches
+   of the band kernel's bf16 instances and none of the float32 ones, held
+   by the witness rule and the two-sided bars against the float32 decoder's
+   plain route with its own plain route as the witness;
 6. the conv-frontend kernels against their plain version at the hubert-base
    conv specs on wav [1, 80000] (5 s) and [4, 32000], atol 2e-4 rtol 1e-3
    (the JAX fused kernel's bar), and two calls bit-equal; device time by
@@ -87,7 +116,14 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    against its plain version (Philox noise, same key), held to the same rule,
    with both printed against the plain version in float64 (weights, inputs
    and coefficients cast; the same Philox draws) as a witness of how far
-   each float32 route is from the exact trajectory;
+   each float32 route is from the exact trajectory; then the bf16 variant:
+   ``fused_ddpm_sample(compute_dtype=torch.bfloat16)`` over 1000 steps, one
+   launch, the same output for the same generator seed, and ``fused_ddpm``
+   at bf16 on the float32 check's key held by the witness rule against that
+   1000-step float32 plain run with the bf16 plain version as the witness,
+   two-sided (normwise: the trajectory magnifies every rounding flip), its
+   ms beside
+   the float32 kernel's, the bf16 plain version's, the bound;
 9. serving: ``serving.run_server`` from a port checkpoint (build/
    serve_checkpoint: the flagship decoder and the phase-7 encoder) on
    127.0.0.1, buckets (128, 256), ``max_batch`` 8, long-form with 2
@@ -313,6 +349,13 @@ differ by the same measures.
 The encoder's weights come from a torch.Generator seeded with SEED (no
 pretrained HuBERT is in the repository): no quality claim, only parity.
 
+The ``kernels`` line has a row per TPU kernel and compute dtype: the float32
+rows, ``conv_frontend_bf16`` (phase 6b), and ``fused_ddim_bf16`` (phase 3,
+configs/flagship.json's decoder at B=1, v, whose error is the kernel's
+where eps's is its clipped trajectory's; launches: the bf16 entry point's
+six counted calls), ``banded_attention_bf16`` (phase 2; launches:
+phase 5's bf16 call) and ``fused_ddpm_bf16`` (phase 8).
+
 Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 without a CUDA device, without the port package beside it, or on any
@@ -527,6 +570,58 @@ def phase_banded(torch):
     return results
 
 
+def banded_bf16(torch, f32_row: dict) -> dict:
+    """Phase 2's bf16 part: the band kernel's bf16 instances at
+    [1,4,4000,40], window 64, against the plain version on the same bf16
+    q, k, v (within 2e-5 + one bf16 ulp of each output) and against the
+    float32 plain version on the float32 originals by the witness rule; on
+    strided views of a bf16 [B, T, 3, H, d] buffer into [B, T, H, d]; two
+    calls bit-equal; device time by graph replay beside the float32
+    kernel's, the plain version's time, band-masked SDPA on the same bf16
+    q, k, v (a yardstick), the bound."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.layers.attention import local_attention_mask
+    from edge_diffusion_tts_tpu_torch.ops import window_attention as wa
+
+    bf16 = torch.bfloat16
+    B, H, T, d, w = 1, 4, BAND_SHAPES[1][1], 40, 64
+    q, k, v = band_inputs(torch, B, H, T, d, seed=T + B)  # phase 2's float32 inputs
+    qb, kb, vb = (x.to(bf16) for x in (q, k, v))
+    got = wa.banded_attention(qb, kb, vb, w)
+    torch.cuda.synchronize()
+    plain = wa.banded_attention_plain(qb, kb, vb, w)
+    diff = (got.float() - plain.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.float().abs(), plain.float().abs())
+                                            .clamp_min(2.0 ** -126))) - 7)
+    over = (diff - 2e-5 - ulp).max().item()
+    assert got.dtype == bf16 and over <= 0, f"bf16 band vs plain: over the bar by {over}"
+    e_k, e_p, e_kp = witness16("bf16 band", got, plain, wa.banded_attention_plain(q, k, v, w),
+                               strict=True)
+    assert torch.equal(got, wa.banded_attention(qb, kb, vb, w)), "bf16 band: two calls"
+    qkv = torch.stack([qb, kb, vb]).permute(1, 3, 0, 2, 4).contiguous()  # [B, T, 3, H, d]
+    qs, ks, vs = qkv.permute(2, 0, 3, 1, 4)
+    strided = wa.banded_attention(qs, ks, vs, w, out_layout="bthd")
+    assert torch.equal(strided, got), "bf16 band: strided views differ from contiguous"
+    err = diff.max().item()
+    ms = graph_ms(torch, lambda: wa.banded_attention(qb, kb, vb, w))
+    plain_ms = timed_ms(torch, lambda: wa.banded_attention_plain(qb, kb, vb, w))
+    mask = local_attention_mask(T, w, q.device)
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask))
+    flops = 4 * d * band_pairs(T, w, T) * B * H
+    bound_ms, bound_by = bound(flops, 4 * B * H * T * d * 2)  # float32 FMA on bf16 bytes
+    plan = wa.band_plan(B, H, T, d, w, dtype=bf16)
+    print(f"[banded-bf16] [{B},{H},{T},{d}] w={w}: vs bf16 plain max_abs_err={err:.3g}; witness: "
+          f"kernel {e_k:.4g} from float32 plain, bf16 plain {e_p:.4g} (bar "
+          f"{1.5 * e_p + 1e-3:.4g}), kernel vs bf16 plain {e_kp:.3g}; strided = contiguous; "
+          f"graph_ms={ms:.5f} (float32 kernel {f32_row['ms']:.5f}) plain_ms={plain_ms:.5f} "
+          f"sdpa_bf16_graph_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}); plan rows "
+          f"{plan['rows']}, smem {plan['smem']} B, {plan['resident']} per SM, waves "
+          f"{plan['waves']:.2f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def fused_flops_bytes(B, T, S, M, H, heads, L, F, window, steps, tensors, prenet=False):
     dh = H // heads
     per_row = 4 * M * H + L * (2 * H * 3 * H + 6 * H * H + 4 * H * F + 2 * F * H)
@@ -536,6 +631,66 @@ def fused_flops_bytes(B, T, S, M, H, heads, L, F, window, steps, tensors, prenet
     flops = steps * (B * T * per_row + B * attn)
     nbytes = 4 * (sum(t.numel() for t in tensors) + B * T * M)
     return flops, nbytes
+
+
+def fused_flops_bf16(B, T, S, M, H, heads, L, F, window, steps, tensors, prenet=False):
+    """The bf16 loop's bound.  JAX's bf16 ``mm`` rounds both operands of
+    every product, the attention's too, so every product counts at the
+    card's bf16 rate (989 TFLOP/s); the pre-net's float32 elementwise work
+    at the float32 rate; the tensors' own bytes (each read once) and the
+    float32 output at HBM's rate.  The least time is the largest of the
+    three.  Returns (ms, "operations" or "bytes", bf16 product FLOP, float32
+    FLOP, the attention's FLOP); ``attention_fma_ms`` gives the looser time
+    of this kernel's own choice, its attention in float32 FMA (67 TFLOP/s)."""
+    dh = H // heads
+    per_row = 4 * M * H + L * (2 * H * 3 * H + 6 * H * H + 4 * H * F + 2 * F * H)
+    if prenet:
+        per_row += 2 * H * H
+    attn = steps * B * L * heads * 4 * dh * (band_pairs(T, window, T) + T * S)
+    products = steps * B * T * per_row + attn
+    f32 = steps * B * T * 16 * H if prenet else 0
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + 4 * B * T * M
+    t_ops = max(products / BF16_PEAK_FLOPS, f32 / F32_PEAK_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = max(t_ops, t_bytes)
+    return ms, "bytes" if ms == t_bytes else "operations", products, f32, attn
+
+
+def attention_fma_ms(products: float, f32: float, attn: float) -> float:
+    """The bf16 loop's least time were its attention bound to float32 FMA
+    (this kernel's choice, not the operands' type): the tensor-core products
+    and the FMA work side by side."""
+    return max((products - attn) / BF16_PEAK_FLOPS, (attn + f32) / F32_PEAK_FLOPS) * 1e3
+
+
+# The two-sided witness on well-conditioned paths (v-prediction DDIM, DDPM,
+# the long-form call, the band kernel), with bars set from the H100
+# readings (PERF.md, the bf16 loops' finding): the kernel's distance from
+# the float32 plain version was 0.99-1.00 of the bf16 plain version's, and
+# its distance from the bf16 plain version 0.011-0.64 of the bf16 plain
+# version's from float32.  A float32 step would sit near float32 and fail
+# both.  P kept in float32 in the attention moves a loop too little to show
+# here (a mutation check read 0.59 where the kernel reads 0.57): the step's
+# attention alone is held to that in tests/test_torch_kernels_gpu.py.
+WITNESS_FLOOR = 0.5  # e_k >= WITNESS_FLOOR * e_p
+WITNESS_NEAR = 0.8  # e_kp <= WITNESS_NEAR * e_p
+
+
+def witness16(label: str, kernel, plain16, plain32, strict: bool = False) -> tuple:
+    """The witness rule on the card: the bf16 kernel's normwise distance from
+    the float32 plain version within 1.5 times the bf16 plain version's +
+    1e-3.  With ``strict`` (a well-conditioned path) also the two-sided
+    bars above.  Returns (kernel's distance, plain bf16's, kernel vs plain
+    bf16)."""
+    e_k, e_p, e_kp = _rel(kernel, plain32), _rel(plain16, plain32), _rel(kernel, plain16)
+    assert bool(kernel.isfinite().all()), f"{label}: non-finite output"
+    assert e_k <= 1.5 * e_p + 1e-3, f"{label}: {e_k} from float32, the bf16 plain {e_p}"
+    if strict:
+        assert e_k >= WITNESS_FLOOR * e_p, (
+            f"{label}: {e_k} from float32, under {WITNESS_FLOOR} x the bf16 plain's {e_p}")
+        assert e_kp <= WITNESS_NEAR * e_p, (
+            f"{label}: {e_kp} from the bf16 plain, over {WITNESS_NEAR} x its {e_p} from float32")
+    return e_k, e_p, e_kp
 
 
 def flagship_cfg():
@@ -618,6 +773,86 @@ def phase_fused(torch, cfg, decoder, schedule, seed: int = SEED):
     return out
 
 
+def phase_fused_bf16(torch, cfg, decoder, schedule, seed: int, B: int = 1) -> dict:
+    """Phase 3's bf16 part for one decoder (inputs from ``seed``, B rows of
+    S=250): ``fused_generate_mel(..., compute_dtype=torch.bfloat16)``, the
+    entry point, counted (``fused_ddim.bf16_launches`` set to 0 just
+    before, read just after) and equal to ``fused_ddim`` on the same inputs;
+    eps and v held by the witness rule against the float32 plain version,
+    the bf16 plain version the witness; launches per step (35, 38 with the
+    pre-net); two calls bit-equal; the bf16 kernel's ms beside the float32
+    kernel's at the same shape (CUDA events, 10 calls), the bf16 plain
+    version's ms, the bound."""
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+
+    bf16 = torch.bfloat16
+    dev = torch.device(DEVICE)
+    S, steps = 250, 4
+    T = 2 * S
+    tag = f"fused-bf16{'+prenet' if cfg.use_depthwise else ''} B={B}"
+    rng = np.random.RandomState(1000 + seed)
+    sem_idx = torch.from_numpy(rng.randint(0, 2304, (B, S))).to(dev)
+    x_T = torch.from_numpy(rng.randn(B, T, cfg.n_mels).astype(np.float32)).to(dev)
+    ts, coef = fd.ddim_coefficients(schedule, steps)
+    coef = coef.to(dev)
+    loop = fd.prepare_loop_inputs(decoder, sem_idx, T, ts)
+    w32, w16 = fd.pack_decoder_weights(decoder), fd.pack_decoder_weights(decoder, bf16)
+    a32 = (x_T, loop["pos"], loop["mods"], loop["ckv"], coef, w32)
+    a16 = (x_T, loop["pos"], loop["mods"], loop["ckv"].to(bf16), coef, w16)
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size)
+    out = {}
+    for prediction in ("eps", "v"):
+        fd.fused_ddim.launches = fd.fused_ddim.bf16_launches = 0
+        entry = fd.fused_generate_mel(cfg, schedule, decoder, sem_idx, x_T, steps, prediction,
+                                      compute_dtype=bf16)
+        torch.cuda.synchronize()
+        launches = fd.fused_ddim.bf16_launches
+        assert (fd.fused_ddim.launches, launches) == (0, 1), "the bf16 entry point's launch"
+        got = fd.fused_ddim(*a16, prediction=prediction, compute_dtype=bf16, **kw)
+        assert torch.equal(entry, got), f"{tag} {prediction}: entry point != fused_ddim"
+        assert torch.equal(got, fd.fused_ddim(*a16, prediction=prediction, compute_dtype=bf16,
+                                              **kw)), f"{tag} {prediction}: two calls differ"
+        plain16 = fd.fused_ddim_plain(*a16, prediction=prediction, compute_dtype=bf16, **kw)
+        plain32 = fd.fused_ddim_plain(*a32, prediction=prediction, **kw)
+        e_k, e_p, e_kp = witness16(f"{tag} {prediction}", got, plain16, plain32,
+                                   strict=prediction == "v")
+        err = (got - plain16).abs().max().item()
+        ms = timed_ms(torch, lambda: fd.fused_ddim(*a16, prediction=prediction,
+                                                   compute_dtype=bf16, **kw), iters=10)
+        ms32 = timed_ms(torch, lambda: fd.fused_ddim(*a32, prediction=prediction, **kw),
+                        iters=10)
+        plain_ms = timed_ms(torch, lambda: fd.fused_ddim_plain(
+            *a16, prediction=prediction, compute_dtype=bf16, **kw), iters=3, warmup=1)
+        out[prediction] = dict(max_abs_err=err, ms=ms, f32_ms=ms32, plain_ms=plain_ms,
+                               launches=launches)
+        print(f"[{tag}] {prediction}: witness: kernel {e_k:.4g} from float32 plain, bf16 plain "
+              f"{e_p:.4g} (bar {1.5 * e_p + 1e-3:.4g}), kernel vs bf16 plain {e_kp:.3g} (max abs "
+              f"{err:.3g}); bf16 ms={ms:.4f} float32 ms={ms32:.4f} bf16 plain_ms={plain_ms:.4f}")
+    before = fd.kernel_launches()
+    fd.fused_ddim(*a16, compute_dtype=bf16, **kw)
+    torch.cuda.synchronize()
+    per_step = (fd.kernel_launches() - before) / len(ts)
+    want_per_step = 2 + 8 * cfg.layers + 1 + (3 if cfg.use_depthwise else 0)
+    assert per_step == want_per_step, f"{tag}: {per_step} launches per step"
+    bound_ms, bound_by, products, f32, attn = fused_flops_bf16(
+        B, T, S, cfg.n_mels, cfg.hidden, cfg.heads, cfg.layers, cfg.hidden * cfg.ffn_mult,
+        cfg.attn_window_size, len(ts), [*a16[:5], *w16.values()], prenet=cfg.use_depthwise)
+    print(f"[{tag}] {per_step:g} launches per step; {products / 1e9:.4f} GFLOP of bf16 "
+          f"products ({attn / 1e9:.4f} of them attention) + {f32 / 1e9:.4f} GFLOP float32: "
+          f"bound_ms={bound_ms:.5f} ({bound_by}); with the attention in float32 FMA as this "
+          f"kernel runs it {attention_fma_ms(products, f32, attn):.5f} ms")
+    # The kernels row reads v: after eps's clipped first step the bf16 and
+    # float32 trajectories part, so eps's largest difference is the
+    # trajectory's, not the kernel's.
+    out["v"].update(bound_ms=bound_ms, bound_by=bound_by,
+                    launches=out["eps"]["launches"] + out["v"]["launches"])
+    if not cfg.use_depthwise:
+        step_gemms(torch, cfg, B * T, loop, w16, bf16)
+        if B > 1:  # the float32 GEMMs at these rows, for the comparison
+            step_gemms(torch, cfg, B * T, loop, w32)
+    return out["v"]
+
+
 def prenet_alone(torch, cfg, rows: int, loop, w, step_ms: float) -> float:
     """The pre-net's three kernels alone (``decoder_prenet``) on h [1, rows,
     H]: held to ``decoder_prenet_plain`` (atol 1e-5), and their device µs
@@ -642,21 +877,28 @@ def prenet_alone(torch, cfg, rows: int, loop, w, step_ms: float) -> float:
     return us
 
 
-def step_gemms(torch, cfg, rows: int, loop, w):
+def step_gemms(torch, cfg, rows: int, loop, w, compute_dtype=None):
     """Each GEMM of the decoder step alone at ``rows`` rows, layer 0's
     weights: held to its plain version, and its device time (``graph_ms``)
-    in the host's tile beside ``F.linear``'s at the same shape."""
+    in the host's tile beside ``F.linear``'s at the same shape.  At bf16
+    ``compute_dtype`` (``w`` packed at bf16) the bf16 variant with the
+    step's operand and output dtypes (bf16 attention and SwiGLU outputs in,
+    bf16 q/k/v, cross q and SwiGLU output out), held normwise (1e-3) to the
+    bf16 plain version, beside ``F.linear`` on the same bf16 operands."""
     import torch.nn.functional as F
 
     from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
 
     H, M, FF = cfg.hidden, cfg.n_mels, cfg.hidden * cfg.ffn_mult
     rng = np.random.RandomState(5000 + SEED)
+    low = compute_dtype is not None
 
     def act(n):
         return torch.from_numpy(rng.randn(rows, n).astype(np.float32)).to(DEVICE)
 
     x, h, ao, f = act(M), act(H), act(H), act(FF)
+    if low:
+        ao, f = ao.to(compute_dtype), f.to(compute_dtype)
     m0 = loop["mods"][0, 0]
     shapes = [
         ("in_proj (+bias +pos)", x, w["in_w"], dict(bias=w["in_b"], pos=loop["pos"])),
@@ -674,17 +916,30 @@ def step_gemms(torch, cfg, rows: int, loop, w):
             bias=w["out_b"], norm="ln", scale=w["fn_s"], shift=w["fn_b"])),
     ]
     for name, a, W, kw in shapes:
+        if low:  # the step writes q/k/v, the cross q and the SwiGLU output in bf16
+            kw = dict(kw, compute_dtype=compute_dtype,
+                      out_dtype=compute_dtype if name.startswith(("qkv", "cross q", "fc1"))
+                      else torch.float32)
         got = fd.decoder_gemm(a, W, **kw)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, fd.decoder_gemm_plain(a, W, **kw), atol=1e-5, rtol=1e-5)
+        pkw = {k: v for k, v in kw.items() if k != "out_dtype"}
+        want = fd.decoder_gemm_plain(a, W, **pkw)
+        if low:  # a bf16 output against the plain version's float32 sum rounded once
+            e = _rel(got, want.to(got.dtype))
+            assert e <= 1e-3, f"bf16 gemm {name}: {e} from the bf16 plain version"
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
         n, K = got.shape[-1], a.shape[1]
-        bm, bn = fd.decoder_gemm_tile(rows, n)
+        bm, bn = fd.decoder_gemm_tile(rows, n, compute_dtype or torch.float32)
         us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, **kw))
-        lin_us = 1e3 * graph_ms(torch, lambda: F.linear(a, W))
-        bound_us = 1e3 * bound(2 * rows * W.shape[0] * K, 0)[0]
-        print(f"[gemm] {name}: M={rows} N={n} K={K}: {us:.3f} us, tile {bm}x{bn}, "
-              f"{-(-rows // bm) * -(-n // bn)} blocks; F.linear {lin_us:.3f} us; "
-              f"ops bound {bound_us:.3f} us")
+        a_lin = a.to(W.dtype)
+        lin_us = 1e3 * graph_ms(torch, lambda: F.linear(a_lin, W))
+        bound_us = 1e3 * bound(2 * rows * W.shape[0] * K, 0,
+                               BF16_PEAK_FLOPS if low else F32_PEAK_FLOPS)[0]
+        print(f"[gemm{'-bf16' if low else ''}] {name}: M={rows} N={n} K={K}: {us:.3f} us, tile "
+              f"{bm}x{bn}, {-(-rows // bm) * -(-n // bn)} blocks; F.linear ({W.dtype}) "
+              f"{lin_us:.3f} us; ops bound {bound_us:.3f} us" +
+              (f"; vs bf16 plain {e:.3g}" if low else ""))
 
 
 def v_rule(label: str, got, want) -> float:
@@ -798,7 +1053,40 @@ def phase_longform(torch):
     print(f"[longform] T={2 * S} eager dpmpp {steps} steps: {ms:.3f} ms "
           f"(banded route plain: {plain_ms:.3f} ms), banded launches={launches}, "
           f"max_abs_err={err:.3g}")
-    return launches
+
+    # The same call with the decoder built at compute_dtype bf16 (its float32
+    # weights): its windows go to the band kernel's bf16 instances.
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder
+
+    dec16 = EdgeDiffusionDecoder(cfg, dtype=torch.bfloat16)
+    dec16.load_state_dict(decoder.state_dict())
+    engine16 = EdgeInference(cfg, schedule, dec16, prediction="v", sampler="dpmpp",
+                             device=DEVICE)
+    engine16.generate_mel(sem_idx, num_steps=steps, x_T=x_T)  # warm-up
+    torch.cuda.synchronize()
+    wa.banded_attention.launches = wa.banded_attention.bf16_launches = 0
+    t0 = time.perf_counter()
+    mel16 = engine16.generate_mel(sem_idx, num_steps=steps, x_T=x_T)
+    torch.cuda.synchronize()
+    ms16 = (time.perf_counter() - t0) * 1e3
+    launches16 = wa.banded_attention.bf16_launches
+    assert (wa.banded_attention.launches, launches16) == (0, cfg.layers * steps), (
+        f"bf16 long-form: banded launches {wa.banded_attention.launches}, bf16 {launches16}")
+    wa.banded_attention = plain_route
+    try:
+        t0 = time.perf_counter()
+        plain16 = engine16.generate_mel(sem_idx, num_steps=steps, x_T=x_T)
+        torch.cuda.synchronize()
+        plain16_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        wa.banded_attention = kernel_route
+    e_k, e_p, e_kp = witness16("bf16 long-form", mel16.float(), plain16.float(), plain,
+                               strict=True)
+    print(f"[longform-bf16] T={2 * S} eager dpmpp {steps} steps, decoder at compute bf16: "
+          f"{ms16:.3f} ms (banded route plain: {plain16_ms:.3f} ms), bf16 banded launches="
+          f"{launches16}; witness: {e_k:.4g} from the float32 decoder's plain route, the bf16 "
+          f"plain route {e_p:.4g} (bar {1.5 * e_p + 1e-3:.4g}), kernel vs plain route {e_kp:.3g}")
+    return launches, launches16
 
 
 def seeded_encoder(torch, cfg, seed: int, hubert_cfg=None):
@@ -1207,9 +1495,52 @@ def phase_ddpm(torch, cfg, decoder, pre_decoder):
           f"(host clock), kernel ms={ms:.3f} plain_ms={plain_ms:.3f}, {flops / 1e12:.4f} TFLOP "
           f"bound_ms={bound_ms:.4f} ({bound_by}); max|x|={first.abs().max().item():.4g}; "
           f"fused_ddpm launches={launches}")
+    # The bf16 variant over the full schedule: the entry point (its launch
+    # counted, deterministic per seed), then the loop on the key of the
+    # float32 check above, held by the witness rule to that float32 plain
+    # run with the bf16 plain version as the witness.
+    bf16 = torch.bfloat16
+    sched = DiffusionSchedule.create(cfg.diff_steps).to(dev)
+    fd.fused_ddpm.launches = fd.fused_ddpm.bf16_launches = 0
+    t0 = time.perf_counter()
+    entry16 = fd.fused_ddpm_sample(cfg, sched, decoder, sem_idx, x_T, compute_dtype=bf16,
+                                   generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    call16_ms = (time.perf_counter() - t0) * 1e3
+    launches16 = fd.fused_ddpm.bf16_launches
+    assert (fd.fused_ddpm.launches, launches16) == (0, 1), "the bf16 DDPM entry point's launch"
+    assert torch.equal(entry16, fd.fused_ddpm_sample(
+        cfg, sched, decoder, sem_idx, x_T, compute_dtype=bf16,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED))), "bf16 DDPM per seed"
+    ts = list(range(cfg.diff_steps - 1, -1, -1))
+    loop16 = fd.prepare_loop_inputs(decoder, sem_idx, T, ts,
+                                    step_idx=torch.zeros(len(ts), dtype=torch.long),
+                                    mods_dtype=bf16)
+    w16 = fd.pack_decoder_weights(decoder, bf16)
+    args16 = (x_T, loop16["pos"], loop16["mods"], loop16["ckv"].to(bf16), args[4], w16)
+    got16, ms16 = timed_call(torch, lambda: fd.fused_ddpm(*args16, **kw, key=key,
+                                                         compute_dtype=bf16))
+    plain16, plain16_ms = timed_call(torch, lambda: fd.fused_ddpm_plain(
+        *args16, **kw, key=key, compute_dtype=bf16))
+    e_k, e_p, e_kp = witness16(f"bf16 DDPM {cfg.diff_steps} steps", got16, plain16, want,
+                               strict=True)
+    err16 = (got16 - plain16).abs().max().item()
+    bound16, bound16_by, products, f32, attn = fused_flops_bf16(
+        B, T, S, cfg.n_mels, cfg.hidden, cfg.heads, cfg.layers, cfg.hidden * cfg.ffn_mult,
+        cfg.attn_window_size, cfg.diff_steps, [*args16[:5], *w16.values()])
+    print(f"[ddpm-bf16] {cfg.diff_steps} steps, philox noise: witness: kernel {e_k:.4g} from the "
+          f"float32 plain, bf16 plain {e_p:.4g} (bar {1.5 * e_p + 1e-3:.4g}), kernel vs bf16 "
+          f"plain {e_kp:.4g} (max abs {err16:.4g}); kernel ms={ms16:.3f} (float32 {ms:.3f}), "
+          f"bf16 plain_ms={plain16_ms:.3f}; fused_ddpm_sample(compute_dtype=bf16) {call16_ms:.3f} "
+          f"ms per call (host clock), bf16 launches={launches16}; {products / 1e12:.4f} TFLOP "
+          f"of bf16 products ({attn / 1e12:.4f} attention): bound_ms={bound16:.4f} "
+          f"({bound16_by}); with the attention in float32 FMA as this kernel runs it "
+          f"{attention_fma_ms(products, f32, attn):.4f} ms")
     # The kernels line reports the error at the main path's 1000-step shape.
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                bf16=dict(launches=launches16, max_abs_err=err16, ms=ms16, plain_ms=plain16_ms,
+                          bound_ms=bound16, bound_by=bound16_by))
 
 
 def synthetic_wav(seconds: float, seed: int, sr: int = 16000) -> np.ndarray:
@@ -3291,6 +3622,7 @@ def run(torch) -> None:
 
     phase_build()
     banded = phase_banded(torch)
+    banded16 = banded_bf16(torch, banded[BAND_SHAPES[1]])
 
     cfg = CFG(dropout=0.0)
     decoder = seeded_decoder(torch, cfg, SEED).to(DEVICE)
@@ -3299,8 +3631,12 @@ def run(torch) -> None:
     pcfg = flagship_cfg()
     pre_decoder = seeded_decoder(torch, pcfg, PRENET_SEED).to(DEVICE)
     fused = phase_fused(torch, pcfg, pre_decoder, schedule.to(DEVICE), seed=PRENET_SEED)
+    fused16 = {(c.use_depthwise, B): phase_fused_bf16(torch, c, d, schedule.to(DEVICE), seed, B)
+               for c, d, seed, B in ((cfg, decoder, SEED, 1),
+                                     (pcfg, pre_decoder, PRENET_SEED, 1),
+                                     (cfg, decoder, SEED, 8))}
     fused_launches, _ = phase_main_path(torch, pcfg, pre_decoder, schedule, fused)
-    banded_launches = phase_longform(torch)
+    banded_launches, banded16_launches = phase_longform(torch)
     encoder = seeded_encoder(torch, cfg, SEED).to(DEVICE)
     frontend = phase_frontend(torch, encoder)
     frontend16 = frontend_bf16(torch, encoder)
@@ -3353,6 +3689,27 @@ def run(torch) -> None:
          "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:234",
          **{k: ddpm[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by")},
+         "library_ms": None},
+        # the three TPU kernels at compute_dtype bf16 (phases 2, 3, 5 and 8); the DDIM
+        # numbers are configs/flagship.json's decoder at B=1, v
+        {"name": "fused_ddim_bf16", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
+         "launches": sum(r["launches"] for r in fused16.values()),
+         **{k: fused16[(True, 1)][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
+         "library_ms": None},
+        {"name": "banded_attention_bf16", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/band_attention.cu",
+         "replaces": "edge_diffusion_tts_tpu/ops/window_attention.py:48",
+         "launches": banded16_launches,
+         **{k: banded16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}},
+        {"name": "fused_ddpm_bf16", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/fused_ddim.cu",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:234",
+         **{k: ddpm["bf16"][k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -39,9 +39,23 @@
 // allowed (PERF.md).  What holds the kernel near a quarter of its bound is
 // each block's serial chain of chunk waits, syncs, masks and softmax, about
 // half the time at T = 4000 (port_profile.py --band-strip; PERF.md).
+//
+// bf16 q, k, v (the TPU kernel's casts, window_attention.py:88-89, :107):
+// the same kernel with its element type bf16 (band_tile_kernel<DP, ROWS,
+// bf16>).  Q and the K/V ring are staged as bf16 through the same cp.async
+// copies (16 bytes = 8 elements; a head of 40 is 80-byte rows; a head that
+// is 4 short of a multiple of 8 reads its last 8 bytes and zero-fills the
+// rest), widened to float32 where they are read, and everything after is
+// the float32 kernel's; o is rounded to bf16 once, at the end (the TPU
+// kernel writes acc / l in q's dtype).  bf16 rows in shared memory are an
+// odd number of 16-byte units (DP, or DP + 8), so that a warp's 8-byte
+// reads of 8 keys fall on distinct banks; the shared bytes per block
+// shrink, the P tiles stay float32.  The bound is unchanged: the products
+// stay float32 FMA (bytes halve, operations do not).
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "device.cuh"
 
@@ -61,17 +75,23 @@ constexpr int PSTRIDE = KEYS + 8;  // floats per row of a warp's P tile (banks: 
 
 __host__ __device__ constexpr int head_pad(int d) { return (d + 7) / 8 * 8; }
 __host__ __device__ constexpr int threads_for(int rows) { return rows / WARP_ROWS * 32; }
-__host__ __device__ constexpr long long smem_bytes(int rows, int dp) {
-  return 4LL * ((long long)rows * (dp + 4) + 2LL * STAGES * KEYS * (dp + 4) +
-                (long long)rows * PSTRIDE);
+// Elements per shared row of Q, K, V for elements of `es` bytes: DP + 4
+// floats (an odd number of float4s), or an odd number of 8-bf16 units.
+__host__ __device__ constexpr int row_elems(int dp, int es) {
+  return es == 4 ? dp + 4 : (dp / 8 % 2 ? dp : dp + 8);
+}
+__host__ __device__ constexpr long long smem_bytes(int rows, int dp, int es) {
+  return (long long)es * ((long long)rows * row_elems(dp, es) +
+                          2LL * STAGES * KEYS * row_elems(dp, es)) +
+         4LL * rows * PSTRIDE;
 }
 
 struct BandArgs {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
-  long long s[4][3];  // batch, head and row strides of q, k, v, o (floats)
+  const void* q;  // float32, or bf16 in the bf16 instances
+  const void* k;
+  const void* v;
+  void* o;
+  long long s[4][3];  // batch, head and row strides of q, k, v, o (elements)
   int heads;
   int T;       // query and key rows
   int d;       // head dim
@@ -84,53 +104,59 @@ __device__ __forceinline__ float comp(const float4& x, int u) {
   return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
 }
 
-template <int DP, int ROWS>
+template <int DP, int ROWS, typename T>
 __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandArgs a) {
   constexpr int THREADS = threads_for(ROWS);
-  constexpr int RS = DP + 4;           // floats per shared row of Q, K, V
+  constexpr int RS = row_elems(DP, sizeof(T));  // elements per shared row of Q, K, V
   constexpr int D4 = DP / 4;
+  constexpr int EV = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int DV = DP / EV;
   constexpr int N4 = DP / 32;          // float4 output columns per thread
   constexpr int NS = (DP % 32) / 8;    // single output columns per thread
   constexpr int NC = 4 * N4 + NS;      // = DP / 8
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                              // [ROWS][RS]
-  float* ring = qs + ROWS * RS;                  // [STAGES][K, V][KEYS][RS]
+  T* qs = reinterpret_cast<T*>(smem);            // [ROWS][RS]
+  T* ring = qs + ROWS * RS;                      // [STAGES][K, V][KEYS][RS]
   const int warp = threadIdx.x / 32;  // the warp's rows: 16 warp .. 16 warp + 15 of the block's
   const int lane = threadIdx.x % 32;
-  float* ps = ring + STAGES * 2 * KEYS * RS + warp * WARP_ROWS * PSTRIDE;  // [16][PSTRIDE]
+  float* ps = reinterpret_cast<float*>(ring + STAGES * 2 * KEYS * RS) +
+              warp * WARP_ROWS * PSTRIDE;  // [16][PSTRIDE]
   const int tr = lane / 8;  // row group: rows tr + 4r of the warp's 16
   const int tc = lane % 8;  // key group: keys tc + 8t of a chunk; columns of O
 
   const int b = blockIdx.y / a.heads;
   const int h = blockIdx.y % a.heads;
   const int q0 = blockIdx.x * ROWS;
-  const float* qb = a.q + b * a.s[0][0] + h * a.s[0][1];
-  const float* kb = a.k + b * a.s[1][0] + h * a.s[1][1];
-  const float* vb = a.v + b * a.s[2][0] + h * a.s[2][1];
+  const T* qb = static_cast<const T*>(a.q) + b * a.s[0][0] + h * a.s[0][1];
+  const T* kb = static_cast<const T*>(a.k) + b * a.s[1][0] + h * a.s[1][1];
+  const T* vb = static_cast<const T*>(a.v) + b * a.s[2][0] + h * a.s[2][1];
+  // Bytes of a 16-byte copy at column c that lie inside the head (zeros
+  // past it): 16, or 8 for the last unit of a bf16 head of 4 mod 8.
+  const auto inside = [&](int c) { return c < a.d ? min(16, (a.d - c) * (int)sizeof(T)) : 0; };
 
   const int lo = max(0, q0 - a.window);
   const int hi = min(a.kend, q0 + ROWS + a.window);
   const int chunks = lo < hi ? (hi - lo + KEYS - 1) / KEYS : 0;
 
   // Q rides in the first group, with chunk 0.
-  for (int e = threadIdx.x; e < ROWS * D4; e += THREADS) {
-    const int r = e / D4;
-    const int c = 4 * (e % D4);
-    const bool ok = q0 + r < a.T && c < a.d;  // zeros past T and past the head
-    edt::cp_async16(qs + r * RS + c, ok ? qb + (q0 + r) * a.s[0][2] + c : qb, ok);
+  for (int e = threadIdx.x; e < ROWS * DV; e += THREADS) {
+    const int r = e / DV;
+    const int c = EV * (e % DV);
+    const int n = q0 + r < a.T ? inside(c) : 0;  // zeros past T and past the head
+    edt::cp_async16_n(qs + r * RS + c, n ? qb + (q0 + r) * a.s[0][2] + c : qb, n);
   }
   // Chunk `ch` into its ring slot, as one commit group (empty past the end).
   auto stage = [&](int ch) {
     if (ch < chunks) {
       const int c0 = lo + ch * KEYS;
-      float* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
-      float* vs = ks + KEYS * RS;
-      for (int e = threadIdx.x; e < KEYS * D4; e += THREADS) {
-        const int kr = e / D4;
-        const int c = 4 * (e % D4);
-        const bool ok = c0 + kr < hi && c < a.d;
-        edt::cp_async16(ks + kr * RS + c, ok ? kb + (c0 + kr) * a.s[1][2] + c : kb, ok);
-        edt::cp_async16(vs + kr * RS + c, ok ? vb + (c0 + kr) * a.s[2][2] + c : vb, ok);
+      T* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
+      T* vs = ks + KEYS * RS;
+      for (int e = threadIdx.x; e < KEYS * DV; e += THREADS) {
+        const int kr = e / DV;
+        const int c = EV * (e % DV);
+        const int n = c0 + kr < hi ? inside(c) : 0;
+        edt::cp_async16_n(ks + kr * RS + c, n ? kb + (c0 + kr) * a.s[1][2] + c : kb, n);
+        edt::cp_async16_n(vs + kr * RS + c, n ? vb + (c0 + kr) * a.s[2][2] + c : vb, n);
       }
     }
     edt::cp_async_commit();
@@ -139,7 +165,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
   for (int ch = 0; ch < STAGES - 1; ++ch) stage(ch);
 
   const int w0 = q0 + warp * WARP_ROWS;  // the warp's first row
-  const float* qw = qs + (warp * WARP_ROWS + tr) * RS;
+  const T* qw = qs + (warp * WARP_ROWS + tr) * RS;
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -158,8 +184,8 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
     if (w0 >= a.T || c0 > w0 + WARP_ROWS - 1 + a.window || c0 + KEYS - 1 < w0 - a.window ||
         EDT_BAND_STRIP == 1)
       continue;
-    const float* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
-    const float* vs = ks + KEYS * RS;
+    const T* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
+    const T* vs = ks + KEYS * RS;
 
     float s[4][4];
 #pragma unroll
@@ -170,10 +196,9 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
     for (int c = 0; c < (EDT_BAND_STRIP == 3 ? 0 : D4); ++c) {
       float4 qv[4], kv[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = *reinterpret_cast<const float4*>(qw + 4 * r * RS + 4 * c);
+      for (int r = 0; r < 4; ++r) qv[r] = edt::load4(qw + 4 * r * RS + 4 * c);
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        kv[t] = *reinterpret_cast<const float4*>(ks + (tc + 8 * t) * RS + 4 * c);
+      for (int t = 0; t < 4; ++t) kv[t] = edt::load4(ks + (tc + 8 * t) * RS + 4 * c);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -227,10 +252,10 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
         pv[r] = *reinterpret_cast<const float4*>(ps + (tr + 4 * r) * PSTRIDE + j);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {  // unrolled: comp() picks a register
-        const float* vr = vs + (j + u) * RS;
+        const T* vr = vs + (j + u) * RS;
 #pragma unroll
         for (int g = 0; g < N4; ++g) {
-          const float4 x = *reinterpret_cast<const float4*>(vr + 32 * g + 4 * tc);
+          const float4 x = edt::load4(vr + 32 * g + 4 * tc);
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const float p = comp(pv[r], u);
@@ -242,7 +267,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
         }
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const float x = vr[32 * N4 + tc + 8 * n];
+          const float x = edt::to_f32(vr[32 * N4 + tc + 8 * n]);
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             acc[r][4 * N4 + n] = fmaf(comp(pv[r], u), x, acc[r][4 * N4 + n]);
@@ -254,7 +279,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
   edt::cp_async_wait<0>();  // no copy outlives the block (Q's, when there is no chunk)
 
   // Each lane summed its own keys: add the 8 lanes of a row group, write.
-  float* ob = a.o + b * a.s[3][0] + h * a.s[3][1];
+  T* ob = static_cast<T*>(a.o) + b * a.s[3][0] + h * a.s[3][1];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     float sum = l[r];
@@ -264,27 +289,26 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
     const int i = w0 + tr + 4 * r;
     if (i >= a.T) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    float* orow = ob + i * a.s[3][2];
+    T* orow = ob + i * a.s[3][2];
 #pragma unroll
     for (int g = 0; g < N4; ++g) {
       const int c = 32 * g + 4 * tc;
       if (c < a.d)
-        *reinterpret_cast<float4*>(orow + c) =
-            make_float4(acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv, acc[r][4 * g + 2] * inv,
-                        acc[r][4 * g + 3] * inv);
+        edt::store4(orow + c, acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv,
+                    acc[r][4 * g + 2] * inv, acc[r][4 * g + 3] * inv);
     }
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       const int c = 32 * N4 + tc + 8 * n;
-      if (c < a.d) orow[c] = acc[r][4 * N4 + n] * inv;
+      if (c < a.d) edt::store1(orow + c, acc[r][4 * N4 + n] * inv);
     }
   }
 }
 
-template <int DP, int ROWS>
+template <int DP, int ROWS, typename T>
 int launch(const BandArgs& a, int batch, cudaStream_t stream) {
-  const auto kernel = band_tile_kernel<DP, ROWS>;
-  constexpr long long bytes = smem_bytes(ROWS, DP);
+  const auto kernel = band_tile_kernel<DP, ROWS, T>;
+  constexpr long long bytes = smem_bytes(ROWS, DP, sizeof(T));
   // Above 48 KB only after opting in, once per instance on each device.
   static bool opted_in[edt::kMaxDevices] = {};
   const int dev = edt::current_device();
@@ -300,52 +324,55 @@ int launch(const BandArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int ROWS>
+template <int ROWS, typename T>
 int launch_tile(const BandArgs& a, int batch, cudaStream_t stream) {
   switch (head_pad(a.d)) {
-    case 8: return launch<8, ROWS>(a, batch, stream);
-    case 16: return launch<16, ROWS>(a, batch, stream);
-    case 24: return launch<24, ROWS>(a, batch, stream);
-    case 32: return launch<32, ROWS>(a, batch, stream);
-    case 40: return launch<40, ROWS>(a, batch, stream);
-    case 48: return launch<48, ROWS>(a, batch, stream);
-    case 56: return launch<56, ROWS>(a, batch, stream);
-    case 64: return launch<64, ROWS>(a, batch, stream);
+    case 8: return launch<8, ROWS, T>(a, batch, stream);
+    case 16: return launch<16, ROWS, T>(a, batch, stream);
+    case 24: return launch<24, ROWS, T>(a, batch, stream);
+    case 32: return launch<32, ROWS, T>(a, batch, stream);
+    case 40: return launch<40, ROWS, T>(a, batch, stream);
+    case 48: return launch<48, ROWS, T>(a, batch, stream);
+    case 56: return launch<56, ROWS, T>(a, batch, stream);
+    case 64: return launch<64, ROWS, T>(a, batch, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The tiles the host's plan may pick: 32 or 64 query rows per block.
-bool geometry_ok(int rows, int d) {
-  return (rows == 32 || rows == 64) && d >= 4 && d <= 64 && d % 4 == 0;
+// The tiles the host's plan may pick: 32 or 64 query rows per block;
+// elements of 4 bytes (float32) or 2 (bf16).
+bool geometry_ok(int rows, int d, int es) {
+  return (rows == 32 || rows == 64) && d >= 4 && d <= 64 && d % 4 == 0 && (es == 4 || es == 2);
 }
 
 }  // namespace
 
-// The geometry this library was built for, at `rows` query rows per block
-// and head dim `d`: out = {threads per block, keys per chunk, ring stages,
-// dynamic shared bytes}.  Returns cudaErrorInvalidValue for a tile or head
-// dim the kernel does not take.
-extern "C" int edt_band_geometry(int rows, int d, int* out) {
-  if (!geometry_ok(rows, d)) return (int)cudaErrorInvalidValue;
+// The geometry this library was built for, at `rows` query rows per block,
+// head dim `d` and `es`-byte elements (4: float32, 2: bf16): out =
+// {threads per block, keys per chunk, ring stages, dynamic shared bytes}.
+// Returns cudaErrorInvalidValue for a tile, head dim or element size the
+// kernel does not take.
+extern "C" int edt_band_geometry(int rows, int d, int es, int* out) {
+  if (!geometry_ok(rows, d, es)) return (int)cudaErrorInvalidValue;
   out[0] = threads_for(rows);
   out[1] = KEYS;
   out[2] = STAGES;
-  out[3] = (int)smem_bytes(rows, head_pad(d));
+  out[3] = (int)smem_bytes(rows, head_pad(d), es);
   return 0;
 }
 
-// q, k, v, o: float32 [B, H, T, d] with strides[12] = (batch, head, row)
-// strides in floats of q, k, v, o (the last dimension unit-stride, rows
-// 16-byte aligned); `rows`, `threads` and `smem` are the host's plan, which
-// must equal this library's geometry (else cudaErrorInvalidConfiguration).
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int edt_banded_attention(const float* q, const float* k, const float* v, float* o,
+// q, k, v, o: [B, H, T, d], float32 (es = 4) or bf16 (es = 2), with
+// strides[12] = (batch, head, row) strides in elements of q, k, v, o (the
+// last dimension unit-stride, rows 16-byte aligned); `rows`, `threads` and
+// `smem` are the host's plan, which must equal this library's geometry
+// (else cudaErrorInvalidConfiguration).  Returns the launch's cudaError_t
+// (0 on success).
+extern "C" int edt_banded_attention(const void* q, const void* k, const void* v, void* o,
                                     const long long* strides, int B, int H, int T, int d,
                                     int window, int seq_len, int rows, int threads, int smem,
-                                    void* stream) {
-  if (!geometry_ok(rows, d)) return (int)cudaErrorInvalidValue;
-  if (threads != threads_for(rows) || smem != smem_bytes(rows, head_pad(d)))
+                                    int es, void* stream) {
+  if (!geometry_ok(rows, d, es)) return (int)cudaErrorInvalidValue;
+  if (threads != threads_for(rows) || smem != smem_bytes(rows, head_pad(d), es))
     return (int)cudaErrorInvalidConfiguration;
   if (B <= 0 || H <= 0 || T <= 0) return 0;
   BandArgs a;
@@ -362,5 +389,7 @@ extern "C" int edt_banded_attention(const float* q, const float* k, const float*
   a.kend = seq_len < 0 ? 0 : (seq_len > T ? T : seq_len);
   a.scale_log2 = (float)(pow((double)d, -0.5) * 1.4426950408889634);
   const cudaStream_t st = (cudaStream_t)stream;
-  return rows == 64 ? launch_tile<64>(a, B, st) : launch_tile<32>(a, B, st);
+  if (es == 2) return rows == 64 ? launch_tile<64, edt::bf16>(a, B, st)
+                                 : launch_tile<32, edt::bf16>(a, B, st);
+  return rows == 64 ? launch_tile<64, float>(a, B, st) : launch_tile<32, float>(a, B, st);
 }

@@ -80,6 +80,7 @@
 #include <math.h>
 #include <type_traits>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "device.cuh"
 
@@ -93,25 +94,13 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-using bf16 = __nv_bfloat16;
-
-// Stores of float32 results as float32 or as bf16 (RNE, as `.astype`).
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);  // a first
-}
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
+// Stores of float32 results as float32 or as bf16, and the tensor-core
+// fragments: bf16.cuh.
+using edt::bf16;
+using edt::ldsm_x4;
+using edt::mma_bf16;
+using edt::store2;
+using edt::store4;
 
 // ---- conv0 ------------------------------------------------------------------
 
@@ -403,23 +392,6 @@ struct CopiesB {
     for (int k = 0; k < NW; ++k) edt::cp_async16(st + w_dst[k], W + w_src[k] + c0, true);
   }
 };
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // acc[i][q] (the warp's 16 x 8 tile i, q of its 64 x 32) += the chunk's
 // products over its taps and 32 channels: A rows are output frames (frame

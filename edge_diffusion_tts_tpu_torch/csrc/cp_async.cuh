@@ -8,10 +8,16 @@
 
 namespace edt {
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+// A 16-byte copy of which only the first `bytes` (0 to 16) are read from
+// src; the rest of the 16 are zero-filled.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(full ? 16 : 0));
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  cp_async16_n(dst, src, full ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

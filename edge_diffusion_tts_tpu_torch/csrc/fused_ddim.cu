@@ -65,6 +65,22 @@
 // after the pre-net.  One persistent launch, a CUDA graph, and wgmma/TMA
 // or tensor-core tiles are later work.
 //
+// The bf16 variant (the `bf16` argument; the TPU kernels' compute_dtype
+// bfloat16) runs the same launches: every GEMM in gemm.cuh's bf16 variant
+// (both operands of each product rounded to bf16, float32 sums, on tensor
+// cores), both attentions in attention.cuh's (bf16 q/k/v and cross K/V
+// widened to float32, P rounded to bf16 before it weights v).  The weights
+// of the products and the cross K/V come packed in bf16; q/k/v, the
+// attention outputs, the cross q and the SwiGLU output live in bf16 in the
+// workspace (each feeds only products, so storing it rounded is the same
+// as rounding it at its use); the residual stream h, the norms, the
+// softmax, the biases, the AdaLN table, the pre-net's depthwise conv and
+// GroupNorm (its pointwise GEMM rounds its operands as every product
+// does), the prediction and the updates stay float32.  The bf16
+// workspace's pre-net scratch is the qkv buffer (the depthwise output) and
+// the attention-output and cross-query buffers together (the pointwise
+// output), as float32.
+//
 // DDPM noise: the TPU kernel draws from the core's hardware PRNG.  Here it
 // is Philox4x32-10 (Salmon et al., SC'11; Random123's constants), written
 // out below: counter (flat element index in [B, T, M], step index, 0, 0),
@@ -225,48 +241,84 @@ __global__ void __launch_bounds__(PRENET_THREADS)
 }
 
 // The depthwise pre-net's weights (all null: no pre-net): taps [H, 3],
-// pointwise weight [H, H] and bias [H], GroupNorm scale and shift [H].
+// pointwise weight [H, H] (at the step's compute dtype) and bias [H],
+// GroupNorm scale and shift [H].
 struct Prenet {
-  const float *dw, *pw, *pb, *gs, *gb;
+  const float* dw;
+  const void* pw;
+  const float *pb, *gs, *gb;
 };
 
 // The decoder's step-invariant weights and per-call buffers (see
-// edt_fused_ddim for the layouts).
+// edt_fused_ddim for the layouts).  The products' weights, the cross K/V
+// and the buffers that feed only products (qkv, ao, cq, f) are float32, or
+// bf16 in the bf16 variant.
 struct Decoder {
-  const float *pos, *in_w, *in_b, *n2w, *qkv_w, *proj_w, *proj_b, *cq_w, *ckv, *co_w;
-  const float *fc1_w, *fc1_b, *fc2_w, *fc2_b, *fn_s, *fn_b, *out_w, *out_b;
+  const float* pos;
+  const void* in_w;
+  const float *in_b, *n2w;
+  const void *qkv_w, *proj_w;
+  const float* proj_b;
+  const void *cq_w, *ckv, *co_w, *fc1_w;
+  const float* fc1_b;
+  const void* fc2_w;
+  const float *fc2_b, *fn_s, *fn_b;
+  const void* out_w;
+  const float* out_b;
   int B, T, S, M, H, L, F;
-  float *h, *qkv, *ao, *cq, *f, *pred, *x;  // workspace
+  int bf16;
+  float* h;              // workspace: the residual stream
+  void *qkv, *ao, *cq, *f;
+  float *pred, *x;
+  float *pre1, *pre2;  // the pre-net's two [B*T, H] float32 scratch buffers
   edt::AttnArgs self_attn, cross;
   Prenet pre;
 };
 
-Decoder make_decoder(float* work, const float* pos, const float* in_w, const float* in_b,
-                     const float* n2w, const float* qkv_w, const float* proj_w,
-                     const float* proj_b, const float* cq_w, const float* ckv, const float* co_w,
-                     const float* fc1_w, const float* fc1_b, const float* fc2_w,
-                     const float* fc2_b, const float* fn_s, const float* fn_b, const float* out_w,
+// Element i of a float32 array, or of a bf16 one where bf16.
+const void* offset(const void* p, long long i, int bf16) {
+  return static_cast<const char*>(p) + i * (bf16 ? 2 : 4);
+}
+
+// Bytes of the workspace: h [rows, H], qkv [rows, 3H], ao and cq [rows, H],
+// f [rows, F] (bf16 or float32), then pred and x [rows, M] float32.
+long long workspace_bytes(int B, int T, int H, int F, int M, int bf16) {
+  const long long rows = (long long)B * T;
+  return rows * (4LL * H + (bf16 ? 2 : 4) * (5LL * H + F) + 8LL * M);
+}
+
+Decoder make_decoder(void* work, const float* pos, const void* in_w, const float* in_b,
+                     const float* n2w, const void* qkv_w, const void* proj_w,
+                     const float* proj_b, const void* cq_w, const void* ckv, const void* co_w,
+                     const void* fc1_w, const float* fc1_b, const void* fc2_w,
+                     const float* fc2_b, const float* fn_s, const float* fn_b, const void* out_w,
                      const float* out_b, int B, int T, int S, int M, int H, int heads, int L,
-                     int F, int window) {
+                     int F, int window, int bf16) {
   Decoder d{pos,   in_w,  in_b,  n2w,  qkv_w, proj_w, proj_b, cq_w, ckv, co_w,
             fc1_w, fc1_b, fc2_w, fc2_b, fn_s,  fn_b,   out_w,  out_b, B,   T,
-            S,     M,     H,     L,    F};
+            S,     M,     H,     L,    F,    bf16};
   const long long rows = (long long)B * T;
   const long long RH = rows * H;
-  d.h = work;
-  d.qkv = d.h + RH;
-  d.ao = d.qkv + 3 * RH;
-  d.cq = d.ao + RH;
-  d.f = d.cq + RH;
-  d.pred = d.f + rows * F;
+  const int es = bf16 ? 2 : 4;  // bytes per element of qkv, ao, cq, f
+  char* p = static_cast<char*>(work);
+  d.h = reinterpret_cast<float*>(p);
+  d.qkv = p += 4 * RH;
+  d.ao = p += es * 3 * RH;
+  d.cq = p += es * RH;
+  d.f = p += es * RH;
+  d.pred = reinterpret_cast<float*>(p += es * rows * F);
   d.x = d.pred + rows * M;
+  // float32: the attention-output and cross-query buffers; bf16: the qkv
+  // buffer, and the two halves-as-wide buffers together.
+  d.pre1 = static_cast<float*>(bf16 ? d.qkv : d.ao);
+  d.pre2 = static_cast<float*>(bf16 ? d.ao : d.cq);
   const int dh = H / heads;
   const float scale = (float)pow((double)dh, -0.5);
 
   edt::AttnArgs& sa = d.self_attn;
   sa.q = d.qkv;
-  sa.k = d.qkv + H;
-  sa.v = d.qkv + 2 * H;
+  sa.k = offset(d.qkv, H, bf16);
+  sa.v = offset(d.qkv, 2 * H, bf16);
   sa.o = d.ao;
   sa.q_sb = sa.kv_sb = (long long)T * 3 * H;
   sa.q_sh = sa.kv_sh = dh;
@@ -281,6 +333,7 @@ Decoder make_decoder(float* work, const float* pos, const float* in_w, const flo
   sa.window = window < 2 * T ? window : 2 * T;
   sa.kv_len = T;
   sa.scale = scale;
+  sa.bf16 = bf16;
 
   edt::AttnArgs& ca = d.cross;
   ca = sa;
@@ -316,9 +369,9 @@ int attention(const edt::AttnArgs& a, int batch, cudaStream_t st) {
   return edt::launch_attention<16, 4>(a, batch, st);
 }
 
-// A GEMM over the step's rows: C [rows, N] = A [rows, K] W^T, no extras.
-edt::GemmArgs rows_gemm(const Decoder& d, const float* A, const float* W, float* C, int N,
-                        int K) {
+// A GEMM over the step's rows: C [rows, N] = A [rows, K] W^T, no extras, in
+// the step's variant (bf16: A and C float32 unless flagged).
+edt::GemmArgs rows_gemm(const Decoder& d, const void* A, const void* W, void* C, int N, int K) {
   edt::GemmArgs g;
   g.A = A;
   g.W = W;
@@ -326,14 +379,16 @@ edt::GemmArgs rows_gemm(const Decoder& d, const float* A, const float* W, float*
   g.M = d.B * d.T;
   g.N = N;
   g.K = K;
+  g.bf16 = d.bf16;
   return g;
 }
 
 // The pre-net on hin [B*T, H] into out (may alias hin): the depthwise
-// kernel into d1, the pointwise GEMM (+bias) into d2, then the GroupNorm /
-// GELU / residual / positional pass.  Three launches.
+// kernel into d1, the pointwise GEMM (+bias; bf16 products where bf16) into
+// d2, then the GroupNorm / GELU / residual / positional pass.  Three
+// launches.
 int prenet(const Prenet& p, const float* hin, float* out, float* d1, float* d2,
-           const float* pos, int B, int T, int H, cudaStream_t st) {
+           const float* pos, int B, int T, int H, int bf16, cudaStream_t st) {
   const long long n = (long long)B * T * H;
   constexpr int threads = 256;
   ++g_launches;
@@ -348,6 +403,7 @@ int prenet(const Prenet& p, const float* hin, float* out, float* d1, float* d2,
   g.N = H;
   g.K = H;
   g.bias = p.pb;
+  g.bf16 = bf16;
   EDT_LAUNCH(edt::gemm(g, st));
   ++g_launches;
   prenet_norm_kernel<<<dim3(PRENET_GROUPS, B), PRENET_THREADS, 0, st>>>(hin, out, d2, pos, p.gs,
@@ -370,12 +426,13 @@ int check_prenet(const Prenet& p, int H) {
 // pre-net's 3 launches when the decoder has one.
 int decoder_step(Decoder& d, const float* x, const float* md, cudaStream_t st) {
   const int H = d.H, F = d.F;
+  const auto at = [&d](const void* p, long long i) { return offset(p, i, d.bf16); };
   const long long HH = (long long)H * H;
   edt::GemmArgs g = rows_gemm(d, x, d.in_w, d.h, H, d.M);
   g.bias = d.in_b;
   if (d.pre.pw) {
     EDT_LAUNCH(edt::gemm(g, st));
-    EDT_TRY(prenet(d.pre, d.h, d.h, d.ao, d.cq, d.pos, d.B, d.T, H, st));
+    EDT_TRY(prenet(d.pre, d.h, d.h, d.pre1, d.pre2, d.pos, d.B, d.T, H, d.bf16, st));
   } else {
     g.pos = d.pos;
     g.pos_rows = d.T;
@@ -383,33 +440,39 @@ int decoder_step(Decoder& d, const float* x, const float* md, cudaStream_t st) {
   }
   for (int l = 0; l < d.L; ++l) {
     const float* ml = md + (long long)l * 4 * H;
-    g = rows_gemm(d, d.h, d.qkv_w + l * 3 * HH, d.qkv, 3 * H, H);
+    g = rows_gemm(d, d.h, at(d.qkv_w, l * 3 * HH), d.qkv, 3 * H, H);
     g.norm_scale = ml;
     g.norm_shift = ml + H;
+    g.c_bf16 = d.bf16;
     EDT_LAUNCH(edt::gemm(g, st));
     EDT_LAUNCH(attention(d.self_attn, d.B, st));
-    g = rows_gemm(d, d.ao, d.proj_w + l * HH, d.h, H, H);
+    g = rows_gemm(d, d.ao, at(d.proj_w, l * HH), d.h, H, H);
     g.bias = d.proj_b + (long long)l * H;
     g.R = d.h;
+    g.a_bf16 = d.bf16;
     EDT_LAUNCH(edt::gemm(g, st));
-    g = rows_gemm(d, d.h, d.cq_w + l * HH, d.cq, H, H);
+    g = rows_gemm(d, d.h, at(d.cq_w, l * HH), d.cq, H, H);
     g.norm_scale = d.n2w + (long long)l * H;
+    g.c_bf16 = d.bf16;
     EDT_LAUNCH(edt::gemm(g, st));
-    d.cross.k = d.ckv + (long long)l * d.B * d.S * 2 * H;
-    d.cross.v = d.cross.k + H;
+    d.cross.k = at(d.ckv, (long long)l * d.B * d.S * 2 * H);
+    d.cross.v = at(d.ckv, (long long)l * d.B * d.S * 2 * H + H);
     EDT_LAUNCH(attention(d.cross, d.B, st));
-    g = rows_gemm(d, d.ao, d.co_w + l * HH, d.h, H, H);
+    g = rows_gemm(d, d.ao, at(d.co_w, l * HH), d.h, H, H);
     g.R = d.h;
+    g.a_bf16 = d.bf16;
     EDT_LAUNCH(edt::gemm(g, st));
-    g = rows_gemm(d, d.h, d.fc1_w + (long long)l * 2 * F * H, d.f, F, H);
+    g = rows_gemm(d, d.h, at(d.fc1_w, (long long)l * 2 * F * H), d.f, F, H);
     g.bias = d.fc1_b + (long long)l * 2 * F;
     g.norm_scale = ml + 2 * H;
     g.norm_shift = ml + 3 * H;
     g.swiglu = 1;
+    g.c_bf16 = d.bf16;
     EDT_LAUNCH(edt::gemm(g, st));
-    g = rows_gemm(d, d.f, d.fc2_w + (long long)l * H * F, d.h, H, F);
+    g = rows_gemm(d, d.f, at(d.fc2_w, (long long)l * H * F), d.h, H, F);
     g.bias = d.fc2_b + (long long)l * H;
     g.R = d.h;
+    g.a_bf16 = d.bf16;
     EDT_LAUNCH(edt::gemm(g, st));
   }
   g = rows_gemm(d, d.h, d.out_w, d.pred, d.M, H);
@@ -425,26 +488,29 @@ constexpr int UPDATE_THREADS = 256;
 
 }  // namespace
 
-// Floats of scratch that edt_fused_ddim and edt_fused_ddpm need.
-extern "C" long long edt_fused_ddim_workspace(int B, int T, int H, int F, int M) {
-  const long long rows = (long long)B * T;
-  return rows * (6LL * H + F + 2LL * M);
+// Floats (4-byte words) of scratch that edt_fused_ddim and edt_fused_ddpm
+// need, in the float32 layout or (bf16) the bf16 one.
+extern "C" long long edt_fused_ddim_workspace(int B, int T, int H, int F, int M, int bf16) {
+  return workspace_bytes(B, T, H, F, M, bf16) / 4;
 }
 
 // Kernels launched by this library since it was loaded (every GEMM,
-// attention and update launch of the loops and of edt_decoder_gemm).
+// attention and update launch of the loops, of edt_decoder_gemm and of
+// edt_step_attention).
 extern "C" long long edt_kernel_launches() { return g_launches; }
 
 // The decoder step's GEMM alone (gemm.cuh), as a test and timing hook:
 // C [M, N] = P(A) W^T (+bias) (SwiGLU if swiglu) (+pos[m % pos_rows])
 // (+R), P the RMS (ln = 0) or LayerNorm (ln = 1) row norm with norm_scale
 // (and norm_shift if non-null) when norm_scale is non-null.  A [M, K] and W
-// [N or 2N, K] contiguous float32 with 16-byte-aligned rows; R may alias C.
-// Returns a cudaError_t.
-extern "C" int edt_decoder_gemm(const float* A, const float* W, const float* bias,
-                                const float* pos, const float* R, float* C,
+// [N or 2N, K] contiguous with 16-byte-aligned rows, float32, or with bf16
+// the bf16 variant: W bf16, A bf16 where a_bf16, C written as bf16 where
+// c_bf16; R (float32) may alias C.  Returns a cudaError_t.
+extern "C" int edt_decoder_gemm(const void* A, const void* W, const float* bias,
+                                const float* pos, const float* R, void* C,
                                 const float* norm_scale, const float* norm_shift, int M, int N,
-                                int K, int pos_rows, int swiglu, int ln, void* stream) {
+                                int K, int pos_rows, int swiglu, int ln, int bf16, int a_bf16,
+                                int c_bf16, void* stream) {
   edt::GemmArgs g;
   g.A = A;
   g.W = W;
@@ -460,6 +526,9 @@ extern "C" int edt_decoder_gemm(const float* A, const float* W, const float* bia
   g.norm_shift = norm_shift;
   g.ln = ln;
   g.swiglu = swiglu;
+  g.bf16 = bf16;
+  g.a_bf16 = a_bf16;
+  g.c_bf16 = c_bf16;
   EDT_LAUNCH(edt::gemm(g, (cudaStream_t)stream));
   return 0;
 }
@@ -467,22 +536,62 @@ extern "C" int edt_decoder_gemm(const float* A, const float* W, const float* bia
 // The pre-net's three kernels alone, as a test and timing hook: out [B, T,
 // H] = hin + gelu_erf(GroupNorm(pointwise(depthwise3(hin)) + pb)) + pos (see
 // prenet_norm_kernel); work holds 2 B*T*H floats; out may alias hin.
-// Weights as edt_fused_ddim's pre-net.  Returns a cudaError_t.
+// Weights as edt_fused_ddim's pre-net (pc_pw bf16 where bf16).  Returns a
+// cudaError_t.
 extern "C" int edt_decoder_prenet(const float* hin, float* out, float* work, const float* pos,
-                                  const float* pc_dw, const float* pc_pw, const float* pc_pb,
+                                  const float* pc_dw, const void* pc_pw, const float* pc_pb,
                                   const float* pc_gs, const float* pc_gb, int B, int T, int H,
-                                  void* stream) {
+                                  int bf16, void* stream) {
   const Prenet p{pc_dw, pc_pw, pc_pb, pc_gs, pc_gb};
   if (!pc_pw || B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
   EDT_TRY(check_prenet(p, H));
   float* d1 = work;
   float* d2 = work + (long long)B * T * H;
-  return prenet(p, hin, out, d1, d2, pos, B, T, H, (cudaStream_t)stream);
+  return prenet(p, hin, out, d1, d2, pos, B, T, H, bf16, (cudaStream_t)stream);
+}
+
+// The step's attention alone (attention.cuh in the step's tile), as a test
+// hook: o [B, heads, tq, d] = softmax(q k^T / sqrt(d)) v over the keys j of
+// row i with |i - j| <= window (every key for a window < 0, the
+// cross-attention), q [B, heads, tq, d], k and v [B, heads, tk, d], all
+// contiguous, float32, or bf16 with bf16 (P rounded to bf16 before PV, o
+// bf16).  Returns a cudaError_t.
+extern "C" int edt_step_attention(const void* q, const void* k, const void* v, void* o, int B,
+                                  int heads, int tq, int tk, int d, int window, int bf16,
+                                  void* stream) {
+  edt::AttnArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.q_sr = a.kv_sr = a.o_sr = d;
+  a.q_sh = a.o_sh = (long long)tq * d;
+  a.q_sb = a.o_sb = heads * a.q_sh;
+  a.kv_sh = (long long)tk * d;
+  a.kv_sb = heads * a.kv_sh;
+  a.heads = heads;
+  a.tq = tq;
+  a.tk = tk;
+  a.d = d;
+  a.window = window < 0 || window > tq + tk ? tq + tk : window;
+  a.kv_len = tk;
+  a.scale = (float)pow((double)d, -0.5);
+  a.bf16 = bf16;
+  EDT_LAUNCH(attention(a, B, (cudaStream_t)stream));
+  return 0;
 }
 
 // The rows and columns (bm_bn[0], bm_bn[1]) of the output tile the host
-// picks for an M x N output of edt_decoder_gemm and the decoder step.
-extern "C" void edt_decoder_gemm_tile(int M, int N, int* bm_bn) {
+// picks for an M x N output of edt_decoder_gemm and the decoder step, in
+// the float32 kernel or (bf16) the bf16 variant, whose launch takes a
+// smaller tile where this one's shared memory would not fit.
+extern "C" void edt_decoder_gemm_tile(int M, int N, int bf16, int* bm_bn) {
+  if (bf16) {
+    const int tile = edt::gemm16_pick_tile(M, N);
+    bm_bn[0] = edt::GEMM16_TILE_BM[tile];
+    bm_bn[1] = edt::GEMM16_TILE_BN[tile];
+    return;
+  }
   const int tile = edt::gemm_pick_tile(M, N);
   bm_bn[0] = edt::GEMM_TILE_BM[tile];
   bm_bn[1] = edt::GEMM_TILE_BN[tile];
@@ -511,8 +620,9 @@ extern "C" int edt_gemm_timers(long long* out, int blocks) {
 #endif
 
 // The whole num_steps DDIM loop.  Pointers are contiguous float32 on the
-// current device; weights use the torch Linear layout [out, in], stacked over
-// the L layers:
+// current device, but for bf16 = 1 (the bf16 variant): in_w, qkv_w, proj_w,
+// cq_w, ckv, co_w, fc1_w, fc2_w, out_w and pc_pw are then bf16.  Weights use
+// the torch Linear layout [out, in], stacked over the L layers:
 //   x_T, x0_out [B, T, M]; work [edt_fused_ddim_workspace(...)]
 //   pos [T, H]; in_w [H, M]; in_b [H]
 //   mods [steps, L, 4, H] = AdaLN (norm1 scale, norm1 shift, norm3 scale,
@@ -526,21 +636,21 @@ extern "C" int edt_gemm_timers(long long* out, int blocks) {
 //        decoder without it, whose launches are then those of the step
 //        without a pre-net, unchanged
 // Returns the first non-zero cudaError_t of any launch, else 0.
-extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, float* work, const float* pos,
-                              const float* in_w, const float* in_b, const float* mods,
-                              const float* n2w, const float* qkv_w, const float* proj_w,
-                              const float* proj_b, const float* cq_w, const float* ckv,
-                              const float* co_w, const float* fc1_w, const float* fc1_b,
-                              const float* fc2_w, const float* fc2_b, const float* fn_s,
-                              const float* fn_b, const float* out_w, const float* out_b,
-                              const float* coef, const float* pc_dw, const float* pc_pw,
+extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, void* work, const float* pos,
+                              const void* in_w, const float* in_b, const float* mods,
+                              const float* n2w, const void* qkv_w, const void* proj_w,
+                              const float* proj_b, const void* cq_w, const void* ckv,
+                              const void* co_w, const void* fc1_w, const float* fc1_b,
+                              const void* fc2_w, const float* fc2_b, const float* fn_s,
+                              const float* fn_b, const void* out_w, const float* out_b,
+                              const float* coef, const float* pc_dw, const void* pc_pw,
                               const float* pc_pb, const float* pc_gs, const float* pc_gb, int B,
                               int T, int S, int M, int H, int heads, int L, int F, int window,
-                              int steps, int v_pred, float x0_clip, void* stream) {
+                              int steps, int v_pred, float x0_clip, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Decoder d = make_decoder(work, pos, in_w, in_b, n2w, qkv_w, proj_w, proj_b, cq_w, ckv, co_w,
                            fc1_w, fc1_b, fc2_w, fc2_b, fn_s, fn_b, out_w, out_b, B, T, S, M, H,
-                           heads, L, F, window);
+                           heads, L, F, window, bf16);
   d.pre = Prenet{pc_dw, pc_pw, pc_pb, pc_gs, pc_gb};
   EDT_TRY(check_prenet(d.pre, H));
   const long long n_out = (long long)B * T * M;
@@ -565,22 +675,22 @@ extern "C" int edt_fused_ddim(const float* x_T, float* x0_out, float* work, cons
 //   noise [B, steps, T, M] injects the draws, or is null for Philox with the
 //        key (key0, key1);
 //   the pre-net's pointers follow noise.
-extern "C" int edt_fused_ddpm(const float* x_T, float* x_out, float* work, const float* pos,
-                              const float* in_w, const float* in_b, const float* mods,
-                              const float* n2w, const float* qkv_w, const float* proj_w,
-                              const float* proj_b, const float* cq_w, const float* ckv,
-                              const float* co_w, const float* fc1_w, const float* fc1_b,
-                              const float* fc2_w, const float* fc2_b, const float* fn_s,
-                              const float* fn_b, const float* out_w, const float* out_b,
+extern "C" int edt_fused_ddpm(const float* x_T, float* x_out, void* work, const float* pos,
+                              const void* in_w, const float* in_b, const float* mods,
+                              const float* n2w, const void* qkv_w, const void* proj_w,
+                              const float* proj_b, const void* cq_w, const void* ckv,
+                              const void* co_w, const void* fc1_w, const float* fc1_b,
+                              const void* fc2_w, const float* fc2_b, const float* fn_s,
+                              const float* fn_b, const void* out_w, const float* out_b,
                               const float* coef, const float* noise, const float* pc_dw,
-                              const float* pc_pw, const float* pc_pb, const float* pc_gs,
+                              const void* pc_pw, const float* pc_pb, const float* pc_gs,
                               const float* pc_gb, int B, int T, int S, int M, int H, int heads,
                               int L, int F, int window, int steps, int v_pred, unsigned key0,
-                              unsigned key1, void* stream) {
+                              unsigned key1, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Decoder d = make_decoder(work, pos, in_w, in_b, n2w, qkv_w, proj_w, proj_b, cq_w, ckv, co_w,
                            fc1_w, fc1_b, fc2_w, fc2_b, fn_s, fn_b, out_w, out_b, B, T, S, M, H,
-                           heads, L, F, window);
+                           heads, L, F, window, bf16);
   d.pre = Prenet{pc_dw, pc_pw, pc_pb, pc_gs, pc_gb};
   EDT_TRY(check_prenet(d.pre, H));
   const long long per_b = (long long)T * M;

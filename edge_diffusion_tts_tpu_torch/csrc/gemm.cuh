@@ -54,12 +54,39 @@
 //   * every output sums its K products in k order, one FMA each: no
 //     split-K, so the result does not depend on the tile and a run repeats
 //     bit for bit.
+//
+// The bf16 variant (GemmArgs::bf16; gemm16_kernel below) computes what the
+// TPU kernel's `mm` computes at compute_dtype bfloat16
+// (fused_denoise.py::_denoise_kernel, :179-194): both operands of the
+// product rounded to bf16, the sum in float32.  W is bf16 (rounded once,
+// when packed); A is float32 (x, h, the pre-net's depthwise output) or bf16
+// (the attention and SwiGLU outputs, which feed only products); C is
+// float32 or, where it feeds only products (q/k/v, cross q, the SwiGLU
+// output), bf16.  A float32 A is staged whole, normed in float32 by the
+// same prologue (its statistics in the same order), and only then rounded
+// to bf16 into a second shared tile; bias, positional, residual and SwiGLU
+// stay float32 in the epilogue.  The products run on tensor cores:
+// mma.sync m16n8k16 (bf16 in, float32 accumulate) fed by ldmatrix
+// (bf16.cuh), 4 warps per block, each a (BM / WM) x (BN / WN) sub-tile of
+// 16 x 8 fragments.  Shared rows are K rounded up to 16 plus 8 elements, an
+// odd number of 16-byte units, so that an ldmatrix phase's 8 rows fall on
+// distinct banks; the columns past K are zero.  No split-K: each output's
+// sum runs over k in the order of the mma chain, the same for every tile's
+// fragment, so a run repeats bit for bit.  The tile is picked by the same
+// rule from {64x64, 32x64, 32x32, 16x32} (the mma's 16 rows are the least),
+// skipping a tile whose shared memory would not fit.  At the decoder
+// step's B = 1 (500 rows) the step is bound by latency and launches, as in
+// float32; at B = 8 (4,000 rows) the products' share grows and the tensor
+// cores can show.  wgmma and TMA are later work.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "device.cuh"
 
@@ -85,9 +112,9 @@ inline int g_gemm_forced_tile = -1;
 #endif
 
 struct GemmArgs {
-  const float* A = nullptr;
-  const float* W = nullptr;
-  float* C = nullptr;
+  const void* A = nullptr;  // float32, or bf16 where a_bf16
+  const void* W = nullptr;  // float32, or bf16 in the bf16 variant
+  void* C = nullptr;        // float32, or bf16 where c_bf16
   int M = 0, N = 0, K = 0;
   const float* bias = nullptr;
   const float* pos = nullptr;
@@ -97,6 +124,9 @@ struct GemmArgs {
   const float* norm_shift = nullptr;
   int ln = 0;                         // LayerNorm (else RMS) prologue
   int swiglu = 0;
+  int bf16 = 0;    // the bf16 variant: W bf16, products on tensor cores
+  int a_bf16 = 0;  // A holds bf16 (the bf16 variant, no norm)
+  int c_bf16 = 0;  // C is written as bf16 (the bf16 variant)
 };
 
 // Output tiles (rows x columns per block), largest first.
@@ -166,6 +196,37 @@ __device__ __forceinline__ float warp_tree_sum(float (&p)[32 / G]) {
   return s;
 }
 
+// The row norm's statistics of a staged row of K floats, taken by the G
+// adjacent lanes `lane` of G (the mean for LN, else 0, then the inverse
+// root of the mean square around it + 1e-6), summed in a 32-lane warp's
+// tree order whatever G.
+template <int G>
+__device__ __forceinline__ void row_norm_stats(const float* row, int K, int ln, int lane,
+                                               float& mu, float& inv) {
+  constexpr int V = 32 / G;
+  float p[V];
+  mu = 0.f;
+  if (ln) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) p[v] = 0.f;
+    for (int c0 = lane; c0 < K; c0 += 32)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (c0 + G * v < K) p[v] += row[c0 + G * v];
+    mu = warp_tree_sum<G>(p) / K;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) p[v] = 0.f;
+  for (int c0 = lane; c0 < K; c0 += 32)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (c0 + G * v < K) {
+        const float d = row[c0 + G * v] - mu;
+        p[v] = fmaf(d, d, p[v]);
+      }
+  inv = 1.f / sqrtf(warp_tree_sum<G>(p) / K + 1e-6f);
+}
+
 template <int BM, int BN, bool SWIGLU>
 __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   constexpr int TM = BM / 8;
@@ -177,6 +238,9 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gemm_t0));
   EDT_GEMM_STAMP(0);
 #endif
+  const float* gA = static_cast<const float*>(g.A);
+  const float* gW = static_cast<const float*>(g.W);
+  float* gC = static_cast<float*>(g.C);
   const int K = g.K;
   const int ld = gemm_ld(K);
   float* As = smem;            // [BM][ld]
@@ -199,7 +263,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
       const int r = e >> shift, c = 4 * (q_lo + (e & (chunk4 - 1)));
       const bool ok = m0 + r < g.M;
       if (c < 4 * q_hi)
-        cp_async16(As + r * ld + c, ok ? g.A + (long long)(m0 + r) * K + c : g.A, ok);
+        cp_async16(As + r * ld + c, ok ? gA + (long long)(m0 + r) * K + c : gA, ok);
     }
     for (int e = tid; e < (WROWS << shift); e += GEMM_THREADS) {
       const int r = e >> shift, c = 4 * (q_lo + (e & (chunk4 - 1)));
@@ -207,7 +271,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
       const int n = n0 + (gate ? r - BN : r);
       const bool ok = n < g.N;
       const long long wrow = gate ? (long long)g.N + n : n;
-      if (c < 4 * q_hi) cp_async16(Ws + r * ld + c, ok ? g.W + wrow * K + c : g.W, ok);
+      if (c < 4 * q_hi) cp_async16(Ws + r * ld + c, ok ? gW + wrow * K + c : gW, ok);
     }
     if (g.norm_scale && s == 0) {
       for (int c = 4 * tid; c < K; c += 4 * GEMM_THREADS) {
@@ -247,28 +311,8 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
     constexpr int G = GEMM_THREADS / BM;  // threads per row, adjacent lanes
     float* row = As + (tid / G) * ld;
     const int lane = tid % G;
-    constexpr int V = 32 / G;
-    float p[V];
-    float mu = 0.f;
-    if (g.ln) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) p[v] = 0.f;
-      for (int c0 = lane; c0 < K; c0 += 32)
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          if (c0 + G * v < K) p[v] += row[c0 + G * v];
-      mu = warp_tree_sum<G>(p) / K;
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) p[v] = 0.f;
-    for (int c0 = lane; c0 < K; c0 += 32)
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        if (c0 + G * v < K) {
-          const float d = row[c0 + G * v] - mu;
-          p[v] = fmaf(d, d, p[v]);
-        }
-    const float inv = 1.f / sqrtf(warp_tree_sum<G>(p) / K + 1e-6f);
+    float mu, inv;
+    row_norm_stats<G>(row, K, g.ln, lane, mu, inv);
     for (int c = lane; c < K; c += G) {
       float y = (row[c] - mu) * inv * Ns[c];
       if (g.norm_shift) y += Ns[K + c];
@@ -348,7 +392,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
       }
       if (g.pos) c += ep[i][j];
       if (g.R) c = er[i][j] + c;
-      g.C[(long long)gm * g.N + gn] = c;
+      gC[(long long)gm * g.N + gn] = c;
     }
   }
 #ifdef EDT_GEMM_TIMERS
@@ -392,11 +436,259 @@ int launch_gemm_sw(const GemmArgs& g, int tile, int smem, cudaStream_t st) {
   }
 }
 
-// One GEMM launch, in the tile the host picks.  Returns a cudaError_t:
+// ---- the bf16 variant -----------------------------------------------------
+
+constexpr int GEMM16_NTILES = 4;
+constexpr int GEMM16_TILE_BM[GEMM16_NTILES] = {64, 32, 32, 16};
+constexpr int GEMM16_TILE_BN[GEMM16_NTILES] = {64, 64, 32, 32};
+constexpr int GEMM16_TILE_WM[GEMM16_NTILES] = {2, 2, 2, 1};  // warps along rows, of 4
+
+// Shared row stride in bf16 elements: K rounded up to 16 (the mma's depth),
+// then 8 more, an odd number of 16-byte units.
+__host__ __device__ inline int gemm16_ld(int K) { return (K + 15) / 16 * 16 + 8; }
+
+// A float32 A tile (as the float32 kernel stages it), the norm's scale and
+// shift rows [2][K], then the bf16 A and W tiles.
+inline int gemm16_smem_bytes(int tile, int K, bool swiglu, bool norm, bool a_f32) {
+  const int bm = GEMM16_TILE_BM[tile], bn = GEMM16_TILE_BN[tile];
+  return (a_f32 ? bm * gemm_ld(K) * 4 : 0) + (norm ? 8 * K : 0) +
+         (bm + (swiglu ? 2 : 1) * bn) * gemm16_ld(K) * 2;
+}
+
+inline long long gemm16_blocks(int tile, int M, int N) {
+  return (long long)((M + GEMM16_TILE_BM[tile] - 1) / GEMM16_TILE_BM[tile]) *
+         ((N + GEMM16_TILE_BN[tile] - 1) / GEMM16_TILE_BN[tile]);
+}
+
+// The float32 kernel's rule: the largest tile whose grid fills every SM,
+// else the smallest.
+inline int gemm16_pick_tile(int M, int N) {
+  for (int t = 0; t < GEMM16_NTILES; ++t)
+    if (gemm16_blocks(t, M, N) >= sm_count()) return t;
+  return GEMM16_NTILES - 1;
+}
+
+template <int BM, int BN, int WM, bool SWIGLU, bool A16, bool C16>
+__global__ void __launch_bounds__(GEMM_THREADS) gemm16_kernel(GemmArgs g) {
+  constexpr int WN = GEMM_THREADS / 32 / WM;
+  constexpr int WTM = BM / WM, WTN = BN / WN;  // a warp's sub-tile
+  constexpr int MI = WTM / 16, NI = WTN / 8;   // its 16 x 8 fragments
+  constexpr int WROWS = SWIGLU ? 2 * BN : BN;
+  static_assert(MI >= 1 && NI >= 1 && WTM % 16 == 0 && WTN % 8 == 0, "mma fragments");
+  using OutT = typename std::conditional<C16, bf16, float>::type;
+  extern __shared__ __align__(16) float smem[];
+  const int K = g.K;
+  const int ld = gemm16_ld(K);
+  const int kp = ld - 8;  // K rounded up to 16
+  const int ld32 = gemm_ld(K);
+  float* Af = smem;                              // [BM][ld32]: a float32 A
+  float* Ns = Af + (A16 ? 0 : BM * ld32);        // [2][K]: the norm's scale and shift
+  bf16* As = reinterpret_cast<bf16*>(Ns + (g.norm_scale ? 2 * K : 0));  // [BM][ld]
+  bf16* Ws = As + BM * ld;                       // [WROWS][ld]: value rows, then gate rows
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+
+  // Everything in one group: the products need all of A normed first.
+  const int u16 = kp / 8;  // 16-byte units of a bf16 row, zero-filled past K
+  if constexpr (A16) {
+    const bf16* A = static_cast<const bf16*>(g.A);
+    for (int e = tid; e < BM * u16; e += GEMM_THREADS) {
+      const int r = e / u16, c = 8 * (e % u16);
+      const bool ok = m0 + r < g.M && c < K;
+      cp_async16(As + r * ld + c, ok ? A + (long long)(m0 + r) * K + c : A, ok);
+    }
+  } else {
+    const float* A = static_cast<const float*>(g.A);
+    const int k4 = K / 4;
+    for (int e = tid; e < BM * k4; e += GEMM_THREADS) {
+      const int r = e / k4, c = 4 * (e % k4);
+      const bool ok = m0 + r < g.M;
+      cp_async16(Af + r * ld32 + c, ok ? A + (long long)(m0 + r) * K + c : A, ok);
+    }
+  }
+  const bf16* W = static_cast<const bf16*>(g.W);
+  for (int e = tid; e < WROWS * u16; e += GEMM_THREADS) {
+    const int r = e / u16, c = 8 * (e % u16);
+    const bool gate = SWIGLU && r >= BN;
+    const int n = n0 + (gate ? r - BN : r);
+    const bool ok = n < g.N && c < K;
+    const long long wrow = gate ? (long long)g.N + n : n;
+    cp_async16(Ws + r * ld + c, ok ? W + wrow * K + c : W, ok);
+  }
+  if (g.norm_scale) {
+    for (int c = 4 * tid; c < K; c += 4 * GEMM_THREADS) {
+      cp_async16(Ns + c, g.norm_scale + c, true);
+      cp_async16(Ns + K + c, g.norm_shift ? g.norm_shift + c : g.norm_scale, g.norm_shift);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // A float32 A: the row norm in float32 (the float32 kernel's prologue),
+  // then each value rounded to bf16 once, into the bf16 tile.
+  if constexpr (!A16) {
+    constexpr int G = GEMM_THREADS / BM;  // threads per row, adjacent lanes
+    const float* row = Af + (tid / G) * ld32;
+    bf16* out = As + (tid / G) * ld;
+    const int lane = tid % G;
+    float mu = 0.f, inv = 1.f;
+    if (g.norm_scale) row_norm_stats<G>(row, K, g.ln, lane, mu, inv);
+    for (int c = lane; c < kp; c += G) {
+      float y = 0.f;
+      if (c < K) {
+        y = row[c];
+        if (g.norm_scale) {
+          y = (y - mu) * inv * Ns[c];
+          if (g.norm_shift) y += Ns[K + c];
+        }
+      }
+      out[c] = __float2bfloat16_rn(y);
+    }
+    __syncthreads();
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wr = WTM * (warp / WN), wc = WTN * (warp % WN);  // the warp's sub-tile
+  float acc[MI][NI][4];
+  float accg[SWIGLU ? MI : 1][SWIGLU ? NI : 1][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.f;
+        if constexpr (SWIGLU) accg[i][j][e] = 0.f;
+      }
+  // B fragments of W rows wrow0 + wc + 8j (NI of them) at depth k0.
+  auto load_b = [&](unsigned (&b)[NI][2], int wrow0, int k0) {
+#pragma unroll
+    for (int j = 0; j + 1 < NI; j += 2) {
+      unsigned r[4];
+      ldsm_x4(r, Ws + (wrow0 + wc + 8 * j + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                     8 * ((lane >> 3) & 1));
+      b[j][0] = r[0], b[j][1] = r[1];
+      b[j + 1][0] = r[2], b[j + 1][1] = r[3];
+    }
+    if constexpr (NI % 2 == 1) {
+      unsigned r[2];
+      ldsm_x2(r, Ws + (wrow0 + wc + 8 * (NI - 1) + (lane & 7)) * ld + k0 + 8 * ((lane >> 3) & 1));
+      b[NI - 1][0] = r[0], b[NI - 1][1] = r[1];
+    }
+  };
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    unsigned a[MI][4], b[NI][2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      ldsm_x4(a[i], As + (wr + 16 * i + (lane & 15)) * ld + k0 + 8 * (lane >> 4));
+    load_b(b, 0, k0);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    if constexpr (SWIGLU) {
+      load_b(b, BN, k0);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_bf16(accg[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+
+  // Fragment (i, j) element e: row wr + 16i + lane/4 (+8 for e >= 2),
+  // column wc + 8j + 2 (lane % 4) + (e & 1).  R may alias C: only this
+  // thread reads and writes its elements.
+  OutT* C = static_cast<OutT*>(g.C);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + wr + 16 * i + (lane >> 2) + 8 * h;
+      if (gm >= g.M) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gn = n0 + wc + 8 * j + 2 * (lane & 3) + e;
+          if (gn >= g.N) continue;
+          float c = acc[i][j][2 * h + e];
+          if (g.bias) c += g.bias[gn];
+          if constexpr (SWIGLU) {
+            float gt = accg[i][j][2 * h + e];
+            if (g.bias) gt += g.bias[g.N + gn];
+            c = c * (gt / (1.f + expf(-gt)));
+          }
+          if (g.pos) c += g.pos[(long long)(gm % g.pos_rows) * g.N + gn];
+          if (g.R) c = g.R[(long long)gm * g.N + gn] + c;
+          store1(C + (long long)gm * g.N + gn, c);
+        }
+    }
+}
+
+template <int BM, int BN, int WM, bool SWIGLU, bool A16, bool C16>
+int launch_gemm16_tile(const GemmArgs& g, int smem, cudaStream_t st) {
+  const auto kernel = gemm16_kernel<BM, BN, WM, SWIGLU, A16, C16>;
+  static bool opted_in[kMaxDevices] = {};  // the kernel may use more than 48 KB
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in[dev] = true;
+  }
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
+  kernel<<<grid, GEMM_THREADS, smem, st>>>(g);
+  return (int)cudaGetLastError();
+}
+
+template <bool SWIGLU, bool A16, bool C16>
+int launch_gemm16_sw(const GemmArgs& g, int tile, int smem, cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch_gemm16_tile<64, 64, 2, SWIGLU, A16, C16>(g, smem, st);
+    case 1: return launch_gemm16_tile<32, 64, 2, SWIGLU, A16, C16>(g, smem, st);
+    case 2: return launch_gemm16_tile<32, 32, 2, SWIGLU, A16, C16>(g, smem, st);
+    default: return launch_gemm16_tile<16, 32, 1, SWIGLU, A16, C16>(g, smem, st);
+  }
+}
+
+template <bool SWIGLU>
+int launch_gemm16_io(const GemmArgs& g, int tile, int smem, cudaStream_t st) {
+  if (g.a_bf16)
+    return g.c_bf16 ? launch_gemm16_sw<SWIGLU, true, true>(g, tile, smem, st)
+                    : launch_gemm16_sw<SWIGLU, true, false>(g, tile, smem, st);
+  return g.c_bf16 ? launch_gemm16_sw<SWIGLU, false, true>(g, tile, smem, st)
+                  : launch_gemm16_sw<SWIGLU, false, false>(g, tile, smem, st);
+}
+
+// One launch of the bf16 variant, in the tile the host picks (a smaller one
+// where its shared memory would not fit).  cudaErrorInvalidValue for what
+// it does not take: K % 8 (16-byte bf16 rows), A, W, scale and shift not
+// 16-byte aligned, a norm on a bf16 A, or no tile that fits.
+inline int gemm16(const GemmArgs& g, cudaStream_t st) {
+  const bool norm = g.norm_scale != nullptr;
+  if (g.K <= 0 || g.K % 8 || g.pos_rows <= 0 || (norm && g.a_bf16) ||
+      ((uintptr_t)g.A | (uintptr_t)g.W | (uintptr_t)g.norm_scale | (uintptr_t)g.norm_shift) % 16)
+    return (int)cudaErrorInvalidValue;
+  int tile = gemm16_pick_tile(g.M, g.N);
+  int smem = gemm16_smem_bytes(tile, g.K, g.swiglu, norm, !g.a_bf16);
+  while (smem > GEMM_MAX_SMEM && tile + 1 < GEMM16_NTILES)
+    smem = gemm16_smem_bytes(++tile, g.K, g.swiglu, norm, !g.a_bf16);
+  if (smem > GEMM_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  return g.swiglu ? launch_gemm16_io<true>(g, tile, smem, st)
+                  : launch_gemm16_io<false>(g, tile, smem, st);
+}
+
+// One GEMM launch, in the tile the host picks: the bf16 variant where
+// g.bf16, else the float32 kernel.  Returns a cudaError_t:
 // cudaErrorInvalidValue for a shape or alignment the kernel does not take
-// (K % 4, 16-byte A and W, shared memory).
+// (K % 4, 16-byte A and W, shared memory; bf16 A or C without g.bf16).
 inline int gemm(const GemmArgs& g, cudaStream_t st) {
   if (g.M <= 0 || g.N <= 0) return 0;
+  if (g.bf16) return gemm16(g, st);
+  if (g.a_bf16 || g.c_bf16) return (int)cudaErrorInvalidValue;
   int tile = gemm_pick_tile(g.M, g.N);
 #ifdef EDT_GEMM_TIMERS
   if (g_gemm_forced_tile >= 0) tile = g_gemm_forced_tile;

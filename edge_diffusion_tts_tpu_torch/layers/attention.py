@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops import window_attention
 from .embeddings import apply_rope
-from .dtypes import Linear
+from .dtypes import Linear, call_at
 from .ffn import dropout
 from .norms import RMSNorm
 
@@ -237,6 +237,12 @@ class MultiHeadLatentAttention(nn.Module):
         self.kv_up_proj = Linear(rank, dim * 2, bias=False, compute_dtype=dtype)
         self.out_proj = Linear(dim, dim, bias=False, compute_dtype=dtype)
 
+    def latent_kv(self, kv_input: torch.Tensor, dtype: Optional[torch.dtype] = None):
+        """[B, S, 2 * dim]: K then V of ``kv_input``, the projections at
+        ``dtype`` if given (their compute dtype otherwise)."""
+        return call_at(self.kv_up_proj, self.kv_norm(call_at(self.kv_down_proj, kv_input, dtype)),
+                       dtype)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -254,7 +260,7 @@ class MultiHeadLatentAttention(nn.Module):
 
         q_in = x if cond is None else x + cond[:, None, :]
         q = self.q_proj(q_in).reshape(B, T, self.heads, dh).transpose(1, 2)
-        kv = self.kv_up_proj(self.kv_norm(self.kv_down_proj(kv_input)))
+        kv = self.latent_kv(kv_input)
         kv = kv.reshape(B, S, 2, self.heads, dh).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]
 

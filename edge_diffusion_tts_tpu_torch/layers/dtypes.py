@@ -7,7 +7,10 @@ is flax's semantics, not ``torch.autocast``'s: a bf16 model's residual
 stream is bf16, and the norms, whose statistics flax takes in float32,
 return bf16.  With float32 parameters, input and ``compute_dtype`` every
 cast is the identity, so each layer computes exactly what its torch base
-class computes.
+class computes.  ``Linear`` and ``Embedding`` take a ``dtype`` at call time
+that overrides ``compute_dtype`` for that call: the fused decoder loops
+compute the decoder's conditioning at float32 whatever its compute dtype,
+as the JAX package's XLA preparation does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ def cast(x: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor
     return x if x is None or x.dtype == dtype else x.to(dtype)
 
 
+def call_at(module: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
+    """``module(x)``, or ``module(x, dtype)`` when ``dtype`` is given: one
+    call of a dtype-aware layer at a compute dtype other than its own."""
+    return module(x) if dtype is None else module(x, dtype)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` at ``compute_dtype`` (flax ``Dense(dtype=...)``)."""
 
@@ -32,8 +41,8 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        dt = self.compute_dtype if dtype is None else dtype
         return F.linear(cast(x, dt), cast(self.weight, dt), cast(self.bias, dt))
 
 
@@ -45,8 +54,8 @@ class Embedding(nn.Embedding):
         super().__init__(num_embeddings, embedding_dim)
         self.compute_dtype = compute_dtype
 
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, cast(self.weight, self.compute_dtype))
+    def forward(self, idx: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return F.embedding(idx, cast(self.weight, self.compute_dtype if dtype is None else dtype))
 
 
 class Conv1d(nn.Conv1d):

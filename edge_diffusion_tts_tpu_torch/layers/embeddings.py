@@ -36,8 +36,8 @@ class SinusoidalTimeEmb(nn.Module):
         super().__init__()
         self.dim, self.dtype = dim, dtype
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return cast(sinusoidal_time_embedding(t, self.dim), self.dtype)
+    def forward(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return cast(sinusoidal_time_embedding(t, self.dim), self.dtype if dtype is None else dtype)
 
 
 class LearnedTimeEmb(nn.Module):

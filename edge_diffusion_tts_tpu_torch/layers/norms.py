@@ -9,10 +9,12 @@ projection computes at ``dtype``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from .dtypes import Linear
+from .dtypes import Linear, call_at
 
 
 def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -48,7 +50,12 @@ class AdaLayerNorm(nn.Module):
         nn.init.zeros_(self.proj.weight)
         nn.init.zeros_(self.proj.bias)
 
+    def modulation(self, cond: torch.Tensor, dtype: Optional[torch.dtype] = None):
+        """``(scale, shift)`` of ``cond``, the projection at ``dtype`` if
+        given (its compute dtype otherwise)."""
+        return call_at(self.proj, cond, dtype).chunk(2, dim=-1)
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         h = self.norm(x)
-        scale, shift = self.proj(cond).chunk(2, dim=-1)
+        scale, shift = self.modulation(cond)
         return h * (1.0 + scale[:, None, :]) + shift[:, None, :]

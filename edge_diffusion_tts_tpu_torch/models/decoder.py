@@ -26,7 +26,7 @@ from ..layers import (
     SinusoidalPositionalEmb,
     SinusoidalTimeEmb,
 )
-from ..layers.dtypes import Embedding, LayerNorm, Linear, cast
+from ..layers.dtypes import Embedding, LayerNorm, Linear, call_at, cast
 
 MAX_STEP_EMB = 16  # few-step stage embedding table size
 
@@ -91,24 +91,28 @@ class EdgeDiffusionDecoder(nn.Module):
         nn.init.zeros_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def time_cond(self, t: torch.Tensor, step_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Timestep [B] (and stage index [B]) -> conditioning vector [B, H]."""
-        t_cond = self.time_emb(t)
+    def time_cond(self, t: torch.Tensor, step_idx: Optional[torch.Tensor] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Timestep [B] (and stage index [B]) -> conditioning vector [B, H],
+        at ``dtype`` if given (the decoder's compute dtype otherwise)."""
+        sin, fc1, act, fc2 = self.time_emb
+        t_cond = call_at(fc2, act(call_at(fc1, call_at(sin, t, dtype), dtype)), dtype)
         if step_idx is not None:
-            t_cond = t_cond + self.step_emb(step_idx.clamp(0, MAX_STEP_EMB - 1))
+            t_cond = t_cond + call_at(self.step_emb, step_idx.clamp(0, MAX_STEP_EMB - 1), dtype)
         return t_cond
 
     def context(
         self,
         sem_idx: Optional[torch.Tensor] = None,
         sem_features: Optional[torch.Tensor] = None,
+        dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
         """Semantic context [B, S, H]: features projection or token embedding,
-        plus the context positional table."""
+        plus the context positional table; at ``dtype`` if given."""
         if sem_features is not None:
-            ctx = self.sem_proj(sem_features)
+            ctx = call_at(self.sem_proj, sem_features, dtype)
         elif sem_idx is not None:
-            ctx = self.token_emb(sem_idx)
+            ctx = call_at(self.token_emb, sem_idx, dtype)
         else:
             raise ValueError("either sem_idx or sem_features must be provided")
         return self.context_pos_emb(ctx)

@@ -16,9 +16,10 @@ attention of ``csrc/attention.cuh``.  A decoder with the depthwise pre-net
 (``use_depthwise``) adds three launches to the step: the depthwise conv,
 the pointwise GEMM and the GroupNorm / GELU / residual / positional pass.
 
-``decoder_gemm`` launches that GEMM alone and ``decoder_prenet`` the
-pre-net's three kernels alone (test and timing hooks, never on the main
-path); ``decoder_gemm_plain`` and ``decoder_prenet_plain`` are their plain
+``decoder_gemm`` launches that GEMM alone, ``decoder_prenet`` the
+pre-net's three kernels alone and ``step_attention`` the step's attention
+alone (test and timing hooks, never on the main path);
+``decoder_gemm_plain`` and ``decoder_prenet_plain`` are their plain
 versions, and ``decoder_step_plain`` calls them in the kernels' order.
 
 As in the JAX package, everything that does not depend on x is computed once
@@ -28,11 +29,20 @@ with the RMSNorm weights (for DDPM a [1000, L, 4, H] table, 10.24 MB at the
 flagship shape, which the JAX kernel recomputes per step because it does not
 fit VMEM beside the weights), and the sampler's coefficients.
 
+``compute_dtype=torch.bfloat16`` is the TPU kernels' ``compute_dtype``:
+both operands of every product rounded to bf16 and the sums in float32
+(the kernels' bf16 variant, on tensor cores: ``csrc/gemm.cuh``,
+``csrc/attention.cuh``); the residual stream, the norms, the softmax, the
+biases, the AdaLN table and the updates stay float32.  The products'
+weights and the cross K/V are packed in bf16 (rounding once is rounding at
+every use).  Float32 is the default everywhere, as in the JAX package.
+
 ``philox4x32_10`` is the generator's integer arithmetic in torch int64 ops,
 the same bits as the kernel's.  ``fused_ddim`` and ``fused_ddpm`` take the
 plain version for CPU tensors only; for CUDA tensors they launch the kernel
-or raise.  The plain versions keep the dtype they are given, so a float64
-run of them is a witness of float32 rounding.
+or raise.  The plain versions keep the dtype they are given (rounding to
+bf16 where ``compute_dtype`` says so), so a float64 run of them is a witness
+of float32 rounding.
 """
 
 from __future__ import annotations
@@ -64,16 +74,38 @@ WEIGHT_NAMES = (
 # bias [H], GroupNorm scale and bias [H].
 PRENET_NAMES = ("pc_dw", "pc_pw", "pc_pb", "pc_gs", "pc_gb")
 PRENET_GROUPS = 8  # GroupNorm(min(8, H)) groups; the kernel takes H % 8 == 0
+# The weights that only products read: packed at the compute dtype.
+PRODUCT_NAMES = ("in_w", "qkv_w", "proj_w", "cq_w", "co_w", "fc1_w", "fc2_w", "out_w", "pc_pw")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def pack_decoder_weights(decoder) -> Dict[str, torch.Tensor]:
+def _compute_dtype(compute_dtype, what: str) -> torch.dtype:
+    """``compute_dtype`` if the loops take it (float32 or bfloat16, the JAX
+    kernels' choices), else raise naming it."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"{what} computes in float32 or bfloat16, not {compute_dtype}")
+    return compute_dtype
+
+
+def _rd(t: torch.Tensor, compute_dtype: torch.dtype, dtype: torch.dtype) -> torch.Tensor:
+    """t as a product's operand at ``compute_dtype``, in the working ``dtype``:
+    rounded to bf16 for bf16 compute, t itself for float32."""
+    if compute_dtype == torch.float32:
+        return t
+    return t.to(compute_dtype).to(dtype)
+
+
+def pack_decoder_weights(decoder, compute_dtype: torch.dtype = torch.float32
+                         ) -> Dict[str, torch.Tensor]:
     """The decoder's step-invariant weights, stacked over layers, contiguous.
 
     Linear weights keep torch's [out, in] layout.  The fused form is the
     AdaLN decoder (``use_adaln=True``); with ``use_depthwise`` the pre-net's
     weights follow under ``PRENET_NAMES`` (kernel size 3, stride 1, hidden
-    a multiple of 8, so 8 GroupNorm groups).
+    a multiple of 8, so 8 GroupNorm groups).  The weights under
+    ``PRODUCT_NAMES`` are stored at ``compute_dtype``, the rest in float32.
     """
+    _compute_dtype(compute_dtype, "pack_decoder_weights")
     cfg = decoder.cfg
     if not cfg.use_adaln:
         raise ValueError("the fused loop implements the AdaLN decoder (use_adaln=True)")
@@ -112,7 +144,8 @@ def pack_decoder_weights(decoder) -> Dict[str, torch.Tensor]:
                              f"{pc.norm.num_groups} over {H}")
         w.update(pc_dw=pc.depthwise.weight[:, 0, :], pc_pw=pc.pointwise.weight[:, :, 0],
                  pc_pb=pc.pointwise.bias, pc_gs=pc.norm.weight, pc_gb=pc.norm.bias)
-    return {k: v.detach().float().contiguous() for k, v in w.items()}
+    return {k: v.detach().float().to(compute_dtype if k in PRODUCT_NAMES else torch.float32)
+            .contiguous() for k, v in w.items()}
 
 
 def ddim_coefficients(schedule: DiffusionSchedule, num_steps: int):
@@ -151,28 +184,47 @@ def ddpm_coefficients(schedule: DiffusionSchedule) -> torch.Tensor:
 
 @torch.no_grad()
 def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts,
-                        step_idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                        step_idx: Optional[torch.Tensor] = None,
+                        mods_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Per-call, step-invariant tensors: ``pos`` [T, H], ``mods``
-    [steps, L, 4, H] and ``ckv`` [L, B, S, 2H].  ``step_idx`` [steps] is the
-    stage index each step's time conditioning gets (default: 0, 1, ...;
-    DDPM drives every step with 0)."""
-    device = sem_idx.device
-    ctx = decoder.context(sem_idx=sem_idx)
-    ckv = []
-    for b in decoder.layers:
-        ca = b.cross_attn
-        ckv.append(ca.kv_up_proj(ca.kv_norm(ca.kv_down_proj(ctx))))
+    [steps, L, 4, H] and ``ckv`` [L, B, S, 2H], all float32.  ``step_idx``
+    [steps] is the stage index each step's time conditioning gets (default:
+    0, 1, ...; DDPM drives every step with 0).
+
+    They are computed in float32 whatever the decoder's compute dtype, as
+    the JAX package's ``_prep_static`` and ``_time_cond`` compute them in
+    XLA.  The AdaLN table is (norm weight * (1 + scale), shift) of the
+    modules' projection; with ``mods_dtype`` it is computed instead as the
+    TPU DDPM kernel computes it in its loop at that compute dtype
+    (``_ddpm_kernel``, the fold in ``fused_ddpm_sample``): the time
+    conditioning and the projection already folded with the RMSNorm weight
+    (w * ker for the scale) rounded to ``mods_dtype``, the sums in float32,
+    then + w * (1 + bias) for the scale and + bias for the shift.
+    """
+    device, f32 = sem_idx.device, torch.float32
+    ctx = decoder.context(sem_idx=sem_idx, dtype=f32)
+    ckv = [b.cross_attn.latent_kv(ctx, f32) for b in decoder.layers]
     n = len(ts)
     te = decoder.time_cond(
-        torch.tensor(ts, dtype=torch.float32, device=device),
+        torch.tensor(ts, dtype=f32, device=device),
         torch.arange(n, device=device) if step_idx is None else step_idx.to(device),
+        dtype=f32,
     )
     mods = []
     for b in decoder.layers:
         per_layer = []
         for norm in (b.norm1, b.norm3):
-            scale, shift = norm.proj(te).chunk(2, dim=-1)
-            per_layer += [norm.norm.weight * (1.0 + scale), shift]
+            wn = norm.norm.weight.float()
+            if mods_dtype is None:
+                scale, shift = norm.modulation(te, f32)
+                per_layer += [wn * (1.0 + scale), shift]
+            else:
+                H = wn.shape[0]
+                ker, bias = norm.proj.weight.float(), norm.proj.bias.float()
+                t = _rd(te, mods_dtype, torch.float32)
+                per_layer += [t @ _rd(ker[:H] * wn[:, None], mods_dtype, torch.float32).T
+                              + wn * (1.0 + bias[:H]),
+                              t @ _rd(ker[H:], mods_dtype, torch.float32).T + bias[H:]]
         mods.append(torch.stack(per_layer, dim=1))  # [steps, 4, H]
     if T > decoder.pos_emb.max_len:
         raise ValueError(f"{T} mel frames exceed the positional table's "
@@ -186,7 +238,7 @@ def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts,
 
 def decoder_gemm_plain(
     a, w, *, bias=None, pos=None, residual=None, norm: Optional[str] = None,
-    scale=None, shift=None, swiglu: bool = False,
+    scale=None, shift=None, swiglu: bool = False, compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """``decoder_gemm``'s computation in plain tensor ops, in its order.
 
@@ -194,9 +246,13 @@ def decoder_gemm_plain(
     1e-6) * scale (+ shift)) or "ln" (``F.layer_norm``, eps 1e-6); then
     c = a @ w.T (+ bias); with ``swiglu`` the halves of c give value *
     silu(gate); then + pos[m % pos.shape[0]] over the flattened rows m, then
-    residual + c.  Keeps a's dtype.
+    residual + c.  At bf16 ``compute_dtype`` the normed a and w are rounded
+    to bf16 before the product, everything else as at float32.  Works in
+    a's dtype (float32 for a bf16 a), which it returns.
     """
     K = a.shape[-1]
+    dt = torch.promote_types(a.dtype, torch.float32)
+    a = a.to(dt)
     if norm == "rms":
         a = a * torch.rsqrt(a.square().mean(-1, keepdim=True) + 1e-6) * scale
         if shift is not None:
@@ -205,7 +261,7 @@ def decoder_gemm_plain(
         a = F.layer_norm(a, (K,), scale, shift, eps=1e-6)
     elif norm is not None:
         raise ValueError(f"norm must be None, 'rms' or 'ln', not {norm!r}")
-    c = a @ w.T
+    c = _rd(a, compute_dtype, dt) @ _rd(w, compute_dtype, dt).T
     if bias is not None:
         c = c + bias
     if swiglu:
@@ -218,18 +274,19 @@ def decoder_gemm_plain(
     return c
 
 
-def decoder_prenet_plain(h, pos, w) -> torch.Tensor:
+def decoder_prenet_plain(h, pos, w, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The depthwise pre-net and the positional rows on h [B, T, H], in the
     kernels' order: d = the k=3 depthwise conv along T within each row of
     the batch (rows outside [0, T) read as zero), u = d @ pc_pw.T + pc_pb,
     GroupNorm over each (batch row, group of H/8 channels) with the mean
     first and the variance around it (eps 1e-6), then h + gelu_erf(norm(u) *
-    pc_gs + pc_gb) + pos.  Keeps h's dtype."""
+    pc_gs + pc_gb) + pos.  At bf16 ``compute_dtype`` only the pointwise
+    product rounds its operands.  Keeps h's dtype."""
     B, T, H = h.shape
     dw = w["pc_dw"]
     hp = F.pad(h, (0, 0, 1, 1))
     d = hp[:, :-2] * dw[:, 0] + hp[:, 1:-1] * dw[:, 1] + hp[:, 2:] * dw[:, 2]
-    u = decoder_gemm_plain(d, w["pc_pw"], bias=w["pc_pb"])
+    u = decoder_gemm_plain(d, w["pc_pw"], bias=w["pc_pb"], compute_dtype=compute_dtype)
     g = u.reshape(B, T, PRENET_GROUPS, H // PRENET_GROUPS)
     mean = g.mean(dim=(1, 3), keepdim=True)
     c = g - mean
@@ -238,14 +295,33 @@ def decoder_prenet_plain(h, pos, w) -> torch.Tensor:
     return h + F.gelu(y) + pos
 
 
-def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> torch.Tensor:
+def _attention_rounded(q, k, v, compute_dtype, mask=None) -> torch.Tensor:
+    """Attention as the TPU kernel computes it at a bf16 ``compute_dtype``:
+    S from the rounded q and k, the softmax in q's dtype, then the
+    normalised P and v rounded before their product."""
+    dt = q.dtype
+    s = (_rd(q, compute_dtype, dt) @ _rd(k, compute_dtype, dt).transpose(-1, -2)
+         ) * q.shape[-1] ** -0.5
+    if mask is not None:
+        s = s.masked_fill(~mask, torch.finfo(dt).min)
+    p = torch.softmax(s, dim=-1)
+    return _rd(p, compute_dtype, dt) @ _rd(v, compute_dtype, dt)
+
+
+def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int,
+                       compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One decoder forward of x [B, T, M] with this step's AdaLN table
     ``mods_i`` [L, 4, H], in plain tensor ops in the kernel's order; the
-    pre-net runs when ``w`` holds its weights."""
+    pre-net runs when ``w`` holds its weights.  At bf16 ``compute_dtype``
+    every product's operands are rounded to bf16 (the TPU kernel's ``mm``)
+    and ``w``'s product weights and ``ckv`` may be bf16."""
     B, T, M = x.shape
     H = pos.shape[1]
     L, S = ckv.shape[0], ckv.shape[2]
     dh = H // heads
+    low = compute_dtype != torch.float32
+    if low:
+        ckv = ckv.to(x.dtype)
 
     def split(t, n):
         return t.reshape(B, n, heads, dh).transpose(1, 2)
@@ -253,19 +329,28 @@ def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> to
     def merge(t):
         return t.transpose(1, 2).reshape(B, T, H)
 
-    gemm = decoder_gemm_plain
+    def gemm(*args, **kw):
+        return decoder_gemm_plain(*args, compute_dtype=compute_dtype, **kw)
+
     if "pc_pw" in w:
-        h = decoder_prenet_plain(gemm(x, w["in_w"], bias=w["in_b"]), pos, w)
+        h = decoder_prenet_plain(gemm(x, w["in_w"], bias=w["in_b"]), pos, w, compute_dtype)
     else:
         h = gemm(x, w["in_w"], bias=w["in_b"], pos=pos)
+    if low:
+        idx = torch.arange(T, device=x.device)
+        band = (idx[None, :] - idx[:, None]).abs() <= window
     for l in range(L):
         m = mods_i[l]
         qkv = gemm(h, w["qkv_w"][l], norm="rms", scale=m[0], shift=m[1])
         q, k, v = (split(qkv[..., j * H:(j + 1) * H], T) for j in range(3))
-        a = merge(banded_attention_plain(q, k, v, window))
+        if low:
+            a = merge(_attention_rounded(q, k, v, compute_dtype, band))
+        else:
+            a = merge(banded_attention_plain(q, k, v, window))
         h = gemm(a, w["proj_w"][l], bias=w["proj_b"][l], residual=h)
         q = split(gemm(h, w["cq_w"][l], norm="rms", scale=w["n2w"][l]), T)
-        a = merge(sdpa(q, split(ckv[l, ..., :H], S), split(ckv[l, ..., H:], S)))
+        ck, cv = split(ckv[l, ..., :H], S), split(ckv[l, ..., H:], S)
+        a = merge(_attention_rounded(q, ck, cv, compute_dtype) if low else sdpa(q, ck, cv))
         h = gemm(a, w["co_w"][l], residual=h)
         f = gemm(h, w["fc1_w"][l], bias=w["fc1_b"][l], norm="rms", scale=m[2], shift=m[3],
                  swiglu=True)
@@ -275,11 +360,13 @@ def decoder_step_plain(x, pos, mods_i, ckv, w, *, heads: int, window: int) -> to
 
 def fused_ddim_plain(
     x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The kernel's computation in plain tensor ops (same inputs, same order)."""
     x, x0 = x_T, torch.zeros_like(x_T)
     for i in range(coef.shape[0]):
-        pred = decoder_step_plain(x, pos, mods[i], ckv, w, heads=heads, window=window)
+        pred = decoder_step_plain(x, pos, mods[i], ckv, w, heads=heads, window=window,
+                                  compute_dtype=compute_dtype)
         sab, s1m, sabp, s1mp = coef[i]
         eps = s1m * x + sab * pred if prediction == "v" else pred
         x0 = ((x - s1m * eps) / sab).clamp(-X0_CLIP, X0_CLIP)
@@ -332,14 +419,15 @@ def philox_normal(shape, step: int, key, device=None) -> torch.Tensor:
 
 def fused_ddpm_plain(
     x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
-    noise: Optional[torch.Tensor] = None, key=(0, 0),
+    noise: Optional[torch.Tensor] = None, key=(0, 0), compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The DDPM kernel's computation in plain tensor ops: per loop index i,
     x <- coef[i, 2] (x - coef[i, 3] eps) + coef[i, 4] z, with z =
     ``noise[:, i]`` or ``philox_normal(x.shape, i, key)``."""
     x = x_T
     for i in range(coef.shape[0]):
-        pred = decoder_step_plain(x, pos, mods[i], ckv, w, heads=heads, window=window)
+        pred = decoder_step_plain(x, pos, mods[i], ckv, w, heads=heads, window=window,
+                                  compute_dtype=compute_dtype)
         c = coef[i]
         eps = c[1] * x + c[0] * pred if prediction == "v" else pred
         mean = c[2] * (x - c[3] * eps)
@@ -352,17 +440,19 @@ def fused_ddpm_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_ddim")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.edt_fused_ddim_workspace.argtypes = [i, i, i, i, i]
+    lib.edt_fused_ddim_workspace.argtypes = [i] * 6
     lib.edt_fused_ddim_workspace.restype = ctypes.c_longlong
-    lib.edt_fused_ddim.argtypes = [p] * 28 + [i] * 11 + [ctypes.c_float, p]
+    lib.edt_fused_ddim.argtypes = [p] * 28 + [i] * 11 + [ctypes.c_float, i, p]
     lib.edt_fused_ddim.restype = ctypes.c_int
-    lib.edt_fused_ddpm.argtypes = [p] * 29 + [i] * 11 + [ctypes.c_uint] * 2 + [p]
+    lib.edt_fused_ddpm.argtypes = [p] * 29 + [i] * 11 + [ctypes.c_uint] * 2 + [i, p]
     lib.edt_fused_ddpm.restype = ctypes.c_int
-    lib.edt_decoder_gemm.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.edt_decoder_gemm.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.edt_decoder_gemm.restype = ctypes.c_int
-    lib.edt_decoder_prenet.argtypes = [p] * 9 + [i] * 3 + [p]
+    lib.edt_decoder_prenet.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.edt_decoder_prenet.restype = ctypes.c_int
-    lib.edt_decoder_gemm_tile.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.edt_step_attention.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.edt_step_attention.restype = ctypes.c_int
+    lib.edt_decoder_gemm_tile.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.edt_decoder_gemm_tile.restype = None
     lib.edt_kernel_launches.argtypes = []
     lib.edt_kernel_launches.restype = ctypes.c_longlong
@@ -375,17 +465,20 @@ def kernel_launches() -> int:
     return int(_lib().edt_kernel_launches())
 
 
-def decoder_gemm_tile(m: int, n: int):
+def decoder_gemm_tile(m: int, n: int, compute_dtype: torch.dtype = torch.float32):
     """``(rows, columns)`` of the output tile the host picks for an m x n
-    output of ``decoder_gemm`` and of the decoder step's GEMMs."""
+    output of ``decoder_gemm`` and of the decoder step's GEMMs, in the
+    float32 kernel or its bf16 variant."""
     bm_bn = (ctypes.c_int * 2)()
-    _lib().edt_decoder_gemm_tile(m, n, bm_bn)
+    low = _compute_dtype(compute_dtype, "decoder_gemm_tile") != torch.float32
+    _lib().edt_decoder_gemm_tile(m, n, int(low), bm_bn)
     return bm_bn[0], bm_bn[1]
 
 
 def decoder_gemm(
     a, w, *, bias=None, pos=None, residual=None, norm: Optional[str] = None,
     scale=None, shift=None, swiglu: bool = False, out=None,
+    compute_dtype: torch.dtype = torch.float32, out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One launch of the decoder step's GEMM (csrc/gemm.cuh), as
     ``decoder_gemm_plain`` computes it; ``out`` may be ``residual`` (updated
@@ -395,11 +488,19 @@ def decoder_gemm(
     A test and timing hook: it takes CUDA tensors only (contiguous float32,
     a [..., K] with K % 4 == 0, w [N, K] or [2N, K] with ``swiglu``) and
     raises on anything else, CPU tensors included; it never falls back.
-    Counted in ``decoder_gemm.launches``.
+    At bf16 ``compute_dtype`` it launches the bf16 variant: w bf16, a float32
+    or (without a norm) bf16, the result written at ``out_dtype`` (float32
+    or bf16), K % 8 == 0.  Counted in ``decoder_gemm.launches``.
     """
     if a.device.type != "cuda":
         raise ValueError(f"decoder_gemm runs on CUDA tensors only, not {a.device} "
                          "(its plain version is decoder_gemm_plain)")
+    low = _compute_dtype(compute_dtype, "decoder_gemm") != torch.float32
+    if out_dtype not in COMPUTE_DTYPES or (out_dtype != torch.float32 and not low):
+        raise ValueError(f"out_dtype {out_dtype}: float32, or bfloat16 for bf16 compute")
+    a_low = a.dtype == torch.bfloat16
+    if a_low and (not low or norm is not None):
+        raise ValueError("a bf16 a takes bf16 compute and no norm (the norm reads float32 h)")
     K = a.shape[-1]
     rows = a.numel() // K if K else 0
     n_out = w.shape[0] // 2 if swiglu else w.shape[0]
@@ -408,24 +509,30 @@ def decoder_gemm(
             shift is not None and norm is None):
         raise ValueError(f"norm {norm!r}: 'rms' or 'ln' take a scale (and an optional "
                          "shift); no norm takes neither")
+    f32 = torch.float32
     expected = {
-        "a": (a, tuple(a.shape)), "w": (w, (2 * n_out if swiglu else n_out, K)),
-        "bias": (bias, (w.shape[0],)), "residual": (residual, out_shape),
-        "out": (out, out_shape), "scale": (scale, (K,)), "shift": (shift, (K,)),
-        "pos": (pos, (None if pos is None else pos.shape[0], n_out)),
+        "a": (a, tuple(a.shape), torch.bfloat16 if a_low else f32),
+        "w": (w, (2 * n_out if swiglu else n_out, K), compute_dtype),
+        "bias": (bias, (w.shape[0],), f32), "residual": (residual, out_shape, f32),
+        "out": (out, out_shape, out_dtype), "scale": (scale, (K,), f32),
+        "shift": (shift, (K,), f32),
+        "pos": (pos, (None if pos is None else pos.shape[0], n_out), f32),
     }
-    for name, (t, shape) in expected.items():
-        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+    for name, (t, shape, dtype) in expected.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype
                               or not t.is_contiguous() or t.device != a.device):
-            raise ValueError(f"{name}: expected contiguous float32 {shape} on {a.device}, "
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {a.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if w.dim() != 2 or K % 4 or (pos is not None and pos.shape[0] == 0) or any(
+    if w.dim() != 2 or K % (8 if low else 4) or (pos is not None and pos.shape[0] == 0) or any(
             t.data_ptr() % 16 for t in (a, w, scale, shift) if t is not None):
-        raise ValueError(f"a [..., {K}] and w {tuple(w.shape)}: K must be a multiple of 4, "
-                         "a, w, scale and shift 16-byte aligned, pos non-empty")
+        raise ValueError(f"a [..., {K}] and w {tuple(w.shape)}: K must be a multiple of "
+                         f"{8 if low else 4}, a, w, scale and shift 16-byte aligned, pos "
+                         "non-empty")
+    if residual is not None and out_dtype != f32:
+        raise ValueError("a residual sum is written in float32")
     _build.refuse_autograd("decoder_gemm", a, w, bias, pos, residual, out, scale, shift)
     if out is None:
-        out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+        out = torch.empty(out_shape, dtype=out_dtype, device=a.device)
     elif out.data_ptr() in (a.data_ptr(), w.data_ptr()):
         raise ValueError("out may alias residual only")
 
@@ -438,7 +545,7 @@ def decoder_gemm(
         err = lib.edt_decoder_gemm(
             a.data_ptr(), w.data_ptr(), ptr(bias), ptr(pos), ptr(residual), out.data_ptr(),
             ptr(scale), ptr(shift), rows, n_out, K, 1 if pos is None else pos.shape[0],
-            int(swiglu), int(norm == "ln"), stream,
+            int(swiglu), int(norm == "ln"), int(low), int(a_low), int(out_dtype != f32), stream,
         )
     decoder_gemm.launches += 1
     _build.check(err, "decoder_gemm")
@@ -448,37 +555,41 @@ def decoder_gemm(
 decoder_gemm.launches = 0
 
 
-def _check_prenet(T: int, H: int, device, pos, w) -> None:
+def _check_prenet(T: int, H: int, device, pos, w, compute_dtype=torch.float32) -> None:
     """Raise unless pos and the pre-net weights in ``w`` fit [T, H] rows on
-    ``device`` as the kernels take them."""
+    ``device`` as the kernels take them (``pc_pw`` at ``compute_dtype``)."""
     expected = {"pos": (pos, (T, H)), "pc_dw": (w["pc_dw"], (H, 3)),
                 "pc_pw": (w["pc_pw"], (H, H)), **{n: (w[n], (H,)) for n in PRENET_NAMES[2:]}}
     for name, (t, shape) in expected.items():
-        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
+        dtype = compute_dtype if name in PRODUCT_NAMES else torch.float32
+        if (tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous()
                 or t.device != device):
-            raise ValueError(f"{name}: expected contiguous float32 {shape} on {device}, "
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if H % PRENET_GROUPS:
         raise ValueError(f"hidden {H}: the fused pre-net takes a multiple of "
                          f"{PRENET_GROUPS} (its GroupNorm groups)")
 
 
-def decoder_prenet(h, pos, w) -> torch.Tensor:
+def decoder_prenet(h, pos, w, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One run of the pre-net's three kernels (depthwise conv, pointwise
     GEMM, GroupNorm / GELU / residual / positional pass) on h [B, T, H], as
-    ``decoder_prenet_plain`` computes it; returns a new tensor.
+    ``decoder_prenet_plain`` computes it; returns a new tensor.  At bf16
+    ``compute_dtype`` the pointwise GEMM is the bf16 variant (``pc_pw``
+    bf16).
 
     A test and timing hook: CUDA tensors only (contiguous float32), it
     raises on anything else, CPU tensors included; it never falls back.
     Counted in ``decoder_prenet.launches``.
     """
+    low = _compute_dtype(compute_dtype, "decoder_prenet") != torch.float32
     if h.device.type != "cuda":
         raise ValueError(f"decoder_prenet runs on CUDA tensors only, not {h.device} "
                          "(its plain version is decoder_prenet_plain)")
     if h.dim() != 3 or h.dtype != torch.float32 or not h.is_contiguous():
         raise ValueError(f"h: expected contiguous float32 [B, T, H], got {h.dtype} "
                          f"{tuple(h.shape)}")
-    _check_prenet(h.shape[1], h.shape[2], h.device, pos, w)
+    _check_prenet(h.shape[1], h.shape[2], h.device, pos, w, compute_dtype)
     _build.refuse_autograd("decoder_prenet", h, pos, *(w[n] for n in PRENET_NAMES))
     B, T, H = h.shape
     out = torch.empty_like(h)
@@ -487,7 +598,8 @@ def decoder_prenet(h, pos, w) -> torch.Tensor:
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.edt_decoder_prenet(h.data_ptr(), out.data_ptr(), work.data_ptr(),
-                                     pos.data_ptr(), *_prenet_ptrs(w), B, T, H, stream)
+                                     pos.data_ptr(), *_prenet_ptrs(w), B, T, H, int(low),
+                                     stream)
     decoder_prenet.launches += 1
     _build.check(err, "decoder_prenet")
     return out
@@ -496,9 +608,51 @@ def decoder_prenet(h, pos, w) -> torch.Tensor:
 decoder_prenet.launches = 0
 
 
-def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> None:
+def step_attention(q, k, v, window: Optional[int] = None,
+                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The decoder step's attention kernel alone: q [B, heads, tq, d]
+    attends k, v [B, heads, tk, d] over |i - j| <= ``window``, or every key
+    with None (the cross-attention).  At bf16 ``compute_dtype`` q, k and v
+    are bf16 and the kernel rounds each probability to bf16 before it
+    weights v, as the bf16 step does (the plain version rounds the
+    normalised P, as the TPU kernel does: ``_attention_rounded``); the
+    output has q's dtype.
+
+    A test and timing hook: contiguous CUDA tensors of the compute dtype
+    only; it raises on anything else, CPU tensors included.  Counted in
+    ``step_attention.launches``.
+    """
+    low = _compute_dtype(compute_dtype, "step_attention") != torch.float32
+    B, heads, tq, d = q.shape
+    tk = k.shape[2]
+    for name, t, rows in (("q", q, tq), ("k", k, tk), ("v", v, tk)):
+        if (t.device.type != "cuda" or t.dtype != compute_dtype or not t.is_contiguous()
+                or tuple(t.shape) != (B, heads, rows, d)):
+            raise ValueError(f"{name}: expected a contiguous CUDA {compute_dtype} tensor "
+                             f"[{B}, {heads}, {rows}, {d}], got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    if d % (8 if low else 4) or d > 64:
+        raise ValueError(f"head dim {d}: a multiple of {8 if low else 4} up to 64")
+    _build.refuse_autograd("step_attention", q, k, v)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().edt_step_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        out.data_ptr(), B, heads, tq, tk, d,
+                                        -1 if window is None else window, int(low), stream)
+    step_attention.launches += 1
+    _build.check(err, "step_attention")
+    return out
+
+
+step_attention.launches = 0
+
+
+def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int,
+                     compute_dtype: torch.dtype) -> None:
     """Raise unless every tensor has the shape, type and device the loop
-    kernels take."""
+    kernels take: float32, but for ``ckv`` and the ``PRODUCT_NAMES`` weights
+    at ``compute_dtype``."""
     B, T, M = x_T.shape
     steps, L, _, H = mods.shape
     S = ckv.shape[2]
@@ -514,22 +668,25 @@ def _check_loop_args(x_T, pos, mods, ckv, coef, w, heads: int, n_coef: int) -> N
     tensors = dict(w, x_T=x_T, pos=pos, mods=mods, ckv=ckv, coef=coef)
     for name, shape in expected.items():
         t = tensors[name]
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
+        dtype = compute_dtype if name in PRODUCT_NAMES + ("ckv",) else torch.float32
+        if (tuple(t.shape) != shape or t.dtype != dtype
                 or not t.is_contiguous() or t.device != x_T.device):
-            raise ValueError(f"{name}: expected contiguous float32 {shape} on "
+            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
                              f"{x_T.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if H % heads or H // heads > 64 or (H // heads) % 4:
+    # 16-byte copies: 4 float32 or 8 bf16 elements
+    q = 4 if compute_dtype == torch.float32 else 8
+    if H % heads or H // heads > 64 or (H // heads) % q:
         raise ValueError(f"hidden {H} / heads {heads}: the head dim must divide, be a "
-                         "multiple of 4 and be <= 64")
-    if M % 4 or F2 % 8:
-        raise ValueError(f"n_mels {M} and ffn width {F2 // 2} must be multiples of 4 (the "
+                         f"multiple of {q} and be <= 64")
+    if M % q or F2 % (2 * q):
+        raise ValueError(f"n_mels {M} and ffn width {F2 // 2} must be multiples of {q} (the "
                          "kernels stage rows as 16-byte copies)")
     if any(n in w for n in PRENET_NAMES):
         missing = [n for n in PRENET_NAMES if n not in w]
         if missing:
             raise ValueError(f"pre-net weights {missing} missing: pack them with "
                              "pack_decoder_weights")
-        _check_prenet(T, H, x_T.device, pos, w)
+        _check_prenet(T, H, x_T.device, pos, w, compute_dtype)
 
 
 def _weight_ptrs(w, first: int, last: Optional[int] = None):
@@ -542,32 +699,43 @@ def _prenet_ptrs(w):
     return [w[n].data_ptr() if n in w else None for n in PRENET_NAMES]
 
 
+def _launch_counts(fn, low: bool) -> None:
+    if low:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
+
+
 def fused_ddim(
     x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Run the whole DDIM loop; returns the last x0 [B, T, M].
 
     ``prediction="v"`` reads the decoder output as v; anything else as eps,
-    as the JAX kernel does.
+    as the JAX kernel does.  ``compute_dtype`` bfloat16 runs the bf16
+    variant, on ``w`` packed at bf16 and a bf16 ``ckv``.
 
     CPU tensors take ``fused_ddim_plain``; CUDA tensors launch the kernel
-    sequence, counted once per call in ``fused_ddim.launches``, and raise
-    under grad mode when one of them requires a gradient (no backward).
+    sequence, counted once per call in ``fused_ddim.launches`` (float32) or
+    ``fused_ddim.bf16_launches`` (bf16), and raise under grad mode when one
+    of them requires a gradient (no backward).
     """
+    low = _compute_dtype(compute_dtype, "fused_ddim") != torch.float32
     if x_T.device.type == "cpu":
-        return fused_ddim_plain(x_T, pos, mods, ckv, coef, w, heads=heads,
-                                window=window, prediction=prediction)
+        return fused_ddim_plain(x_T, pos, mods, ckv, coef, w, heads=heads, window=window,
+                                prediction=prediction, compute_dtype=compute_dtype)
     if x_T.device.type != "cuda":
         raise ValueError(f"fused_ddim runs on CPU or CUDA, not {x_T.device}")
     _build.refuse_autograd("fused_ddim", x_T, pos, mods, ckv, coef, *w.values())
-    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 4)
+    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 4, compute_dtype)
     B, T, M = x_T.shape
     steps, L, _, H = mods.shape
     S = ckv.shape[2]
     lib = _lib()
     ffn = w["fc1_w"].shape[1] // 2
     out = torch.empty_like(x_T)
-    work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M),
+    work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M, int(low)),
                        dtype=torch.float32, device=x_T.device)
     with torch.cuda.device(x_T.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -576,35 +744,38 @@ def fused_ddim(
             *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
             ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(), *_prenet_ptrs(w),
             B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
-            X0_CLIP, stream,
+            X0_CLIP, int(low), stream,
         )
-    fused_ddim.launches += 1
+    _launch_counts(fused_ddim, low)
     _build.check(err, "fused_ddim")
     return out
 
 
 fused_ddim.launches = 0
+fused_ddim.bf16_launches = 0
 
 
 def fused_ddpm(
     x_T, pos, mods, ckv, coef, w, *, heads: int, window: int, prediction: str = "eps",
-    noise: Optional[torch.Tensor] = None, key=(0, 0),
+    noise: Optional[torch.Tensor] = None, key=(0, 0), compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Run the whole ancestral DDPM loop (``coef`` [steps, 5] from
     ``ddpm_coefficients``); returns the final x [B, T, M].
 
     The per-step draws are ``noise`` [B, steps, T, M] when given, else Philox
-    normals under ``key`` (two 32-bit ints).  CPU tensors take
-    ``fused_ddpm_plain``; CUDA tensors launch the kernel sequence, counted
-    once per call in ``fused_ddpm.launches``.
+    normals under ``key`` (two 32-bit ints).  ``compute_dtype`` as
+    ``fused_ddim``'s.  CPU tensors take ``fused_ddpm_plain``; CUDA tensors
+    launch the kernel sequence, counted once per call in
+    ``fused_ddpm.launches`` (float32) or ``fused_ddpm.bf16_launches``.
     """
+    low = _compute_dtype(compute_dtype, "fused_ddpm") != torch.float32
     kw = dict(heads=heads, window=window, prediction=prediction, noise=noise, key=key)
     if x_T.device.type == "cpu":
-        return fused_ddpm_plain(x_T, pos, mods, ckv, coef, w, **kw)
+        return fused_ddpm_plain(x_T, pos, mods, ckv, coef, w, compute_dtype=compute_dtype, **kw)
     if x_T.device.type != "cuda":
         raise ValueError(f"fused_ddpm runs on CPU or CUDA, not {x_T.device}")
     _build.refuse_autograd("fused_ddpm", x_T, pos, mods, ckv, coef, noise, *w.values())
-    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 5)
+    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 5, compute_dtype)
     B, T, M = x_T.shape
     steps, L, _, H = mods.shape
     S = ckv.shape[2]
@@ -616,7 +787,7 @@ def fused_ddpm(
     lib = _lib()
     ffn = w["fc1_w"].shape[1] // 2
     out = torch.empty_like(x_T)
-    work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M),
+    work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M, int(low)),
                        dtype=torch.float32, device=x_T.device)
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
     with torch.cuda.device(x_T.device):
@@ -627,21 +798,15 @@ def fused_ddpm(
             ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(),
             None if noise is None else noise.data_ptr(), *_prenet_ptrs(w),
             B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
-            k0, k1, stream,
+            k0, k1, int(low), stream,
         )
-    fused_ddpm.launches += 1
+    _launch_counts(fused_ddpm, low)
     _build.check(err, "fused_ddpm")
     return out
 
 
 fused_ddpm.launches = 0
-
-
-def _float32_only(compute_dtype, what: str, item: str) -> None:
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} runs the float32 decoder step only: its {compute_dtype} variant (a "
-            f"tensor-core step in gemm.cuh and attention.cuh) is ROADMAP Queue B item {item}")
+fused_ddpm.bf16_launches = 0
 
 
 def fused_generate_mel(
@@ -657,20 +822,22 @@ def fused_generate_mel(
 ) -> torch.Tensor:
     """x_T [B, T, n_mels] + tokens [B, S] -> x0 through ``fused_ddim``.
 
-    ``weights`` are ``pack_decoder_weights(decoder)``, packed here if not
-    given.  The strided grid may hold fewer than ``num_steps`` steps; the loop
-    runs what exists, as the JAX package does.  ``compute_dtype`` is the JAX
-    function's: float32 only so far (bf16 raises NotImplementedError).
+    ``weights`` are ``pack_decoder_weights(decoder, compute_dtype)``, packed
+    here if not given.  The strided grid may hold fewer than ``num_steps``
+    steps; the loop runs what exists, as the JAX package does.
+    ``compute_dtype`` is the JAX function's: float32, or bfloat16 for bf16
+    operands in every product with float32 sums (the residual stream stays
+    float32); the loop's inputs are computed in float32 either way.
     """
-    _float32_only(compute_dtype, "fused_generate_mel", "B2.3")
+    _compute_dtype(compute_dtype, "fused_generate_mel")
     ts, coef = ddim_coefficients(schedule, num_steps)
     with torch.no_grad():
-        w = weights if weights is not None else pack_decoder_weights(decoder)
+        w = weights if weights is not None else pack_decoder_weights(decoder, compute_dtype)
         loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts)
         return fused_ddim(
-            x_T.float().contiguous(), loop["pos"], loop["mods"], loop["ckv"],
-            coef.to(x_T.device), w, heads=cfg.heads, window=cfg.attn_window_size,
-            prediction=prediction,
+            x_T.float().contiguous(), loop["pos"], loop["mods"],
+            loop["ckv"].to(compute_dtype), coef.to(x_T.device), w, heads=cfg.heads,
+            window=cfg.attn_window_size, prediction=prediction, compute_dtype=compute_dtype,
         )
 
 
@@ -693,11 +860,12 @@ def fused_ddpm_sample(
     T_mel, n_mels] injects the per-step draws; otherwise the kernel's Philox
     generator draws them under a 64-bit key taken from ``generator`` (a
     fresh one seeded 0 on ``sem_idx``'s device when None).  ``weights`` are
-    ``pack_decoder_weights(decoder)``, packed here if not given.
-    ``compute_dtype`` is the JAX function's: float32 only so far (bf16
-    raises NotImplementedError).
+    ``pack_decoder_weights(decoder, compute_dtype)``, packed here if not
+    given.  ``compute_dtype`` is the JAX function's, as
+    ``fused_generate_mel``'s; at bfloat16 the AdaLN table is the one the JAX
+    kernel computes in its loop (``prepare_loop_inputs``' ``mods_dtype``).
     """
-    _float32_only(compute_dtype, "fused_ddpm_sample", "B1.4")
+    low = _compute_dtype(compute_dtype, "fused_ddpm_sample") != torch.float32
     coef = ddpm_coefficients(schedule).to(x_T.device)
     ts = list(range(schedule.T - 1, -1, -1))
     key = (0, 0)
@@ -707,13 +875,15 @@ def fused_ddpm_sample(
         key = torch.randint(0, 2**32, (2,), generator=generator, dtype=torch.int64,
                             device=generator.device).tolist()
     with torch.no_grad():
-        w = weights if weights is not None else pack_decoder_weights(decoder)
+        w = weights if weights is not None else pack_decoder_weights(decoder, compute_dtype)
         loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts,
-                                   step_idx=torch.zeros(len(ts), dtype=torch.long))
+                                   step_idx=torch.zeros(len(ts), dtype=torch.long),
+                                   mods_dtype=compute_dtype if low else None)
         return fused_ddpm(
-            x_T.float().contiguous(), loop["pos"], loop["mods"], loop["ckv"], coef, w,
-            heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction,
+            x_T.float().contiguous(), loop["pos"], loop["mods"], loop["ckv"].to(compute_dtype),
+            coef, w, heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction,
             noise=None if noise is None else noise.float().contiguous(), key=key,
+            compute_dtype=compute_dtype,
         )
 
 

@@ -18,6 +18,11 @@ attention layer hands it views of its qkv projection and takes o in
 shared bytes, blocks, waves); the C side checks it against the geometry it
 was built with, and ``band_geometry`` reads that geometry back.  ``banded_attention`` takes the plain version for CPU tensors only;
 for a CUDA tensor it launches the kernel or raises.
+
+q, k, v in bf16 (a bf16 decoder's long-form windows) take the kernel's
+bf16 instances, as the TPU kernel takes them: staged as bf16, widened to
+float32 inside, the output rounded to bf16; the plan's shared bytes follow
+the element size.  Any other dtype is refused on the card.
 """
 
 from __future__ import annotations
@@ -72,17 +77,26 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def band_smem_bytes(rows: int, d: int) -> int:
-    """Dynamic shared bytes of one block: Q [rows, dp + 4], the ring of K
-    and V chunks [stages, 2, keys, dp + 4] and the warps' P tiles
-    [rows, keys + 8], floats, dp = d padded to a multiple of 8."""
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def band_smem_bytes(rows: int, d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared bytes of one block: Q [rows, r] and the ring of K and
+    V chunks [stages, 2, keys, r] in ``dtype``, then the warps' float32 P
+    tiles [rows, keys + 8]; dp = d padded to a multiple of 8, r = dp + 4
+    for float32 and, for bf16, dp or dp + 8, whichever is an odd number of
+    8-element (16-byte) units."""
     dp = _cdiv(d, 8) * 8
-    return 4 * (rows * (dp + 4) + 2 * BAND_STAGES * BAND_KEYS * (dp + 4)
-                + rows * (BAND_KEYS + 8))
+    if dtype == torch.float32:
+        es, r = 4, dp + 4
+    else:
+        es, r = 2, dp if dp // 8 % 2 else dp + 8
+    return es * (rows * r + 2 * BAND_STAGES * BAND_KEYS * r) + 4 * rows * (BAND_KEYS + 8)
 
 
-def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS) -> dict:
-    """The host's launch plan for [B, H, T, d] on a card of ``sms`` SMs:
+def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """The host's launch plan for [B, H, T, d] in ``dtype`` on a card of ``sms`` SMs:
     ``rows`` (query rows per block), ``threads``, ``keys`` per chunk,
     ``stages``, ``smem`` (dynamic shared bytes), ``blocks``, ``resident``
     (blocks an SM holds by shared memory, threads and registers) and
@@ -99,7 +113,7 @@ def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS) 
         raise ValueError(f"head dim {d}: the kernel takes a multiple of 4 up to {MAX_HEAD_DIM}")
 
     def plan(rows):
-        smem = band_smem_bytes(rows, d)
+        smem = band_smem_bytes(rows, d, dtype)
         threads = rows // WARP_ROWS * 32
         blocks = B * H * _cdiv(T, rows)
         resident = min(SMEM_PER_SM // (smem + 1024), 2048 // threads,
@@ -118,19 +132,20 @@ def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS) 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("band_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.edt_banded_attention.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+    lib.edt_banded_attention.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
     lib.edt_banded_attention.restype = ctypes.c_int
-    lib.edt_band_geometry.argtypes = [i, i, p]
+    lib.edt_band_geometry.argtypes = [i, i, i, p]
     lib.edt_band_geometry.restype = ctypes.c_int
     return lib
 
 
-def band_geometry(rows: int, d: int) -> dict:
+def band_geometry(rows: int, d: int, dtype: torch.dtype = torch.float32) -> dict:
     """The geometry the built library reports for ``rows`` query rows per
-    block and head dim ``d`` (threads, keys, stages, smem), to hold
-    ``band_plan`` against."""
+    block, head dim ``d`` and elements of ``dtype`` (threads, keys, stages,
+    smem), to hold ``band_plan`` against."""
     out = (ctypes.c_int * 4)()
-    _build.check(_lib().edt_band_geometry(rows, d, out), "edt_band_geometry")
+    es = torch.tensor([], dtype=dtype).element_size()
+    _build.check(_lib().edt_band_geometry(rows, d, es, out), "edt_band_geometry")
     return dict(zip(("threads", "keys", "stages", "smem"), out))
 
 
@@ -139,11 +154,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_strided(name: str, t: torch.Tensor, device) -> None:
-    if t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"{name} must be a float32 tensor on {device}, got {t.dtype} on "
-                         f"{t.device}")
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+def _check_strided(name: str, t: torch.Tensor, device, dtype: torch.dtype) -> None:
+    if t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} must be a {dtype} tensor on {device} (as q), got {t.dtype} "
+                         f"on {t.device}")
+    per16 = 16 // t.element_size()  # elements per 16 bytes
+    if t.stride(-1) != 1 or any(s % per16 for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel takes a unit-stride last dimension and rows that "
                          f"start 16-byte aligned (strides {t.stride()})")
 
@@ -158,14 +174,16 @@ def banded_attention(
 ) -> torch.Tensor:
     """Sliding-window attention over [B, H, T, d]; returns [B, H, T, d].
 
-    q, k and v may be strided views (on CUDA: float32, the last dimension
-    unit-stride, every stride a multiple of 4 floats, 16-byte aligned, d a
-    multiple of 4 up to 64).  ``out_layout="bthd"`` has the result written
-    in [B, T, H, d] memory and returns its [B, H, T, d] view.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel in the tile of
-    ``band_plan``, counted in ``banded_attention.launches``, and raise under
-    grad mode when one of them requires a gradient (the kernel has no
-    backward).
+    q, k and v may be strided views (on CUDA: float32 or bf16, the last
+    dimension unit-stride, every stride a multiple of 16 bytes, 16-byte
+    aligned, d a multiple of 4 up to 64).  ``out_layout="bthd"`` has the
+    result written in [B, T, H, d] memory and returns its [B, H, T, d] view,
+    in q's dtype; any other dtype than float32 or bf16 is refused, on either
+    device.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel in the tile of ``band_plan``, counted in
+    ``banded_attention.launches`` (float32) or
+    ``banded_attention.bf16_launches`` (bf16), and raise under grad mode
+    when one of them requires a gradient (the kernel has no backward).
     """
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must share one [B, H, T, d] shape: "
@@ -178,17 +196,16 @@ def banded_attention(
     seq_len = T if seq_len is None else int(seq_len)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"banded_attention runs on CPU or CUDA, not {q.device}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the banded-attention kernel takes float32 or bfloat16 q, k, v, not "
+                         f"{q.dtype}")
     if q.device.type == "cpu":
         res = banded_attention_plain(q, k, v, window, seq_len)
         return res if out_layout == "bhtd" else res.transpose(1, 2).contiguous().transpose(1, 2)
     _build.refuse_autograd("banded_attention", q, k, v)
-    if q.dtype != torch.float32:
-        raise ValueError(f"the banded-attention kernel takes float32 q, k, v, not {q.dtype}: "
-                         "its bf16 loads are ROADMAP Queue B item B3.4 (a bf16 decoder's "
-                         "long-form windows on the card wait for it)")
-    plan = band_plan(B, H, T, d, window, _sm_count(q.device.index or 0))
+    plan = band_plan(B, H, T, d, window, _sm_count(q.device.index or 0), q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_strided(name, t, q.device)
+        _check_strided(name, t, q.device, q.dtype)
     if out_layout == "bthd":
         out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     else:
@@ -200,11 +217,15 @@ def banded_attention(
         err = lib.edt_banded_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
             B, H, T, d, min(window, T), max(0, min(seq_len, T)),
-            plan["rows"], plan["threads"], plan["smem"], stream,
+            plan["rows"], plan["threads"], plan["smem"], q.element_size(), stream,
         )
-    banded_attention.launches += 1
+    if q.dtype == torch.float32:
+        banded_attention.launches += 1
+    else:
+        banded_attention.bf16_launches += 1
     _build.check(err, "banded_attention")
     return out
 
 
 banded_attention.launches = 0
+banded_attention.bf16_launches = 0

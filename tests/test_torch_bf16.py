@@ -625,16 +625,19 @@ def test_parallel_training_refuses_bf16(tmp_path):
 
 def test_fused_entry_points_refuse_bf16_compute():
     """The fused DDIM/DDPM entry points take the JAX functions'
-    ``compute_dtype``; their bf16 variants are ROADMAP B2.3 and B1.4, so a
-    bf16 call raises before anything runs."""
+    ``compute_dtype``, float32 or bfloat16 (their bf16 variants,
+    tests/test_torch_fused_bf16.py); any other compute dtype raises, naming
+    it, before anything runs."""
     from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
 
     cfg = PCFG(**TINY)
     sem, x = torch.zeros(1, 4, dtype=torch.long), torch.zeros(1, 8, 80)
-    with pytest.raises(NotImplementedError, match="B2.3"):
-        fd.fused_generate_mel(cfg, PSchedule.create(50), None, sem, x, 4, compute_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="B1.4"):
-        fd.fused_ddpm_sample(cfg, PSchedule.create(50), None, sem, x, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="float16"):
+        fd.fused_generate_mel(cfg, PSchedule.create(50), None, sem, x, 4,
+                              compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
+        fd.fused_ddpm_sample(cfg, PSchedule.create(50), None, sem, x,
+                             compute_dtype=torch.float16)
 
 
 def test_banded_attention_bf16_on_the_cpu_computes_in_float32():

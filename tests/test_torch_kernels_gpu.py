@@ -1061,7 +1061,8 @@ def test_conv_frontend_bf16_workspace_matches_the_plan(frontend_bf16, B, samples
 
 def test_frontend_variants_refuse_each_others_weights(frontend, frontend_bf16):
     """The float32 entry points refuse bf16 weights and inputs, the bf16 ones
-    float32 weights; the band kernel refuses bf16 q, k, v (ROADMAP B3.4)."""
+    float32 weights; the band kernel refuses float16 q, k, v (it takes
+    float32 and bf16)."""
     wav = _frontend_wav(1, 8000)
     with pytest.raises(ValueError, match="float32"):
         ff.conv_frontend(wav, frontend_bf16)
@@ -1074,8 +1075,8 @@ def test_frontend_variants_refuse_each_others_weights(frontend, frontend_bf16):
         ff.conv_frontend_layer(x, 1, frontend_bf16, compute_dtype=BF16)
     with pytest.raises(ValueError, match="splits"):
         ff.conv_frontend_layer(x.to(BF16), 1, frontend_bf16, splits=17, compute_dtype=BF16)
-    q = torch.zeros(1, 2, 64, 16, device="cuda", dtype=BF16)
-    with pytest.raises(ValueError, match="B3.4"):
+    q = torch.zeros(1, 2, 64, 16, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
         wa.banded_attention(q, q, q, 8)
 
 
@@ -1184,3 +1185,369 @@ def test_bf16_training_step_on_the_card_matches_the_cpu(cuda):
         if ref.norm() < 1e-12 or gw[name].norm() < 1e-12:
             continue
         assert cos(gc[name], ref) >= cos(gw[name], ref) - 0.01, name
+
+
+# -- the fused decoder step's and the band kernel's bf16 variants ---------------------------
+
+# (variant, a's dtype, the output's dtype) the bf16 GEMM takes: a bf16 a has
+# no norm (the norm reads float32 h); a residual sum is written in float32.
+GEMM16_CASES = [(v, torch.float32, torch.float32) for v in GEMM_VARIANTS] + [
+    (v, BF16, torch.float32) for v in ("plain", "bias_pos", "residual_aliased", "swiglu")] + [
+    (v, torch.float32, BF16) for v in GEMM_VARIANTS if v != "residual_aliased"] + [
+    (v, BF16, BF16) for v in ("plain", "bias_pos", "swiglu")]
+# Shapes whose output the host gives each tile of the bf16 GEMM on a 132-SM
+# H100 (64x64, 32x64, 32x32, 16x32), and a ragged M with K = 88 (not a
+# multiple of the mma's 16: the staged rows are zero-padded).
+GEMM16_TILE_SHAPES = {(4000, 160, 160): (64, 64), (2000, 160, 160): (32, 64),
+                      (500, 480, 160): (32, 32), (500, 160, 320): (16, 32),
+                      (77, 80, 88): (16, 32)}
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significand bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _gemm16_close(what, got, want, normed: bool):
+    """Both sides take the same bf16 operands and sum their exact products
+    in float32 in two orders: every element within 1e-5 + 1e-5 |want| (+
+    one bf16 ulp of it for a bf16 output, which rounds its sum once).  A
+    float32 A under a norm is normed in two summation orders before its
+    rounding, and an element on a bf16 rounding edge rounds the other way,
+    moving its whole output row by up to one operand ulp times the weights:
+    then the result is held normwise (1e-3), at most 1% of the elements may
+    leave that bar, and none by more than 4e-3."""
+    d = (got.float() - want).abs()
+    bar = 1e-5 + 1e-5 * want.abs() + (_bf16_ulp(want) if got.dtype == BF16 else 0.0)
+    frac, worst = (d > bar).float().mean().item(), (d - bar).max().item()
+    if not normed:
+        assert frac == 0.0, f"{what}: {frac:.2e} over the bar, worst {worst:.3g}"
+        return
+    want_out = want.to(got.dtype).double()  # a bf16 output against the sum rounded once
+    rel = ((got.double() - want_out).norm() / want_out.norm()).item()
+    assert rel <= 1e-3 and frac <= 1e-2 and worst <= 4e-3, (
+        f"{what}: rel {rel:.3g}, {frac:.2e} over the bar, worst {worst:.3g}")
+
+
+@pytest.mark.parametrize("M,N,K", list(GEMM16_TILE_SHAPES))
+@pytest.mark.parametrize("variant,a_dtype,out_dtype", GEMM16_CASES)
+def test_decoder_gemm_bf16_matches_plain(cuda, variant, a_dtype, out_dtype, M, N, K):
+    """The bf16 GEMM (tensor cores) in each prologue and epilogue variant,
+    float32 or bf16 A and C, in every tile, against ``decoder_gemm_plain``
+    at bf16 compute on the same operands."""
+    a, w, kw = _gemm_case(variant, M, N, K, cuda, seed=M * 7 + N * 3 + K)
+    a, w = a.to(a_dtype), w.to(BF16)
+    want = fd.decoder_gemm_plain(a, w, compute_dtype=BF16, **kw)
+    again = fd.decoder_gemm(a, w, compute_dtype=BF16, out_dtype=out_dtype, **kw)
+    if variant == "residual_aliased":
+        kw["out"] = kw["residual"]  # updated in place, as the decoder step does
+    before = fd.decoder_gemm.launches
+    got = fd.decoder_gemm(a, w, compute_dtype=BF16, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert fd.decoder_gemm.launches == before + 1
+    assert got.shape == (M, N) and got.dtype == out_dtype
+    _gemm16_close(f"{variant} {a_dtype} -> {out_dtype} [{M},{N},{K}]", got, want,
+                  "norm" in kw)
+    assert torch.equal(got, again)  # the same bits twice (and in place)
+
+
+def test_decoder_gemm_bf16_tiles(cuda):
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the tile table is the 132-SM H100's")
+    assert {(M, N): fd.decoder_gemm_tile(M, N, BF16) for M, N, _ in GEMM16_TILE_SHAPES} == {
+        (M, N): tile for (M, N, _), tile in GEMM16_TILE_SHAPES.items()}
+
+
+def test_decoder_gemm_bf16_rejects_what_it_cannot_take(cuda):
+    a, w = torch.zeros(8, 12, device=cuda), torch.zeros(4, 12, device=cuda, dtype=BF16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fd.decoder_gemm(a, w, compute_dtype=BF16)
+    a, w = torch.zeros(8, 16, device=cuda), torch.zeros(4, 16, device=cuda, dtype=BF16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fd.decoder_gemm(a, w.float(), compute_dtype=BF16)
+    with pytest.raises(ValueError, match="no norm"):
+        fd.decoder_gemm(a.to(BF16), w, compute_dtype=BF16, norm="rms",
+                        scale=torch.ones(16, device=cuda))
+    with pytest.raises(ValueError, match="out_dtype"):
+        fd.decoder_gemm(a, w.float(), out_dtype=BF16)
+    with pytest.raises(ValueError, match="float16"):
+        fd.decoder_gemm(a, w.half(), compute_dtype=torch.float16)
+
+
+def _bf16_band_close(what, got, want):
+    """Both compute in float32 on the same bf16 inputs and round the output
+    once: within the float32 kernel's bar (2e-5) plus one bf16 ulp of the
+    larger of the two outputs."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bar = 2e-5 + _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    assert bool((d <= bar).all()), f"{what}: max err {d.max().item():.3g}, over by " \
+        f"{(d - bar).max().item():.3g}"
+
+
+def _band_inputs16(B, H, T, d, device):
+    """The float32 inputs rounded to bf16.  A head dim that is not a
+    multiple of 8 leaves contiguous bf16 rows off the 16-byte grid, so it
+    comes as views of a buffer padded to a multiple of 8 (the kernel then
+    reads the head's last 8 bytes alone)."""
+    out = []
+    for t in _band_inputs(B, H, T, d, device):
+        buf = torch.zeros(B, H, T, -(-d // 8) * 8, device=device, dtype=BF16)
+        buf[..., :d] = t
+        out.append(buf[..., :d])
+    return out
+
+
+@pytest.mark.parametrize("B,H,T,d,window,seq_len", BAND_SHAPES)
+def test_banded_kernel_bf16_matches_plain(cuda, B, H, T, d, window, seq_len):
+    """bf16 q, k, v (windows 0 to 200, head dims 16 to 64, seq_len < T) in
+    the plan's tile against the plain version on the same bf16 inputs."""
+    q, k, v = _band_inputs16(B, H, T, d, cuda)
+    before = wa.banded_attention.launches, wa.banded_attention.bf16_launches
+    got = wa.banded_attention(q, k, v, window, seq_len=seq_len)
+    torch.cuda.synchronize()
+    assert (wa.banded_attention.launches, wa.banded_attention.bf16_launches) == (
+        before[0], before[1] + 1)
+    assert got.dtype == BF16
+    _bf16_band_close(f"[{B},{H},{T},{d}] w={window}", got,
+                     wa.banded_attention_plain(q, k, v, window, seq_len=seq_len))
+
+
+@pytest.mark.parametrize("rows", wa.BAND_ROWS)
+@pytest.mark.parametrize("B,H,T,d,window,seq_len", [BAND_SHAPES[i] for i in (1, 3, 5, 7, 10)])
+def test_banded_kernel_bf16_every_tile(cuda, monkeypatch, rows, B, H, T, d, window, seq_len):
+    monkeypatch.setattr(wa, "BAND_ROWS", (rows,))
+    q, k, v = _band_inputs16(B, H, T, d, cuda)
+    got = wa.banded_attention(q, k, v, window, seq_len=seq_len)
+    _bf16_band_close(f"rows {rows}", got,
+                     wa.banded_attention_plain(q, k, v, window, seq_len=seq_len))
+
+
+@pytest.mark.parametrize("B,T,d", [(1, 4000, 40), (2, 500, 40), (1, 300, 16), (1, 256, 64)])
+def test_banded_kernel_bf16_strided_views_bthd_output(cuda, B, T, d):
+    """bf16 q, k, v as views of a [B, T, 3, H, d] buffer, o in [B, T, H, d]
+    memory (a bf16 decoder's attention layer); two calls bit-equal."""
+    H, w = 4, 64
+    rng = np.random.RandomState(B * T + d)
+    qkv = torch.from_numpy(rng.randn(B, T, 3, H, d).astype(np.float32)).to(cuda).to(BF16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    got = wa.banded_attention(q, k, v, w, out_layout="bthd")
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, T, d) and got.transpose(1, 2).is_contiguous()
+    _bf16_band_close("strided", got, wa.banded_attention_plain(q, k, v, w))
+    assert torch.equal(got, wa.banded_attention(q, k, v, w, out_layout="bthd"))
+
+
+@pytest.mark.parametrize("d", range(4, wa.MAX_HEAD_DIM + 1, 4))
+@pytest.mark.parametrize("rows", wa.BAND_ROWS)
+def test_band_geometry_of_the_library_is_the_plan_bf16(cuda, monkeypatch, rows, d):
+    monkeypatch.setattr(wa, "BAND_ROWS", (rows,))
+    plan = wa.band_plan(1, 4, 4000, d, 64, dtype=BF16)
+    assert wa.band_geometry(rows, d, BF16) == {
+        k: plan[k] for k in ("threads", "keys", "stages", "smem")}
+
+
+def test_banded_kernel_bf16_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 1, 8, 44, device=cuda, dtype=BF16)[..., :40]  # rows 88 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa.banded_attention(q, q, q, 2)
+    q = torch.zeros(1, 1, 8, 20, device=cuda, dtype=BF16)  # contiguous rows 40 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wa.banded_attention(q, q, q, 2)
+    q = torch.zeros(1, 1, 8, 16, device=cuda, dtype=BF16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa.banded_attention(q, q.float(), q, 2)
+
+
+def _rel(a, b) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def _witness16(what, kernel, plain16, plain32, strict=False):
+    """The witness rule: the bf16 kernel no farther (normwise) from the
+    float32 plain version than 1.5 times the bf16 plain version is, + 1e-3.
+    With ``strict`` (a well-conditioned path: v, DDPM) also two-sided: the
+    kernel at least half as far from float32 as the bf16 plain version,
+    and nearer the bf16 plain version than 0.8 times the bf16 plain
+    version's distance from float32 (chip_smoke.py's ``witness16`` bars: a
+    float32 step fails both; on the H100 these read 0.99-1.03 and
+    0.48-0.60)."""
+    e_k, e_p, e_kp = _rel(kernel, plain32), _rel(plain16, plain32), _rel(kernel, plain16)
+    print(f"{what}: kernel {e_k:.4g} from float32, bf16 plain {e_p:.4g}, kernel vs bf16 "
+          f"plain {e_kp:.4g}")
+    assert e_k <= 1.5 * e_p + 1e-3, f"{what}: kernel {e_k:.3g}, bf16 plain {e_p:.3g}"
+    if strict:
+        assert e_k >= 0.5 * e_p, f"{what}: kernel {e_k:.3g} from float32, bf16 plain {e_p:.3g}"
+        assert e_kp <= 0.8 * e_p, f"{what}: kernel {e_kp:.3g} from bf16 plain, its {e_p:.3g}"
+
+
+def _loop16_args(cuda, dec, loop, B, S, T, steps):
+    rng = np.random.RandomState(B * 100 + T)
+    sem_idx = torch.from_numpy(rng.randint(0, 2304, (B, S))).to(cuda)
+    x_T = torch.from_numpy(rng.randn(B, T, 80).astype(np.float32)).to(cuda)
+    if loop == "ddim":
+        ts, coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), steps)
+        mods16 = li = fd.prepare_loop_inputs(dec, sem_idx, T, ts)
+    else:
+        ts, coef = list(range(steps - 1, -1, -1)), fd.ddpm_coefficients(
+            DiffusionSchedule.create(steps))
+        zeros = torch.zeros(steps, dtype=torch.long)
+        li = fd.prepare_loop_inputs(dec, sem_idx, T, ts, step_idx=zeros)
+        mods16 = fd.prepare_loop_inputs(dec, sem_idx, T, ts, step_idx=zeros, mods_dtype=BF16)
+    a32 = (x_T, li["pos"], li["mods"], li["ckv"], coef.to(cuda), fd.pack_decoder_weights(dec))
+    a16 = (x_T, li["pos"], mods16["mods"], li["ckv"].to(BF16), coef.to(cuda),
+           fd.pack_decoder_weights(dec, BF16))
+    return a32, a16
+
+
+@pytest.mark.parametrize("prenet", [False, True])
+@pytest.mark.parametrize("loop,prediction", [("ddim", "eps"), ("ddim", "v"), ("ddpm", "eps")])
+def test_fused_loops_bf16_witness(cuda, loop, prediction, prenet):
+    """The bf16 DDIM loop (4 steps, B=2, S=40) and 50-step DDPM loop
+    (injected noise) on the card, with and without the pre-net, held by the
+    witness rule against the float32 plain version with the bf16 plain
+    version as the witness; one launch counted per call; two calls
+    bit-equal."""
+    cfg, dec = _prenet_decoder(cuda, 6, layers=2)
+    if not prenet:
+        cfg = CFG(hidden=32, layers=2, heads=2, dropout=0.0, attn_window_size=8)
+        dec2 = EdgeDiffusionDecoder(cfg).to(cuda).eval()
+        dec2.load_state_dict({k: v for k, v in dec.state_dict().items()
+                              if not k.startswith("pre_conv")})
+        dec = dec2
+    steps = 4 if loop == "ddim" else 50
+    a32, a16 = _loop16_args(cuda, dec, loop, 2, 40, 80, steps)
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction)
+    run, plain = ((fd.fused_ddim, fd.fused_ddim_plain) if loop == "ddim"
+                  else (fd.fused_ddpm, fd.fused_ddpm_plain))
+    if loop == "ddpm":
+        kw["noise"] = torch.from_numpy(np.random.RandomState(9).randn(2, 50, 80, 80)
+                                       .astype(np.float32)).to(cuda)
+    before = run.launches, run.bf16_launches
+    got = run(*a16, compute_dtype=BF16, **kw)
+    again = run(*a16, compute_dtype=BF16, **kw)
+    torch.cuda.synchronize()
+    assert (run.launches, run.bf16_launches) == (before[0], before[1] + 2)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    _witness16(f"{loop} {prediction} prenet={prenet}", got,
+               plain(*a16, compute_dtype=BF16, **kw), plain(*a32, **kw),
+               strict=prediction == "v" or loop == "ddpm")
+
+
+def _attention_inputs(cuda, B, H, T, S, d, seed):
+    """q, k, v [B, H, T or S, d] at bf16 for ``step_attention``: q at a
+    quarter scale (the softmax near uniform), v alternating in sign over
+    the keys, so that the output cancels and the probabilities' rounding
+    shows above the output's own."""
+    g = torch.Generator().manual_seed(seed)
+    q = 0.25 * torch.randn(B, H, T, d, generator=g)
+    k = torch.randn(B, H, S, d, generator=g)
+    sign = (-1.0) ** torch.arange(S, dtype=torch.float32)[:, None]
+    v = sign * (1.0 + 0.25 * torch.rand(B, H, S, d, generator=g))
+    return (t.to(cuda).to(BF16) for t in (q, k, v))
+
+
+STEP_ATTENTION_CASES = [(2, 2, 80, 80, 16, 8), (2, 2, 80, 40, 16, None), (1, 4, 500, 500, 40, 64),
+                        (1, 4, 500, 250, 40, None), (2, 2, 200, 200, 64, 8)]
+
+
+@pytest.mark.parametrize("B,H,T,S,d,window", STEP_ATTENTION_CASES)
+def test_step_attention_bf16_rounds_p_as_the_tpu_kernel(cuda, B, H, T, S, d, window):
+    """The bf16 step's attention alone against ``_attention_rounded`` (P
+    normalised, then rounded to bf16 before PV, the output rounded) and
+    the float32 attention on the same bf16 values.  The kernel rounds each
+    probability against its thread's running max instead (a thread's
+    first key weighs exactly 1, so short rows round less), so it is held
+    two-sided: from float32 between 0.45 and 1.25 times the plain
+    version's distance (on the H100 0.56-0.90; with P left in float32,
+    0.25-0.31), and within 2 times that distance of the plain version
+    (1.15-1.36)."""
+    q, k, v = _attention_inputs(cuda, B, H, T, S, d, seed=T + S + d)
+    mask = None
+    if window is not None:
+        i = torch.arange(T, device=cuda)
+        mask = (i[:, None] - torch.arange(S, device=cuda)[None, :]).abs() <= window
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    exact = fd._attention_rounded(q32, k32, v32, torch.float32, mask)
+    plain = fd._attention_rounded(q32, k32, v32, BF16, mask).to(BF16)
+    before = fd.step_attention.launches
+    got = fd.step_attention(q, k, v, window, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert fd.step_attention.launches == before + 1 and got.dtype == BF16
+    e_k, e_p, e_kp = _rel(got, exact), _rel(plain, exact), _rel(got, plain)
+    print(f"step attention bf16 {B, H, T, S, d, window}: kernel {e_k:.4g} from float32, "
+          f"plain {e_p:.4g}, kernel vs plain {e_kp:.4g}")
+    assert 0.45 * e_p <= e_k <= 1.25 * e_p, (e_k, e_p)
+    assert e_kp <= 2.0 * e_p, (e_kp, e_p)
+    assert torch.equal(got, fd.step_attention(q, k, v, window, compute_dtype=BF16))
+
+
+@pytest.mark.parametrize("B,H,T,S,d,window", STEP_ATTENTION_CASES)
+def test_step_attention_float32_matches_plain(cuda, B, H, T, S, d, window):
+    """The float32 step's attention alone against the plain attention: atol
+    1e-5, rtol 1e-5; the hook refuses a bf16 tensor at float32 compute."""
+    q, k, v = (t.float() for t in _attention_inputs(cuda, B, H, T, S, d, seed=T + S + d))
+    mask = None
+    if window is not None:
+        i = torch.arange(T, device=cuda)
+        mask = (i[:, None] - torch.arange(S, device=cuda)[None, :]).abs() <= window
+    got = fd.step_attention(q, k, v, window)
+    torch.cuda.synchronize()
+    want = fd._attention_rounded(q, k, v, torch.float32, mask)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="k:"):
+        fd.step_attention(q, k.to(BF16), v, window)
+
+
+@pytest.mark.parametrize("loop", ["ddim", "ddpm"])
+def test_fused_loops_bf16_launch_35_or_38_kernels_per_step(cuda, loop):
+    """The bf16 step runs the float32 step's launches: 35 at 4 layers, 38
+    with the pre-net."""
+    cfg, dec = _prenet_decoder(cuda, 2, layers=4)
+    B, S, T, steps = 1, 8, 16, 3
+    sem_idx = torch.zeros(B, S, dtype=torch.long, device=cuda)
+    x_T = torch.zeros(B, T, 80, device=cuda)
+    ts = list(range(steps - 1, -1, -1))
+    pre = fd.pack_decoder_weights(dec, BF16)
+    plain = {k: v for k, v in pre.items() if k not in fd.PRENET_NAMES}
+    li = fd.prepare_loop_inputs(dec, sem_idx, T, ts)
+    coef = (fd.ddim_coefficients(DiffusionSchedule.create(1000), steps)[1] if loop == "ddim"
+            else fd.ddpm_coefficients(DiffusionSchedule.create(steps))).to(cuda)
+    run = fd.fused_ddim if loop == "ddim" else fd.fused_ddpm
+    for w, per_step in ((pre, 38), (plain, 35)):
+        before = fd.kernel_launches()
+        run(x_T, li["pos"], li["mods"], li["ckv"].to(BF16), coef, w, heads=cfg.heads,
+            window=cfg.attn_window_size, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        assert fd.kernel_launches() - before == steps * per_step
+
+
+@pytest.mark.parametrize("B,T", [(2, 41), (1, 500)])
+def test_decoder_prenet_bf16_matches_plain(cuda, B, T):
+    """The pre-net's kernels with the pointwise GEMM at bf16 against the
+    plain version at bf16 (the same rounded operands; the GroupNorm's float32
+    sums in two orders): atol 1e-4."""
+    _, dec = _prenet_decoder(cuda, 5)
+    w = fd.pack_decoder_weights(dec, BF16)
+    h = torch.from_numpy(np.random.RandomState(T).randn(B, T, 32).astype(np.float32)).to(cuda)
+    pos = dec.pos_emb.table[:T].contiguous()
+    got = fd.decoder_prenet(h, pos, w, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fd.decoder_prenet_plain(h, pos, w, BF16), atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="pc_pw"):
+        fd.decoder_prenet(h, pos, w)  # bf16 weights, float32 compute
+
+
+def test_fused_generate_mel_bf16_on_the_card_launches_the_bf16_kernel(cuda):
+    """The entry point at bf16 on CUDA tensors launches the bf16 loop (no
+    plain or float32 fallback), and refuses float16."""
+    cfg, dec = _prenet_decoder(cuda, 3)
+    sched = DiffusionSchedule.create(1000).to(cuda)
+    sem_idx = torch.zeros(1, 10, dtype=torch.long, device=cuda)
+    x_T = torch.randn(1, 20, 80, device=cuda)
+    before = fd.fused_ddim.launches, fd.fused_ddim.bf16_launches
+    mel = fd.fused_generate_mel(cfg, sched, dec, sem_idx, x_T, 4, compute_dtype=BF16)
+    assert (fd.fused_ddim.launches, fd.fused_ddim.bf16_launches) == (before[0], before[1] + 1)
+    assert mel.dtype == torch.float32 and torch.isfinite(mel).all()
+    with pytest.raises(ValueError, match="float16"):
+        fd.fused_generate_mel(cfg, sched, dec, sem_idx, x_T, 4, compute_dtype=torch.float16)

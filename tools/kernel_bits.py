@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Fingerprints of the port's kernels' outputs at seeded inputs, to show that
+a change leaves them bit for bit.
+
+On a machine with one NVIDIA GPU, from the root of a checkout:
+
+    python3 tools/kernel_bits.py OUT.json
+    python3 tools/kernel_bits.py --compare A.json B.json
+
+The first form runs, at fixed seeded inputs, the band kernel (three shapes
+and the strided [B, T, H, d] call), the decoder-step GEMM in each variant
+at four shapes, the pre-net's kernels, the fused DDIM loop (B=1, S=250, 4
+steps, eps and v; the default decoder and configs/flagship.json's with the
+pre-net), the fused DDPM loop (50 steps, injected and Philox noise, both
+decoders) and the conv frontend (float32 and bf16 at [1, 80000] and
+[4, 32000]), and writes {case: sha256 of the output's bytes}.  It calls only
+entry points whose float32 signatures are those of earlier commits, so a
+copy of this file run inside an older checkout fingerprints that
+checkout's kernels.  The second form prints the cases whose fingerprints
+differ and exits 1 if any does.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _decoder(torch, cfg, seed: int):
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder
+
+    torch.manual_seed(seed)
+    dec = EdgeDiffusionDecoder(cfg)
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.02 * torch.randn(p.shape))
+    return dec.to("cuda").eval()
+
+
+def fingerprints(torch) -> dict:
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.models.hubert import FeatureExtractor, HubertConfig
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.ops import window_attention as wa
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+
+    out = {}
+    rng = np.random.RandomState(0)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(np.float32)).cuda()
+
+    for B, T in ((1, 500), (1, 4000), (2, 4000)):
+        q, k, v = t(B, 4, T, 40), t(B, 4, T, 40), t(B, 4, T, 40)
+        out[f"band [{B},4,{T},40]"] = _digest(wa.banded_attention(q, k, v, 64))
+    qkv = t(2, 4000, 3, 4, 40)
+    qs, ks, vs = qkv.permute(2, 0, 3, 1, 4)
+    out["band strided bthd"] = _digest(wa.banded_attention(qs, ks, vs, 64, out_layout="bthd"))
+    q = t(2, 2, 1000, 48)
+    out["band seq_len"] = _digest(wa.banded_attention(q, q, q, 200, seq_len=900))
+
+    for M, N, K in ((500, 480, 160), (2000, 160, 160), (500, 80, 80), (77, 160, 320)):
+        a, w, w2 = t(M, K), t(N, K, scale=K ** -0.5), t(2 * N, K, scale=K ** -0.5)
+        cases = {
+            "plain": (w, {}), "bias_pos": (w, dict(bias=t(N), pos=t(50, N))),
+            "residual": (w, dict(residual=t(M, N))),
+            "swiglu": (w2, dict(bias=t(2 * N), swiglu=True)),
+            "adaln_rms": (w, dict(norm="rms", scale=1 + t(K, scale=0.1), shift=t(K, scale=0.1))),
+            "rms_w": (w, dict(norm="rms", scale=1 + t(K, scale=0.1))),
+            "ln": (w, dict(norm="ln", scale=1 + t(K, scale=0.1), shift=t(K, scale=0.1),
+                           bias=t(N))),
+        }
+        for name, (W, kw) in cases.items():
+            out[f"gemm {name} [{M},{N},{K}]"] = _digest(fd.decoder_gemm(a, W, **kw))
+
+    with open(os.path.join("configs", "flagship.json")) as f:
+        pcfg = CFG.from_dict(dict(json.load(f), dropout=0.0))
+    for tag, cfg, seed in (("", CFG(dropout=0.0), 7), (" pre-net", pcfg, 9)):
+        dec = _decoder(torch, cfg, seed)
+        w = fd.pack_decoder_weights(dec)
+        sem_idx = torch.from_numpy(rng.randint(0, 2304, (1, 250))).cuda()
+        x_T = t(1, 500, 80)
+        ts, coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), 4)
+        loop = fd.prepare_loop_inputs(dec, sem_idx, 500, ts)
+        args = (x_T, loop["pos"], loop["mods"], loop["ckv"], coef.cuda(), w)
+        for prediction in ("eps", "v"):
+            out[f"ddim {prediction}{tag}"] = _digest(fd.fused_ddim(
+                *args, heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction))
+        ts = list(range(49, -1, -1))
+        loop = fd.prepare_loop_inputs(dec, sem_idx, 500, ts,
+                                      step_idx=torch.zeros(50, dtype=torch.long))
+        args = (x_T, loop["pos"], loop["mods"], loop["ckv"],
+                fd.ddpm_coefficients(DiffusionSchedule.create(50)).cuda(), w)
+        kw = dict(heads=cfg.heads, window=cfg.attn_window_size)
+        out[f"ddpm injected{tag}"] = _digest(fd.fused_ddpm(*args, noise=t(1, 50, 500, 80), **kw))
+        out[f"ddpm philox{tag}"] = _digest(fd.fused_ddpm(*args, key=(7, 0x5EED), **kw))
+        if cfg.use_depthwise:
+            out["prenet"] = _digest(fd.decoder_prenet(t(2, 41, cfg.hidden), loop["pos"][:41],
+                                                      w))
+
+    torch.manual_seed(3)
+    fe = FeatureExtractor(HubertConfig()).cuda().eval()
+    for dtype in (torch.float32, torch.bfloat16):
+        wts = ff.pack_frontend_weights(fe, dtype)
+        for B, samples in ((1, 80000), (4, 32000)):
+            wav = t(B, samples, scale=0.2)
+            out[f"frontend {dtype} [{B},{samples}]"] = _digest(
+                ff.conv_frontend(wav, wts, compute_dtype=dtype))
+    torch.cuda.synchronize()
+    return out
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--compare"]:
+        a, b = (json.load(open(p)) for p in sys.argv[2:4])
+        differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        for k in differ:
+            print(f"[bits] differs: {k}")
+        print(f"[bits] {len(a) - len(differ)} of {len(a)} cases bit-equal")
+        return 1 if differ else 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_bits: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        fp = fingerprints(torch)
+    with open(sys.argv[1], "w") as f:
+        json.dump(fp, f, indent=1, sort_keys=True)
+    print(f"[bits] {len(fp)} cases -> {sys.argv[1]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
