@@ -9,6 +9,10 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
 
 1. the card (nvidia-smi name and power limit) and the build of every CUDA
    kernel from csrc/ (one nvcc per source, in parallel), with its time;
+   then the loop library's machine code (``cuobjdump --dump-sass``): every
+   instance of the bf16 step GEMM (csrc/gemm_wgmma.cuh) issues warpgroup
+   products (HGMMA) and TMA loads (UTMALDG), every instance of the bf16
+   step attention (csrc/attention16.cuh) tensor-core products (HMMA);
 2. the long-form banded-attention kernel (csrc/band_attention.cu) against
    its plain version at [1,4,500,40], [1,4,4000,40] and [2,4,4000,40],
    window 64, atol 2e-5, and at T=4000 on strided views of a [B, T, 3, H, d]
@@ -55,11 +59,21 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    shape (CUDA events), the bf16 plain version's, the bound (every product
    at 989 TFLOP/s, since each takes bf16 operands; the time with the
    attention at the float32 FMA rate, as this kernel runs it, beside it);
-   without the pre-net
-   each step GEMM's bf16 variant alone (the step's operand and output
-   dtypes; 1e-3 normwise of the bf16 plain version) beside
-   ``F.linear`` on the same bf16 operands, at 500 and 4,000 rows, with the
-   float32 GEMMs at 4,000 rows;
+   each bf16 call's kernels by kind (``kernel_launches(kind)``, set to 0
+   just before the entry point and read just after: 2L tensor-core
+   attentions per step, its 2 + 6L GEMMs, one more with the pre-net, in the
+   wgmma kernel or gemm16_kernel); without the pre-net each step GEMM's
+   bf16 variant alone (the step's operand and output dtypes; 1e-3 normwise
+   of the bf16 plain version) in the host's tile, in the mma.sync kernel's
+   own (``gemm16_kernel`` and its own rule) and in the wgmma kernel's
+   own, beside ``F.linear`` on the same bf16 operands and the wgmma kernel
+   in every tile, at 500 and 4,000 rows, with the float32 GEMMs at 4,000
+   rows; and the step's attentions alone (``step_attention``: the
+   self-attention and the cross-attention at B rows of T=500, S=250), the
+   tensor-core kernel beside the float32-FMA kernel the bf16 step ran
+   before and band-masked ``scaled_dot_product_attention`` on the same
+   bf16 q, k, v, held to ``_attention_rounded`` by the two-sided witness
+   bars (0.5-1.25 of its distance from float32, within 2 of it);
 4. the main path at configs/flagship.json's decoder (the pre-net on, v
    prediction): ``EdgeInference(backend="fused").generate_mel`` answers
    three requests; outputs finite, one fused launch per request; the two
@@ -123,7 +137,8 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    1000-step float32 plain run with the bf16 plain version as the witness,
    two-sided (normwise: the trajectory magnifies every rounding flip), its
    ms beside
-   the float32 kernel's, the bf16 plain version's, the bound;
+   the float32 kernel's, the bf16 plain version's, the bound; the bf16
+   entry point's kernels counted by kind as phase 3's;
 9. serving: ``serving.run_server`` from a port checkpoint (build/
    serve_checkpoint: the flagship decoder and the phase-7 encoder) on
    127.0.0.1, buckets (128, 256), ``max_batch`` 8, long-form with 2
@@ -354,10 +369,18 @@ rows, ``conv_frontend_bf16`` (phase 6b), and ``fused_ddim_bf16`` (phase 3,
 configs/flagship.json's decoder at B=1, v, whose error is the kernel's
 where eps's is its clipped trajectory's; launches: the bf16 entry point's
 six counted calls), ``banded_attention_bf16`` (phase 2; launches:
-phase 5's bf16 call) and ``fused_ddpm_bf16`` (phase 8).
+phase 5's bf16 call) and ``fused_ddpm_bf16`` (phase 8); then the bf16
+step's own two kernels, ``step_gemm_wgmma`` (csrc/gemm_wgmma.cuh) and
+``step_attention16`` (csrc/attention16.cuh): launches by kind in phases 3
+and 8's bf16 entry-point calls (asserted nonzero), the numbers one decoder
+step's 2 + 6L GEMMs (the wgmma kernel in its own tile) and 2L attentions
+at B=8 (4,000 rows, phase 3), each beside its plain version and the one
+PyTorch call per product (``F.linear``; ``scaled_dot_product_attention``)
+summed the same way.
 
 Prints one ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
-line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
+line ``{"ok": true, "device": {...}}``.  ``--gemm16-timers`` runs instead
+the per-block clock stamps of the bf16 step GEMMs (``gemm16_timers``).  Exits non-zero, printing no result,
 without a CUDA device, without the port package beside it, or on any
 failed check.  The ptxas report of the build goes to build/chip_smoke_build.log.
 """
@@ -492,7 +515,39 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
                 print(f"[build] {name}: {line.strip()}")
+    sass_check(_build.library_path("fused_ddim"))
     return seconds
+
+
+def sass_check(lib: str) -> None:
+    """The built loop library's machine code (``cuobjdump --dump-sass``):
+    every instance of the bf16 step GEMM (``gemm_wgmma_kernel``) issues
+    warpgroup products (HGMMA) and TMA loads (UTMALDG), every instance of
+    the bf16 step attention (``attention16_kernel``) tensor-core products
+    (HMMA); fails otherwise."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = dict(HGMMA=0, UTMALDG=0, HMMA=0)
+        elif name is not None:
+            for op in counts[name]:
+                if f" {op}." in line or f" {op} " in line:
+                    counts[name][op] += 1
+    gemms = {n: c for n, c in counts.items() if "gemm_wgmma_kernel" in n}
+    attns = {n: c for n, c in counts.items() if "attention16_kernel" in n}
+    assert gemms and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in gemms.values()), gemms
+    assert attns and all(c["HMMA"] > 0 for c in attns.values()), attns
+    print(f"[build] sass: {len(gemms)} gemm_wgmma_kernel instances, HGMMA per instance "
+          f"{sorted({c['HGMMA'] for c in gemms.values()})}, UTMALDG "
+          f"{sorted({c['UTMALDG'] for c in gemms.values()})}; {len(attns)} attention16_kernel "
+          f"instances, HMMA {sorted({c['HMMA'] for c in attns.values()})}")
 
 
 def band_inputs(torch, B, H, T, d, seed):
@@ -801,13 +856,18 @@ def phase_fused_bf16(torch, cfg, decoder, schedule, seed: int, B: int = 1) -> di
     a16 = (x_T, loop["pos"], loop["mods"], loop["ckv"].to(bf16), coef, w16)
     kw = dict(heads=cfg.heads, window=cfg.attn_window_size)
     out = {}
+    kinds = dict.fromkeys(fd.KERNEL_KINDS, 0)
     for prediction in ("eps", "v"):
         fd.fused_ddim.launches = fd.fused_ddim.bf16_launches = 0
+        fd.zero_kernel_launches()
         entry = fd.fused_generate_mel(cfg, schedule, decoder, sem_idx, x_T, steps, prediction,
                                       compute_dtype=bf16)
         torch.cuda.synchronize()
         launches = fd.fused_ddim.bf16_launches
         assert (fd.fused_ddim.launches, launches) == (0, 1), "the bf16 entry point's launch"
+        got_kinds = {k: fd.kernel_launches(k) for k in kinds}
+        check_kinds(f"{tag} {prediction}", cfg, steps, got_kinds)
+        kinds = {k: kinds[k] + n for k, n in got_kinds.items()}
         got = fd.fused_ddim(*a16, prediction=prediction, compute_dtype=bf16, **kw)
         assert torch.equal(entry, got), f"{tag} {prediction}: entry point != fused_ddim"
         assert torch.equal(got, fd.fused_ddim(*a16, prediction=prediction, compute_dtype=bf16,
@@ -844,13 +904,25 @@ def phase_fused_bf16(torch, cfg, decoder, schedule, seed: int, B: int = 1) -> di
     # The kernels row reads v: after eps's clipped first step the bf16 and
     # float32 trajectories part, so eps's largest difference is the
     # trajectory's, not the kernel's.
-    out["v"].update(bound_ms=bound_ms, bound_by=bound_by,
+    out["v"].update(bound_ms=bound_ms, bound_by=bound_by, kinds=kinds,
                     launches=out["eps"]["launches"] + out["v"]["launches"])
     if not cfg.use_depthwise:
-        step_gemms(torch, cfg, B * T, loop, w16, bf16)
+        out["v"]["gemms"] = step_gemms16(torch, cfg, B * T, loop, w16)
+        out["v"]["attention"] = step_attention16(torch, cfg, B)
         if B > 1:  # the float32 GEMMs at these rows, for the comparison
             step_gemms(torch, cfg, B * T, loop, w32)
     return out["v"]
+
+
+def check_kinds(label: str, cfg, steps: int, kinds: dict) -> None:
+    """Hold one bf16 loop call's kernels (``kernel_launches(kind)``, set to
+    0 just before it): 2L tensor-core attentions per step, and its 2 + 6L
+    GEMMs (one more with the pre-net) split between the wgmma kernel and
+    gemm16_kernel by the tile rule."""
+    gemms = steps * (2 + 6 * cfg.layers + (1 if cfg.use_depthwise else 0))
+    assert kinds["attention16"] == steps * 2 * cfg.layers, f"{label}: {kinds}"
+    assert kinds["gemm_wgmma"] + kinds["gemm16"] == gemms, f"{label}: {kinds}"
+    print(f"[{label}] bf16 kernels launched: {kinds}")
 
 
 def prenet_alone(torch, cfg, rows: int, loop, w, step_ms: float) -> float:
@@ -877,69 +949,204 @@ def prenet_alone(torch, cfg, rows: int, loop, w, step_ms: float) -> float:
     return us
 
 
-def step_gemms(torch, cfg, rows: int, loop, w, compute_dtype=None):
-    """Each GEMM of the decoder step alone at ``rows`` rows, layer 0's
-    weights: held to its plain version, and its device time (``graph_ms``)
-    in the host's tile beside ``F.linear``'s at the same shape.  At bf16
-    ``compute_dtype`` (``w`` packed at bf16) the bf16 variant with the
-    step's operand and output dtypes (bf16 attention and SwiGLU outputs in,
-    bf16 q/k/v, cross q and SwiGLU output out), held normwise (1e-3) to the
-    bf16 plain version, beside ``F.linear`` on the same bf16 operands."""
-    import torch.nn.functional as F
+def step_gemm_shapes(cfg, rows: int, loop, w, low: bool, rng):
+    """The decoder step's eight GEMMs at ``rows`` rows, layer 0's weights:
+    (name, a, W, kwargs, how many a step runs) with random activations from
+    ``rng``; at bf16 (``low``, ``w`` packed at bf16) the step's operand and
+    output dtypes (bf16 attention and SwiGLU outputs in; bf16 q/k/v, cross q
+    and SwiGLU output out)."""
+    import torch
 
-    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
-
-    H, M, FF = cfg.hidden, cfg.n_mels, cfg.hidden * cfg.ffn_mult
-    rng = np.random.RandomState(5000 + SEED)
-    low = compute_dtype is not None
+    H, M, FF, L = cfg.hidden, cfg.n_mels, cfg.hidden * cfg.ffn_mult, cfg.layers
 
     def act(n):
         return torch.from_numpy(rng.randn(rows, n).astype(np.float32)).to(DEVICE)
 
     x, h, ao, f = act(M), act(H), act(H), act(FF)
     if low:
-        ao, f = ao.to(compute_dtype), f.to(compute_dtype)
+        ao, f = ao.to(torch.bfloat16), f.to(torch.bfloat16)
     m0 = loop["mods"][0, 0]
     shapes = [
-        ("in_proj (+bias +pos)", x, w["in_w"], dict(bias=w["in_b"], pos=loop["pos"])),
+        ("in_proj (+bias +pos)", x, w["in_w"], dict(bias=w["in_b"], pos=loop["pos"]), 1),
         ("qkv (AdaLN-RMS prologue)", h, w["qkv_w"][0], dict(norm="rms", scale=m0[0],
-                                                            shift=m0[1])),
+                                                            shift=m0[1]), L),
         ("attn proj (+bias +residual)", ao, w["proj_w"][0], dict(bias=w["proj_b"][0],
-                                                                residual=h)),
+                                                                residual=h), L),
         ("cross q (RMS x n2w prologue)", h, w["cq_w"][0], dict(norm="rms",
-                                                              scale=w["n2w"][0])),
-        ("cross out (+residual)", ao, w["co_w"][0], dict(residual=h)),
+                                                              scale=w["n2w"][0]), L),
+        ("cross out (+residual)", ao, w["co_w"][0], dict(residual=h), L),
         ("fc1 (AdaLN-RMS prologue, SwiGLU)", h, w["fc1_w"][0], dict(
-            bias=w["fc1_b"][0], norm="rms", scale=m0[2], shift=m0[3], swiglu=True)),
-        ("fc2 (+bias +residual)", f, w["fc2_w"][0], dict(bias=w["fc2_b"][0], residual=h)),
+            bias=w["fc1_b"][0], norm="rms", scale=m0[2], shift=m0[3], swiglu=True), L),
+        ("fc2 (+bias +residual)", f, w["fc2_w"][0], dict(bias=w["fc2_b"][0], residual=h), L),
         ("out_proj (LayerNorm prologue, +bias)", h, w["out_w"], dict(
-            bias=w["out_b"], norm="ln", scale=w["fn_s"], shift=w["fn_b"])),
+            bias=w["out_b"], norm="ln", scale=w["fn_s"], shift=w["fn_b"]), 1),
     ]
-    for name, a, W, kw in shapes:
-        if low:  # the step writes q/k/v, the cross q and the SwiGLU output in bf16
-            kw = dict(kw, compute_dtype=compute_dtype,
-                      out_dtype=compute_dtype if name.startswith(("qkv", "cross q", "fc1"))
-                      else torch.float32)
+    if low:
+        bf16 = torch.bfloat16
+        shapes = [(name, a, W, dict(kw, compute_dtype=bf16, out_dtype=bf16 if name.startswith(
+            ("qkv", "cross q", "fc1")) else torch.float32), n) for name, a, W, kw, n in shapes]
+    return shapes
+
+
+def step_gemms(torch, cfg, rows: int, loop, w):
+    """Each float32 GEMM of the decoder step alone at ``rows`` rows: held to
+    its plain version, and its device time (``graph_ms``) in the host's tile
+    beside ``F.linear``'s at the same shape."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+
+    rng = np.random.RandomState(5000 + SEED)
+    for name, a, W, kw, _ in step_gemm_shapes(cfg, rows, loop, w, False, rng):
         got = fd.decoder_gemm(a, W, **kw)
         torch.cuda.synchronize()
+        torch.testing.assert_close(got, fd.decoder_gemm_plain(a, W, **kw), atol=1e-5, rtol=1e-5)
+        n, K = got.shape[-1], a.shape[1]
+        bm, bn = fd.decoder_gemm_tile(rows, n)
+        us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, **kw))
+        lin_us = 1e3 * graph_ms(torch, lambda: F.linear(a, W))
+        bound_us = 1e3 * bound(2 * rows * W.shape[0] * K, 0)[0]
+        print(f"[gemm] {name}: M={rows} N={n} K={K}: {us:.3f} us, tile {bm}x{bn}, "
+              f"{-(-rows // bm) * -(-n // bn)} blocks; F.linear (torch.float32) {lin_us:.3f} us; "
+              f"ops bound {bound_us:.3f} us")
+
+
+def gemm16_work(a, W, kw, out) -> tuple:
+    """One bf16 step GEMM's work for its bound: (its products' FLOP, the
+    bytes of its operands (a, W, the epilogue's rows, each read once) and of
+    its output (written once))."""
+    rows, K = a.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (a, W, out, *(
+        kw.get(k) for k in ("bias", "pos", "residual", "scale", "shift"))) if t is not None)
+    return 2 * rows * W.shape[0] * K, nbytes
+
+
+def step_gemms16(torch, cfg, rows: int, loop, w16) -> dict:
+    """Each bf16 GEMM of the decoder step alone at ``rows`` rows (layer 0's
+    weights, the step's operand and output dtypes), held normwise (1e-3) to
+    the bf16 plain version in the host's tile, in the mma.sync kernel's own
+    tile (``gemm16_kernel`` and its own rule) and in the wgmma kernel's
+    own tile; the device µs of each (``graph_ms``) beside ``F.linear`` on
+    the same bf16 operands, the wgmma kernel in every tile that fits, and
+    the bound.  Returns the step's sums (its 2 + 6L GEMMs) in ms: the host's
+    pick, the mma.sync kernel, the wgmma kernel, the plain version, F.linear
+    and the bound, with the largest error."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+
+    tiles = fd.gemm16_tiles()
+    rng = np.random.RandomState(5000 + SEED)
+    tot = dict(host=0.0, mma=0.0, wgmma=0.0, plain=0.0, linear=0.0, err=0.0)
+    flops = nbytes = 0
+    print(f"[gemm-bf16] M={rows}: µs by graph replay, host's pick / mma.sync "
+          "(gemm16_kernel, its rule) / wgmma (its rule) / F.linear on the bf16 operands; every "
+          "wgmma tile, 64 rows x BNW columns x WGS warpgroups")
+    for name, a, W, kw, per_step in step_gemm_shapes(cfg, rows, loop, w16, True, rng):
         pkw = {k: v for k, v in kw.items() if k != "out_dtype"}
         want = fd.decoder_gemm_plain(a, W, **pkw)
-        if low:  # a bf16 output against the plain version's float32 sum rounded once
+        n, K = want.shape[-1], a.shape[1]
+        picks = {rule: fd.decoder_gemm16_tile(rows, n, rule, a.dtype, kw.get("swiglu", False))
+                 for rule in ("host", "mma", "wgmma")}
+        us = {}
+        for rule, tile in picks.items():
+            got = fd.decoder_gemm(a, W, tile=tile, **kw)
+            torch.cuda.synchronize()
             e = _rel(got, want.to(got.dtype))
-            assert e <= 1e-3, f"bf16 gemm {name}: {e} from the bf16 plain version"
-        else:
-            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-        n, K = got.shape[-1], a.shape[1]
-        bm, bn = fd.decoder_gemm_tile(rows, n, compute_dtype or torch.float32)
-        us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, **kw))
+            assert e <= 1e-3, f"bf16 gemm {name} in tile {tiles[tile]}: {e} from the bf16 plain"
+            tot["err"] = max(tot["err"], (got.float() - want).abs().max().item())
+            us[rule] = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, tile=tile, **kw))
+        sweep = []
+        for tile, (bm, bn, kind, wgs) in enumerate(tiles):
+            if kind != "wgmma":
+                continue
+            try:
+                t_us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, tile=tile, **kw))
+            except RuntimeError:  # this tile's shared memory does not fit
+                continue
+            sweep.append(f"{bn // wgs}x{wgs}:{t_us:.3f}")
         a_lin = a.to(W.dtype)
         lin_us = 1e3 * graph_ms(torch, lambda: F.linear(a_lin, W))
-        bound_us = 1e3 * bound(2 * rows * W.shape[0] * K, 0,
-                               BF16_PEAK_FLOPS if low else F32_PEAK_FLOPS)[0]
-        print(f"[gemm{'-bf16' if low else ''}] {name}: M={rows} N={n} K={K}: {us:.3f} us, tile "
-              f"{bm}x{bn}, {-(-rows // bm) * -(-n // bn)} blocks; F.linear ({W.dtype}) "
-              f"{lin_us:.3f} us; ops bound {bound_us:.3f} us" +
-              (f"; vs bf16 plain {e:.3g}" if low else ""))
+        plain_us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm_plain(a, W, **pkw), n=10)
+        work = gemm16_work(a, W, kw, want.to(kw["out_dtype"]))
+        b_ms, b_by = bound(*work, BF16_PEAK_FLOPS)
+        flops, nbytes = flops + per_step * work[0], nbytes + per_step * work[1]
+        for key, v in (("host", us["host"]), ("mma", us["mma"]), ("wgmma", us["wgmma"]),
+                       ("plain", plain_us), ("linear", lin_us)):
+            tot[key] += per_step * v / 1e3
+        print(f"[gemm-bf16] {name}: M={rows} N={n} K={K}: {us['host']:.3f} (tile "
+              f"{tiles[picks['host']]}) / {us['mma']:.3f} ({tiles[picks['mma']]}) / "
+              f"{us['wgmma']:.3f} ({tiles[picks['wgmma']]}) / F.linear {lin_us:.3f}; wgmma "
+              f"host/F.linear {us['host'] / lin_us:.2f}x; bound {1e3 * b_ms:.3f} us ({b_by}); "
+              f"wgmma BNWxWGS:us {' '.join(sweep)}")
+    tot["bound"], tot["bound_by"] = bound(flops, nbytes, BF16_PEAK_FLOPS)
+    print(f"[gemm-bf16] M={rows}: one step's {2 + 6 * cfg.layers} GEMMs: host's pick "
+          f"{tot['host']:.5f} ms, mma.sync {tot['mma']:.5f}, wgmma {tot['wgmma']:.5f}, "
+          f"F.linear {tot['linear']:.5f}, bound {tot['bound']:.5f} ({tot['bound_by']})")
+    return tot
+
+
+def step_attention16(torch, cfg, B: int) -> dict:
+    """The bf16 step's attentions alone (``step_attention``) at B rows of
+    T = 500, S = 250 (the flagship heads): the self-attention (window
+    ``cfg.attn_window_size``) and the cross-attention, each the tensor-core
+    kernel (csrc/attention16.cuh) / the float32-FMA kernel the step ran
+    before (``fma=True``) / band-masked ``scaled_dot_product_attention`` on
+    the same bf16 q, k, v (a yardstick), device µs by graph replay, and the
+    bound; each held to ``_attention_rounded`` (P normalised, then
+    rounded) by the witness rule's two-sided bars against the float32
+    attention on the same values.  Returns one step's sums in ms (L of
+    each) and the largest error against the plain version."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+
+    bf16 = torch.bfloat16
+    heads, d, w, T, S = cfg.heads, cfg.hidden // cfg.heads, cfg.attn_window_size, 500, 250
+    g = torch.Generator().manual_seed(7000 + B)
+    tot = dict(ms=0.0, fma=0.0, plain=0.0, library=0.0, err=0.0)
+    flops = nbytes = 0
+    i = torch.arange(T, device=DEVICE)
+    for kind, tk, window in (("self", T, w), ("cross", S, None)):
+        q, k, v = (torch.randn(B, heads, n, d, generator=g).to(DEVICE).to(bf16)
+                   for n in (T, tk, tk))
+        mask = None
+        if window is not None:
+            mask = (i[:, None] - torch.arange(tk, device=DEVICE)[None, :]).abs() <= window
+        got = fd.step_attention(q, k, v, window, compute_dtype=bf16)
+        old = fd.step_attention(q, k, v, window, compute_dtype=bf16, fma=True)
+        torch.cuda.synchronize()
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        exact = fd._attention_rounded(q32, k32, v32, torch.float32, mask)
+        plain = fd._attention_rounded(q32, k32, v32, bf16, mask).to(bf16)
+        e_k, e_p, e_kp = _rel(got, exact), _rel(plain, exact), _rel(got, plain)
+        assert WITNESS_FLOOR * e_p <= e_k <= 1.25 * e_p and e_kp <= 2.0 * e_p, (
+            f"step attention {kind} B={B}: kernel {e_k} from float32, plain {e_p}, "
+            f"kernel vs plain {e_kp}")
+        tot["err"] = max(tot["err"], (got.float() - plain.float()).abs().max().item())
+        us = 1e3 * graph_ms(torch, lambda: fd.step_attention(q, k, v, window, compute_dtype=bf16))
+        fma_us = 1e3 * graph_ms(torch, lambda: fd.step_attention(q, k, v, window,
+                                                                 compute_dtype=bf16, fma=True))
+        sdpa_us = 1e3 * graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+        plain_us = 1e3 * graph_ms(torch, lambda: fd._attention_rounded(
+            q32, k32, v32, bf16, mask), n=10)
+        pairs = band_pairs(T, window, tk) if window is not None else T * tk
+        work = (B * heads * 4 * d * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()))
+        b_ms, b_by = bound(*work, BF16_PEAK_FLOPS)
+        flops, nbytes = flops + cfg.layers * work[0], nbytes + cfg.layers * work[1]
+        for key, val in (("ms", us), ("fma", fma_us), ("plain", plain_us), ("library", sdpa_us)):
+            tot[key] += cfg.layers * val / 1e3
+        print(f"[attn-bf16] {kind} B={B} T={T} keys={tk} heads={heads} d={d}: tensor cores "
+              f"{us:.3f} us / float32 FMA (before) {fma_us:.3f} / SDPA (masked) {sdpa_us:.3f}; "
+              f"bound {1e3 * b_ms:.4f} us ({b_by}); witness: kernel {e_k:.4g} from float32, "
+              f"plain {e_p:.4g}, kernel vs plain {e_kp:.4g} (FMA kernel "
+              f"{_rel(old, exact):.4g})")
+    tot["bound"], tot["bound_by"] = bound(flops, nbytes, BF16_PEAK_FLOPS)
+    print(f"[attn-bf16] B={B}: one step's {2 * cfg.layers} attentions: tensor cores "
+          f"{tot['ms']:.5f} ms, float32 FMA {tot['fma']:.5f}, SDPA {tot['library']:.5f}, bound "
+          f"{tot['bound']:.5f} ({tot['bound_by']})")
+    return tot
 
 
 def v_rule(label: str, got, want) -> float:
@@ -1502,6 +1709,7 @@ def phase_ddpm(torch, cfg, decoder, pre_decoder):
     bf16 = torch.bfloat16
     sched = DiffusionSchedule.create(cfg.diff_steps).to(dev)
     fd.fused_ddpm.launches = fd.fused_ddpm.bf16_launches = 0
+    fd.zero_kernel_launches()
     t0 = time.perf_counter()
     entry16 = fd.fused_ddpm_sample(cfg, sched, decoder, sem_idx, x_T, compute_dtype=bf16,
                                    generator=torch.Generator(device=DEVICE).manual_seed(SEED))
@@ -1509,6 +1717,8 @@ def phase_ddpm(torch, cfg, decoder, pre_decoder):
     call16_ms = (time.perf_counter() - t0) * 1e3
     launches16 = fd.fused_ddpm.bf16_launches
     assert (fd.fused_ddpm.launches, launches16) == (0, 1), "the bf16 DDPM entry point's launch"
+    kinds16 = {k: fd.kernel_launches(k) for k in fd.KERNEL_KINDS}
+    check_kinds("ddpm-bf16 entry point", cfg, cfg.diff_steps, kinds16)
     assert torch.equal(entry16, fd.fused_ddpm_sample(
         cfg, sched, decoder, sem_idx, x_T, compute_dtype=bf16,
         generator=torch.Generator(device=DEVICE).manual_seed(SEED))), "bf16 DDPM per seed"
@@ -1540,7 +1750,7 @@ def phase_ddpm(torch, cfg, decoder, pre_decoder):
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bf16=dict(launches=launches16, max_abs_err=err16, ms=ms16, plain_ms=plain16_ms,
-                          bound_ms=bound16, bound_by=bound16_by))
+                          bound_ms=bound16, bound_by=bound16_by, kinds=kinds16))
 
 
 def synthetic_wav(seconds: float, seed: int, sr: int = 16000) -> np.ndarray:
@@ -3712,10 +3922,102 @@ def run(torch) -> None:
                                          "bound_ms", "bound_by")},
          "library_ms": None},
     ]
+    # The bf16 step's two kernels of their own (phases 3 and 8: launches by
+    # the bf16 entry points, counted by kind); the numbers are one decoder
+    # step's GEMMs (2 + 6L) and attentions (2L) at B=8, 4,000 rows (phase 3).
+    gemms, attn = fused16[(False, 8)]["gemms"], fused16[(False, 8)]["attention"]
+
+    def kind_launches(kind):
+        return sum(r["kinds"][kind] for r in fused16.values()) + ddpm["bf16"]["kinds"][kind]
+
+    kernels += [
+        {"name": "step_gemm_wgmma", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/gemm_wgmma.cuh",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
+         "launches": kind_launches("gemm_wgmma"), "max_abs_err": gemms["err"],
+         "ms": gemms["wgmma"], "plain_ms": gemms["plain"], "bound_ms": gemms["bound"],
+         "bound_by": gemms["bound_by"], "library_ms": gemms["linear"]},
+        {"name": "step_attention16", "route": "cuda",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/attention16.cuh",
+         "replaces": "edge_diffusion_tts_tpu/ops/fused_denoise.py:127",
+         "launches": kind_launches("attention16"), "max_abs_err": attn["err"],
+         "ms": attn["ms"], "plain_ms": attn["plain"], "bound_ms": attn["bound"],
+         "bound_by": attn["bound_by"], "library_ms": attn["library"]},
+    ]
+    for k in kernels[-2:]:
+        assert k["launches"] > 0, f"{k['name']}: no launch on the bf16 main paths"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+GEMM16_TIMER_PHASES = ("issue", "epilogue loads", "prologue", "first stage", "products",
+                       "epilogue")
+
+
+def gemm16_timers(torch) -> None:
+    """``python3 chip_smoke.py --gemm16-timers``: the bf16 step GEMMs of phase
+    3 at 500 and 4,000 rows in the wgmma kernel's own tile (gemm16_kernel has
+    no stamps), from the loop library built with gemm.cuh's per-block clock stamps
+    (-DEDT_GEMM_TIMERS, into build/gemm16_timers/): per launch its
+    CUDA-graph µs, the span and median of its blocks' wall times (ns
+    stamps), and the median cycles of each phase of a block's thread 0
+    (gemm_wgmma_kernel: the TMA issue, the epilogue's loads, the float32
+    prologue, the wait for the first stage, the products, the epilogue)."""
+    import ctypes
+
+    from edge_diffusion_tts_tpu_torch import _build
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+
+    out = os.path.join(ROOT, "build", "gemm16_timers")
+    os.makedirs(out, exist_ok=True)
+    lib_path = os.path.join(out, "libtimers.so")
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DEDT_GEMM_TIMERS", "-o",
+                           lib_path, str(_build.CSRC / "fused_ddim.cu")],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc of the timed GEMM failed:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    load = _build.load
+    _build.load = lambda name: lib
+    try:
+        fd._lib.__wrapped__()  # sets the hooks' argtypes on the timer library
+    finally:
+        _build.load = load
+    fd._lib = lambda: lib
+    lib.edt_gemm_timers.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    tiles = fd.gemm16_tiles()
+    cfg = CFG(dropout=0.0)
+    decoder = seeded_decoder(torch, cfg, SEED).to(DEVICE)
+    ts, _ = fd.ddim_coefficients(DiffusionSchedule.create(cfg.diff_steps), 4)
+    sem_idx = torch.zeros(1, 250, dtype=torch.long, device=DEVICE)
+    loop = fd.prepare_loop_inputs(decoder, sem_idx, 500, ts)
+    w16 = fd.pack_decoder_weights(decoder, torch.bfloat16)
+    stamps = np.zeros((8192, 8), np.int64)
+    for rows in (500, 4000):
+        rng = np.random.RandomState(5000 + SEED)
+        for name, a, W, kw, _ in step_gemm_shapes(cfg, rows, loop, w16, True, rng):
+            n = W.shape[0] // (2 if kw.get("swiglu") else 1)
+            sw = kw.get("swiglu", False)
+            tile = fd.decoder_gemm16_tile(rows, n, "wgmma", a.dtype, sw)
+            host = tile == fd.decoder_gemm16_tile(rows, n, "host", a.dtype, sw)
+            bm, bn = tiles[tile][:2]
+            for _ in range(3):  # the last launch's stamps are read
+                fd.decoder_gemm(a, W, tile=tile, **kw)
+            torch.cuda.synchronize()
+            blocks = -(-rows // bm) * -(-n // bn)
+            _build.check(lib.edt_gemm_timers(stamps.ctypes.data, blocks), "gemm timers")
+            t = stamps[:min(blocks, len(stamps))]
+            us = 1e3 * graph_ms(torch, lambda: fd.decoder_gemm(a, W, tile=tile, **kw))
+            cycles = ", ".join(f"{p} {int(np.median(t[:, 2 + i]))}"
+                               for i, p in enumerate(GEMM16_TIMER_PHASES))
+            print(f"[gemm16 timers] {name} M={rows} tile {tiles[tile]}"
+                  f"{' (the host pick)' if host else ''}, {blocks} blocks: {us:.3f} us in a CUDA "
+                  f"graph, span {(t[:, 1].max() - t[:, 0].min()) / 1e3:.2f} us, block median "
+                  f"{np.median(t[:, 1] - t[:, 0]) / 1e3:.2f} us; median cycles: {cycles}")
 
 
 def main() -> int:
@@ -3729,7 +4031,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        run(torch)
+        if "--gemm16-timers" in sys.argv[1:]:
+            with torch.no_grad():
+                gemm16_timers(torch)
+        else:
+            run(torch)
     except Exception:  # any failed phase: report it and print no result
         traceback.print_exc()
         return 1

@@ -47,8 +47,10 @@
 // max and divides by the float32 sum of the unrounded p at the end (the
 // plain version rounds where the TPU kernel does; the two differ by a
 // rounding of each weight).  The products are float32 FMA on the widened
-// values (a product of two bf16 values is exact in float32): tensor cores
-// here are later work.
+// values (a product of two bf16 values is exact in float32).  The bf16
+// decoder step runs attention16.cuh's tensor-core kernel instead; this
+// variant stays as the yardstick it is timed against (edt_step_attention's
+// `fma` argument).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,7 +1,8 @@
 // bfloat16 device helpers shared by the kernels' bf16 variants: the
 // tensor-core fragments (ldmatrix loads of 8 x 8 b16 tiles from shared
-// memory and the mma.sync m16n8k16 product with float32 sums; used by
-// conv_frontend.cu's conv_slab_bf16_kernel and gemm.cuh's bf16 GEMM), loads
+// memory, plain or transposed, and the mma.sync m16n8k16 product with
+// float32 sums; used by conv_frontend.cu's conv_slab_bf16_kernel, gemm.cuh's
+// bf16 GEMM and attention16.cuh's step attention), loads
 // that widen bf16 to float32, and stores that round float32 to bf16 (RNE,
 // as `.astype`).  Each float32 overload is the plain load or store.
 #pragma once
@@ -27,6 +28,22 @@ __device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(s));
+}
+
+// Four tiles transposed: lane l receives elements (2 (l % 4), l / 4) and
+// (2 (l % 4) + 1, l / 4) of each 8 x 8 tile.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Two floats rounded to bf16 (RNE) in one 32-bit register, a in the low
+// half: an mma operand's pair of adjacent elements.
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate.

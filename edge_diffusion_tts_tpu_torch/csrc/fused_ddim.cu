@@ -68,8 +68,10 @@
 // The bf16 variant (the `bf16` argument; the TPU kernels' compute_dtype
 // bfloat16) runs the same launches: every GEMM in gemm.cuh's bf16 variant
 // (both operands of each product rounded to bf16, float32 sums, on tensor
-// cores), both attentions in attention.cuh's (bf16 q/k/v and cross K/V
-// widened to float32, P rounded to bf16 before it weights v).  The weights
+// cores: gemm_wgmma.cuh's wgmma + TMA kernel or gemm16_kernel's mma.sync,
+// by the tile rule), both attentions in attention16.cuh's kernel (bf16
+// q/k/v and cross K/V, S and PV on mma.sync, the softmax in float32, P
+// normalised and then rounded to bf16 before it weights v).  The weights
 // of the products and the cross K/V come packed in bf16; q/k/v, the
 // attention outputs, the cross q and the SwiGLU output live in bf16 in the
 // workspace (each feeds only products, so storing it rounded is the same
@@ -92,6 +94,7 @@
 #include <stdint.h>
 
 #include "attention.cuh"
+#include "attention16.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -363,10 +366,12 @@ long long g_launches = 0;  // kernels this library launched (edt_kernel_launches
     EDT_TRY(call);       \
   } while (0)
 
-// The step's attention tile: 16 query rows x 4 threads per block (the bits
-// of a 64-row tile, on 4x the blocks).
+// The step's attention: float32 in attention.cuh's tile of 16 query rows x 4
+// threads per block (the bits of a 64-row tile, on 4x the blocks); bf16 on
+// tensor cores (attention16.cuh).
 int attention(const edt::AttnArgs& a, int batch, cudaStream_t st) {
-  return edt::launch_attention<16, 4>(a, batch, st);
+  return a.bf16 ? edt::launch_attention16(a, batch, st)
+                : edt::launch_attention<16, 4>(a, batch, st);
 }
 
 // A GEMM over the step's rows: C [rows, N] = A [rows, K] W^T, no extras, in
@@ -499,7 +504,25 @@ extern "C" long long edt_fused_ddim_workspace(int B, int T, int H, int F, int M,
 // edt_step_attention).
 extern "C" long long edt_kernel_launches() { return g_launches; }
 
-// The decoder step's GEMM alone (gemm.cuh), as a test and timing hook:
+// Launches of one bf16 kernel since the last edt_zero_kernel_launches:
+// kind 1 gemm_wgmma_kernel, 2 gemm16_kernel, 3 attention16_kernel (-1 for
+// another kind).
+extern "C" long long edt_kernel_launches_of(int kind) {
+  switch (kind) {
+    case 1: return edt::g_wgmma_launches;
+    case 2: return edt::g_mma16_launches;
+    case 3: return edt::g_attn16_launches;
+    default: return -1;
+  }
+}
+
+extern "C" void edt_zero_kernel_launches() {
+  edt::g_wgmma_launches = edt::g_mma16_launches = edt::g_attn16_launches = 0;
+}
+
+// The decoder step's GEMM alone (gemm.cuh), as a test and timing hook, in
+// tile `tile` of the bf16 variant's list (edt_gemm_bf16_tile_shape; < 0:
+// the host's pick, as the decoder step takes it):
 // C [M, N] = P(A) W^T (+bias) (SwiGLU if swiglu) (+pos[m % pos_rows])
 // (+R), P the RMS (ln = 0) or LayerNorm (ln = 1) row norm with norm_scale
 // (and norm_shift if non-null) when norm_scale is non-null.  A [M, K] and W
@@ -510,7 +533,7 @@ extern "C" int edt_decoder_gemm(const void* A, const void* W, const float* bias,
                                 const float* pos, const float* R, void* C,
                                 const float* norm_scale, const float* norm_shift, int M, int N,
                                 int K, int pos_rows, int swiglu, int ln, int bf16, int a_bf16,
-                                int c_bf16, void* stream) {
+                                int c_bf16, int tile, void* stream) {
   edt::GemmArgs g;
   g.A = A;
   g.W = W;
@@ -529,7 +552,7 @@ extern "C" int edt_decoder_gemm(const void* A, const void* W, const float* bias,
   g.bf16 = bf16;
   g.a_bf16 = a_bf16;
   g.c_bf16 = c_bf16;
-  EDT_LAUNCH(edt::gemm(g, (cudaStream_t)stream));
+  EDT_LAUNCH(edt::gemm(g, (cudaStream_t)stream, tile));
   return 0;
 }
 
@@ -550,15 +573,12 @@ extern "C" int edt_decoder_prenet(const float* hin, float* out, float* work, con
   return prenet(p, hin, out, d1, d2, pos, B, T, H, bf16, (cudaStream_t)stream);
 }
 
-// The step's attention alone (attention.cuh in the step's tile), as a test
-// hook: o [B, heads, tq, d] = softmax(q k^T / sqrt(d)) v over the keys j of
-// row i with |i - j| <= window (every key for a window < 0, the
-// cross-attention), q [B, heads, tq, d], k and v [B, heads, tk, d], all
-// contiguous, float32, or bf16 with bf16 (P rounded to bf16 before PV, o
-// bf16).  Returns a cudaError_t.
-extern "C" int edt_step_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                  int heads, int tq, int tk, int d, int window, int bf16,
-                                  void* stream) {
+namespace {
+
+// The AttnArgs of contiguous q [B, heads, tq, d], k and v [B, heads, tk, d]
+// and o [B, heads, tq, d] (every key for a window < 0).
+edt::AttnArgs hook_attention(const void* q, const void* k, const void* v, void* o, int heads,
+                             int tq, int tk, int d, int window, int bf16) {
   edt::AttnArgs a;
   a.q = q;
   a.k = k;
@@ -577,24 +597,77 @@ extern "C" int edt_step_attention(const void* q, const void* k, const void* v, v
   a.kv_len = tk;
   a.scale = (float)pow((double)d, -0.5);
   a.bf16 = bf16;
-  EDT_LAUNCH(attention(a, B, (cudaStream_t)stream));
+  return a;
+}
+
+}  // namespace
+
+// The step's attention alone (attention.cuh in the step's tile, or
+// attention16.cuh's kernel with bf16), as a test hook: o [B, heads, tq, d] =
+// softmax(q k^T / sqrt(d)) v over the keys j of row i with |i - j| <=
+// window (every key for a window < 0, the cross-attention), q [B, heads,
+// tq, d], k and v [B, heads, tk, d], all contiguous, float32, or bf16 with
+// bf16 (P normalised, then rounded to bf16 before PV, o bf16).  Returns a
+// cudaError_t.
+extern "C" int edt_step_attention(const void* q, const void* k, const void* v, void* o, int B,
+                                  int heads, int tq, int tk, int d, int window, int bf16,
+                                  void* stream) {
+  EDT_LAUNCH(attention(hook_attention(q, k, v, o, heads, tq, tk, d, window, bf16), B,
+                       (cudaStream_t)stream));
+  return 0;
+}
+
+// edt_step_attention in attention.cuh's float32-FMA kernel at either dtype
+// (with bf16 the variant the bf16 step ran before attention16.cuh: P rounded
+// against a thread's running max), kept as a yardstick.
+extern "C" int edt_step_attention_fma(const void* q, const void* k, const void* v, void* o, int B,
+                                      int heads, int tq, int tk, int d, int window, int bf16,
+                                      void* stream) {
+  const edt::AttnArgs a = hook_attention(q, k, v, o, heads, tq, tk, d, window, bf16);
+  EDT_LAUNCH((edt::launch_attention<16, 4>(a, B, (cudaStream_t)stream)));
   return 0;
 }
 
 // The rows and columns (bm_bn[0], bm_bn[1]) of the output tile the host
 // picks for an M x N output of edt_decoder_gemm and the decoder step, in
-// the float32 kernel or (bf16) the bf16 variant, whose launch takes a
-// smaller tile where this one's shared memory would not fit.
+// the float32 kernel or (bf16) the bf16 variant from a float32 A, no SwiGLU
+// (whose launch takes gemm16_kernel's tile where the wgmma tile's shared
+// memory would not fit).
 extern "C" void edt_decoder_gemm_tile(int M, int N, int bf16, int* bm_bn) {
   if (bf16) {
-    const int tile = edt::gemm16_pick_tile(M, N);
-    bm_bn[0] = edt::GEMM16_TILE_BM[tile];
-    bm_bn[1] = edt::GEMM16_TILE_BN[tile];
+    const int tile = edt::gemm_bf16_pick_tile(M, N, false, false);
+    bm_bn[0] = edt::bf16_tile_bm(tile);
+    bm_bn[1] = edt::bf16_tile_bn(tile);
     return;
   }
   const int tile = edt::gemm_pick_tile(M, N);
   bm_bn[0] = edt::GEMM_TILE_BM[tile];
   bm_bn[1] = edt::GEMM_TILE_BN[tile];
+}
+
+// The index in the bf16 variant's tile list of the tile picked for an M x N
+// output (SwiGLU's where swiglu) from a float32 (a_bf16 0) or bf16 A by the
+// host's rule (which 0), by gemm16_kernel's own rule (1: the mma.sync
+// kernel alone) or by gemm_wgmma_kernel's own (2).
+extern "C" int edt_gemm_bf16_tile(int M, int N, int a_bf16, int swiglu, int which) {
+  switch (which) {
+    case 0: return edt::gemm_bf16_pick_tile(M, N, a_bf16, swiglu);
+    case 1: return edt::gemm16_pick_tile(M, N);
+    case 2: return edt::wgmma_pick_tile(M, a_bf16, swiglu);
+    default: return -1;
+  }
+}
+
+// Tile `tile` of the bf16 variant's list: out = (rows, columns, 1 for the
+// wgmma kernel or 0 for gemm16_kernel, warpgroups of 128 threads); returns
+// the list's length, or -1 past its end.
+extern "C" int edt_gemm_bf16_tile_shape(int tile, int* out) {
+  if (tile < 0 || tile >= edt::GEMM_BF16_NTILES) return -1;
+  out[0] = edt::bf16_tile_bm(tile);
+  out[1] = edt::bf16_tile_bn(tile);
+  out[2] = edt::bf16_tile_wgmma(tile);
+  out[3] = edt::bf16_tile_wgs(tile);
+  return edt::GEMM_BF16_NTILES;
 }
 
 #ifdef EDT_GEMM_TIMERS

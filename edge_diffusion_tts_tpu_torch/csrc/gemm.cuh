@@ -149,17 +149,6 @@ inline long long gemm_blocks(int tile, int M, int N) {
          ((N + GEMM_TILE_BN[tile] - 1) / GEMM_TILE_BN[tile]);
 }
 
-inline int sm_count() {
-  static int n[kMaxDevices] = {};
-  const int dev = current_device();
-  if (dev < 0) return 132;
-  if (n[dev] <= 0 &&
-      (cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-       n[dev] <= 0))
-    n[dev] = 132;
-  return n[dev];
-}
-
 // The tile the host picks for an M x N output.
 inline int gemm_pick_tile(int M, int N) {
   for (int t = 0; t < GEMM_NTILES; ++t)
@@ -460,6 +449,8 @@ inline long long gemm16_blocks(int tile, int M, int N) {
          ((N + GEMM16_TILE_BN[tile] - 1) / GEMM16_TILE_BN[tile]);
 }
 
+inline long long g_mma16_launches = 0;  // launches of gemm16_kernel
+
 // The float32 kernel's rule: the largest tile whose grid fills every SM,
 // else the smallest.
 inline int gemm16_pick_tile(int M, int N) {
@@ -641,7 +632,9 @@ int launch_gemm16_tile(const GemmArgs& g, int smem, cudaStream_t st) {
   }
   const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
   kernel<<<grid, GEMM_THREADS, smem, st>>>(g);
-  return (int)cudaGetLastError();
+  const int e = (int)cudaGetLastError();
+  if (!e) ++g_mma16_launches;
+  return e;
 }
 
 template <bool SWIGLU, bool A16, bool C16>
@@ -663,33 +656,93 @@ int launch_gemm16_io(const GemmArgs& g, int tile, int smem, cudaStream_t st) {
                   : launch_gemm16_sw<SWIGLU, false, false>(g, tile, smem, st);
 }
 
-// One launch of the bf16 variant, in the tile the host picks (a smaller one
-// where its shared memory would not fit).  cudaErrorInvalidValue for what
-// it does not take: K % 8 (16-byte bf16 rows), A, W, scale and shift not
-// 16-byte aligned, a norm on a bf16 A, or no tile that fits.
-inline int gemm16(const GemmArgs& g, cudaStream_t st) {
+}  // namespace edt
+
+#include "gemm_wgmma.cuh"  // the wgmma kernel, which uses the definitions above
+
+namespace edt {
+
+// The bf16 variant's tiles: 0 .. 3 gemm16_kernel's (mma.sync; 64x64, 32x64,
+// 32x32, 16x32), then gemm_wgmma_kernel's (wgmma; 64 rows x WG_TILE_BNW
+// columns x WG_TILE_WGS warpgroups: 64 x 96, 64 x 160, 64 x 16).
+constexpr int GEMM_BF16_NTILES = GEMM16_NTILES + WG_NTILES;
+inline bool bf16_tile_wgmma(int t) { return t >= GEMM16_NTILES; }
+inline int bf16_tile_bm(int t) { return bf16_tile_wgmma(t) ? WG_BM : GEMM16_TILE_BM[t]; }
+// Warpgroups (128 threads) of a block: gemm16_kernel's tiles take one.
+inline int bf16_tile_wgs(int t) {
+  return bf16_tile_wgmma(t) ? WG_TILE_WGS[t - GEMM16_NTILES] : 1;
+}
+inline int bf16_tile_bn(int t) {
+  return bf16_tile_wgmma(t) ? WG_TILE_BNW[t - GEMM16_NTILES] * bf16_tile_wgs(t)
+                            : GEMM16_TILE_BN[t];
+}
+
+// Shared bytes of tile t's launch.
+inline int gemm_bf16_smem(int t, int K, bool swiglu, bool norm, bool a_f32) {
+  if (bf16_tile_wgmma(t))
+    return wgmma_smem_bytes(WG_TILE_BNW[t - GEMM16_NTILES], bf16_tile_wgs(t), K, swiglu, a_f32);
+  return gemm16_smem_bytes(t, K, swiglu, norm, a_f32);
+}
+
+// The wgmma kernel's own rule: 64 x 16 in one warpgroup for a bf16 A under
+// 1,024 rows (no prologue: the most blocks), else four warpgroups, 64 x 96,
+// or 64 x 160 for SwiGLU (its value and gate rows, 320 of W, in one tile).
+inline int wgmma_pick_tile(int M, bool a_bf16, bool swiglu) {
+  return GEMM16_NTILES + (M < 1024 && a_bf16 ? 2 : swiglu ? 1 : 0);
+}
+
+// The tile the host picks for an M x N output of the bf16 variant from an A
+// of float32 (a_bf16 false) or bf16, by measurement on the H100 (PERF.md,
+// chip_smoke.py phase 3): the wgmma kernel's, but gemm16_kernel's (its own
+// tile rule) for a float32 A under 1,024 rows, where a 64-row block's
+// float32 prologue measured slower than its 16- and 32-row tiles.
+inline int gemm_bf16_pick_tile(int M, int N, bool a_bf16, bool swiglu) {
+  if (!a_bf16 && M < 1024) return gemm16_pick_tile(M, N);
+  return wgmma_pick_tile(M, a_bf16, swiglu);
+}
+
+// One launch of the bf16 variant in tile `tile` (< 0: the host's pick, and
+// gemm16_kernel's pick where the wgmma tile's shared memory would not fit,
+// then its next narrower tile while that one's would not).  cudaErrorInvalidValue for what it does not take: K % 8 (16-byte
+// bf16 rows), A, W, scale and shift not 16-byte aligned, a norm on a bf16
+// A, a tile that does not exist or does not fit.
+inline int gemm16(const GemmArgs& g, cudaStream_t st, int tile) {
   const bool norm = g.norm_scale != nullptr;
   if (g.K <= 0 || g.K % 8 || g.pos_rows <= 0 || (norm && g.a_bf16) ||
+      tile >= GEMM_BF16_NTILES ||
       ((uintptr_t)g.A | (uintptr_t)g.W | (uintptr_t)g.norm_scale | (uintptr_t)g.norm_shift) % 16)
     return (int)cudaErrorInvalidValue;
-  int tile = gemm16_pick_tile(g.M, g.N);
-  int smem = gemm16_smem_bytes(tile, g.K, g.swiglu, norm, !g.a_bf16);
-  while (smem > GEMM_MAX_SMEM && tile + 1 < GEMM16_NTILES)
-    smem = gemm16_smem_bytes(++tile, g.K, g.swiglu, norm, !g.a_bf16);
+  const auto smem_of = [&](int t) { return gemm_bf16_smem(t, g.K, g.swiglu, norm, !g.a_bf16); };
+  int smem;
+  if (tile >= 0) {
+    smem = smem_of(tile);
+  } else {
+    tile = gemm_bf16_pick_tile(g.M, g.N, g.a_bf16, g.swiglu);
+    smem = smem_of(tile);
+    if (smem > GEMM_MAX_SMEM && bf16_tile_wgmma(tile)) {
+      tile = gemm16_pick_tile(g.M, g.N);
+      smem = smem_of(tile);
+    }
+    while (smem > GEMM_MAX_SMEM && tile + 1 < GEMM16_NTILES) smem = smem_of(++tile);
+  }
   if (smem > GEMM_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (bf16_tile_wgmma(tile))
+    return g.swiglu ? launch_wgmma_sw<true>(g, tile - GEMM16_NTILES, smem, st)
+                    : launch_wgmma_sw<false>(g, tile - GEMM16_NTILES, smem, st);
   return g.swiglu ? launch_gemm16_io<true>(g, tile, smem, st)
                   : launch_gemm16_io<false>(g, tile, smem, st);
 }
 
-// One GEMM launch, in the tile the host picks: the bf16 variant where
-// g.bf16, else the float32 kernel.  Returns a cudaError_t:
-// cudaErrorInvalidValue for a shape or alignment the kernel does not take
-// (K % 4, 16-byte A and W, shared memory; bf16 A or C without g.bf16).
-inline int gemm(const GemmArgs& g, cudaStream_t st) {
+// One GEMM launch, in the tile the host picks (or, for the bf16 variant,
+// `tile` >= 0 of its list): the bf16 variant where g.bf16, else the
+// float32 kernel.  Returns a cudaError_t: cudaErrorInvalidValue for a shape
+// or alignment the kernel does not take (K % 4, 16-byte A and W, shared
+// memory; bf16 A or C without g.bf16; a tile for the float32 kernel).
+inline int gemm(const GemmArgs& g, cudaStream_t st, int tile = -1) {
   if (g.M <= 0 || g.N <= 0) return 0;
-  if (g.bf16) return gemm16(g, st);
-  if (g.a_bf16 || g.c_bf16) return (int)cudaErrorInvalidValue;
-  int tile = gemm_pick_tile(g.M, g.N);
+  if (g.bf16) return gemm16(g, st, tile);
+  if (g.a_bf16 || g.c_bf16 || tile >= 0) return (int)cudaErrorInvalidValue;
+  tile = gemm_pick_tile(g.M, g.N);
 #ifdef EDT_GEMM_TIMERS
   if (g_gemm_forced_tile >= 0) tile = g_gemm_forced_tile;
 #endif

@@ -6,8 +6,9 @@ self-attention of ``EfficientAttention`` routes to the banded-attention
 kernel (ops/window_attention.py) on the same conditions as the JAX package
 routes to its Pallas kernel.  ``dtype`` is the layers' compute dtype (flax's
 ``dtype``): the projections run at it and the logits and softmax stay
-float32; the banded kernel takes float32 only (a bf16 layer raises there on
-the card, ROADMAP Queue B, B3.4).
+float32; on the card the banded kernel takes a bf16 layer's q, k and v as
+they are (float32 inside, the output rounded to bf16, as JAX's kernel),
+through its bf16 instances (ops/window_attention.py).
 """
 
 from __future__ import annotations

@@ -31,8 +31,10 @@ fit VMEM beside the weights), and the sampler's coefficients.
 
 ``compute_dtype=torch.bfloat16`` is the TPU kernels' ``compute_dtype``:
 both operands of every product rounded to bf16 and the sums in float32
-(the kernels' bf16 variant, on tensor cores: ``csrc/gemm.cuh``,
-``csrc/attention.cuh``); the residual stream, the norms, the softmax, the
+(the kernels' bf16 variant, on tensor cores: the step GEMM of
+``csrc/gemm_wgmma.cuh`` (wgmma, TMA) or ``csrc/gemm.cuh``'s
+``gemm16_kernel`` (mma.sync) by the tile rule, the attention of
+``csrc/attention16.cuh``); the residual stream, the norms, the softmax, the
 biases, the AdaLN table and the updates stay float32.  The products'
 weights and the cross K/V are packed in bf16 (rounding once is rounding at
 every use).  Float32 is the default everywhere, as in the JAX package.
@@ -446,12 +448,22 @@ def _lib() -> ctypes.CDLL:
     lib.edt_fused_ddim.restype = ctypes.c_int
     lib.edt_fused_ddpm.argtypes = [p] * 29 + [i] * 11 + [ctypes.c_uint] * 2 + [i, p]
     lib.edt_fused_ddpm.restype = ctypes.c_int
-    lib.edt_decoder_gemm.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.edt_decoder_gemm.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.edt_decoder_gemm.restype = ctypes.c_int
+    lib.edt_gemm_bf16_tile.argtypes = [i] * 5
+    lib.edt_gemm_bf16_tile.restype = ctypes.c_int
+    lib.edt_gemm_bf16_tile_shape.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.edt_gemm_bf16_tile_shape.restype = ctypes.c_int
+    lib.edt_kernel_launches_of.argtypes = [i]
+    lib.edt_kernel_launches_of.restype = ctypes.c_longlong
+    lib.edt_zero_kernel_launches.argtypes = []
+    lib.edt_zero_kernel_launches.restype = None
     lib.edt_decoder_prenet.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.edt_decoder_prenet.restype = ctypes.c_int
     lib.edt_step_attention.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.edt_step_attention.restype = ctypes.c_int
+    lib.edt_step_attention_fma.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.edt_step_attention_fma.restype = ctypes.c_int
     lib.edt_decoder_gemm_tile.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.edt_decoder_gemm_tile.restype = None
     lib.edt_kernel_launches.argtypes = []
@@ -459,31 +471,79 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def kernel_launches() -> int:
+# The bf16 kernels whose launches the library counts one by one.
+KERNEL_KINDS = {"gemm_wgmma": 1, "gemm16": 2, "attention16": 3}
+
+
+def kernel_launches(kind: Optional[str] = None) -> int:
     """Kernels the loop library has launched in this process (every GEMM,
-    attention, pre-net and update launch, the loops' and the hooks')."""
-    return int(_lib().edt_kernel_launches())
+    attention, pre-net and update launch, the loops' and the hooks'); with
+    ``kind`` (a key of ``KERNEL_KINDS``) the launches of that bf16 kernel
+    alone since ``zero_kernel_launches``: ``gemm_wgmma`` (csrc/
+    gemm_wgmma.cuh), ``gemm16`` (gemm.cuh's mma.sync kernel),
+    ``attention16`` (csrc/attention16.cuh)."""
+    if kind is None:
+        return int(_lib().edt_kernel_launches())
+    if kind not in KERNEL_KINDS:
+        raise ValueError(f"kind {kind!r}: one of {sorted(KERNEL_KINDS)}")
+    return int(_lib().edt_kernel_launches_of(KERNEL_KINDS[kind]))
+
+
+def zero_kernel_launches() -> None:
+    """Set the counts of ``kernel_launches(kind)`` to 0 (not the total)."""
+    _lib().edt_zero_kernel_launches()
 
 
 def decoder_gemm_tile(m: int, n: int, compute_dtype: torch.dtype = torch.float32):
     """``(rows, columns)`` of the output tile the host picks for an m x n
     output of ``decoder_gemm`` and of the decoder step's GEMMs, in the
-    float32 kernel or its bf16 variant."""
+    float32 kernel or its bf16 variant from a float32 A
+    (``decoder_gemm16_tile`` for a bf16 A)."""
     bm_bn = (ctypes.c_int * 2)()
     low = _compute_dtype(compute_dtype, "decoder_gemm_tile") != torch.float32
     _lib().edt_decoder_gemm_tile(m, n, int(low), bm_bn)
     return bm_bn[0], bm_bn[1]
 
 
+# The bf16 variant's rules (``decoder_gemm16_tile``'s ``rule``).
+GEMM16_RULES = {"host": 0, "mma": 1, "wgmma": 2}
+
+
+def gemm16_tiles():
+    """The bf16 variant's tiles, by index: ``(rows, columns, kernel,
+    warpgroups)`` of a block, kernel "mma" (gemm.cuh's ``gemm16_kernel``) or
+    "wgmma" (csrc/gemm_wgmma.cuh), warpgroups of 128 threads."""
+    lib, out, tiles = _lib(), (ctypes.c_int * 4)(), []
+    while lib.edt_gemm_bf16_tile_shape(len(tiles), out) > 0:
+        tiles.append((out[0], out[1], "wgmma" if out[2] else "mma", out[3]))
+    return tiles
+
+
+def decoder_gemm16_tile(m: int, n: int, rule: str = "host",
+                        a_dtype: torch.dtype = torch.float32, swiglu: bool = False) -> int:
+    """The index in ``gemm16_tiles()`` of the tile picked for an m x n output
+    of the bf16 variant (SwiGLU's with ``swiglu``) from an ``a_dtype``
+    (float32 or bf16) A: by the host's rule (the decoder step's), or by the
+    rule of the mma.sync kernel alone ("mma") or of the wgmma
+    kernel alone ("wgmma")."""
+    if rule not in GEMM16_RULES:
+        raise ValueError(f"rule {rule!r}: one of {sorted(GEMM16_RULES)}")
+    return int(_lib().edt_gemm_bf16_tile(m, n, int(a_dtype == torch.bfloat16), int(swiglu),
+                                         GEMM16_RULES[rule]))
+
+
 def decoder_gemm(
     a, w, *, bias=None, pos=None, residual=None, norm: Optional[str] = None,
     scale=None, shift=None, swiglu: bool = False, out=None,
     compute_dtype: torch.dtype = torch.float32, out_dtype: torch.dtype = torch.float32,
+    tile: Optional[int] = None,
 ) -> torch.Tensor:
     """One launch of the decoder step's GEMM (csrc/gemm.cuh), as
     ``decoder_gemm_plain`` computes it; ``out`` may be ``residual`` (updated
     in place, as the step does).  Its tile is the host's pick
-    (``decoder_gemm_tile``).
+    (``decoder_gemm_tile``), or at bf16 ``tile``, an index into
+    ``gemm16_tiles()`` (the launch raises if that tile's shared memory does
+    not fit).
 
     A test and timing hook: it takes CUDA tensors only (contiguous float32,
     a [..., K] with K % 4 == 0, w [N, K] or [2N, K] with ``swiglu``) and
@@ -492,10 +552,12 @@ def decoder_gemm(
     or (without a norm) bf16, the result written at ``out_dtype`` (float32
     or bf16), K % 8 == 0.  Counted in ``decoder_gemm.launches``.
     """
+    low = _compute_dtype(compute_dtype, "decoder_gemm") != torch.float32
+    if tile is not None and not (low and 0 <= tile):
+        raise ValueError(f"tile {tile}: an index into gemm16_tiles(), for bf16 compute only")
     if a.device.type != "cuda":
         raise ValueError(f"decoder_gemm runs on CUDA tensors only, not {a.device} "
                          "(its plain version is decoder_gemm_plain)")
-    low = _compute_dtype(compute_dtype, "decoder_gemm") != torch.float32
     if out_dtype not in COMPUTE_DTYPES or (out_dtype != torch.float32 and not low):
         raise ValueError(f"out_dtype {out_dtype}: float32, or bfloat16 for bf16 compute")
     a_low = a.dtype == torch.bfloat16
@@ -545,7 +607,8 @@ def decoder_gemm(
         err = lib.edt_decoder_gemm(
             a.data_ptr(), w.data_ptr(), ptr(bias), ptr(pos), ptr(residual), out.data_ptr(),
             ptr(scale), ptr(shift), rows, n_out, K, 1 if pos is None else pos.shape[0],
-            int(swiglu), int(norm == "ln"), int(low), int(a_low), int(out_dtype != f32), stream,
+            int(swiglu), int(norm == "ln"), int(low), int(a_low), int(out_dtype != f32),
+            -1 if tile is None else tile, stream,
         )
     decoder_gemm.launches += 1
     _build.check(err, "decoder_gemm")
@@ -609,14 +672,16 @@ decoder_prenet.launches = 0
 
 
 def step_attention(q, k, v, window: Optional[int] = None,
-                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   compute_dtype: torch.dtype = torch.float32, fma: bool = False) -> torch.Tensor:
     """The decoder step's attention kernel alone: q [B, heads, tq, d]
     attends k, v [B, heads, tk, d] over |i - j| <= ``window``, or every key
     with None (the cross-attention).  At bf16 ``compute_dtype`` q, k and v
-    are bf16 and the kernel rounds each probability to bf16 before it
-    weights v, as the bf16 step does (the plain version rounds the
-    normalised P, as the TPU kernel does: ``_attention_rounded``); the
-    output has q's dtype.
+    are bf16 and the tensor-core kernel (csrc/attention16.cuh) rounds the
+    normalised P to bf16 before it weights v, as the TPU kernel and
+    ``_attention_rounded`` do; the output has q's dtype.  ``fma`` launches
+    csrc/attention.cuh's float32-FMA kernel at either dtype instead (at bf16
+    the kernel the bf16 step ran before, which rounds each probability
+    against its thread's running max): a yardstick, never on the main path.
 
     A test and timing hook: contiguous CUDA tensors of the compute dtype
     only; it raises on anything else, CPU tensors included.  Counted in
@@ -637,9 +702,9 @@ def step_attention(q, k, v, window: Optional[int] = None,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().edt_step_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                        out.data_ptr(), B, heads, tq, tk, d,
-                                        -1 if window is None else window, int(low), stream)
+        launch = _lib().edt_step_attention_fma if fma else _lib().edt_step_attention
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, heads, tq, tk,
+                     d, -1 if window is None else window, int(low), stream)
     step_attention.launches += 1
     _build.check(err, "step_attention")
     return out

@@ -623,7 +623,7 @@ def test_parallel_training_refuses_bf16(tmp_path):
         train(cfg, train_loader=[], hubert_cfg=PHC.tiny(), device="cpu")
 
 
-def test_fused_entry_points_refuse_bf16_compute():
+def test_fused_entry_points_take_only_float32_or_bf16():
     """The fused DDIM/DDPM entry points take the JAX functions'
     ``compute_dtype``, float32 or bfloat16 (their bf16 variants,
     tests/test_torch_fused_bf16.py); any other compute dtype raises, naming

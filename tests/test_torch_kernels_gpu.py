@@ -1195,12 +1195,23 @@ GEMM16_CASES = [(v, torch.float32, torch.float32) for v in GEMM_VARIANTS] + [
     (v, BF16, torch.float32) for v in ("plain", "bias_pos", "residual_aliased", "swiglu")] + [
     (v, torch.float32, BF16) for v in GEMM_VARIANTS if v != "residual_aliased"] + [
     (v, BF16, BF16) for v in ("plain", "bias_pos", "swiglu")]
-# Shapes whose output the host gives each tile of the bf16 GEMM on a 132-SM
-# H100 (64x64, 32x64, 32x32, 16x32), and a ragged M with K = 88 (not a
-# multiple of the mma's 16: the staged rows are zero-padded).
-GEMM16_TILE_SHAPES = {(4000, 160, 160): (64, 64), (2000, 160, 160): (32, 64),
-                      (500, 480, 160): (32, 32), (500, 160, 320): (16, 32),
-                      (77, 80, 88): (16, 32)}
+# The bf16 variant's tiles (fd.gemm16_tiles()): gemm16_kernel's four, then the
+# wgmma kernel's three.
+GEMM16_NTILES = 7
+# Shapes whose output the host's rule gives each tile on a 132-SM H100 from
+# a float32 A, (rows, columns, kernel, warpgroups), and a ragged M with K =
+# 88 (not a multiple of the products' 16: the staged rows are zero-padded);
+# GEMM16_CASES's bf16 A and SwiGLU variants reach the other wgmma tiles
+# (GEMM16_RULE_CASES).
+GEMM16_TILE_SHAPES = {(4000, 160, 160): (64, 96, "wgmma", 4), (1000, 640, 160): (64, 64, "mma", 1),
+                      (1000, 320, 160): (32, 64, "mma", 1), (500, 480, 160): (32, 32, "mma", 1),
+                      (500, 160, 320): (16, 32, "mma", 1), (77, 80, 88): (16, 32, "mma", 1)}
+# (M, N, A's dtype, SwiGLU) -> the host's tile.
+GEMM16_RULE_CASES = [(500, 160, BF16, False, (64, 16, "wgmma", 1)),
+                     (77, 80, BF16, False, (64, 16, "wgmma", 1)),
+                     (4000, 160, BF16, False, (64, 96, "wgmma", 4)),
+                     (4000, 320, torch.float32, True, (64, 160, "wgmma", 4)),
+                     (4000, 80, torch.float32, False, (64, 96, "wgmma", 4))]
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1229,33 +1240,96 @@ def _gemm16_close(what, got, want, normed: bool):
         f"{what}: rel {rel:.3g}, {frac:.2e} over the bar, worst {worst:.3g}")
 
 
+def _gemm16_close_rows(what, got, want, normed: bool):
+    """``_gemm16_close`` with its share of elements past the bar counted in
+    rows, for a normed product at any M: a bf16 rounding flip of one A
+    element moves its whole row (1/37 of the output at M = 37), so at most
+    1% of the rows, or one, may leave the elementwise bar; the normwise bar
+    and the 4e-3 ceiling stay."""
+    if not normed:
+        _gemm16_close(what, got, want, normed)
+        return
+    d = (got.float() - want).abs()
+    bar = 1e-5 + 1e-5 * want.abs() + (_bf16_ulp(want) if got.dtype == BF16 else 0.0)
+    rows = (d > bar).reshape(-1, d.shape[-1]).any(-1)
+    want_out = want.to(got.dtype).double()
+    rel = ((got.double() - want_out).norm() / want_out.norm()).item()
+    worst = (d - bar).max().item()
+    assert rel <= 1e-3 and rows.sum().item() <= max(1, rows.numel() // 100) and worst <= 4e-3, (
+        f"{what}: rel {rel:.3g}, {rows.sum().item()} of {rows.numel()} rows over the bar, "
+        f"worst {worst:.3g}")
+
+
+def _check_gemm16(variant, a_dtype, out_dtype, M, N, K, device, tile=None, close=_gemm16_close):
+    """One bf16 GEMM launch (in the host's tile, or ``tile``) against
+    ``decoder_gemm_plain`` at bf16 compute on the same operands (``close``:
+    ``_gemm16_close``), counted once, and the same bits twice."""
+    a, w, kw = _gemm_case(variant, M, N, K, device, seed=M * 7 + N * 3 + K)
+    a, w = a.to(a_dtype), w.to(BF16)
+    want = fd.decoder_gemm_plain(a, w, compute_dtype=BF16, **kw)
+    again = fd.decoder_gemm(a, w, compute_dtype=BF16, out_dtype=out_dtype, tile=tile, **kw)
+    if variant == "residual_aliased":
+        kw["out"] = kw["residual"]  # updated in place, as the decoder step does
+    before = fd.decoder_gemm.launches
+    got = fd.decoder_gemm(a, w, compute_dtype=BF16, out_dtype=out_dtype, tile=tile, **kw)
+    torch.cuda.synchronize()
+    assert fd.decoder_gemm.launches == before + 1
+    assert got.shape == (M, N) and got.dtype == out_dtype
+    close(f"{variant} {a_dtype} -> {out_dtype} [{M},{N},{K}] tile {tile}", got, want, "norm" in kw)
+    assert torch.equal(got, again)  # the same bits twice (and in place)
+
+
 @pytest.mark.parametrize("M,N,K", list(GEMM16_TILE_SHAPES))
 @pytest.mark.parametrize("variant,a_dtype,out_dtype", GEMM16_CASES)
 def test_decoder_gemm_bf16_matches_plain(cuda, variant, a_dtype, out_dtype, M, N, K):
     """The bf16 GEMM (tensor cores) in each prologue and epilogue variant,
-    float32 or bf16 A and C, in every tile, against ``decoder_gemm_plain``
-    at bf16 compute on the same operands."""
-    a, w, kw = _gemm_case(variant, M, N, K, cuda, seed=M * 7 + N * 3 + K)
-    a, w = a.to(a_dtype), w.to(BF16)
-    want = fd.decoder_gemm_plain(a, w, compute_dtype=BF16, **kw)
-    again = fd.decoder_gemm(a, w, compute_dtype=BF16, out_dtype=out_dtype, **kw)
-    if variant == "residual_aliased":
-        kw["out"] = kw["residual"]  # updated in place, as the decoder step does
-    before = fd.decoder_gemm.launches
-    got = fd.decoder_gemm(a, w, compute_dtype=BF16, out_dtype=out_dtype, **kw)
-    torch.cuda.synchronize()
-    assert fd.decoder_gemm.launches == before + 1
-    assert got.shape == (M, N) and got.dtype == out_dtype
-    _gemm16_close(f"{variant} {a_dtype} -> {out_dtype} [{M},{N},{K}]", got, want,
-                  "norm" in kw)
-    assert torch.equal(got, again)  # the same bits twice (and in place)
+    float32 or bf16 A and C, in every tile the host's rule picks, against
+    ``decoder_gemm_plain`` at bf16 compute on the same operands."""
+    _check_gemm16(variant, a_dtype, out_dtype, M, N, K, cuda)
 
 
 def test_decoder_gemm_bf16_tiles(cuda):
+    """The host's rule reaches each tile of GEMM16_TILE_SHAPES and
+    GEMM16_RULE_CASES (on the 132-SM H100), so every tile of the list,
+    which the tests also force by index."""
+    tiles = fd.gemm16_tiles()
+    assert [t[2] for t in tiles] == ["mma"] * 4 + ["wgmma"] * (GEMM16_NTILES - 4)
     if torch.cuda.get_device_properties(0).multi_processor_count != 132:
         pytest.skip("the tile table is the 132-SM H100's")
-    assert {(M, N): fd.decoder_gemm_tile(M, N, BF16) for M, N, _ in GEMM16_TILE_SHAPES} == {
+    assert {(M, N): tiles[fd.decoder_gemm16_tile(M, N)] for M, N, _ in GEMM16_TILE_SHAPES} == {
         (M, N): tile for (M, N, _), tile in GEMM16_TILE_SHAPES.items()}
+    assert {(M, N): fd.decoder_gemm_tile(M, N, BF16) for M, N, _ in GEMM16_TILE_SHAPES} == {
+        (M, N): tile[:2] for (M, N, _), tile in GEMM16_TILE_SHAPES.items()}
+    for M, N, a_dtype, swiglu, tile in GEMM16_RULE_CASES:
+        assert tiles[fd.decoder_gemm16_tile(M, N, "host", a_dtype, swiglu)] == tile, (M, N)
+    reached = {tiles[fd.decoder_gemm16_tile(M, N)] for M, N, _ in GEMM16_TILE_SHAPES}
+    assert reached | {case[-1] for case in GEMM16_RULE_CASES} == set(tiles)
+
+
+# The step's shapes and ragged rows: M x N x K, and SwiGLU at 2 x 320.
+GEMM16_GRID = [(M, N, K) for M in (37, 500, 4000) for N in (80, 160, 480)
+               for K in (80, 160, 320)] + [(M, 320, 160) for M in (37, 500, 4000)]
+
+
+@pytest.mark.parametrize("M,N,K", GEMM16_GRID)
+def test_decoder_gemm_bf16_grid(cuda, M, N, K):
+    """Every case of GEMM16_CASES (SwiGLU alone at N = 320) in the host's
+    tile at the step's shapes, held by ``_gemm16_close_rows``."""
+    for variant, a_dtype, out_dtype in GEMM16_CASES:
+        if N != 320 or variant == "swiglu":
+            _check_gemm16(variant, a_dtype, out_dtype, M, N, K, cuda, close=_gemm16_close_rows)
+
+
+@pytest.mark.parametrize("tile", range(GEMM16_NTILES))
+@pytest.mark.parametrize("M,N,K", [(500, 160, 160), (4000, 480, 160), (77, 80, 88),
+                                   (37, 160, 160)])
+def test_decoder_gemm_bf16_every_tile_index(cuda, tile, M, N, K):
+    """Each tile of the list forced by index (gemm16_kernel's four, the wgmma
+    kernel's three), every case of GEMM16_CASES: the sums do not depend on
+    the tile's shape beyond the bar."""
+    for variant, a_dtype, out_dtype in GEMM16_CASES:
+        _check_gemm16(variant, a_dtype, out_dtype, M, N, K, cuda, tile=tile,
+                      close=_gemm16_close_rows)
 
 
 def test_decoder_gemm_bf16_rejects_what_it_cannot_take(cuda):
@@ -1272,6 +1346,20 @@ def test_decoder_gemm_bf16_rejects_what_it_cannot_take(cuda):
         fd.decoder_gemm(a, w.float(), out_dtype=BF16)
     with pytest.raises(ValueError, match="float16"):
         fd.decoder_gemm(a, w.half(), compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="tile"):
+        fd.decoder_gemm(a, w.float(), tile=0)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):  # no such tile
+        fd.decoder_gemm(a, w, compute_dtype=BF16, tile=GEMM16_NTILES)
+    a, w = torch.zeros(8, 1024, device=cuda), torch.zeros(256, 1024, device=cuda, dtype=BF16)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):  # its shared memory does not fit
+        fd.decoder_gemm(a, w, compute_dtype=BF16, swiglu=True, tile=4)
+    # SwiGLU at K = 320 from a float32 A: the 64 x 160 wgmma tile does not fit
+    # when forced; the host's pick, that tile at 4,000 rows, takes gemm16_kernel.
+    a, w = torch.ones(4000, 320, device=cuda), torch.zeros(640, 320, device=cuda, dtype=BF16)
+    assert fd.gemm16_tiles()[fd.decoder_gemm16_tile(4000, 320, swiglu=True)][2] == "wgmma"
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fd.decoder_gemm(a, w, compute_dtype=BF16, swiglu=True, tile=5)
+    assert bool((fd.decoder_gemm(a, w, compute_dtype=BF16, swiglu=True) == 0).all())
 
 
 def _bf16_band_close(what, got, want):
@@ -1455,13 +1543,11 @@ STEP_ATTENTION_CASES = [(2, 2, 80, 80, 16, 8), (2, 2, 80, 40, 16, None), (1, 4, 
 def test_step_attention_bf16_rounds_p_as_the_tpu_kernel(cuda, B, H, T, S, d, window):
     """The bf16 step's attention alone against ``_attention_rounded`` (P
     normalised, then rounded to bf16 before PV, the output rounded) and
-    the float32 attention on the same bf16 values.  The kernel rounds each
-    probability against its thread's running max instead (a thread's
-    first key weighs exactly 1, so short rows round less), so it is held
-    two-sided: from float32 between 0.45 and 1.25 times the plain
-    version's distance (on the H100 0.56-0.90; with P left in float32,
-    0.25-0.31), and within 2 times that distance of the plain version
-    (1.15-1.36)."""
+    the float32 attention on the same bf16 values, two-sided: from float32
+    between 0.45 and 1.25 times the plain version's distance, and within 2
+    times that distance of the plain version.  The tensor-core kernel
+    rounds the normalised P as the plain version does (on the H100: 1.00
+    and 0-0.03; with P left in float32 the FMA kernel read 0.25-0.31)."""
     q, k, v = _attention_inputs(cuda, B, H, T, S, d, seed=T + S + d)
     mask = None
     if window is not None:
@@ -1480,6 +1566,70 @@ def test_step_attention_bf16_rounds_p_as_the_tpu_kernel(cuda, B, H, T, S, d, win
     assert 0.45 * e_p <= e_k <= 1.25 * e_p, (e_k, e_p)
     assert e_kp <= 2.0 * e_p, (e_kp, e_p)
     assert torch.equal(got, fd.step_attention(q, k, v, window, compute_dtype=BF16))
+
+
+# Self- and cross-attention at heads of 40 and 32 (and 64), T and S not
+# multiples of 16, B up to 8 (four warps a block), a cross-attention over
+# more keys than a warp's registers hold (700: three passes) and one over
+# more than a block stages at once (1100: chunk by chunk).
+STEP_ATTENTION16_CASES = [(1, 4, 500, 500, 40, 64), (1, 4, 500, 250, 40, None),
+                          (2, 4, 77, 77, 40, 64), (2, 4, 77, 29, 40, None),
+                          (1, 5, 133, 133, 32, 8), (1, 5, 133, 251, 32, None),
+                          (8, 4, 500, 500, 40, 64), (8, 4, 500, 250, 40, None),
+                          (1, 2, 130, 700, 40, None), (1, 2, 70, 1100, 64, None),
+                          (2, 2, 45, 45, 24, 0)]
+
+
+@pytest.mark.parametrize("B,H,T,S,d,window", STEP_ATTENTION16_CASES)
+def test_step_attention16_matches_plain(cuda, B, H, T, S, d, window):
+    """The tensor-core step attention (csrc/attention16.cuh) against
+    ``_attention_rounded`` at bf16 on the same bf16 q, k, v: the same
+    roundings in the same order but for the float32 sums of S, the row sum
+    and PV (their order flips an output's rounding, or a probability's on
+    its rounding edge), so normwise within 0.1 of the plain version's
+    distance from float32 (on the H100 0-0.035) and every element within
+    4 bf16 ulps of the larger output plus 2^-8 of the largest |v| (what a
+    probability's flip moves an output by: ulp(p) |v| <= 2^-8 |v| for p <
+    1; these inputs cancel, so an output may sit near 0); counted per kind;
+    the same bits twice."""
+    q, k, v = _attention_inputs(cuda, B, H, T, S, d, seed=3 * T + S + d)
+    mask = None
+    if window is not None:
+        i = torch.arange(T, device=cuda)
+        mask = (i[:, None] - torch.arange(S, device=cuda)[None, :]).abs() <= window
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    plain = fd._attention_rounded(q32, k32, v32, BF16, mask)
+    exact = fd._attention_rounded(q32, k32, v32, torch.float32, mask)
+    fd.zero_kernel_launches()
+    got = fd.step_attention(q, k, v, window, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert fd.kernel_launches("attention16") == 1
+    plain = plain.to(BF16)  # the output rounded once, as the kernel rounds it
+    g, p = got.float(), plain.float()
+    bar = 4 * _bf16_ulp(torch.maximum(g.abs(), p.abs())) + v32.abs().amax() / 256
+    assert bool(((g - p).abs() <= bar).all()), (g - p).abs().max().item()
+    assert _rel(got, plain) <= 0.1 * _rel(plain, exact) + 1e-6
+    assert torch.equal(got, fd.step_attention(q, k, v, window, compute_dtype=BF16))
+
+
+def test_fused_loops_bf16_launch_the_tensor_core_kernels(cuda):
+    """A bf16 DDIM call launches the tensor-core attention 2L times a step
+    and its 2 + 6L GEMMs (one more with the pre-net) in gemm_wgmma_kernel
+    or gemm16_kernel, as the tile rule picks; no float32 kernel."""
+    cfg, dec = _prenet_decoder(cuda, 2, layers=4)
+    B, S, T, steps = 1, 8, 16, 3
+    sem_idx = torch.zeros(B, S, dtype=torch.long, device=cuda)
+    x_T = torch.zeros(B, T, 80, device=cuda)
+    li = fd.prepare_loop_inputs(dec, sem_idx, T, list(range(steps - 1, -1, -1)))
+    coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), steps)[1].to(cuda)
+    fd.zero_kernel_launches()
+    fd.fused_ddim(x_T, li["pos"], li["mods"], li["ckv"].to(BF16), coef,
+                  fd.pack_decoder_weights(dec, BF16), heads=cfg.heads,
+                  window=cfg.attn_window_size, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    kinds = {k: fd.kernel_launches(k) for k in fd.KERNEL_KINDS}
+    assert kinds["attention16"] == steps * 2 * cfg.layers
+    assert kinds["gemm_wgmma"] + kinds["gemm16"] == steps * (3 + 6 * cfg.layers)
 
 
 @pytest.mark.parametrize("B,H,T,S,d,window", STEP_ATTENTION_CASES)

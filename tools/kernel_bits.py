@@ -8,16 +8,20 @@ On a machine with one NVIDIA GPU, from the root of a checkout:
     python3 tools/kernel_bits.py --compare A.json B.json
 
 The first form runs, at fixed seeded inputs, the band kernel (three shapes
-and the strided [B, T, H, d] call), the decoder-step GEMM in each variant
-at four shapes, the pre-net's kernels, the fused DDIM loop (B=1, S=250, 4
-steps, eps and v; the default decoder and configs/flagship.json's with the
-pre-net), the fused DDPM loop (50 steps, injected and Philox noise, both
-decoders) and the conv frontend (float32 and bf16 at [1, 80000] and
-[4, 32000]), and writes {case: sha256 of the output's bytes}.  It calls only
-entry points whose float32 signatures are those of earlier commits, so a
-copy of this file run inside an older checkout fingerprints that
-checkout's kernels.  The second form prints the cases whose fingerprints
-differ and exits 1 if any does.  Imports nothing of JAX.
+and the strided [B, T, H, d] call, float32 and on bf16 q, k, v), the
+decoder-step GEMM in each variant at four shapes, the pre-net's kernels,
+the fused DDIM loop (B=1, S=250, 4 steps, eps and v; the default decoder
+and configs/flagship.json's with the pre-net), the fused DDPM loop (50
+steps, injected and Philox noise, both decoders), the conv frontend
+(float32 and bf16 at [1, 80000] and [4, 32000]), then the bf16 decoder
+step: its GEMM in each variant at the same shapes (a bf16 A where it takes
+one), its attention alone (self and cross, [1, 4, 500, 40]) and the two
+loops at bf16, and writes {case: sha256 of the output's bytes}.  It calls
+only entry points whose signatures are those of earlier commits (for the
+bf16 cases, those since the bf16 variants were ported), so a copy of this
+file run inside an older checkout fingerprints that checkout's kernels.
+The second form prints the cases whose fingerprints differ and exits 1 if
+any does.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +35,12 @@ import numpy as np
 
 
 def _digest(t) -> str:
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    import torch
+
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: hash its bits
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
 
 
 def _decoder(torch, cfg, seed: int):
@@ -67,7 +76,14 @@ def fingerprints(torch) -> dict:
     out["band strided bthd"] = _digest(wa.banded_attention(qs, ks, vs, 64, out_layout="bthd"))
     q = t(2, 2, 1000, 48)
     out["band seq_len"] = _digest(wa.banded_attention(q, q, q, 200, seq_len=900))
+    bf16 = torch.bfloat16
+    for B, T in ((1, 4000), (2, 4000)):
+        q, k, v = (t(B, 4, T, 40).to(bf16) for _ in range(3))
+        out[f"band bf16 [{B},4,{T},40]"] = _digest(wa.banded_attention(q, k, v, 64))
+    out["band bf16 strided bthd"] = _digest(wa.banded_attention(
+        qs.to(bf16), ks.to(bf16), vs.to(bf16), 64, out_layout="bthd"))
 
+    gemm16 = []
     for M, N, K in ((500, 480, 160), (2000, 160, 160), (500, 80, 80), (77, 160, 320)):
         a, w, w2 = t(M, K), t(N, K, scale=K ** -0.5), t(2 * N, K, scale=K ** -0.5)
         cases = {
@@ -81,9 +97,11 @@ def fingerprints(torch) -> dict:
         }
         for name, (W, kw) in cases.items():
             out[f"gemm {name} [{M},{N},{K}]"] = _digest(fd.decoder_gemm(a, W, **kw))
+            gemm16.append((f"{name} [{M},{N},{K}]", a, W, kw))
 
     with open(os.path.join("configs", "flagship.json")) as f:
         pcfg = CFG.from_dict(dict(json.load(f), dropout=0.0))
+    loops16 = []
     for tag, cfg, seed in (("", CFG(dropout=0.0), 7), (" pre-net", pcfg, 9)):
         dec = _decoder(torch, cfg, seed)
         w = fd.pack_decoder_weights(dec)
@@ -106,6 +124,7 @@ def fingerprints(torch) -> dict:
         if cfg.use_depthwise:
             out["prenet"] = _digest(fd.decoder_prenet(t(2, 41, cfg.hidden), loop["pos"][:41],
                                                       w))
+        loops16.append((tag, cfg, dec, sem_idx, x_T))
 
     torch.manual_seed(3)
     fe = FeatureExtractor(HubertConfig()).cuda().eval()
@@ -115,6 +134,35 @@ def fingerprints(torch) -> dict:
             wav = t(B, samples, scale=0.2)
             out[f"frontend {dtype} [{B},{samples}]"] = _digest(
                 ff.conv_frontend(wav, wts, compute_dtype=dtype))
+
+    # The bf16 decoder step: its GEMMs (a bf16 A where there is no norm, the
+    # output bf16 where there is no residual), its attention alone, its loops.
+    for name, a, W, kw in gemm16:
+        a16 = a if "norm" in kw else a.to(bf16)
+        od = torch.float32 if "residual" in kw else bf16
+        out[f"gemm bf16 {name}"] = _digest(fd.decoder_gemm(
+            a16, W.to(bf16), compute_dtype=bf16, out_dtype=od, **kw))
+    q, k, v = (t(1, 4, n, 40, scale=s).to(bf16) for n, s in ((500, 0.5), (500, 1), (500, 1)))
+    out["step attention bf16 self"] = _digest(fd.step_attention(q, k, v, 64, compute_dtype=bf16))
+    out["step attention bf16 cross"] = _digest(fd.step_attention(
+        q, k[:, :, :250].contiguous(), v[:, :, :250].contiguous(), None, compute_dtype=bf16))
+    for tag, cfg, dec, sem_idx, x_T in loops16:
+        ts, coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), 4)
+        loop = fd.prepare_loop_inputs(dec, sem_idx, 500, ts)
+        args = (x_T, loop["pos"], loop["mods"], loop["ckv"].to(bf16), coef.cuda(),
+                fd.pack_decoder_weights(dec, bf16))
+        out[f"ddim bf16 v{tag}"] = _digest(fd.fused_ddim(
+            *args, heads=cfg.heads, window=cfg.attn_window_size, prediction="v",
+            compute_dtype=bf16))
+        ts = list(range(49, -1, -1))
+        zeros = torch.zeros(50, dtype=torch.long)
+        loop = fd.prepare_loop_inputs(dec, sem_idx, 500, ts, step_idx=zeros, mods_dtype=bf16)
+        args = (x_T, loop["pos"], loop["mods"], loop["ckv"].to(bf16),
+                fd.ddpm_coefficients(DiffusionSchedule.create(50)).cuda(),
+                fd.pack_decoder_weights(dec, bf16))
+        out[f"ddpm bf16 philox{tag}"] = _digest(fd.fused_ddpm(
+            *args, heads=cfg.heads, window=cfg.attn_window_size, key=(7, 0x5EED),
+            compute_dtype=bf16))
     torch.cuda.synchronize()
     return out
 
