@@ -9,10 +9,13 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
 
 1. the card (nvidia-smi name and power limit) and the build of every CUDA
    kernel from csrc/ (one nvcc per source, in parallel), with its time;
-   then the loop library's machine code (``cuobjdump --dump-sass``): every
-   instance of the bf16 step GEMM (csrc/gemm_wgmma.cuh) issues warpgroup
-   products (HGMMA) and TMA loads (UTMALDG), every instance of the bf16
-   step attention (csrc/attention16.cuh) tensor-core products (HMMA);
+   then the libraries' machine code (``cuobjdump --dump-sass``,
+   ``SASS_CHECKS``): every instance of the bf16 step GEMM
+   (csrc/gemm_wgmma.cuh) and of the bf16 frontend's conv GEMM
+   (csrc/conv_wgmma.cuh) runs warpgroup products (HGMMA) and TMA loads
+   (UTMALDG), every instance of the bf16 step attention
+   (csrc/attention16.cuh), of the bf16 band kernel (csrc/band16.cuh) and of
+   the frontend's mma.sync tile tensor-core products (HMMA);
 2. the long-form banded-attention kernel (csrc/band_attention.cu) against
    its plain version at [1,4,500,40], [1,4,4000,40] and [2,4,4000,40],
    window 64, atol 2e-5, and at T=4000 on strided views of a [B, T, 3, H, d]
@@ -23,15 +26,18 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    bound and TFLOP/s; at T=4000 the float64 witness (kernel and float32
    plain version against the plain version in float64); then the kernel
    against band-masked SDPA at T = 500 to 4000, [1,4,T,40] (the crossover);
-   then its bf16 instances at [1,4,4000,40] on phase 2's inputs rounded to
+   then the bf16 kernel (csrc/band16.cuh, tensor cores, P kept to ~16
+   bits) at [1,4,4000,40] on phase 2's inputs rounded to
    bf16: against the plain version on the same bf16 q, k, v (within 2e-5 +
    one bf16 ulp of each output) and against the float32 plain version on
    the float32 inputs by the witness rule (no farther, normwise, than 1.5
    times the bf16 plain version's distance + 1e-3, and the two-sided bars
    of ``witness16``), on strided views (=
    the contiguous call), two calls bit-equal; graph-replay ms beside the
-   float32 kernel's, the plain version's ms, band-masked SDPA on the same
-   bf16 q, k, v, the bound (the products stay float32 FMA);
+   float32 kernel's and in each built tile, the plain version's ms,
+   band-masked SDPA on the same bf16 q, k, v, the bound (the products on
+   tensor cores: bytes bound it; the float32-FMA bound of the earlier kernel
+   beside it); then the crossover against SDPA on bf16 at T = 500-4000;
 3. the fused DDIM kernel against its plain version at the flagship shape
    (hidden 160, 4 layers, 4 heads of 40, window 64; B=1, S=250, T=500,
    4 steps), eps and v prediction (tolerances below), twice: the default
@@ -85,7 +91,7 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    the same output as with the banded route forced to its plain version
    (atol 1e-4), with the call's time on each route; then the same call
    with the decoder built at compute bf16 (its float32 weights): 16 launches
-   of the band kernel's bf16 instances and none of the float32 ones, held
+   of the bf16 band kernel and none of the float32 one, held
    by the witness rule and the two-sided bars against the float32 decoder's
    plain route with its own plain route as the witness;
 6. the conv-frontend kernels against their plain version at the hubert-base
@@ -100,7 +106,8 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    calls), and, for a layer the plan keeps to one wave, the split factors
    that would give >= one block per SM and twice the plan's;
    6b. the frontend's bf16 variant (``compute_dtype=torch.bfloat16``: conv0
-   in float32, conv1-6 on tensor cores, bf16 activations) at [1, 80000] and
+   in float32, conv1-6 on tensor cores, bf16 activations; the tile rule's
+   wgmma layers counted, ``ff.wgmma_launches``) at [1, 80000] and
    [256, 32000] (a training batch), without and with a per-row ``wav_len``:
    against ``conv_frontend_plain(compute_dtype=bf16)`` on the card, within
    1e-2 normwise, and against the float32 plain version by the witness rule
@@ -111,7 +118,9 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    version's, and the bound at 989 TFLOP/s; then each layer alone (1e-3
    normwise, at most 1e-4 of the elements over 2^-7 of their value + 1e-5)
    with its µs, TFLOP/s and bound beside ``F.conv1d`` on the same bf16
-   operands (a yardstick the port never calls);
+   operands (a yardstick the port never calls; their sum printed: no single
+   call computes the frontend), and every tile of the rule's table
+   (``FRONTEND_BF16_TILES``) forced by index, the plan's marked;
 7. the audio path: ``EdgeInference(backend="fused", encoder=...)`` at full
    HuBERT-base width answers three ``generate_from_audio`` requests (5 s at
    B=1, the same at temperature 0.7, 2 s at B=2), each one frontend and one
@@ -316,7 +325,8 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    ``train()``: the phase tags, every logged loss finite, the modules bf16
    and the parameters float32 at every phase end, one bf16 frontend launch
    per data step and no float32 one (the counts set to 0 just before,
-   read just after: the bf16 kernel's main path); ms per data step per
+   read just after: the bf16 kernel's main path), and at least as many
+   launches of the wgmma conv kernel (csrc/conv_wgmma.cuh); ms per data step per
    phase (host clock, the intervals after a step of the same epoch), peak
    memory, one batch's collate on the host.  b. ``resume="auto"`` from the
    periodic checkpoint reruns the halvings its meta leaves and the
@@ -515,39 +525,47 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
                 print(f"[build] {name}: {line.strip()}")
-    sass_check(_build.library_path("fused_ddim"))
+    for lib, checks in SASS_CHECKS.items():
+        sass_check(_build.library_path(lib), checks)
     return seconds
 
 
-def sass_check(lib: str) -> None:
-    """The built loop library's machine code (``cuobjdump --dump-sass``):
-    every instance of the bf16 step GEMM (``gemm_wgmma_kernel``) issues
-    warpgroup products (HGMMA) and TMA loads (UTMALDG), every instance of
-    the bf16 step attention (``attention16_kernel``) tensor-core products
-    (HMMA); fails otherwise."""
+# library -> {kernel: the instructions every instance of it must contain}: the
+# wgmma kernels' warpgroup products (HGMMA) and TMA loads (UTMALDG), the
+# mma.sync kernels' tensor-core products (HMMA).
+SASS_CHECKS = {
+    "fused_ddim": {"gemm_wgmma_kernel": ("HGMMA", "UTMALDG"), "attention16_kernel": ("HMMA",)},
+    "conv_frontend": {"conv_wgmma_kernel": ("HGMMA", "UTMALDG"),
+                      "conv_slab_bf16_kernel": ("HMMA",)},
+    "band_attention": {"band16_kernel": ("HMMA",)},
+}
+
+
+def sass_check(lib: str, checks: dict) -> None:
+    """A built library's machine code (``cuobjdump --dump-sass``): every
+    instance of each kernel in ``checks`` contains each of its instructions;
+    fails otherwise (or where a kernel has no instance)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
+    ops = sorted({op for want in checks.values() for op in want})
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = dict(HGMMA=0, UTMALDG=0, HMMA=0)
+            counts[name] = dict.fromkeys(ops, 0)
         elif name is not None:
-            for op in counts[name]:
+            for op in ops:
                 if f" {op}." in line or f" {op} " in line:
                     counts[name][op] += 1
-    gemms = {n: c for n, c in counts.items() if "gemm_wgmma_kernel" in n}
-    attns = {n: c for n, c in counts.items() if "attention16_kernel" in n}
-    assert gemms and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in gemms.values()), gemms
-    assert attns and all(c["HMMA"] > 0 for c in attns.values()), attns
-    print(f"[build] sass: {len(gemms)} gemm_wgmma_kernel instances, HGMMA per instance "
-          f"{sorted({c['HGMMA'] for c in gemms.values()})}, UTMALDG "
-          f"{sorted({c['UTMALDG'] for c in gemms.values()})}; {len(attns)} attention16_kernel "
-          f"instances, HMMA {sorted({c['HMMA'] for c in attns.values()})}")
+    for kernel, want in checks.items():
+        found = {n: c for n, c in counts.items() if kernel in n}
+        assert found and all(c[op] > 0 for c in found.values() for op in want), (kernel, found)
+        print(f"[build] sass: {len(found)} {kernel} instances, per instance "
+              + ", ".join(f"{op} {sorted({c[op] for c in found.values()})}" for op in want))
 
 
 def band_inputs(torch, B, H, T, d, seed):
@@ -626,14 +644,16 @@ def phase_banded(torch):
 
 
 def banded_bf16(torch, f32_row: dict) -> dict:
-    """Phase 2's bf16 part: the band kernel's bf16 instances at
-    [1,4,4000,40], window 64, against the plain version on the same bf16
-    q, k, v (within 2e-5 + one bf16 ulp of each output) and against the
-    float32 plain version on the float32 originals by the witness rule; on
-    strided views of a bf16 [B, T, 3, H, d] buffer into [B, T, H, d]; two
-    calls bit-equal; device time by graph replay beside the float32
-    kernel's, the plain version's time, band-masked SDPA on the same bf16
-    q, k, v (a yardstick), the bound."""
+    """Phase 2's bf16 part: the band kernel on bf16 q, k, v (csrc/band16.cuh,
+    tensor cores) at [1,4,4000,40], window 64, against the plain version on
+    the same bf16 q, k, v (within 2e-5 + one bf16 ulp of each output) and
+    against the float32 plain version on the float32 originals by the
+    witness rule; on strided views of a bf16 [B, T, 3, H, d] buffer into
+    [B, T, H, d]; two calls bit-equal; device time by graph replay beside
+    the float32 kernel's, in each built tile, the plain version's time,
+    band-masked SDPA on the same bf16 q, k, v (a yardstick), the bound
+    (tensor-core products, so bytes bound it; the float32-FMA bound of
+    earlier bf16 kernel beside it); then the crossover against SDPA on bf16."""
     import torch.nn.functional as F
 
     from edge_diffusion_tts_tpu_torch.layers.attention import local_attention_mask
@@ -660,19 +680,40 @@ def banded_bf16(torch, f32_row: dict) -> dict:
     assert torch.equal(strided, got), "bf16 band: strided views differ from contiguous"
     err = diff.max().item()
     ms = graph_ms(torch, lambda: wa.banded_attention(qb, kb, vb, w))
+    tiles = []
+    rows_built = wa.BAND_ROWS
+    try:
+        for rows in rows_built:
+            wa.BAND_ROWS = (rows,)
+            t_ms = graph_ms(torch, lambda: wa.banded_attention(qb, kb, vb, w))
+            tiles.append(f"rows {rows} {t_ms:.5f}")
+    finally:
+        wa.BAND_ROWS = rows_built
     plain_ms = timed_ms(torch, lambda: wa.banded_attention_plain(qb, kb, vb, w))
     mask = local_attention_mask(T, w, q.device)
     lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask))
-    flops = 4 * d * band_pairs(T, w, T) * B * H
-    bound_ms, bound_by = bound(flops, 4 * B * H * T * d * 2)  # float32 FMA on bf16 bytes
+    pairs = band_pairs(T, w, T) * B * H
+    # S (2d a pair) and P V as two bf16 products (4d) on tensor cores; q, k,
+    # v read and o written once in bf16
+    bound_ms, bound_by = bound(6 * d * pairs, 4 * B * H * T * d * 2, BF16_PEAK_FLOPS)
+    fma_ms = bound(4 * d * pairs, 4 * B * H * T * d * 2)[0]  # the earlier FMA kernel's bound
     plan = wa.band_plan(B, H, T, d, w, dtype=bf16)
     print(f"[banded-bf16] [{B},{H},{T},{d}] w={w}: vs bf16 plain max_abs_err={err:.3g}; witness: "
           f"kernel {e_k:.4g} from float32 plain, bf16 plain {e_p:.4g} (bar "
           f"{1.5 * e_p + 1e-3:.4g}), kernel vs bf16 plain {e_kp:.3g}; strided = contiguous; "
-          f"graph_ms={ms:.5f} (float32 kernel {f32_row['ms']:.5f}) plain_ms={plain_ms:.5f} "
-          f"sdpa_bf16_graph_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}); plan rows "
-          f"{plan['rows']}, smem {plan['smem']} B, {plan['resident']} per SM, waves "
+          f"graph_ms={ms:.5f} (float32 kernel {f32_row['ms']:.5f}; by tile: {', '.join(tiles)}) "
+          f"plain_ms={plain_ms:.5f} sdpa_bf16_graph_ms={lib_ms:.5f} bound_ms={bound_ms:.6f} "
+          f"({bound_by}; the float32-FMA bound {fma_ms:.6f}), {bound_ms / ms:.3f} of it; plan "
+          f"rows {plan['rows']}, smem {plan['smem']} B, {plan['resident']} per SM, waves "
           f"{plan['waves']:.2f}")
+    for Tc in CROSSOVER_T:
+        q, k, v = (x.to(bf16) for x in band_inputs(torch, 1, H, Tc, d, seed=Tc))
+        mask = local_attention_mask(Tc, w, q.device)
+        kern = graph_ms(torch, lambda: wa.banded_attention(q, k, v, w))
+        sdpa = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        print(f"[banded-bf16] crossover T={Tc} [1,{H},{Tc},{d}] w={w}: kernel {kern:.5f} ms, "
+              f"band-masked SDPA {sdpa:.5f} ms on the same bf16 q, k, v (graph replay), "
+              f"SDPA / kernel {sdpa / kern:.2f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1446,9 +1487,12 @@ def frontend_bf16(torch, encoder):
         lens = torch.from_numpy(rng.randint(n // 2, n + 1, B)).to(DEVICE)
         lens[0] = n
         errs = []
+        wgmma = sum(p.get("tile_index", 0) > 0 for p in ff.frontend_plan(B, n, sms=sms, dtype=bf16))
         for wav_len in (None, lens):
+            before = ff.wgmma_launches()
             got = ff.conv_frontend(wav, wb, wav_len=wav_len, compute_dtype=bf16)
             torch.cuda.synchronize()
+            assert ff.wgmma_launches() - before == wgmma, "the plan's wgmma layers did not launch"
             plain = ff.conv_frontend_plain(wav, wb, wav_len, compute_dtype=bf16)
             f32 = ff.conv_frontend_plain(wav, w32, wav_len)
             e_k, e_p, e_kp = _rel(got, f32), _rel(plain, f32), _rel(got, plain)
@@ -1461,7 +1505,7 @@ def frontend_bf16(torch, encoder):
             errs.append((got - plain).abs().max().item())
             print(f"[frontend-bf16] {label}: vs float32 plain {e_k:.4g} (bf16 plain {e_p:.4g}, "
                   f"bar {1.5 * e_p + 1e-3:.4g}), vs bf16 plain {e_kp:.4g} (bar 1e-2), max abs "
-                  f"{errs[-1]:.4g}; two calls bit-equal")
+                  f"{errs[-1]:.4g}; two calls bit-equal; {wgmma} wgmma launches")
             del got, plain, f32
         fold = ff.groupnorm_fold(wav, w32["w0"], w32["gamma"], w32["beta"])
         big = B > 8
@@ -1481,7 +1525,7 @@ def frontend_bf16(torch, encoder):
               f"{plain_ms:.4f} ms; bf16 bound {bound_ms:.5f} ms ({bound_by}), "
               f"{bound_ms / ms:.3f} of it")
         plan = ff.frontend_plan(B, n, sms=sms, dtype=bf16)
-        x = wav
+        x, conv_sum = wav, 0.0
         for p in plan:
             i = p["layer"]
             extra = fold if i == 0 else ()
@@ -1491,25 +1535,39 @@ def frontend_bf16(torch, encoder):
             over = ((got.float() - want.float()).abs()
                     > 2.0 ** -7 * want.float().abs() + 1e-5).float().mean().item()
             assert e <= 1e-3 and over <= 1e-4, f"bf16 layer {i} [{B},{n}]: {e}, {over}"
+            reps = dict(n=4 if big else 20, replays=3)
             us = 1e3 * graph_ms(torch, lambda: ff.conv_frontend_layer(
-                x, i, wb, *extra, compute_dtype=bf16), n=4 if big else 20, replays=3)
+                x, i, wb, *extra, compute_dtype=bf16), **reps)
             W = ff.layer_weight(wb, i)
             if i == 0:
                 xc, wc, s = x[:, None, :], W[:, None, :].float(), ff.BASE_STRIDES[0]
             else:
                 xc = x.transpose(1, 2).contiguous()
                 wc, s = W.reshape(512, -1, 512).permute(0, 2, 1).contiguous(), ff.BASE_STRIDES[i]
-            conv_us = 1e3 * graph_ms(torch, lambda: F.conv1d(xc, wc, stride=s),
-                                     n=4 if big else 20, replays=3)
+            conv_us = 1e3 * graph_ms(torch, lambda: F.conv1d(xc, wc, stride=s), **reps)
+            conv_sum += conv_us
             fl = 2 * B * p["M"] * p["N"] * p["K"]
-            b_us = 1e3 * bound(fl, x.element_size() * x.numel() + W.element_size() * W.numel()
-                               + got.element_size() * got.numel(), BF16_PEAK_FLOPS)[0]
-            print(f"[frontend-bf16] [{B},{n}] conv{i}: M={p['M']} K={p['K']} splits "
-                  f"{p['splits']}, {p['blocks']} blocks: {us:.3f} us, {fl / us / 1e6:.2f} "
-                  f"TFLOP/s; bound {b_us:.3f} us; F.conv1d ({xc.dtype}) {conv_us:.3f} us "
-                  f"({fl / conv_us / 1e6:.2f} TFLOP/s); vs plain {e:.3g}")
+            b_ms, b_by = bound(fl, x.element_size() * x.numel() + W.element_size() * W.numel()
+                               + got.element_size() * got.numel(), BF16_PEAK_FLOPS)
+            notes = ""
+            if i > 0:  # every tile of the rule's table forced, the plan's marked
+                for t, spec in enumerate(ff.FRONTEND_BF16_TILES):
+                    alt = ff.conv_frontend_layer(x, i, wb, compute_dtype=bf16, tile=t)
+                    t_us = 1e3 * graph_ms(torch, lambda: ff.conv_frontend_layer(
+                        x, i, wb, compute_dtype=bf16, tile=t), **reps)
+                    notes += (f"; tile {t} ({spec['kernel']} {spec['rows']}x{spec['cols']}"
+                              f"{', the plan' if t == p['tile_index'] else ''}) {t_us:.3f} us, "
+                              f"{fl / t_us / 1e6:.2f} TFLOP/s, vs plain {_rel(alt, want):.3g}")
+                    del alt
+            print(f"[frontend-bf16] [{B},{n}] conv{i}: M={p['M']} K={p['K']} tile "
+                  f"{p['tile']} splits {p['splits']}, {p['blocks']} blocks: {us:.3f} us, "
+                  f"{fl / us / 1e6:.2f} TFLOP/s; bound {1e3 * b_ms:.3f} us ({b_by}), "
+                  f"{1e3 * b_ms / us:.3f} of it; F.conv1d ({xc.dtype}) {conv_us:.3f} us "
+                  f"({fl / conv_us / 1e6:.2f} TFLOP/s); vs plain {e:.3g}{notes}")
             x = want
             del got, xc, wc
+        print(f"[frontend-bf16] [{B},{n}]: F.conv1d per layer summed {conv_sum / 1e3:.5f} ms "
+              "(seven calls: no single call computes the frontend)")
         rows[(B, n)] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, f32_ms=ms32)
         del wav, fold, x
@@ -2637,6 +2695,7 @@ def phase_large_batch(torch, cuts=None, hubert_cfg=None, utterances: int = LARGE
 
     ff.conv_frontend.launches = ff.conv_frontend.bf16_launches = 0  # counts to 0: the main path
     fd.fused_ddim.launches = 0
+    wgmma0 = ff.wgmma_launches() if DEVICE == "cuda" else 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = train(cfg, hubert_cfg=hubert_cfg, hooks=[clock], phase_end_hook=at_phase_end,
@@ -2644,6 +2703,9 @@ def phase_large_batch(torch, cuts=None, hubert_cfg=None, utterances: int = LARGE
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     bf16_launches, f32_launches = ff.conv_frontend.bf16_launches, ff.conv_frontend.launches
+    wgmma = ff.wgmma_launches() - wgmma0 if DEVICE == "cuda" else 0
+    assert DEVICE != "cuda" or wgmma >= bf16_launches, (
+        f"{wgmma} wgmma conv launches for {bf16_launches} bf16 frontend calls")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     run_dir = os.path.join(cfg.out_dir, cfg.run_name)
     assert state.step == total, (state.step, total)
@@ -2665,8 +2727,8 @@ def phase_large_batch(torch, cuts=None, hubert_cfg=None, utterances: int = LARGE
         print(f"[large] bf16 train(), {name}: {v:.3f} ms per data step (host clock, the steps "
               f"after a step of the same epoch), {B / v * 1e3:.1f} utterances/s")
     print(f"[large] bf16 train(): {total} data steps in {train_s:.3f} s, {len(losses)} logged "
-          f"losses, all finite; bf16 frontend launches {bf16_launches} (one per data step), "
-          f"float32 frontend 0; parameters float32, modules bf16; peak "
+          f"losses, all finite; bf16 frontend launches {bf16_launches} (one per data step; "
+          f"{wgmma} wgmma conv layers in them), float32 frontend 0; parameters float32, modules bf16; peak "
           f"torch.cuda.max_memory_allocated {peak_gb:.3f} GiB")
 
     # -- b. resume from the periodic checkpoint -----------------------------------------------
@@ -3910,7 +3972,7 @@ def run(torch) -> None:
                                                "bound_by")},
          "library_ms": None},
         {"name": "banded_attention_bf16", "route": "cuda",
-         "source": "edge_diffusion_tts_tpu_torch/csrc/band_attention.cu",
+         "source": "edge_diffusion_tts_tpu_torch/csrc/band16.cuh",
          "replaces": "edge_diffusion_tts_tpu/ops/window_attention.py:48",
          "launches": banded16_launches,
          **{k: banded16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

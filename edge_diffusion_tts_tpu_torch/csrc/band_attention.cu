@@ -40,21 +40,14 @@
 // each block's serial chain of chunk waits, syncs, masks and softmax, about
 // half the time at T = 4000 (port_profile.py --band-strip; PERF.md).
 //
-// bf16 q, k, v (the TPU kernel's casts, window_attention.py:88-89, :107):
-// the same kernel with its element type bf16 (band_tile_kernel<DP, ROWS,
-// bf16>).  Q and the K/V ring are staged as bf16 through the same cp.async
-// copies (16 bytes = 8 elements; a head of 40 is 80-byte rows; a head that
-// is 4 short of a multiple of 8 reads its last 8 bytes and zero-fills the
-// rest), widened to float32 where they are read, and everything after is
-// the float32 kernel's; o is rounded to bf16 once, at the end (the TPU
-// kernel writes acc / l in q's dtype).  bf16 rows in shared memory are an
-// odd number of 16-byte units (DP, or DP + 8), so that a warp's 8-byte
-// reads of 8 keys fall on distinct banks; the shared bytes per block
-// shrink, the P tiles stay float32.  The bound is unchanged: the products
-// stay float32 FMA (bytes halve, operations do not).
+// bf16 q, k, v (the TPU kernel's casts, window_attention.py:88-89, :107)
+// take band16.cuh's kernel on tensor cores (its header gives the design):
+// S exact in float32 but for the order of its sums, P kept to ~16 bits as
+// two bf16 products, o rounded to bf16 once.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "band16.cuh"
 #include "bf16.cuh"
 #include "cp_async.cuh"
 #include "device.cuh"
@@ -75,64 +68,47 @@ constexpr int PSTRIDE = KEYS + 8;  // floats per row of a warp's P tile (banks: 
 
 __host__ __device__ constexpr int head_pad(int d) { return (d + 7) / 8 * 8; }
 __host__ __device__ constexpr int threads_for(int rows) { return rows / WARP_ROWS * 32; }
-// Elements per shared row of Q, K, V for elements of `es` bytes: DP + 4
-// floats (an odd number of float4s), or an odd number of 8-bf16 units.
-__host__ __device__ constexpr int row_elems(int dp, int es) {
-  return es == 4 ? dp + 4 : (dp / 8 % 2 ? dp : dp + 8);
-}
-__host__ __device__ constexpr long long smem_bytes(int rows, int dp, int es) {
-  return (long long)es * ((long long)rows * row_elems(dp, es) +
-                          2LL * STAGES * KEYS * row_elems(dp, es)) +
+// Floats per shared row of Q, K, V: DP + 4 (an odd number of float4s).
+__host__ __device__ constexpr int row_elems(int dp) { return dp + 4; }
+__host__ __device__ constexpr long long smem_bytes(int rows, int dp) {
+  return 4LL * ((long long)rows * row_elems(dp) + 2LL * STAGES * KEYS * row_elems(dp)) +
          4LL * rows * PSTRIDE;
 }
 
-struct BandArgs {
-  const void* q;  // float32, or bf16 in the bf16 instances
-  const void* k;
-  const void* v;
-  void* o;
-  long long s[4][3];  // batch, head and row strides of q, k, v, o (elements)
-  int heads;
-  int T;       // query and key rows
-  int d;       // head dim
-  int window;  // attend iff |i - j| <= window
-  int kend;    // attend iff j < kend
-  float scale_log2;  // d^-0.5 * log2(e)
-};
+using edt::BandArgs;
 
 __device__ __forceinline__ float comp(const float4& x, int u) {
   return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
 }
 
-template <int DP, int ROWS, typename T>
+template <int DP, int ROWS>
 __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandArgs a) {
   constexpr int THREADS = threads_for(ROWS);
-  constexpr int RS = row_elems(DP, sizeof(T));  // elements per shared row of Q, K, V
+  constexpr int RS = row_elems(DP);  // floats per shared row of Q, K, V
   constexpr int D4 = DP / 4;
-  constexpr int EV = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int EV = 4;  // floats per 16-byte copy
   constexpr int DV = DP / EV;
   constexpr int N4 = DP / 32;          // float4 output columns per thread
   constexpr int NS = (DP % 32) / 8;    // single output columns per thread
   constexpr int NC = 4 * N4 + NS;      // = DP / 8
   extern __shared__ __align__(16) float smem[];
-  T* qs = reinterpret_cast<T*>(smem);            // [ROWS][RS]
-  T* ring = qs + ROWS * RS;                      // [STAGES][K, V][KEYS][RS]
+  float* qs = smem;                   // [ROWS][RS]
+  float* ring = qs + ROWS * RS;       // [STAGES][K, V][KEYS][RS]
   const int warp = threadIdx.x / 32;  // the warp's rows: 16 warp .. 16 warp + 15 of the block's
   const int lane = threadIdx.x % 32;
-  float* ps = reinterpret_cast<float*>(ring + STAGES * 2 * KEYS * RS) +
-              warp * WARP_ROWS * PSTRIDE;  // [16][PSTRIDE]
+  float* ps = ring + STAGES * 2 * KEYS * RS + warp * WARP_ROWS * PSTRIDE;  // [16][PSTRIDE]
   const int tr = lane / 8;  // row group: rows tr + 4r of the warp's 16
   const int tc = lane % 8;  // key group: keys tc + 8t of a chunk; columns of O
 
   const int b = blockIdx.y / a.heads;
   const int h = blockIdx.y % a.heads;
   const int q0 = blockIdx.x * ROWS;
-  const T* qb = static_cast<const T*>(a.q) + b * a.s[0][0] + h * a.s[0][1];
-  const T* kb = static_cast<const T*>(a.k) + b * a.s[1][0] + h * a.s[1][1];
-  const T* vb = static_cast<const T*>(a.v) + b * a.s[2][0] + h * a.s[2][1];
+  const float* qb = static_cast<const float*>(a.q) + b * a.s[0][0] + h * a.s[0][1];
+  const float* kb = static_cast<const float*>(a.k) + b * a.s[1][0] + h * a.s[1][1];
+  const float* vb = static_cast<const float*>(a.v) + b * a.s[2][0] + h * a.s[2][1];
   // Bytes of a 16-byte copy at column c that lie inside the head (zeros
-  // past it): 16, or 8 for the last unit of a bf16 head of 4 mod 8.
-  const auto inside = [&](int c) { return c < a.d ? min(16, (a.d - c) * (int)sizeof(T)) : 0; };
+  // past it).
+  const auto inside = [&](int c) { return c < a.d ? min(16, (a.d - c) * 4) : 0; };
 
   const int lo = max(0, q0 - a.window);
   const int hi = min(a.kend, q0 + ROWS + a.window);
@@ -149,8 +125,8 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
   auto stage = [&](int ch) {
     if (ch < chunks) {
       const int c0 = lo + ch * KEYS;
-      T* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
-      T* vs = ks + KEYS * RS;
+      float* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
+      float* vs = ks + KEYS * RS;
       for (int e = threadIdx.x; e < KEYS * DV; e += THREADS) {
         const int kr = e / DV;
         const int c = EV * (e % DV);
@@ -165,7 +141,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
   for (int ch = 0; ch < STAGES - 1; ++ch) stage(ch);
 
   const int w0 = q0 + warp * WARP_ROWS;  // the warp's first row
-  const T* qw = qs + (warp * WARP_ROWS + tr) * RS;
+  const float* qw = qs + (warp * WARP_ROWS + tr) * RS;
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -184,8 +160,8 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
     if (w0 >= a.T || c0 > w0 + WARP_ROWS - 1 + a.window || c0 + KEYS - 1 < w0 - a.window ||
         EDT_BAND_STRIP == 1)
       continue;
-    const T* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
-    const T* vs = ks + KEYS * RS;
+    const float* ks = ring + (ch % STAGES) * 2 * KEYS * RS;
+    const float* vs = ks + KEYS * RS;
 
     float s[4][4];
 #pragma unroll
@@ -252,7 +228,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
         pv[r] = *reinterpret_cast<const float4*>(ps + (tr + 4 * r) * PSTRIDE + j);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {  // unrolled: comp() picks a register
-        const T* vr = vs + (j + u) * RS;
+        const float* vr = vs + (j + u) * RS;
 #pragma unroll
         for (int g = 0; g < N4; ++g) {
           const float4 x = edt::load4(vr + 32 * g + 4 * tc);
@@ -267,7 +243,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
         }
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const float x = edt::to_f32(vr[32 * N4 + tc + 8 * n]);
+          const float x = vr[32 * N4 + tc + 8 * n];
 #pragma unroll
           for (int r = 0; r < 4; ++r)
             acc[r][4 * N4 + n] = fmaf(comp(pv[r], u), x, acc[r][4 * N4 + n]);
@@ -279,7 +255,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
   edt::cp_async_wait<0>();  // no copy outlives the block (Q's, when there is no chunk)
 
   // Each lane summed its own keys: add the 8 lanes of a row group, write.
-  T* ob = static_cast<T*>(a.o) + b * a.s[3][0] + h * a.s[3][1];
+  float* ob = static_cast<float*>(a.o) + b * a.s[3][0] + h * a.s[3][1];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     float sum = l[r];
@@ -289,7 +265,7 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
     const int i = w0 + tr + 4 * r;
     if (i >= a.T) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    T* orow = ob + i * a.s[3][2];
+    float* orow = ob + i * a.s[3][2];
 #pragma unroll
     for (int g = 0; g < N4; ++g) {
       const int c = 32 * g + 4 * tc;
@@ -305,10 +281,10 @@ __global__ void __launch_bounds__(ROWS / WARP_ROWS * 32) band_tile_kernel(BandAr
   }
 }
 
-template <int DP, int ROWS, typename T>
+template <int DP, int ROWS>
 int launch(const BandArgs& a, int batch, cudaStream_t stream) {
-  const auto kernel = band_tile_kernel<DP, ROWS, T>;
-  constexpr long long bytes = smem_bytes(ROWS, DP, sizeof(T));
+  const auto kernel = band_tile_kernel<DP, ROWS>;
+  constexpr long long bytes = smem_bytes(ROWS, DP);
   // Above 48 KB only after opting in, once per instance on each device.
   static bool opted_in[edt::kMaxDevices] = {};
   const int dev = edt::current_device();
@@ -324,17 +300,46 @@ int launch(const BandArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int ROWS, typename T>
+template <int ROWS>
 int launch_tile(const BandArgs& a, int batch, cudaStream_t stream) {
   switch (head_pad(a.d)) {
-    case 8: return launch<8, ROWS, T>(a, batch, stream);
-    case 16: return launch<16, ROWS, T>(a, batch, stream);
-    case 24: return launch<24, ROWS, T>(a, batch, stream);
-    case 32: return launch<32, ROWS, T>(a, batch, stream);
-    case 40: return launch<40, ROWS, T>(a, batch, stream);
-    case 48: return launch<48, ROWS, T>(a, batch, stream);
-    case 56: return launch<56, ROWS, T>(a, batch, stream);
-    case 64: return launch<64, ROWS, T>(a, batch, stream);
+    case 8: return launch<8, ROWS>(a, batch, stream);
+    case 16: return launch<16, ROWS>(a, batch, stream);
+    case 24: return launch<24, ROWS>(a, batch, stream);
+    case 32: return launch<32, ROWS>(a, batch, stream);
+    case 40: return launch<40, ROWS>(a, batch, stream);
+    case 48: return launch<48, ROWS>(a, batch, stream);
+    case 56: return launch<56, ROWS>(a, batch, stream);
+    case 64: return launch<64, ROWS>(a, batch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int DP, int ROWS>
+int launch16(const BandArgs& a, int batch, cudaStream_t stream) {
+  const auto kernel = edt::band16_kernel<DP, ROWS>;
+  constexpr long long bytes = edt::b16_smem_bytes(ROWS, DP);
+  static bool opted_in[edt::kMaxDevices] = {};
+  const int dev = edt::current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (bytes > 48 * 1024 && !opted_in[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    opted_in[dev] = true;
+  }
+  const dim3 grid((a.T + ROWS - 1) / ROWS, batch * a.heads);
+  kernel<<<grid, threads_for(ROWS), bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int ROWS>
+int launch16_tile(const BandArgs& a, int batch, cudaStream_t stream) {
+  switch (edt::b16_head_pad(a.d)) {
+    case 16: return launch16<16, ROWS>(a, batch, stream);
+    case 32: return launch16<32, ROWS>(a, batch, stream);
+    case 48: return launch16<48, ROWS>(a, batch, stream);
+    case 64: return launch16<64, ROWS>(a, batch, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -343,6 +348,15 @@ int launch_tile(const BandArgs& a, int batch, cudaStream_t stream) {
 // elements of 4 bytes (float32) or 2 (bf16).
 bool geometry_ok(int rows, int d, int es) {
   return (rows == 32 || rows == 64) && d >= 4 && d <= 64 && d % 4 == 0 && (es == 4 || es == 2);
+}
+
+// {threads, keys per chunk, ring stages, dynamic shared bytes} of a launch.
+void geometry(int rows, int d, int es, int* out) {
+  out[0] = threads_for(rows);
+  out[1] = es == 4 ? KEYS : edt::B16_KEYS;
+  out[2] = es == 4 ? STAGES : edt::B16_STAGES;
+  out[3] = (int)(es == 4 ? smem_bytes(rows, head_pad(d))
+                         : edt::b16_smem_bytes(rows, edt::b16_head_pad(d)));
 }
 
 }  // namespace
@@ -354,10 +368,7 @@ bool geometry_ok(int rows, int d, int es) {
 // kernel does not take.
 extern "C" int edt_band_geometry(int rows, int d, int es, int* out) {
   if (!geometry_ok(rows, d, es)) return (int)cudaErrorInvalidValue;
-  out[0] = threads_for(rows);
-  out[1] = KEYS;
-  out[2] = STAGES;
-  out[3] = (int)smem_bytes(rows, head_pad(d), es);
+  geometry(rows, d, es, out);
   return 0;
 }
 
@@ -372,8 +383,9 @@ extern "C" int edt_banded_attention(const void* q, const void* k, const void* v,
                                     int window, int seq_len, int rows, int threads, int smem,
                                     int es, void* stream) {
   if (!geometry_ok(rows, d, es)) return (int)cudaErrorInvalidValue;
-  if (threads != threads_for(rows) || smem != smem_bytes(rows, head_pad(d), es))
-    return (int)cudaErrorInvalidConfiguration;
+  int geo[4];
+  geometry(rows, d, es, geo);
+  if (threads != geo[0] || smem != geo[3]) return (int)cudaErrorInvalidConfiguration;
   if (B <= 0 || H <= 0 || T <= 0) return 0;
   BandArgs a;
   a.q = q;
@@ -389,7 +401,6 @@ extern "C" int edt_banded_attention(const void* q, const void* k, const void* v,
   a.kend = seq_len < 0 ? 0 : (seq_len > T ? T : seq_len);
   a.scale_log2 = (float)(pow((double)d, -0.5) * 1.4426950408889634);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (es == 2) return rows == 64 ? launch_tile<64, edt::bf16>(a, B, st)
-                                 : launch_tile<32, edt::bf16>(a, B, st);
-  return rows == 64 ? launch_tile<64, float>(a, B, st) : launch_tile<32, float>(a, B, st);
+  if (es == 2) return rows == 64 ? launch16_tile<64>(a, B, st) : launch16_tile<32>(a, B, st);
+  return rows == 64 ? launch_tile<64>(a, B, st) : launch_tile<32>(a, B, st);
 }

@@ -61,18 +61,37 @@
 // float32 features.  At [256, 32000] (a training batch of 2 s utterances)
 // the stack is 2.51 TFLOP, bound by operations at 2.5 ms on bf16 tensor
 // cores against 37.5 ms in float32 without them; the activations in bf16
-// halve the bytes between layers.  conv1-6 (conv_slab_bf16_kernel) keep the
-// float32 kernel's 128 x 128 tile and its cp.async ring, but the products
-// run on tensor cores: mma.sync m16n8k16 (bf16 in, float32 accumulate),
-// operands loaded from shared memory by ldmatrix.  Each of 8 warps owns a
-// 64 x 32 sub-tile (4 x 4 mma tiles).  A chunk is 32 input channels (64-byte
-// rows); the slab of input frames is stored de-interleaved (even frames,
-// then odd), so that output frame t's tap j reads row t + j/2 of one
-// parity and a warp's 8 ldmatrix rows are consecutive; a row's four 16-byte
-// units are XOR-swizzled by (row >> 1) & 3, which puts any 8 consecutive
-// rows on distinct banks.  4 stages of 41 KB (k = 3) or 33 KB (k = 2):
-// 160.5 KB of the 227 KB a block may hold, one block per SM.  Split-K keeps
-// float32 partial sums and the same fixed-order reduction, no atomics.
+// halve the bytes between layers.  Each of conv1-6 runs in one of three
+// tiles, by the host's rule (ops/fused_frontend.py::frontend_tile):
+//   * tiles 1 and 2 (128 x 256, 128 x 128), where their tiles fill the
+//     card: conv_wgmma.cuh's warp-specialised wgmma kernel, both operands
+//     by TMA (its header gives the design);
+//   * tile 0 (128 x 128), where they do not (a 5 s request's later
+//     layers): conv_slab_bf16_kernel, which keeps the float32 kernel's tile
+//     and cp.async ring with the products on mma.sync m16n8k16 (bf16 in,
+//     float32 accumulate), operands loaded from shared memory by ldmatrix.
+//     Each of 8 warps owns a 64 x 32 sub-tile (4 x 4 mma tiles).  A chunk is
+//     32 input channels (64-byte rows); the slab of input frames is stored
+//     de-interleaved (even frames, then odd), so that output frame t's tap j
+//     reads row t + j/2 of one parity and a warp's 8 ldmatrix rows are
+//     consecutive; a row's four 16-byte units are XOR-swizzled by (row >> 1)
+//     & 3, which puts any 8 consecutive rows on distinct banks.  4 stages of
+//     41 KB (k = 3) or 33 KB (k = 2): 160.5 KB, one block per SM.  Split-K
+//     keeps float32 partial sums and the same fixed-order reduction, no
+//     atomics.
+// conv0 at bf16 (conv0_bf16_kernel) writes 1.68 GB of bf16 at [256, 32000]
+// (its bytes bound, 0.50 ms at 3.35 TB/s): each thread keeps 8
+// channels' weights, scale and shift in registers and writes one 16-byte
+// store per frame (256 threads: 4 groups of C / 8 at C = 512, so a warp's
+// stores cover 512 contiguous bytes); a block walks several chunks of 64
+// frames, about 2,112 blocks in all, so that it reads its weights once for
+// all its chunks (one chunk per block measured 8% slower).  Its arithmetic
+// is conv0_kernel's, so are its bits.  What bounds it is the erf-GELU, not
+// the bytes: at [256, 32000] it takes ~1.45 ms with erff, ~0.87 ms with the
+// GELU left out (scratch builds, PERF.md §6), against 0.51 ms of
+// output.
+// edt_frontend_geometry reports every tile's constants, to hold the host's
+// plan against.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -81,6 +100,7 @@
 #include <type_traits>
 
 #include "bf16.cuh"
+#include "conv_wgmma.cuh"
 #include "cp_async.cuh"
 #include "device.cuh"
 
@@ -109,13 +129,12 @@ constexpr int ROWS0 = 16;       // output frames per block
 constexpr int SEG0 = S0 * (ROWS0 - 1) + K0;  // wav samples they read
 
 // out[b, t, n] = gelu(scale[b, n] * sum_j wav[b, 5t + j] * w0[n, j] + shift[b, n]),
-// all in float32, stored as OutT (float32, or bf16 for the bf16 variant);
-// C / 4 threads, 4 channels each.
-template <typename OutT>
+// all in float32 (the bf16 variant's is conv0_bf16_kernel); C / 4 threads,
+// 4 channels each.
 __global__ void __launch_bounds__(1024)
 conv0_kernel(const float* __restrict__ wav, int Twav, const float* __restrict__ w0,
              const float* __restrict__ scale, const float* __restrict__ shift,
-             OutT* __restrict__ out, int M, int C) {
+             float* __restrict__ out, int M, int C) {
   __shared__ float seg[SEG0];
   const int b = blockIdx.y, t0 = blockIdx.x * ROWS0;
   const long long x0 = (long long)S0 * t0;
@@ -147,12 +166,80 @@ conv0_kernel(const float* __restrict__ wav, int Twav, const float* __restrict__ 
   }
 }
 
-template <typename OutT>
 int conv0(const float* wav, int Twav, const float* w0, const float* scale, const float* shift,
-          OutT* out, int M, int C, int B, cudaStream_t st) {
-  conv0_kernel<OutT><<<dim3((M + ROWS0 - 1) / ROWS0, B), C / 4, 0, st>>>(wav, Twav, w0, scale,
-                                                                       shift, out, M, C);
+          float* out, int M, int C, int B, cudaStream_t st) {
+  conv0_kernel<<<dim3((M + ROWS0 - 1) / ROWS0, B), C / 4, 0, st>>>(wav, Twav, w0, scale, shift,
+                                                                 out, M, C);
   return (int)cudaGetLastError();
+}
+
+constexpr int ROWS0B = 64;       // bf16 conv0: output frames per chunk
+constexpr int THREADS0B = 256;   // its threads: groups of C / 8 (4 groups at C = 512)
+constexpr int BLOCKS0B = 2112;   // blocks it aims for in all (16 per SM of 132)
+constexpr int SEG0B = S0 * (ROWS0B - 1) + K0;
+
+int groups0b(int C) { return THREADS0B / (C / 8); }
+
+// conv0 at compute_dtype bf16: conv0_kernel's arithmetic for channels n ..
+// n + 7 (n = 8 threadIdx.x), rounded to bf16 and written as one 16-byte
+// store per frame.  A block walks the chunks of ROWS0B frames blockIdx.x,
+// blockIdx.x + gridDim.x, ... of batch row blockIdx.y with its weights held
+// in registers; group threadIdx.y takes frames y, y + blockDim.y, ... of a
+// chunk.
+__global__ void __launch_bounds__(THREADS0B)
+conv0_bf16_kernel(const float* __restrict__ wav, int Twav, const float* __restrict__ w0,
+                  const float* __restrict__ scale, const float* __restrict__ shift,
+                  bf16* __restrict__ out, int M, int C) {
+  __shared__ float seg[SEG0B];
+  const int b = blockIdx.y, tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n = 8 * threadIdx.x;
+  float w[8 * K0];  // channels n .. n+7, 10 taps each: 80 floats, 16-byte aligned
+  const float4* wp = reinterpret_cast<const float4*>(w0 + (long long)n * K0);
+#pragma unroll
+  for (int q = 0; q < 2 * K0; ++q) {
+    const float4 v = wp[q];
+    w[4 * q] = v.x, w[4 * q + 1] = v.y, w[4 * q + 2] = v.z, w[4 * q + 3] = v.w;
+  }
+  float scs[8], shs[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 sc = *reinterpret_cast<const float4*>(scale + (long long)b * C + n + 4 * h);
+    const float4 sh = *reinterpret_cast<const float4*>(shift + (long long)b * C + n + 4 * h);
+    scs[4 * h] = sc.x, scs[4 * h + 1] = sc.y, scs[4 * h + 2] = sc.z, scs[4 * h + 3] = sc.w;
+    shs[4 * h] = sh.x, shs[4 * h + 1] = sh.y, shs[4 * h + 2] = sh.z, shs[4 * h + 3] = sh.w;
+  }
+  for (int t0 = blockIdx.x * ROWS0B; t0 < M; t0 += gridDim.x * ROWS0B) {
+    const long long x0 = (long long)S0 * t0;
+    __syncthreads();  // the last chunk's reads of seg are done
+    for (int i = tid; i < SEG0B; i += blockDim.x * blockDim.y)
+      seg[i] = x0 + i < Twav ? wav[(long long)b * Twav + x0 + i] : 0.f;
+    __syncthreads();
+    for (int r = threadIdx.y; r < ROWS0B && t0 + r < M; r += blockDim.y) {
+      const float* p = seg + S0 * r;
+      float v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < K0; ++j) acc = fmaf(p[j], w[c * K0 + j], acc);
+        v[c] = gelu(acc * scs[c] + shs[c]);
+      }
+      uint4 u;
+      u.x = edt::pack_bf16(v[0], v[1]);
+      u.y = edt::pack_bf16(v[2], v[3]);
+      u.z = edt::pack_bf16(v[4], v[5]);
+      u.w = edt::pack_bf16(v[6], v[7]);
+      *reinterpret_cast<uint4*>(out + ((long long)b * M + t0 + r) * C + n) = u;
+    }
+  }
+}
+
+// conv0_bf16_kernel's grid: the chunks of a row, or fewer blocks per row so
+// that all B rows together come to about BLOCKS0B (each block then walks
+// several chunks on one load of its weights).
+dim3 grid0b(int M, int B) {
+  const int chunks = (M + ROWS0B - 1) / ROWS0B, per_row = (BLOCKS0B + B - 1) / B;
+  return dim3(chunks < per_row ? chunks : per_row, B);
 }
 
 // ---- conv1-6 ----------------------------------------------------------------
@@ -540,28 +627,46 @@ int conv_layer(const float* in, float* out, float* part, const float* W, const f
   return conv_slab<2>(in, Tin, C, W, out, part, M, B, splits, st);
 }
 
-bool shapes_ok_bf16(int C, int splits) {
-  return C % BN == 0 && C % CHB == 0 && C / 4 <= 1024 && splits >= 1 && splits <= C / CHB;
+// The bf16 conv1-6 tiles: 0 conv_slab_bf16_kernel (128 x 128, split-K), 1
+// and 2 conv_wgmma_kernel (128 x CW_TILE_BN[tile - 1]).
+constexpr int BF16_TILES = 1 + edt::CW_NTILES;
+
+bool shapes_ok_bf16(int C, int splits, int tile) {
+  if (C % BN || C % CHB || C / 8 > THREADS0B || tile < 0 || tile >= BF16_TILES) return false;
+  if (tile > 0) return splits == 1 && C % edt::CW_TILE_BN[tile - 1] == 0;
+  return splits >= 1 && splits <= C / CHB;
+}
+
+// A stride-2, KT-tap bf16 layer in `tile`.
+template <int KT, typename OutT>
+int conv_bf16(const bf16* x, int Tin, int C, const bf16* w, OutT* out, float* part, int M, int B,
+              int splits, int tile, cudaStream_t st) {
+  if (tile == 1) return edt::conv_wgmma<KT, edt::CW_TILE_BN[0]>(x, Tin, C, w, out, M, B, st);
+  if (tile == 2) return edt::conv_wgmma<KT, edt::CW_TILE_BN[1]>(x, Tin, C, w, out, M, B, st);
+  return conv_slab<KT>(x, Tin, C, w, out, part, M, B, splits, st);
 }
 
 // Layer `layer` of the bf16 variant: in is the float32 wav (layer 0) or bf16
 // [B, Tin, C]; out bf16 [B, Tout, C] (layers 0-5) or float32 (layer 6); W
-// float32 w0 (layer 0) or bf16 [C, k*C].
+// float32 w0 (layer 0) or bf16 [C, k*C]; conv1-6 in `tile`.
 int conv_layer_bf16(const void* in, void* out, float* part, const void* W, const float* scale,
-                    const float* shift, int layer, int B, int Tin, int C, int splits,
+                    const float* shift, int layer, int B, int Tin, int C, int splits, int tile,
                     cudaStream_t st) {
-  if (!shapes_ok_bf16(C, splits)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok_bf16(C, splits, layer ? tile : 0)) return (int)cudaErrorInvalidValue;
   const int M = (Tin - KERNEL[layer]) / STRIDE[layer] + 1;
-  if (layer == 0)
-    return conv0(static_cast<const float*>(in), Tin, static_cast<const float*>(W), scale, shift,
-                 static_cast<bf16*>(out), M, C, B, st);
+  if (layer == 0) {
+    conv0_bf16_kernel<<<grid0b(M, B), dim3(C / 8, groups0b(C)), 0, st>>>(
+        static_cast<const float*>(in), Tin, static_cast<const float*>(W), scale, shift,
+        static_cast<bf16*>(out), M, C);
+    return (int)cudaGetLastError();
+  }
   const bf16* x = static_cast<const bf16*>(in);
   const bf16* w = static_cast<const bf16*>(W);
   if (layer == LAYERS - 1)
-    return conv_slab<2>(x, Tin, C, w, static_cast<float*>(out), part, M, B, splits, st);
+    return conv_bf16<2>(x, Tin, C, w, static_cast<float*>(out), part, M, B, splits, tile, st);
   if (KERNEL[layer] == 3)
-    return conv_slab<3>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, st);
-  return conv_slab<2>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, st);
+    return conv_bf16<3>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, tile, st);
+  return conv_bf16<2>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, tile, st);
 }
 
 }  // namespace
@@ -630,23 +735,25 @@ extern "C" long long edt_conv_frontend_bf16_workspace(int B, int Twav, int C, co
 // One layer of the bf16 variant alone (a test and timing hook): in the
 // float32 wav [B, Tin] (layer 0, with scale and shift) or bf16 [B, Tin, C];
 // out bf16 [B, Tout, C] (layers 0-5) or float32 (layer 6); W float32 w0 or
-// the layer's packed bf16 weights; work [splits * B * Tout * C] floats when
-// splits > 1.
+// the layer's packed bf16 weights; `tile` of conv1-6 (0-2, see
+// edt_frontend_geometry); work [splits * B * Tout * C] floats when splits >
+// 1 (tile 0 only).
 extern "C" int edt_conv_layer_bf16(const void* in, void* out, float* work, const void* W,
                                    const float* scale, const float* shift, int layer, int B,
-                                   int Tin, int C, int splits, void* stream) {
+                                   int Tin, int C, int splits, int tile, void* stream) {
   if (layer < 0 || layer >= LAYERS) return (int)cudaErrorInvalidValue;
   return conv_layer_bf16(in, out, work, W, scale, shift, layer, B, Tin, C, layer ? splits : 1,
-                         (cudaStream_t)stream);
+                         tile, (cudaStream_t)stream);
 }
 
 // edt_conv_frontend at compute_dtype bf16: wav [B, Twav], w0, scale, shift
 // float32; wk3 [4, C, 3C] and wk2 [2, C, 2C] bf16; out [B, frames, C]
-// float32; work [edt_conv_frontend_bf16_workspace(...)] bytes.
+// float32; work [edt_conv_frontend_bf16_workspace(...)] bytes; splits[7]
+// and tiles[7] the plan's split-K factors and tiles (entry 0 unused).
 extern "C" int edt_conv_frontend_bf16(const float* wav, float* out, void* work, const float* w0,
                                       const void* wk3, const void* wk2, const float* scale,
                                       const float* shift, int B, int Twav, int C,
-                                      const int* splits, void* stream) {
+                                      const int* splits, const int* tiles, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int f[LAYERS];
   frame_counts(Twav, f);
@@ -654,13 +761,37 @@ extern "C" int edt_conv_frontend_bf16(const float* wav, float* out, void* work, 
   float* part = reinterpret_cast<float*>(buf[1] + (long long)B * f[1] * C);
   const bf16* w3 = static_cast<const bf16*>(wk3);
   const bf16* w2 = static_cast<const bf16*>(wk2);
-  int err = conv_layer_bf16(wav, buf[0], nullptr, w0, scale, shift, 0, B, Twav, C, 1, st);
+  int err = conv_layer_bf16(wav, buf[0], nullptr, w0, scale, shift, 0, B, Twav, C, 1, 0, st);
   for (int i = 1; i < LAYERS && !err; ++i) {
     const int K = KERNEL[i] * C;
     const bf16* W = i <= 4 ? w3 + (long long)(i - 1) * C * K : w2 + (long long)(i - 5) * C * K;
     void* dst = i == LAYERS - 1 ? static_cast<void*>(out) : static_cast<void*>(buf[i % 2]);
     err = conv_layer_bf16(buf[(i - 1) % 2], dst, part, W, nullptr, nullptr, i, B, f[i - 1], C,
-                          splits[i], st);
+                          splits[i], tiles[i], st);
   }
   return err;
 }
+
+// The bf16 variant's launch geometry, to hold the host's plan against: for
+// conv1-6's `tile` (0-2) out = {frames, channels, ring stages, threads,
+// dynamic shared bytes (k = 3)}; for tile -1, conv0's {frames per chunk,
+// channels per thread, frame groups, threads at width C, blocks it aims
+// for}.  Returns
+// cudaErrorInvalidValue for any other tile.
+extern "C" int edt_frontend_geometry(int tile, int C, int* out) {
+  if (tile == -1) {
+    const int v[5] = {ROWS0B, 8, groups0b(C), C / 8 * groups0b(C), BLOCKS0B};
+    for (int i = 0; i < 5; ++i) out[i] = v[i];
+    return 0;
+  }
+  if (tile < 0 || tile >= BF16_TILES) return (int)cudaErrorInvalidValue;
+  const int bn = tile ? edt::CW_TILE_BN[tile - 1] : BN;
+  const int v[5] = {tile ? edt::CW_BM : BM, bn, tile ? edt::cw_stages(bn) : STAGES,
+                    tile ? edt::CW_THREADS : THREADS,
+                    tile ? edt::cw_smem_bytes(bn) : StageB<3>::BYTES};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Launches of the wgmma kernel since the library was loaded.
+extern "C" long long edt_conv_wgmma_launches() { return edt::g_conv_wgmma_launches; }

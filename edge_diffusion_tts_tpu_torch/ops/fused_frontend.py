@@ -27,7 +27,10 @@ frontend routed through it.
 ``compute_dtype=jnp.bfloat16``: conv0, its GroupNorm and GELU in float32, then
 bf16 activations and bf16 weights (``pack_frontend_weights(..., dtype=
 torch.bfloat16)``) with float32 sums on the card's tensor cores, float32
-features out.  The wrappers check every tensor against the dtype asked for,
+features out.  Its conv1-6 run in one of ``FRONTEND_BF16_TILES`` per layer,
+by ``frontend_tile``: ``wgmma`` with TMA loads (csrc/conv_wgmma.cuh) where
+the tiles fill the card, the ``mma.sync`` kernel with split-K where
+they do not.  The wrappers check every tensor against the dtype asked for,
 so neither variant takes the other's weights.  ``fast_encode`` keeps
 float32 as its default where the JAX function defaults to bf16: the port's
 ``EdgeInference`` encodes through it, and JAX's encodes with float32
@@ -57,7 +60,22 @@ LAYERS = len(BASE_KERNELS)
 CONV0_ROWS = 16  # conv0: output frames per block, all channels
 TILE = (128, 128)  # conv1-6: output frames x channels per block
 CHUNK = 16  # conv1-6: input channels per K step
-CHUNK_BF16 = 32  # the bf16 variant's conv1-6: input channels per K step
+CHUNK_BF16 = 32  # the bf16 variant's mma.sync tile: input channels per K step
+CONV0_ROWS_BF16 = 64  # the bf16 variant's conv0: output frames per chunk
+CONV0_GROUPS_BF16 = 4  # ... in 256 / (C / 8) frame groups of C / 8 threads (4 at C = 512)
+CONV0_BLOCKS_BF16 = 2112  # ... and the blocks it aims for, each walking several chunks
+# The bf16 variant's conv1-6 tiles, by index: the mma.sync kernel (split-K
+# over CHUNK_BF16-channel chunks) and the wgmma kernel at 256 and 128
+# channels (one block per SM over the tiles); smem is the k = 3 layer's.
+# ``fill``: the share of one wave of blocks that a wgmma tile's tiles must
+# give before ``frontend_tile`` takes it (PERF.md §6: the wider tile
+# was the faster wherever its tiles filled 0.95 of a wave, the narrower
+# one, and the mma.sync kernel below it, at half a wave).
+FRONTEND_BF16_TILES = (
+    dict(kernel="mma.sync", rows=128, cols=128, stages=4, threads=256, smem=164352, fill=0.0),
+    dict(kernel="wgmma", rows=128, cols=256, stages=4, threads=288, smem=230464, fill=0.9),
+    dict(kernel="wgmma", rows=128, cols=128, stages=6, threads=288, smem=230496, fill=0.45),
+)
 H100_SMS = 132
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -138,29 +156,60 @@ def frontend_plan(B: int, num_samples: int, C: int = 512, sms: int = H100_SMS,
     """The host's launch plan for wav [B, num_samples] on a card of ``sms``
     SMs: per layer M (output frames), N (channels), K (reduction depth),
     ``tile`` (frames x channels per block), ``splits`` (split-K factor) and
-    ``blocks`` of its main launch.
+    ``blocks`` of its main launch; for ``dtype`` bfloat16 also ``tile_index``
+    (into ``FRONTEND_BF16_TILES``, conv1-6).
 
     conv0 has a kernel of its own (``CONV0_ROWS`` frames x all channels per
-    block).  conv1-6 run one block per SM (the 4-stage ring takes 131-164 KB
-    of shared memory); a layer whose tiles alone would leave SMs idle splits
-    K into the most parts whose blocks still run as one wave (tiles x splits
-    <= sms), at most one part per chunk.  One wave beat the next factor up
-    (>= sms blocks, two waves) at every split layer on the H100 (PERF.md).
-    Split ``s`` of S takes the input-channel chunks [s*Q//S, (s+1)*Q//S) of
-    Q = C / CHUNK, whole chunks every one (C / CHUNK_BF16 for ``dtype``
-    bfloat16, whose ring takes 128-160.5 KB).
+    block; at bf16 chunks of ``CONV0_ROWS_BF16`` frames, each block walking
+    several, about ``CONV0_BLOCKS_BF16`` blocks in all).  conv1-6 run one
+    block per SM (the 4-stage ring takes 131-164 KB of shared memory); a
+    layer whose tiles alone would leave SMs idle splits K into the most
+    parts whose blocks still run as one wave (tiles x splits <= sms), at
+    most one part per chunk.  One wave beat the next factor up (>= sms blocks, two waves) at
+    every split layer on the H100 (PERF.md).  Split ``s`` of S takes the
+    input-channel chunks [s*Q//S, (s+1)*Q//S) of Q = C / CHUNK, whole
+    chunks every one (C / CHUNK_BF16 for the bf16 mma.sync tile, whose ring
+    takes 128-160.5 KB).  At bf16, ``frontend_tile`` picks each layer's
+    tile; a wgmma tile runs a persistent grid of min(tiles, sms) blocks
+    and never splits.
     """
+    low = _compute_dtype(dtype) != torch.float32
     chunk = _chunk(dtype)
     frames = frame_counts(num_samples)
-    plan = [dict(layer=0, M=frames[0], N=C, K=BASE_KERNELS[0], tile=(CONV0_ROWS, C), splits=1,
-                 blocks=B * _cdiv(frames[0], CONV0_ROWS))]
+    rows0 = CONV0_ROWS_BF16 if low else CONV0_ROWS
+    per_row = min(_cdiv(frames[0], rows0), _cdiv(CONV0_BLOCKS_BF16, B)) if low else \
+        _cdiv(frames[0], rows0)
+    plan = [dict(layer=0, M=frames[0], N=C, K=BASE_KERNELS[0], tile=(rows0, C), splits=1,
+                 blocks=B * per_row)]
     for i in range(1, LAYERS):
         M = frames[i]
-        tiles = B * _cdiv(M, TILE[0]) * _cdiv(C, TILE[1])
-        splits = _layer_splits(tiles, C // chunk, sms)
-        plan.append(dict(layer=i, M=M, N=C, K=BASE_KERNELS[i] * C, tile=TILE, splits=splits,
-                         blocks=tiles * splits))
+        index = frontend_tile(B, M, C, sms) if low else 0
+        t = FRONTEND_BF16_TILES[index] if low else dict(rows=TILE[0], cols=TILE[1])
+        tiles = B * _cdiv(M, t["rows"]) * _cdiv(C, t["cols"])
+        if index:
+            splits, blocks = 1, min(tiles, sms)
+        else:
+            splits = _layer_splits(tiles, C // chunk, sms)
+            blocks = tiles * splits
+        entry = dict(layer=i, M=M, N=C, K=BASE_KERNELS[i] * C, tile=(t["rows"], t["cols"]),
+                     splits=splits, blocks=blocks)
+        if low:
+            entry["tile_index"] = index
+        plan.append(entry)
     return plan
+
+
+def frontend_tile(B: int, M: int, C: int = 512, sms: int = H100_SMS) -> int:
+    """The bf16 tile of a conv1-6 layer of M output frames, an index into
+    ``FRONTEND_BF16_TILES``: the first wgmma tile (the widest first) whose
+    tiles give at least its ``fill`` share of a wave of ``sms`` blocks;
+    where none does, the mma.sync tile (0), which splits K to fill the
+    card."""
+    for index, t in enumerate(FRONTEND_BF16_TILES):
+        if t["kernel"] == "wgmma" and C % t["cols"] == 0 and \
+                B * _cdiv(M, t["rows"]) * (C // t["cols"]) >= t["fill"] * sms:
+            return index
+    return 0
 
 
 def _layer_splits(tiles: int, chunks: int, sms: int) -> int:
@@ -272,13 +321,35 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_frontend")
     p, i = ctypes.c_void_p, ctypes.c_int
     for suffix in ("", "_bf16"):
+        low = bool(suffix)  # the bf16 entries also take the tiles
         ws = getattr(lib, f"edt_conv_frontend{suffix}_workspace")
         ws.argtypes, ws.restype = [i, i, i, p], ctypes.c_longlong
         front = getattr(lib, f"edt_conv_frontend{suffix}")
-        front.argtypes, front.restype = [p] * 8 + [i] * 3 + [p, p], ctypes.c_int
+        front.argtypes, front.restype = [p] * 8 + [i] * 3 + [p] * (3 if low else 2), ctypes.c_int
         layer = getattr(lib, f"edt_conv_layer{suffix}")
-        layer.argtypes, layer.restype = [p] * 6 + [i] * 5 + [p], ctypes.c_int
+        layer.argtypes, layer.restype = [p] * 6 + [i] * (6 if low else 5) + [p], ctypes.c_int
+    lib.edt_frontend_geometry.argtypes, lib.edt_frontend_geometry.restype = [i, i, p], ctypes.c_int
+    lib.edt_conv_wgmma_launches.argtypes, lib.edt_conv_wgmma_launches.restype = [], \
+        ctypes.c_longlong
     return lib
+
+
+def frontend_geometry(tile: int, C: int = 512) -> dict:
+    """The bf16 geometry the built library reports, to hold the plan's
+    constants against: for a conv1-6 ``tile`` (an index into
+    ``FRONTEND_BF16_TILES``) its rows, cols, stages, threads and smem; for
+    ``tile`` -1, conv0's rows (frames per chunk), channels per thread,
+    groups, threads at width ``C`` and the blocks it aims for."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_lib().edt_frontend_geometry(tile, C, out), "edt_frontend_geometry")
+    keys = ("rows", "channels", "groups", "threads", "blocks") if tile == -1 else (
+        "rows", "cols", "stages", "threads", "smem")
+    return dict(zip(keys, out))
+
+
+def wgmma_launches() -> int:
+    """Launches of the bf16 wgmma conv kernel since the library was loaded."""
+    return _lib().edt_conv_wgmma_launches()
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,6 +372,10 @@ def _check(tensors: Dict[str, torch.Tensor], expected: Dict[str, tuple], device,
 
 def _splits(plan: List[dict]):
     return (ctypes.c_int * LAYERS)(*(p["splits"] for p in plan))
+
+
+def _tiles(plan: List[dict]):
+    return (ctypes.c_int * LAYERS)(*(p.get("tile_index", 0) for p in plan))
 
 
 def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
@@ -342,7 +417,8 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
            {"wav": (B, Twav), "w0": (C, 10), "wk3": (4, C, 3 * C), "wk2": (2, C, 2 * C),
             "gamma": (C,), "beta": (C,), "scale": (B, C), "shift": (B, C)}, wav.device,
            {"wk3": compute_dtype, "wk2": compute_dtype})
-    splits = _splits(frontend_plan(B, Twav, C, _sm_count(wav.device.index or 0), compute_dtype))
+    plan = frontend_plan(B, Twav, C, _sm_count(wav.device.index or 0), compute_dtype)
+    splits = _splits(plan)
     lib = _lib()
     suffix = "_bf16" if low else ""
     out = torch.empty((B, frames, C), dtype=torch.float32, device=wav.device)
@@ -353,7 +429,7 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
         err = getattr(lib, f"edt_conv_frontend{suffix}")(
             wav.data_ptr(), out.data_ptr(), work.data_ptr(), w["w0"].data_ptr(),
             w["wk3"].data_ptr(), w["wk2"].data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            B, Twav, C, splits, stream,
+            B, Twav, C, splits, *((_tiles(plan),) if low else ()), stream,
         )
     with _LAUNCHES_LOCK:  # handler threads launch it at once (stream preps)
         if low:
@@ -373,11 +449,17 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
                         scale: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None,
                         splits: Optional[int] = None,
-                        compute_dtype=torch.float32) -> torch.Tensor:
+                        compute_dtype=torch.float32,
+                        tile: Optional[int] = None) -> torch.Tensor:
     """One layer of the frontend kernel sequence alone, as
     ``conv_frontend_layer_plain`` computes it, in the host plan's tile and,
     unless ``splits`` is given (1 to C / CHUNK, conv1-6; C / CHUNK_BF16 for
     bf16), its split-K factor for this shape (``frontend_plan``).
+
+    At bf16, conv1-6 take ``tile``, an index into ``FRONTEND_BF16_TILES``:
+    by default ``frontend_tile``'s pick, or the mma.sync tile (0) where
+    ``splits`` is given, the only one that splits K (a wgmma tile takes
+    ``splits`` 1 alone).
 
     A test and timing hook: it takes CUDA tensors only (contiguous float32;
     with ``compute_dtype`` bfloat16, bf16 input and weights for conv1-6 and a
@@ -414,13 +496,17 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
         tensors.update(scale=scale, shift=shift)
         expected.update(scale=(B, C), shift=(B, C))
     _check(tensors, expected, x.device, dtypes)
+    sms = _sm_count(x.device.index or 0)
+    tile = _layer_tile(tile, splits, low, layer, B, M, C, sms)
     chunks = C // _chunk(compute_dtype)
     if splits is None:
-        splits = 1 if layer == 0 else _layer_splits(
-            B * _cdiv(M, TILE[0]) * _cdiv(C, TILE[1]), chunks, _sm_count(x.device.index or 0))
+        splits = 1 if layer == 0 or tile else _layer_splits(
+            B * _cdiv(M, TILE[0]) * _cdiv(C, TILE[1]), chunks, sms)
     elif not (1 <= splits <= chunks and (layer > 0 or splits == 1)):
         raise ValueError(f"splits must be 1 for conv0 and in [1, {chunks}] otherwise, "
                          f"got {splits}")
+    elif tile and splits != 1:
+        raise ValueError(f"splits must be 1 in the wgmma tile {tile}, got {splits}")
     out_dtype = compute_dtype if low and layer < LAYERS - 1 else torch.float32
     out = torch.empty((B, M, C), dtype=out_dtype, device=x.device)
     work = torch.empty(splits * B * M * C, dtype=torch.float32, device=x.device) if splits > 1 \
@@ -431,7 +517,8 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
         err = (lib.edt_conv_layer_bf16 if low else lib.edt_conv_layer)(
             x.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), W.data_ptr(),
             None if scale is None else scale.data_ptr(),
-            None if shift is None else shift.data_ptr(), layer, B, Tin, C, splits, stream,
+            None if shift is None else shift.data_ptr(), layer, B, Tin, C, splits,
+            *((tile,) if low else ()), stream,
         )
     if low:
         conv_frontend_layer.bf16_launches += 1
@@ -439,6 +526,23 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
         conv_frontend_layer.launches += 1
     _build.check(err, "conv_frontend_layer")
     return out
+
+
+def _layer_tile(tile, splits, low: bool, layer: int, B: int, M: int, C: int, sms: int) -> int:
+    """The bf16 tile index ``conv_frontend_layer`` launches (0 for float32
+    and for conv0, which have one tile)."""
+    if tile is not None:
+        if not (low and layer > 0):
+            raise ValueError("tile selects a conv1-6 tile of the bf16 variant")
+        if not 0 <= tile < len(FRONTEND_BF16_TILES):
+            raise ValueError(f"tile must be in [0, {len(FRONTEND_BF16_TILES)}), got {tile}")
+        if C % FRONTEND_BF16_TILES[tile]["cols"]:
+            raise ValueError(f"tile {tile} needs a width that is a multiple of "
+                             f"{FRONTEND_BF16_TILES[tile]['cols']}, not {C}")
+        return tile
+    if not (low and layer > 0) or splits is not None:
+        return 0
+    return frontend_tile(B, M, C, sms)
 
 
 conv_frontend_layer.launches = 0

@@ -19,10 +19,13 @@ shared bytes, blocks, waves); the C side checks it against the geometry it
 was built with, and ``band_geometry`` reads that geometry back.  ``banded_attention`` takes the plain version for CPU tensors only;
 for a CUDA tensor it launches the kernel or raises.
 
-q, k, v in bf16 (a bf16 decoder's long-form windows) take the kernel's
-bf16 instances, as the TPU kernel takes them: staged as bf16, widened to
-float32 inside, the output rounded to bf16; the plan's shared bytes follow
-the element size.  Any other dtype is refused on the card.
+q, k, v in bf16 (a bf16 decoder's long-form windows) take a kernel of
+their own on tensor cores (csrc/band16.cuh): S = QKᵀ by ``mma.sync`` on
+the bf16 values (exact products, float32 sums), the softmax online in
+float32, P kept to ~16 bits as two bf16 products into one float32
+accumulator (JAX's kernel never rounds P), the output rounded to bf16; its
+chunks are ``BAND_KEYS_BF16`` keys in a ring of ``BAND_STAGES_BF16``, and
+the plan's shared bytes follow.  Any other dtype is refused on the card.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ MAX_HEAD_DIM = 64
 BAND_ROWS = (32, 64)
 BAND_KEYS = 32  # keys per chunk
 BAND_STAGES = 3  # chunks in the cp.async ring
+BAND_KEYS_BF16 = 64  # the bf16 kernel's keys per chunk
+BAND_STAGES_BF16 = 3  # ... and chunks in its ring
 WARP_ROWS = 16  # query rows per warp
 H100_SMS = 132
 SMEM_PER_SM = 233_472  # an SM's shared memory, of which each block costs 1 KB more
@@ -81,17 +86,16 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def band_smem_bytes(rows: int, d: int, dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared bytes of one block: Q [rows, r] and the ring of K and
-    V chunks [stages, 2, keys, r] in ``dtype``, then the warps' float32 P
-    tiles [rows, keys + 8]; dp = d padded to a multiple of 8, r = dp + 4
-    for float32 and, for bf16, dp or dp + 8, whichever is an odd number of
-    8-element (16-byte) units."""
-    dp = _cdiv(d, 8) * 8
+    """Dynamic shared bytes of one block.  float32: Q [rows, r] and the ring
+    of K and V chunks [stages, 2, keys, r], r = dp + 4 with dp = d padded to
+    a multiple of 8, then the warps' float32 P tiles [rows, keys + 8].
+    bf16: Q and the ring alike in bf16 with r = d padded to a multiple of 16,
+    + 8 (P stays in registers)."""
     if dtype == torch.float32:
-        es, r = 4, dp + 4
-    else:
-        es, r = 2, dp if dp // 8 % 2 else dp + 8
-    return es * (rows * r + 2 * BAND_STAGES * BAND_KEYS * r) + 4 * rows * (BAND_KEYS + 8)
+        r = _cdiv(d, 8) * 8 + 4
+        return 4 * (rows * r + 2 * BAND_STAGES * BAND_KEYS * r) + 4 * rows * (BAND_KEYS + 8)
+    r = _cdiv(d, 16) * 16 + 8
+    return 2 * r * (rows + 2 * BAND_STAGES_BF16 * BAND_KEYS_BF16)
 
 
 def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS,
@@ -107,7 +111,9 @@ def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS,
     wave; where none does, the fewest waves.  On the H100 this picked the
     fastest tile at [1,4,4000,40] and [2,4,4000,40] (PERF.md): a second wave
     repeats a block's whole staging and softmax, and more blocks in one wave
-    keep more warps in flight.
+    keep more warps in flight.  For bf16 (tensor cores, 64-key chunks) the
+    tile of the fewest waves and, on a tie, the most rows: 64 rows measured
+    faster at [1,4,500,40] and [1,4,4000,40] and as fast at [2,4,4000,40].
     """
     if not (4 <= d <= MAX_HEAD_DIM and d % 4 == 0):
         raise ValueError(f"head dim {d}: the kernel takes a multiple of 4 up to {MAX_HEAD_DIM}")
@@ -118,10 +124,14 @@ def band_plan(B: int, H: int, T: int, d: int, window: int, sms: int = H100_SMS,
         blocks = B * H * _cdiv(T, rows)
         resident = min(SMEM_PER_SM // (smem + 1024), 2048 // threads,
                        65536 // (REGS_PER_THREAD * threads), 32)
-        return dict(rows=rows, threads=threads, keys=BAND_KEYS, stages=BAND_STAGES, smem=smem,
+        keys, stages = ((BAND_KEYS, BAND_STAGES) if dtype == torch.float32
+                        else (BAND_KEYS_BF16, BAND_STAGES_BF16))
+        return dict(rows=rows, threads=threads, keys=keys, stages=stages, smem=smem,
                     blocks=blocks, resident=resident, waves=blocks / (sms * resident))
 
     plans = [plan(rows) for rows in BAND_ROWS]
+    if dtype != torch.float32:  # the fewest waves, then the most rows (PERF.md §6)
+        return min(plans, key=lambda p: (p["waves"], -p["rows"]))
     one_wave = [p for p in plans if p["waves"] <= 1]
     if one_wave:
         return max(one_wave, key=lambda p: p["blocks"])

@@ -1701,3 +1701,158 @@ def test_fused_generate_mel_bf16_on_the_card_launches_the_bf16_kernel(cuda):
     assert mel.dtype == torch.float32 and torch.isfinite(mel).all()
     with pytest.raises(ValueError, match="float16"):
         fd.fused_generate_mel(cfg, sched, dec, sem_idx, x_T, 4, compute_dtype=torch.float16)
+
+
+# -- the bf16 frontend's wgmma tiles (csrc/conv_wgmma.cuh) --------------------------------
+
+WGMMA_TILES = [i for i, t in enumerate(ff.FRONTEND_BF16_TILES) if t["kernel"] == "wgmma"]
+
+
+def _bf16_acts(B, T, seed):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.rand(B, T, 512).astype(np.float32)).to("cuda").to(BF16)
+
+
+@pytest.mark.parametrize("tile", WGMMA_TILES)
+@pytest.mark.parametrize("Tin", [201, 1001, 1002])
+@pytest.mark.parametrize("layer", range(1, 7))
+def test_conv_frontend_bf16_wgmma_layer_odd_and_even(frontend_bf16, layer, Tin, tile):
+    """Each of conv1-6 in each wgmma tile at odd and even input lengths, B=3
+    (a stage's boxes end inside a batch row and at its end, where TMA fills
+    zeros; at Tin 201 one tile per row), against the bf16 plain layer; one
+    wgmma launch."""
+    x = _bf16_acts(3, Tin, layer * Tin + tile)
+    before = ff.wgmma_launches()
+    got = ff.conv_frontend_layer(x, layer, frontend_bf16, compute_dtype=BF16, tile=tile)
+    torch.cuda.synchronize()
+    assert ff.wgmma_launches() == before + 1
+    _bf16_close(f"layer {layer} Tin {Tin} tile {tile}", got,
+                ff.conv_frontend_layer_plain(x, layer, frontend_bf16, compute_dtype=BF16))
+
+
+@pytest.mark.parametrize("tile", range(len(ff.FRONTEND_BF16_TILES)))
+@pytest.mark.parametrize("layer,T", [(1, 6399), (3, 799), (5, 199), (6, 99)])
+def test_conv_frontend_bf16_every_tile_index(frontend_bf16, tile, layer, T):
+    """Every tile of the rule's table forced by index, at the input lengths
+    of [2, 32000]'s layers: against the bf16 plain layer."""
+    x = _bf16_acts(2, T, T + tile)
+    got = ff.conv_frontend_layer(x, layer, frontend_bf16, compute_dtype=BF16, tile=tile)
+    _bf16_close(f"layer {layer} tile {tile}", got,
+                ff.conv_frontend_layer_plain(x, layer, frontend_bf16, compute_dtype=BF16))
+
+
+def test_conv_frontend_bf16_wgmma_bits_twice_and_witness(frontend, frontend_bf16):
+    """Each wgmma tile twice on one input, bit-equal; the whole frontend at
+    [16, 32000] (conv1-2 on wgmma) twice bit-equal, within 1e-2 of the bf16
+    plain version and by the witness rule against the float32 one."""
+    x = _bf16_acts(4, 3199, 1)
+    for tile in WGMMA_TILES:
+        first = ff.conv_frontend_layer(x, 2, frontend_bf16, compute_dtype=BF16, tile=tile)
+        assert torch.equal(first, ff.conv_frontend_layer(x, 2, frontend_bf16, compute_dtype=BF16,
+                                                         tile=tile)), tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ff.frontend_plan(16, 32000, sms=sms, dtype=BF16)
+    assert plan[1]["tile_index"] in WGMMA_TILES and plan[2]["tile_index"] in WGMMA_TILES
+    wav = _frontend_wav(16, 32000)
+    before = ff.wgmma_launches()
+    got = ff.conv_frontend(wav, frontend_bf16, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert ff.wgmma_launches() - before == sum(p.get("tile_index", 0) > 0 for p in plan)
+    assert torch.equal(got, ff.conv_frontend(wav, frontend_bf16, compute_dtype=BF16))
+    plain = ff.conv_frontend_plain(wav, frontend_bf16, compute_dtype=BF16)
+    f32 = ff.conv_frontend_plain(wav, frontend)
+    assert _rel(got, plain) <= 1e-2
+    assert _rel(got, f32) <= 1.5 * _rel(plain, f32) + 1e-3, (_rel(got, f32), _rel(plain, f32))
+
+
+def test_conv_frontend_bf16_rows_ending_on_different_frames(frontend, frontend_bf16):
+    """A zero-padded batch of 8 whose rows end on different frames (odd and
+    even true lengths; conv1-2 on wgmma), with ``wav_len``: the batch
+    against the bf16 plain version (1e-2, the witness rule), and each row's
+    frames inside its true length against an exact-length call (1e-2)."""
+    lens = (32000, 31999, 24001, 20000, 16005, 12345, 8000, 4000)
+    B, n = len(lens), lens[0]
+    L = torch.as_tensor(lens, device="cuda")
+    wav = _frontend_wav(B, n) * (torch.arange(n, device="cuda")[None] < L[:, None])
+    got = ff.conv_frontend(wav, frontend_bf16, wav_len=L, compute_dtype=BF16)
+    plain = ff.conv_frontend_plain(wav, frontend_bf16, L, compute_dtype=BF16)
+    f32 = ff.conv_frontend_plain(wav, frontend, L)
+    assert _rel(got, plain) <= 1e-2
+    assert _rel(got, f32) <= 1.5 * _rel(plain, f32) + 1e-3, (_rel(got, f32), _rel(plain, f32))
+    for i, m in enumerate(lens):
+        exact = ff.conv_frontend(wav[i:i + 1, :m].contiguous(), frontend_bf16, compute_dtype=BF16)
+        assert _rel(got[i:i + 1, :exact.shape[1]], exact) <= 1e-2, (i, m)
+
+
+def test_frontend_geometry_of_the_library_is_the_plan(frontend_bf16):
+    """The C tile constants (edt_frontend_geometry) equal the Python table
+    the plan is built from, every plan's tiles are the library's, and the
+    workspace the C side asks for is the plan's."""
+    for i, t in enumerate(ff.FRONTEND_BF16_TILES):
+        assert ff.frontend_geometry(i) == {k: t[k] for k in ("rows", "cols", "stages", "threads",
+                                                             "smem")}, i
+    assert ff.frontend_geometry(-1) == dict(rows=ff.CONV0_ROWS_BF16, channels=8,
+                                            groups=ff.CONV0_GROUPS_BF16,
+                                            threads=512 // 8 * ff.CONV0_GROUPS_BF16,
+                                            blocks=ff.CONV0_BLOCKS_BF16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, samples in FRONTEND_SHAPES + [(256, 32000), (16, 32000)]:
+        plan = ff.frontend_plan(B, samples, sms=sms, dtype=BF16)
+        assert plan[0]["tile"][0] == ff.frontend_geometry(-1)["rows"]
+        for p in plan[1:]:
+            g = ff.frontend_geometry(p["tile_index"])
+            assert p["tile"] == (g["rows"], g["cols"])
+        assert ff._lib().edt_conv_frontend_bf16_workspace(B, samples, 512, ff._splits(plan)) == \
+            4 * ff.frontend_workspace(B, plan, BF16)
+    with pytest.raises(RuntimeError, match="edt_frontend_geometry"):
+        ff.frontend_geometry(len(ff.FRONTEND_BF16_TILES))
+
+
+def test_conv_frontend_bf16_tile_refusals(frontend_bf16):
+    x = torch.zeros(1, 100, 512, device="cuda", dtype=BF16)
+    with pytest.raises(ValueError, match="splits must be 1"):
+        ff.conv_frontend_layer(x, 1, frontend_bf16, splits=2, compute_dtype=BF16, tile=1)
+    with pytest.raises(ValueError, match="tile must be"):
+        ff.conv_frontend_layer(x, 1, frontend_bf16, compute_dtype=BF16, tile=3)
+    got = ff.conv_frontend_layer(x, 1, frontend_bf16, splits=1, compute_dtype=BF16, tile=2)
+    assert bool((got == 0).all())  # gelu(0) = 0
+
+
+# -- the bf16 band kernel on tensor cores (csrc/band16.cuh) -----------------------------
+
+
+def _flat_band_inputs(B, H, T, d, device):
+    """bf16 q, k, v where rounding P shows: q small (every weight near its
+    row's max, none a power of two), V of magnitude 8 with alternating sign
+    (an output much smaller than V, so is its ulp)."""
+    rng = np.random.RandomState(T + d)
+    q, k, v = (rng.randn(B, H, T, d).astype(np.float32) for _ in range(3))
+    v = 8.0 * np.where(np.arange(T) % 2, -1.0, 1.0)[:, None] * (1 + 0.05 * v)
+    return [torch.from_numpy(t.astype(np.float32)).to(device).to(BF16) for t in (0.1 * q, k, v)]
+
+
+def _band_p_rounded(q, k, v, window):
+    """The band's arithmetic in float32 with P rounded to bf16 before P V
+    (the decoder step's attention16.cuh, not the band kernel)."""
+    T, d = q.shape[-2:]
+    i = torch.arange(T, device=q.device)
+    mask = (i[None, :] - i[:, None]).abs() <= window
+    s = ((q.float() @ k.float().transpose(-1, -2)) * d ** -0.5).masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((p.to(BF16).float() @ v.float()) / p.sum(-1, keepdim=True)).to(BF16)
+
+
+@pytest.mark.parametrize("B,H,T,d,window", [(1, 2, 300, 40, 64), (1, 2, 256, 64, 100),
+                                            (1, 4, 4000, 40, 64), (2, 2, 333, 20, 16)])
+def test_banded_kernel_bf16_keeps_p_unrounded(cuda, B, H, T, d, window):
+    """The opposite of ``test_step_attention_bf16_rounds_p_as_the_tpu_kernel``:
+    on inputs where rounding P shows, the kernel keeps ``_bf16_band_close``'s
+    bar against the plain version (P float32), and the P-rounded emulation
+    breaks it."""
+    q, k, v = _flat_band_inputs(B, H, T, d, cuda)
+    if d % 8:
+        q, k, v = (torch.nn.functional.pad(t, (0, 8 - d % 8))[..., :d] for t in (q, k, v))
+    want = wa.banded_attention_plain(q, k, v, window)
+    _bf16_band_close("kernel", wa.banded_attention(q, k, v, window), want)
+    with pytest.raises(AssertionError):
+        _bf16_band_close("P rounded", _band_p_rounded(q, k, v, window), want)
