@@ -261,8 +261,32 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    step: a's bars and ``grad_norm`` rel 1e-5.  Printed: every check's
    error beside its bar, ms per DP step, per sequence-parallel call, per TP
    encode and per PP step with the single device's beside them, each
-   labelled "two ranks on one card over gloo: no scaling claim".  Its
-   launches join the ``kernels`` line;
+   labelled "two ranks on one card over gloo: no scaling claim".  g. the
+   bf16 pass (``par_rank_bf16``, ``parallel_bf16``), each part against the
+   single device at compute bf16 by the witness rule, float32's single
+   device as Q32 (normwise ``|Q - Q32| <= 1.5 |Q_one,bf16 - Q32| + 1e-3``),
+   every check made and printed before any miss fails the phase: a's three
+   DP steps and f's PP step at compute bf16 with float32 and with bf16
+   parameters (loss, the whole gradient, parameters after the update,
+   ``grad_norm``; each DP gradient tensor within 2^-8, normwise, of its
+   oracle, each rank's rows stepped alone on the card and their float32
+   mean rounded to the parameters' dtype; each PP gradient tensor's cosine
+   to float32's within 0.01 of its oracle's, one device running the blocks
+   per microbatch (``par_microbatched``); replicas bit-equal; the stage
+   decoders at the source's dtypes; one bf16 frontend launch per rank per
+   step, none of the float32 one); c at a bf16-compute decoder (the bf16
+   band kernel, 16 launches per rank); d by a bf16 encoder on the kernel
+   route (the bf16 frontend; tokens by the share rule, share(tok == tok32)
+   >= the one device's - 0.02, features by the witness rule); b
+   ``train()`` at configs/tpu_large_batch.json as shipped (compute bf16,
+   parameters float32, batch 256 = 128 rows per rank, 2 s) on mesh [2, 1]
+   (an override, the file untouched) on phase 14's corpus, one epoch per
+   phase and the halvings cut to 1000 -> 500 -> 250 (8 data steps): the
+   replicas' parameters bit-equal after every update, one bf16 frontend
+   launch per rank per data step, ms per data step beside phase 14's
+   single card (phase 14 runs before phase 11 for its corpus and its
+   times).  Its launches join the ``kernels`` line, the bf16 ones in the
+   ``conv_frontend_bf16`` and ``banded_attention_bf16`` rows;
 12. the command line (``cli.main`` in this process, each subcommand's wall
    time printed; build/phase12), from phase 9's checkpoint (the flagship
    decoder, phase 7's full HuBERT-base) and phase 10's corpus; every command
@@ -316,7 +340,8 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    bytes and the first 16 hex digits of their sha256, operators, int8
    tensors.  No kernel launches: the ``kernels``
    line is unchanged.
-14. training at configs/tpu_large_batch.json (batch 256 x 2 s, compute
+14. (run after phase 10, before phase 11, whose bf16 pass trains on its
+   corpus) training at configs/tpu_large_batch.json (batch 256 x 2 s, compute
    bf16, parameters float32, the depthwise pre-net) on a synthetic
    LJSpeech-layout corpus (build/phase14: 560 utterances, two full batches
    per epoch), epochs cut to one per phase (2 diffusion, 16 progressive
@@ -2996,6 +3021,170 @@ def par_longform_cfg():
         return CFG.from_dict(dict(json.load(f), **PAR_POSITIONS))
 
 
+PAR_BF16 = ("float32", "bfloat16")  # phase 11's bf16 pass: compute bf16, these parameter dtypes
+# Phase 11b's bf16 run: configs/tpu_large_batch.json as phase 14 cuts it, the
+# halvings cut to 1000 -> 500 -> 250: 4 epochs of 2 data steps on phase 14's corpus.
+PAR_LARGE_CUTS = dict(LARGE_CUTS, progressive_target_steps=250)
+
+
+def par_models16(torch, cfg, base, param_dtype: str):
+    """``base`` (``par_models``) rebuilt at compute bf16, every parameter
+    stored at ``param_dtype`` (``training.init_models``'s dtypes), the same
+    weights rounded where stored in bf16."""
+    from edge_diffusion_tts_tpu_torch.layers.dtypes import cast_parameters
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder, SemanticEncoder
+
+    bf16, pdt = torch.bfloat16, getattr(torch, param_dtype)
+    enc = cast_parameters(SemanticEncoder(cfg, base[0].hubert_cfg, dtype=bf16), pdt)
+    enc.load_state_dict(base[0].state_dict())
+    out = [enc.eval()]
+    for d in base[1:]:
+        dec = cast_parameters(EdgeDiffusionDecoder(cfg, dtype=bf16), pdt)
+        dec.load_state_dict(d.state_dict())
+        out.append(dec.eval())
+    return tuple(out)
+
+
+def par_dtypes(module) -> tuple:
+    """(compute dtype, parameter dtypes) of a module, as strings."""
+    return str(module.dtype), sorted({str(p.dtype) for p in module.parameters()})
+
+
+def par_rank_bf16(rank: int, spec: dict, base, dp, pipe, tp) -> dict:
+    """Phase 11's bf16 pass on one rank: a, the DP steps, and f, the PP
+    step, at compute bf16 with float32 and with bf16 parameters; c,
+    sequence-parallel long-form at a bf16-compute decoder; d, the TP encode
+    of a bf16 encoder; b, ``train()`` at configs/tpu_large_batch.json on an
+    [n, 1] mesh.  Every launch count set to 0 just before its run, read just
+    after."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from edge_diffusion_tts_tpu_torch.config import CFG
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder, HubertConfig
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.ops import window_attention as wa
+    from edge_diffusion_tts_tpu_torch.parallel import (make_seq_parallel_generate,
+                                                       make_tp_encode, shard_batch,
+                                                       shard_encoder_params)
+    from edge_diffusion_tts_tpu_torch.parallel.pipeline_parallel import (create_pp_state,
+                                                                         make_pp_trainer)
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+    from edge_diffusion_tts_tpu_torch.training import constant_schedule, train
+
+    n = dp.axis("data").size
+    out = {"dp": {}, "pp": {}, "dp_ms": {}, "pp_ms": {}}
+    cfg = par_flagship_cfg()
+
+    # a and f: compute bf16, parameters float32 (tpu_large_batch.json's pair), then bf16.
+    ff.conv_frontend.launches = ff.conv_frontend.bf16_launches = 0
+    timed = 0
+    for pdt in PAR_BF16:
+        cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16", param_dtype=pdt)
+        base16 = par_models16(torch, cfg16, base, pdt)
+        for kind in PAR_STEPS:
+            trainer, state = par_trainer(torch, cfg16, base16, with_teacher=kind == "progressive")
+            out["dp"][(pdt, kind)] = par_run_step(torch, trainer, state, kind,
+                                                  shard_batch(spec["batches"][kind], dp), dp)
+        trainer, state = par_trainer(torch, cfg16, base16, with_teacher=False)
+        launched = ff.conv_frontend.bf16_launches
+        out["dp_ms"][pdt] = par_step_ms(torch, par_step(trainer, "diffusion", dp), state,
+                                        spec["batches"]["diffusion"],
+                                        lambda b, t=trainer: t.put_batch(shard_batch(b, dp)))
+        timed += ff.conv_frontend.bf16_launches - launched
+        trainer, _ = par_trainer(torch, cfg16, base16, with_teacher=False)
+        pp = make_pp_trainer(trainer, pipe, 2)
+        state = create_pp_state(pp, 100, learning_rate=constant_schedule(1e-3))
+        res = par_run_step(torch, pp, state, "diffusion", spec["batches"]["diffusion"])
+        k = len(state.decoder.layers)
+        res["grads"] = {(f"decoder.layers.{rank * k + int(m.split('.')[2])}."
+                         f"{m.split('.', 3)[3]}" if m.startswith("decoder.layers.") else m): g
+                        for m, g in res["grads"].items()}
+        res.pop("params")
+        res["dtypes"] = {"source": par_dtypes(trainer.decoder), "stage": par_dtypes(state.decoder)}
+        out["pp"][pdt] = res
+        launched = ff.conv_frontend.bf16_launches
+        out["pp_ms"][pdt] = par_step_ms(torch, pp.make_diffusion_step(), state,
+                                        spec["batches"]["diffusion"], pp.put_batch)
+        timed += ff.conv_frontend.bf16_launches - launched
+        del base16, trainer, state, pp
+    out["steps_launches"] = ff.conv_frontend.bf16_launches - timed
+    out["steps_timed_launches"] = timed
+    out["steps_f32_launches"] = ff.conv_frontend.launches
+
+    # c. sequence-parallel long-form at a bf16-compute decoder: the bf16 band kernel per shard.
+    lcfg = par_longform_cfg()
+    dec = EdgeDiffusionDecoder(lcfg, dtype=torch.bfloat16)
+    dec.load_state_dict(seeded_decoder(torch, lcfg, SEED).state_dict())
+    dec = dec.to(DEVICE).eval()
+    lsched = DiffusionSchedule.create(lcfg.diff_steps).to(DEVICE)
+    gen = make_seq_parallel_generate(lcfg, dec, lsched, dp, PAR_SEQ["steps"], prediction="eps")
+    sem, x_T = par_seq_inputs(torch, lcfg, spec["seq_S"])
+    wa.banded_attention.launches = wa.banded_attention.bf16_launches = 0
+    x0 = gen(sem, x_T)
+    torch.cuda.synchronize()
+    out["seq"] = {"x0": x0.cpu(), "launches": wa.banded_attention.bf16_launches,
+                  "f32_launches": wa.banded_attention.launches}
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        gen(sem, x_T)
+    torch.cuda.synchronize()
+    out["seq"]["ms"] = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    out["seq"]["timed_launches"] = wa.banded_attention.bf16_launches - out["seq"]["launches"]
+    del dec
+
+    # d. the TP encode of the 5 s wav by a bf16 encoder (float32 parameters).
+    enc = par_models16(torch, cfg, base[:1], "float32")[0].to(DEVICE)
+    params = shard_encoder_params(enc, tp)
+    encode = make_tp_encode(enc, tp)
+    wav = torch.from_numpy(spec["tp_wav"]).to(DEVICE)
+    ff.conv_frontend.launches = ff.conv_frontend.bf16_launches = 0
+    tokens = encode(params, wav)
+    feats = encode.features(params, wav)
+    torch.cuda.synchronize()
+    out["tp"] = {"tokens": tokens.cpu(), "features": feats.float().cpu(),
+                 "launches": ff.conv_frontend.bf16_launches,
+                 "f32_launches": ff.conv_frontend.launches, "local": par_dtypes(encode.local)}
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        encode(params, wav)
+    torch.cuda.synchronize()
+    out["tp"]["ms"] = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    out["tp"]["timed_launches"] = ff.conv_frontend.bf16_launches - out["tp"]["launches"]
+    del enc, params, encode
+
+    # b. train() at configs/tpu_large_batch.json (compute bf16, parameters float32,
+    # batch 256) on an [n, 1] mesh, on phase 14's corpus.
+    hashes, clock = [], StepClock()
+
+    def watch(step, st):  # the parameters after every optimizer update
+        if st.optimizer.mini_step == 0:
+            flat = _flat(st.optimizer.params.values()).float().cpu().numpy()
+            hashes.append((step, hashlib.sha1(flat.tobytes()).hexdigest()))
+
+    with open(os.path.join(ROOT, "configs", "tpu_large_batch.json")) as f:
+        large = json.load(f)
+    tcfg = CFG.from_dict(dict(large, **spec["large_cuts"], mesh_shape=[n, 1],
+                              out_dir=spec["train_out"], run_name="large",
+                              ljspeech_dir=spec["large_corpus"],
+                              data_root=os.path.dirname(spec["large_corpus"]), ckpt_path=""))
+    dtypes = []
+    ff.conv_frontend.launches = ff.conv_frontend.bf16_launches = 0
+    t0 = time.perf_counter()
+    state = train(tcfg, hubert_cfg=HubertConfig(**spec["hubert"]), hooks=[watch, clock],
+                  device=DEVICE, phase_end_hook=lambda tag, st: dtypes.append(
+                      (tag, par_dtypes(st.decoder), par_dtypes(st.encoder))))
+    torch.cuda.synchronize()
+    out["train"] = {"seconds": time.perf_counter() - t0, "hashes": hashes, "step": state.step,
+                    "launches": ff.conv_frontend.bf16_launches,
+                    "f32_launches": ff.conv_frontend.launches, "dtypes": dtypes,
+                    "stamps": clock.stamps, "batch": tcfg.batch_size,
+                    "run_dir": tcfg.get_run_dir()}
+    return out
+
+
 def par_rank(rank: int, spec: dict) -> dict:
     """One rank of phase 11 (of n: two ranks on cuda:0 over gloo as this
     script runs it; with ``spec["card_per_rank"]`` rank r on cuda:r): a, the
@@ -3146,6 +3335,9 @@ def par_rank(rank: int, spec: dict) -> dict:
     out["train"] = {"seconds": time.perf_counter() - t0, "writes": writes, "hashes": hashes,
                     "step": state.step, "launches": ff.conv_frontend.launches,
                     "run_dir": tcfg.get_run_dir()}
+    del state
+    out["bf16"] = par_rank_bf16(rank, dict(spec, train_out=spec["train_out16"]), base, dp, pipe,
+                                tp)
     return out
 
 
@@ -3156,14 +3348,17 @@ def _min_cosine(torch, got: dict, want: dict) -> float:
 
 
 def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
-                   seq_S=PAR_SEQ["S"], setup=None, nranks: int = 2, backend: str = "gloo"):
+                   seq_S=PAR_SEQ["S"], setup=None, nranks: int = 2, backend: str = "gloo",
+                   large=None, large_cuts=None):
     """Phase 11: ``parallel/`` on the card (the module docstring's phase 11);
     returns the launches of its kernels and its times.  ``nranks`` ranks
     over ``backend``: two over gloo on cuda:0 as this script runs it; with
     NCCL each rank takes its own card (``port_profile.py --nccl``), and
-    ``make_dp_generate`` splits over every card.  ``hubert`` (HubertConfig
-    fields), ``train_cuts``, ``seq_S`` and ``setup`` (run first on every
-    rank) are a CPU rehearsal's cuts; the card runs the defaults."""
+    ``make_dp_generate`` splits over every card.  ``large`` is phase 14's
+    result (its ms per data step is printed beside 11b's bf16 run, which
+    trains on phase 14's corpus).  ``hubert`` (HubertConfig fields),
+    ``train_cuts``, ``large_cuts``, ``seq_S`` and ``setup`` (run first on
+    every rank) are a CPU rehearsal's cuts; the card runs the defaults."""
     import shutil
 
     from edge_diffusion_tts_tpu_torch.inference import EdgeInference
@@ -3196,11 +3391,16 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
     shutil.rmtree(out_dir, ignore_errors=True)
     corpus = os.path.join(ROOT, "build", "phase10", "LJSpeech-1.1")
     assert os.path.isfile(os.path.join(corpus, "metadata.csv")), "phase 10's corpus is missing"
+    large_corpus = os.path.join(ROOT, "build", "phase14", "LJSpeech-1.1")
+    assert os.path.isfile(os.path.join(large_corpus, "metadata.csv")), \
+        "phase 14's corpus is missing"
     spec = dict(batches=batches, tp_wav=(0.2 * rng.randn(1, 80000)).astype(np.float32),
                 corpus=corpus, train_out=os.path.join(out_dir, "out"), device=DEVICE,
                 card_per_rank=per_card, hubert=hubert,
                 train_cuts=dict(PAR_TRAIN_CUTS, **(train_cuts or {})), seq_S=seq_S,
-                setup=setup)
+                setup=setup, large_corpus=large_corpus,
+                large_cuts=dict(PAR_LARGE_CUTS, **(large_cuts or {})),
+                train_out16=os.path.join(out_dir, "large"))
     print(f"[parallel] {note}; longform overrides {PAR_POSITIONS} (T = {2 * seq_S} "
           f"needs positions past longform.json's 4096/2048)")
 
@@ -3213,9 +3413,10 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
 
     # a. each DP step against the single-process step on the whole batch.
     bars = {"loss_rel": 1e-5, "cos": 0.99999}
+    one_by_kind = {}
     for kind in PAR_STEPS:
         trainer, state = par_trainer(torch, fcfg, base, with_teacher=kind == "progressive")
-        one = par_run_step(torch, trainer, state, kind, batches[kind])
+        one = one_by_kind[kind] = par_run_step(torch, trainer, state, kind, batches[kind])
         got = r0["dp"][kind]
         for r in ranks:
             assert r["dp"][kind]["metrics"] == got["metrics"]
@@ -3268,7 +3469,7 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
         return ddim_sample(lsched, lambda x, t, si: ldec(x, t, sem_idx=sem, step_idx=si), x,
                            steps, prediction="eps")
 
-    want = single_seq()
+    want = seq_want = single_seq()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(PAR_TIMED):
@@ -3379,6 +3580,10 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
               f"phase 3's rule for v)")
         assert err <= 0.05 and frac <= 1e-3 and torch.isfinite(got).all()
 
+    singles = {"dp": {kind: one_by_kind[kind] for kind in PAR_STEPS}, "ms": single_ms,
+               "seq": seq_want, "seq_ms": seq_single_ms, "tp_features": feats.cpu(),
+               "tp_tokens": tokens.cpu(), "tp_ms": tp_single_ms}
+    out.update(parallel_bf16(torch, ranks, base, batches, spec, singles, large, note))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[parallel] phase 11: {out['seconds']:.3f} s (the ranks {ranks_s:.3f} s)")
     out["frontend_launches"] = sum(
@@ -3387,6 +3592,325 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
     out["banded_launches"] = sum(r["seq"]["launches"] + r["seq"]["timed_launches"]
                                  + r["seq"]["one_step_launches"] for r in ranks)
     out["fused_launches"] = fused_launches
+    return out
+
+
+def par_witness16(failures: list, label: str, q, q_ref, q32) -> str:
+    """The witness rule: ``q`` (bf16, parallel) no farther from ``q32``
+    (float32, one device), normwise, than 1.5 times ``q_ref`` (bf16, one
+    device) + 1e-3; a miss is added to ``failures``.  Returns the reading
+    for the printout."""
+    import torch
+
+    def rel(a):
+        a, b = torch.as_tensor(a).double(), torch.as_tensor(q32).double()
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    e, e_ref = rel(q), rel(q_ref)
+    bar = 1.5 * e_ref + 1e-3
+    if not e <= bar:
+        failures.append(f"{label}: {e:.4g} from float32, one device's bf16 {e_ref:.4g}, "
+                        f"bar {bar:.4g}")
+    return f"{e:.4g} (one device {e_ref:.4g}, bar {bar:.4g})"
+
+
+def _cos(a, b) -> float:
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(a @ b / max(float(a.norm() * b.norm()), 1e-300))
+
+
+def par_cosines16(failures: list, label: str, got: dict, ref: dict, g32: dict) -> str:
+    """Every gradient tensor's cosine to float32's no lower than the
+    reference's - 0.01 (misses added to ``failures``); returns the lowest,
+    for the printout."""
+    if set(got) != set(g32):
+        failures.append(f"{label}: gradient names differ {sorted(set(got) ^ set(g32))[:4]}")
+        return "names differ"
+    worst = (2.0, 2.0, None)
+    for n, w in g32.items():
+        if w.norm() == 0 or ref[n].norm() == 0:
+            continue
+        c, c_ref = _cos(got[n], w), _cos(ref[n], w)
+        if not c >= c_ref - 0.01:
+            failures.append(f"{label} {n}: cosine {c:.6f}, the reference's {c_ref:.6f}")
+        worst = min(worst, (c, c_ref, n))
+    if worst[2] is None:
+        failures.append(f"{label}: no nonzero gradient")
+    return f"lowest gradient cosine to float32 {worst[0]:.6f} ({worst[2]}; reference {worst[1]:.6f})"
+
+
+def _flat_grads(grads: dict):
+    import torch
+
+    return torch.cat([grads[n].double().reshape(-1) for n in sorted(grads)])
+
+
+def par_microbatched(trainer, n_mb: int):
+    """``trainer`` (one device) with its decoder's blocks run per microbatch
+    of ``n_mb``, as ``PPTrainer._decode`` runs them over the stages: the
+    pipeline step's gradients accumulate the same per-microbatch products,
+    so this is the PP step's one-device oracle (its context and
+    conditioning gradients add in another order)."""
+    import types
+
+    import torch
+
+    def decode(self, decoder, x_t, t, generator=None, sem_mask=None, mel_mask=None, **cond):
+        h0, context, t_cond = decoder.prelude(x_t, t, **cond)
+        outs = []
+        for h, c, tc in zip(h0.chunk(n_mb), context.chunk(n_mb), t_cond.chunk(n_mb)):
+            for block in decoder.layers:
+                h = block(h, c, cond=tc, generator=generator)
+            outs.append(h)
+        return decoder.postlude(torch.cat(outs))
+
+    trainer._decode = types.MethodType(decode, trainer)
+    return trainer
+
+
+def parallel_bf16(torch, ranks, base, batches, spec, singles, large, note) -> dict:
+    """Phase 11's bf16 pass (``par_rank_bf16`` on every rank), held against
+    the single device at compute bf16 by the witness rule, float32's single
+    device as Q32, and each step's gradients against its one-device oracle
+    (the module docstring's phase 11g); every check is made and printed,
+    then any miss fails the phase.  Returns its launches and times."""
+    import dataclasses
+
+    from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule, ddim_sample
+    from edge_diffusion_tts_tpu_torch.training import progressive_step_schedule
+
+    n, bf16 = len(ranks), torch.bfloat16
+    rb = [r["bf16"] for r in ranks]
+    r0 = rb[0]
+    per_rank = lambda f: " / ".join(f"{f(r):.3f}" for r in rb)  # noqa: E731
+    fcfg = par_flagship_cfg()
+    out = {"bf16_dp_ms": {}, "bf16_pp_ms": {}, "bf16_single_ms": {}}
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    # a and f at compute bf16, float32 then bf16 parameters.
+    for pdt in PAR_BF16:
+        cfg16 = dataclasses.replace(fcfg, compute_dtype="bfloat16", param_dtype=pdt)
+        base16 = par_models16(torch, cfg16, base, pdt)
+        one16 = {}
+        for kind in PAR_STEPS:
+            trainer, state = par_trainer(torch, cfg16, base16, with_teacher=kind == "progressive")
+            one16[kind] = par_run_step(torch, trainer, state, kind, batches[kind])
+            # the DP step's oracle: each rank's rows stepped alone on one device, their
+            # gradients' float32 mean rounded to the parameters' dtype
+            rows = batches[kind]["wav"].shape[0] // n
+            shards = []
+            for r in range(n):
+                trainer, state = par_trainer(torch, cfg16, base16,
+                                             with_teacher=kind == "progressive")
+                shards.append(par_run_step(torch, trainer, state, kind, {
+                    k: v[r * rows:(r + 1) * rows] for k, v in batches[kind].items()})["grads"])
+            got, q32 = r0["dp"][(pdt, kind)], singles["dp"][kind]
+            oracle = {m: (sum(sh[m].float() for sh in shards) / n).to(got["grads"][m].dtype)
+                      for m in got["grads"]}
+            same = sum(torch.equal(got["grads"][m], g) for m, g in oracle.items())
+            worst = max(float((got["grads"][m].double() - g.double()).norm()
+                              / max(float(g.double().norm()), 1e-30)) for m, g in oracle.items())
+            label = f"a. DP {kind} step, compute bf16, parameters {pdt}"
+            # Each tensor is held to the oracle, the whole gradient to the one-device step:
+            # a split batch rounds each rank's partial gradient to bf16, so one small
+            # tensor's cosine to float32 can fall 0.03 below the one-device step's (it is
+            # printed below, not held).
+            check(worst <= 2.0 ** -8, f"{label}: a gradient {worst:.3g} from its oracle")
+            for r in rb:
+                check(r["dp"][(pdt, kind)]["metrics"] == got["metrics"]
+                      and torch.equal(r["dp"][(pdt, kind)]["params"], got["params"]),
+                      f"{label}: replicas differ")
+            check(got["params"].dtype == getattr(torch, pdt), f"{label}: parameter dtype")
+            loss = par_witness16(failures, f"{label} loss", got["metrics"]["loss"],
+                                 one16[kind]["metrics"]["loss"], q32["metrics"]["loss"])
+            params = par_witness16(failures, f"{label} parameters", got["params"],
+                                   one16[kind]["params"], q32["params"])
+            whole = par_witness16(failures, f"{label} gradient", _flat_grads(got["grads"]),
+                                  _flat_grads(one16[kind]["grads"]), _flat_grads(q32["grads"]))
+            print(f"[parallel] {label}: gradients against the oracle (each rank's rows alone, "
+                  f"the mean rounded to {pdt}): {same} of {len(oracle)} tensors bit-equal, the "
+                  f"farthest {worst:.3g} (bar 2^-8); against the one-device bf16 step on the "
+                  f"whole batch, float32's as Q32: loss {got['metrics']['loss']:.6g} (one "
+                  f"device {one16[kind]['metrics']['loss']:.6g}, float32 "
+                  f"{q32['metrics']['loss']:.6g}) rel {loss}, the whole gradient rel {whole}, "
+                  f"the parameters after the update rel {params}; "
+                  f"{par_cosines16([], label, got['grads'], one16[kind]['grads'], q32['grads'])}"
+                  "; replicas bit-equal")
+        trainer, state = par_trainer(torch, cfg16, base16, with_teacher=False)
+        single = out["bf16_single_ms"][pdt] = par_step_ms(
+            torch, trainer.make_diffusion_step(), state, batches["diffusion"], trainer.put_batch)
+        out["bf16_dp_ms"][pdt] = [r["dp_ms"][pdt] for r in rb]
+        out["bf16_pp_ms"][pdt] = [r["pp_ms"][pdt] for r in rb]
+        print(f"[parallel] a. ms per data step, batch 4 x 2 s, compute bf16, parameters {pdt}: "
+              f"DP {per_rank(lambda r: r['dp_ms'][pdt])}, single device {single:.3f}; float32 DP "
+              f"{' / '.join(f'{r['dp_ms']:.3f}' for r in ranks)}, single device "
+              f"{singles['ms']:.3f} ({note})")
+        res = [r["pp"][pdt] for r in rb]
+        pp_grads = {}
+        label = f"f. PP diffusion step ({n} stages x 2 microbatches), parameters {pdt}"
+        for r in res:
+            check(r["metrics"] == res[0]["metrics"], f"{label}: stages' metrics differ")
+            check(r["dtypes"]["stage"] == r["dtypes"]["source"] == (
+                "torch.bfloat16", [f"torch.{pdt}"]), f"{label}: dtypes {r['dtypes']}")
+            pp_grads.update(r["grads"])
+        trainer, state = par_trainer(torch, cfg16, base16, with_teacher=False)
+        mb = par_run_step(torch, par_microbatched(trainer, 2), state, "diffusion",
+                          batches["diffusion"])
+        q32 = singles["dp"]["diffusion"]
+        oracle = par_cosines16(failures, f"{label} vs its oracle", pp_grads, mb["grads"],
+                               q32["grads"])
+        loss = par_witness16(failures, f"{label} loss", res[0]["metrics"]["loss"],
+                             one16["diffusion"]["metrics"]["loss"], q32["metrics"]["loss"])
+        norm = par_witness16(failures, f"{label} grad_norm", res[0]["metrics"]["grad_norm"],
+                             one16["diffusion"]["metrics"]["grad_norm"],
+                             q32["metrics"]["grad_norm"])
+        whole = par_witness16(failures, f"{label} gradient", _flat_grads(pp_grads),
+                              _flat_grads(one16["diffusion"]["grads"]), _flat_grads(q32["grads"]))
+        print(f"[parallel] {label}: stage decoders {res[0]['dtypes']['stage']}; against its "
+              f"oracle (one device, the blocks per microbatch) {oracle}; against the "
+              f"one-device step: loss rel {loss}, grad_norm {norm}, the whole gradient rel "
+              f"{whole}; "
+              f"{par_cosines16([], label, pp_grads, one16['diffusion']['grads'], q32['grads'])}"
+              f"; ms per step {per_rank(lambda r: r['pp_ms'][pdt])}, single device bf16 "
+              f"{single:.3f} ({note})")
+        del base16, trainer, state
+    per_pdt = len(PAR_STEPS) + 1  # the DP steps and the PP step: one bf16 frontend call each
+    for r in rb:
+        check(r["steps_launches"] == len(PAR_BF16) * per_pdt
+              and r["steps_timed_launches"] == len(PAR_BF16) * 2 * (PAR_TIMED + 1)
+              and r["steps_f32_launches"] == 0,
+              f"a/f: frontend launches {r['steps_launches']}, timed "
+              f"{r['steps_timed_launches']}, float32 {r['steps_f32_launches']}")
+
+    # c. sequence parallel at a bf16-compute decoder against its single-device call.
+    lcfg = par_longform_cfg()
+    ldec = EdgeDiffusionDecoder(lcfg, dtype=bf16)
+    ldec.load_state_dict(seeded_decoder(torch, lcfg, SEED).state_dict())
+    ldec = ldec.to(DEVICE).eval()
+    lsched = DiffusionSchedule.create(lcfg.diff_steps).to(DEVICE)
+    sem, x_T = par_seq_inputs(torch, lcfg, spec["seq_S"])
+
+    @torch.inference_mode()
+    def single_seq():
+        return ddim_sample(lsched, lambda x, t, si: ldec(x, t, sem_idx=sem, step_idx=si), x_T,
+                           PAR_SEQ["steps"], prediction="eps")
+
+    want = single_seq().cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        single_seq()
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    got = r0["seq"]["x0"]
+    check(all(torch.equal(r["seq"]["x0"], got) for r in rb) and bool(torch.isfinite(got).all()),
+          "c. the ranks' x0 differ or are not finite")
+    reading = par_witness16(failures, "c. sequence-parallel bf16", got, want,
+                            singles["seq"].cpu())
+    te = min(2 * spec["seq_S"], 2 * spec["seq_S"] // n + 2 * lcfg.layers * lcfg.attn_window_size)
+    launches = lcfg.layers * PAR_SEQ["steps"] * (te >= lcfg.pallas_min_seq_len)
+    for r in rb:
+        check(r["seq"]["launches"] == launches and r["seq"]["f32_launches"] == 0
+              and r["seq"]["timed_launches"] == launches * PAR_TIMED,
+              f"c. band launches {r['seq']['launches']} (bf16), {r['seq']['f32_launches']} "
+              f"(float32), timed {r['seq']['timed_launches']}")
+    out.update(bf16_seq_ms=[r["seq"]["ms"] for r in rb], bf16_seq_single_ms=seq_ms)
+    print(f"[parallel] c. sequence-parallel T={2 * spec['seq_S']}, eps, {PAR_SEQ['steps']} steps, "
+          f"a bf16-compute decoder: rel to the float32 single call {reading}; max err against "
+          f"the bf16 single call {float((got - want).abs().max()):.4g}; bf16 band launches per "
+          f"rank {[r['seq']['launches'] for r in rb]}; ms per call {per_rank(lambda r: r['seq']['ms'])}, "
+          f"single device bf16 {seq_ms:.3f}, float32 {singles['seq_ms']:.3f} ({note})")
+    del ldec
+
+    # d. the TP encode of a bf16 encoder against the single-device bf16 encode (kernel route).
+    enc = par_models16(torch, fcfg, base[:1], "float32")[0].to(DEVICE)
+    w16 = ff.pack_frontend_weights(enc.hubert.feature_extractor, bf16)
+    tp_wav = torch.from_numpy(spec["tp_wav"]).to(DEVICE)
+    with torch.inference_mode():
+        conv = ff.conv_frontend(tp_wav, w16, compute_dtype=bf16)
+        feats = enc.extract_hubert(tp_wav, conv_feats=conv).float().cpu()
+        tokens = ff.fast_encode(enc, tp_wav, w16, compute_dtype=bf16).cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAR_TIMED):
+            ff.fast_encode(enc, tp_wav, w16, compute_dtype=bf16)
+        torch.cuda.synchronize()
+    tp_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
+    tok32 = singles["tp_tokens"]
+    share = float((r0["tp"]["tokens"] == tok32).double().mean())
+    share_one = float((tokens == tok32).double().mean())
+    same = float((r0["tp"]["tokens"] == tokens).double().mean())
+    reading = par_witness16(failures, "d. TP encode bf16 features", r0["tp"]["features"], feats,
+                            singles["tp_features"])
+    print(f"[parallel] d. TP encode of a 5 s wav by a bf16 encoder (float32 parameters), mesh "
+          f"(1, {n}): layer-9 features rel to float32 {reading}; tokens equal to the bf16 single "
+          f"device's {same:.4%}, to float32's {share:.4%} (one device {share_one:.4%}, bar "
+          f"{share_one - 0.02:.4%}); ms per encode {per_rank(lambda r: r['tp']['ms'])}, single "
+          f"device bf16 fast_encode {tp_ms:.3f}, float32 {singles['tp_ms']:.3f} ({note})")
+    check(share >= share_one - 0.02, f"d. token share {share} against one device's {share_one}")
+    for r in rb:
+        check(torch.equal(r["tp"]["tokens"], r0["tp"]["tokens"])
+              and r["tp"]["local"][0] == "torch.bfloat16" and r["tp"]["launches"] == 2
+              and r["tp"]["f32_launches"] == 0 and r["tp"]["timed_launches"] == PAR_TIMED,
+              f"d. the ranks' tokens, dtypes {r['tp']['local']} or launches "
+              f"{r['tp']['launches']}/{r['tp']['f32_launches']}/{r['tp']['timed_launches']}")
+    out.update(bf16_tp_ms=[r["tp"]["ms"] for r in rb], bf16_tp_single_ms=tp_ms)
+    del enc
+
+    # b. train() at configs/tpu_large_batch.json on the [n, 1] mesh.
+    t = r0["train"]
+    with open(os.path.join(ROOT, "configs", "tpu_large_batch.json")) as f:
+        lcfg = dict(json.load(f), **spec["large_cuts"])
+    halvings = progressive_step_schedule(lcfg["diff_steps"], lcfg["progressive_target_steps"])
+    epochs = lcfg["diffusion_epochs"] + lcfg["progressive_epochs_per_halving"] * len(
+        halvings) + lcfg["consistency_epochs"]
+    spe = t["step"] // epochs
+    check(bool(t["hashes"]) and all(r["train"]["hashes"] == t["hashes"] for r in rb),
+          "b. bf16 replicas differ after an update")
+    check(all(r["train"]["step"] == spe * epochs for r in rb),
+          f"b. data steps {[r['train']['step'] for r in rb]}")
+    check(all(r["train"]["launches"] == t["step"] and r["train"]["f32_launches"] == 0
+              for r in rb),
+          f"b. frontend launches {[(r['train']['launches'], r['train']['f32_launches']) for r in rb]}")
+    want_dt = (("torch.bfloat16", ["torch.float32"]),) * 2
+    check(bool(t["dtypes"]) and all(d[1:] == want_dt for d in t["dtypes"]),
+          f"b. dtypes {t['dtypes']}")
+    with open(os.path.join(t["run_dir"], "metrics.jsonl")) as f:
+        losses = [v for line in f for k, v in json.loads(line).items() if k.endswith("loss")]
+    check(bool(losses) and all(math.isfinite(v) for v in losses), "b. a logged loss is not finite")
+    check(os.path.isfile(os.path.join(t["run_dir"], "edge_model_final", "decoder.pt")),
+          "b. no final model")
+    clocks = []
+    for r in rb:
+        c = StepClock()
+        c.stamps = r["train"]["stamps"]
+        clocks.append(_steady_ms(c, 1, t["step"], spe))
+    out.update(bf16_train_ms=clocks, bf16_train_s=t["seconds"])
+    beside = ("" if large is None else
+              f"; phase 14's single card at batch {t['batch']}: diffusion "
+              f"{large['ms']['diffusion']:.3f}, progressive {large['ms']['progressive']:.3f}, "
+              f"consistency {large['ms']['consistency']:.3f}")
+    print(f"[parallel] b. train() at configs/tpu_large_batch.json (compute bf16, parameters "
+          f"float32, batch {t['batch']}, {t['batch'] // n} rows per rank) on mesh [{n}, 1], "
+          f"phase 14's corpus, halvings {halvings}: {t['step']} data steps, {len(t['hashes'])} "
+          f"updates, the replicas' parameters bit-equal after each (final sha1 "
+          f"{t['hashes'][-1][1][:12]}); {len(losses)} logged losses, all finite; ms per data "
+          f"step {' / '.join(f'{m:.3f}' for m in clocks)} (steady steps, host clock){beside}; "
+          f"{t['seconds']:.3f} s; bf16 frontend launches per rank "
+          f"{[r['train']['launches'] for r in rb]} ({note})")
+
+    out["bf16_frontend_launches"] = sum(
+        r["steps_launches"] + r["steps_timed_launches"] + r["tp"]["launches"]
+        + r["tp"]["timed_launches"] + r["train"]["launches"] for r in rb)
+    out["bf16_banded_launches"] = sum(r["seq"]["launches"] + r["seq"]["timed_launches"]
+                                      for r in rb)
+    assert not failures, "phase 11's bf16 pass:\n" + "\n".join(failures)
     return out
 
 
@@ -3916,10 +4440,10 @@ def run(torch) -> None:
     ddpm = phase_ddpm(torch, cfg, decoder, pre_decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
     trained = phase_train(torch)
-    par = phase_parallel(torch, cfg, decoder)
+    large = phase_large_batch(torch)  # before phase 11, whose bf16 train() takes its corpus
+    par = phase_parallel(torch, cfg, decoder, large=large)
     cli_run = phase_cli(torch)
     phase_tflite(torch)
-    large = phase_large_batch(torch)
 
     b = banded[BAND_SHAPES[1]]  # ms: device time by CUDA-graph replay
     kernels = [
@@ -3948,12 +4472,12 @@ def run(torch) -> None:
          "max_abs_err": max(r["max_abs_err"] for r in frontend.values()),
          **{k: frontend[(1, 80000)][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
-        # the same TPU kernel at compute_dtype bf16: phase 14's trainer (batch 256) runs it;
-        # its numbers are at that shape, [256, 32000] (phase 6b)
+        # the same TPU kernel at compute_dtype bf16: phase 14's trainer (batch 256) and phase
+        # 11's bf16 pass run it; its numbers are at phase 14's shape, [256, 32000] (phase 6b)
         {"name": "conv_frontend_bf16", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
          "replaces": "edge_diffusion_tts_tpu/ops/fused_frontend.py:123",
-         "launches": large["bf16_launches"],
+         "launches": large["bf16_launches"] + par["bf16_frontend_launches"],
          **{k: frontend16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None},
         {"name": "fused_ddpm", "route": "cuda",
@@ -3974,7 +4498,7 @@ def run(torch) -> None:
         {"name": "banded_attention_bf16", "route": "cuda",
          "source": "edge_diffusion_tts_tpu_torch/csrc/band16.cuh",
          "replaces": "edge_diffusion_tts_tpu/ops/window_attention.py:48",
-         "launches": banded16_launches,
+         "launches": banded16_launches + par["bf16_banded_launches"],
          **{k: banded16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")}},
         {"name": "fused_ddpm_bf16", "route": "cuda",

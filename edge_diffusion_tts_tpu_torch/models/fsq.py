@@ -43,6 +43,10 @@ class FSQ(nn.Module):
     def _half(self) -> torch.Tensor:
         return (self._levels - 1.0) / 2.0
 
+    def bound(self, z: torch.Tensor) -> torch.Tensor:
+        """Each latent dim into (-1, 1): ``tanh``, at ``z``'s dtype."""
+        return torch.tanh(z)
+
     def quantize(self, z: torch.Tensor) -> torch.Tensor:
         """Round bounded z in [-1, 1] to per-dim levels, back to [-1, 1]."""
         half = self._half()
@@ -52,7 +56,7 @@ class FSQ(nn.Module):
 
     def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(quantized with straight-through gradient, flat indices)."""
-        z_b = torch.tanh(z)
+        z_b = self.bound(z)
         z_q = self.quantize(z_b)
         return z_b + (z_q - z_b).detach(), self.codes_to_indices(z_q)
 

@@ -9,11 +9,20 @@ batch split over the ``data`` axis.  A step takes this rank's rows
    own, seeded from the caller's generator seed, the data-step count and
    the rank's index on the axis (JAX folds the axis index into the step key);
 2. the local backward;
-3. ONE all-reduce of a flat bucket holding every gradient and every metric,
-   divided by the axis size: the big batch's mean gradient and the mean of
-   the metrics, as JAX's ``pmean``;
+3. ONE all-reduce of a flat float32 bucket holding every gradient and every
+   metric, divided by the axis size: the big batch's mean gradient and the
+   mean of the metrics, as JAX's ``pmean``; each mean goes back to its
+   gradient's dtype before the optimizer sees it;
 4. ``grad_norm`` of the reduced gradients, the optimizer update and the
    teacher's EMA, the same on every rank, so the replicas stay bit-equal.
+
+With bf16 parameters (``param_dtype="bfloat16"``) the gradients are bf16.
+JAX's ``pmean`` reduces them in bf16; here they are summed in the float32
+bucket and rounded to bf16 once, after the divide.  Over 2 ranks the two
+agree bit for bit: the float32 sum of two bf16 values rounds to bf16 as
+their exact sum does, and halving is exact.  Over more ranks this rounds
+once where a bf16 ring rounds after every add.  Float32 gradients take the
+same bucket as before, bit for bit.
 
 The VQ's EMA statistics are not averaged: the quantizer sums its raw batch
 statistics over the axis (``models/vq.py``, ``group``), so its update equals
@@ -90,11 +99,13 @@ def _make_dp_step(trainer: Trainer, mesh: Mesh, loss_fn: Callable, axis: str,
                      else torch.zeros_like(params[n]) for n in names]
             keys = sorted(metrics)
             vals = [metrics[k].detach().float().reshape(1) for k in keys]
-            bucket = torch.cat([t.reshape(-1) for t in grads] + vals)
+            bucket = torch.cat([t.reshape(-1).float() for t in grads] + vals)
             ax.all_reduce(bucket).div_(ax.size)
-            grads = list(torch.split(bucket[: bucket.numel() - len(vals)],
-                                     [t.numel() for t in grads]))
-            grads = [r.view_as(p) for r, p in zip(grads, (params[n] for n in names))]
+            reduced = torch.split(bucket[: bucket.numel() - len(vals)],
+                                  [t.numel() for t in grads])
+            # Each mean back at its gradient's dtype (a bf16 parameter's
+            # gradient is bf16): one rounding of the float32 mean.
+            grads = [r.view_as(g).to(g.dtype) for r, g in zip(reduced, grads)]
             metrics = {k: bucket[bucket.numel() - len(vals) + i] for i, k in enumerate(keys)}
         with record_function("train:optimizer"):
             grads = dict(zip(names, grads))

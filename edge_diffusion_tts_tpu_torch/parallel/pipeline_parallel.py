@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ..config import CFG
+from ..layers.dtypes import cast_parameters
 from ..models.decoder import EdgeDiffusionDecoder
 from ..pipeline import fold_seed
 from ..training.state import TrainState, global_norm, make_optimizer
@@ -124,13 +125,13 @@ def pp_unpack_params(params: Mapping) -> dict:
 class StageDecoder(EdgeDiffusionDecoder):
     """The decoder of pipeline stage ``stage`` of ``n_stages``: the prelude,
     the postlude and blocks ``[stage*k, (stage+1)*k)``, ``k = layers /
-    n_stages``, renumbered from 0.  Its forward runs through a
-    ``PPTrainer``, never alone."""
+    n_stages``, renumbered from 0, computing at ``dtype``.  Its forward
+    runs through a ``PPTrainer``, never alone."""
 
-    def __init__(self, cfg: CFG, stage: int, n_stages: int):
+    def __init__(self, cfg: CFG, stage: int, n_stages: int, dtype: torch.dtype = torch.float32):
         if cfg.layers % n_stages:
             raise ValueError(f"layers={cfg.layers} not divisible by {n_stages} pipeline stages")
-        super().__init__(cfg)
+        super().__init__(cfg, dtype=dtype)
         k = cfg.layers // n_stages
         self.layers = nn.ModuleList(list(self.layers)[stage * k:(stage + 1) * k])
         self.pp_stage, self.pp_stages = stage, n_stages
@@ -155,16 +156,24 @@ class StageDecoder(EdgeDiffusionDecoder):
 
 def make_stage_decoder(decoder: EdgeDiffusionDecoder, stage: int,
                        n_stages: int) -> StageDecoder:
-    """Stage ``stage``'s decoder, its weights from ``decoder``'s."""
-    dec = StageDecoder(decoder.cfg, stage, n_stages)
+    """Stage ``stage``'s decoder, its weights from ``decoder``'s: the same
+    compute dtype, each parameter stored at its source's dtype."""
+    dec = _like(StageDecoder(decoder.cfg, stage, n_stages, dtype=decoder.dtype), decoder)
     dec.load_state_dict(dec.stage_slice(decoder.state_dict()))
     device = next(decoder.parameters()).device
     return dec.to(device).train(decoder.training)
 
 
+def _like(dec: EdgeDiffusionDecoder, source: EdgeDiffusionDecoder) -> EdgeDiffusionDecoder:
+    """``dec`` with its parameters stored at ``source``'s parameter dtype
+    (a model's ``param_dtype``: one dtype for every parameter)."""
+    return cast_parameters(dec, next(source.parameters()).dtype)
+
+
 def _gather_blocks(local: Mapping, ax: Axis, device) -> Dict[str, torch.Tensor]:
     """Every stage's ``layers.{j}.*`` tensors -> the whole stack's
-    ``layers.{i}.*`` (CPU), in one all-gather over the pipe axis."""
+    ``layers.{i}.*`` (CPU), each at its own dtype, in one float32
+    all-gather over the pipe axis (bf16 and float32 values cross exactly)."""
     names = sorted(local)
     k = 1 + max((_layer_index(n)[0] for n in names), default=-1)
     flat = torch.cat([local[n].detach().reshape(-1).float() for n in names]).to(device)
@@ -290,9 +299,10 @@ class PPBackbone:
             g_c.append(c_in.grad if c_in.grad is not None else torch.zeros_like(c_in))
             g_t.append(t_in.grad if t_in.grad is not None else torch.zeros_like(t_in))
         parts = [torch.cat(g_h), torch.cat(g_c), torch.cat(g_t)]
-        bucket = ax.all_reduce(torch.cat([p.reshape(-1) for p in parts]))
+        # One float32 all-reduce; each sum back at its part's dtype.
+        bucket = ax.all_reduce(torch.cat([p.reshape(-1).float() for p in parts]))
         out = torch.split(bucket, [p.numel() for p in parts])
-        return tuple(o.view_as(p) for o, p in zip(out, parts))
+        return tuple(o.view_as(p).to(p.dtype) for o, p in zip(out, parts))
 
 
 def make_pp_backbone(cfg: CFG, mesh: Mesh, num_microbatches: int, axis: str = PIPE_AXIS,
@@ -360,9 +370,15 @@ class PPTrainer(Trainer):
 def stage_norm_fn(ax: Axis) -> Callable:
     """The clip's global norm for a stage's optimizer (``Optimizer.norm_fn``):
     the blocks' squares summed over the stages on ``ax``, the replicated
-    tensors' counted once."""
+    tensors' counted once.  Float32 gradients sum their squares in float32;
+    any other dtype follows ``training.state.global_norm``: each tensor's
+    sum of squares in its dtype, then a running sum in the whole model's
+    order (every stage's per-tensor sums gathered over ``ax``), so a
+    pipeline stage clips exactly as the single-device step does."""
 
     def norm(names, grads) -> torch.Tensor:
+        if any(g.dtype != torch.float32 for g in grads):
+            return _ordered_norm(ax, names, grads)
         blocks = [g for n, g in zip(names, grads) if _is_block(n)]
         rest = [g for n, g in zip(names, grads) if not _is_block(n)]
         sq = torch.stack([g.float().square().sum() for g in blocks]).sum() if blocks \
@@ -373,6 +389,30 @@ def stage_norm_fn(ax: Axis) -> Callable:
         return sq.sqrt()
 
     return norm
+
+
+def _ordered_norm(ax: Axis, names, grads) -> torch.Tensor:
+    """``global_norm`` of the whole model's gradients, from one stage's:
+    each tensor's sum of squares at its dtype, the blocks' gathered over
+    ``ax`` (one float32 all-gather: the values cross exactly), then added in
+    the whole model's order (a stage's names are the model's with its blocks
+    in place of every stage's, renumbered from 0)."""
+    sq = [g.square().sum() for g in grads]
+    blocks = [i for i, n in enumerate(names) if _is_block(n)]
+    gathered = []
+    if blocks:
+        flat = torch.stack([sq[i].float() for i in blocks])
+        gathered = ax.all_gather(flat[None], 0)  # [stages, blocks]
+    total, done = 0, False
+    for i, n in enumerate(names):
+        if not _is_block(n):
+            total = total + sq[i]
+        elif not done:  # every stage's blocks, stage by stage, where the blocks stand
+            done = True
+            for stage in gathered:
+                for j, v in zip(blocks, stage):
+                    total = total + v.to(sq[j].dtype)
+    return total.sqrt()
 
 
 def make_pp_trainer(trainer: Trainer, mesh: Mesh, num_microbatches: int,
@@ -455,9 +495,11 @@ class PPTrainState(TrainState):
 
 
 def canonical_decoder(state: PPTrainState) -> EdgeDiffusionDecoder:
-    """The whole decoder of a pipeline run, on the host (collective)."""
+    """The whole decoder of a pipeline run, on the host (collective), at the
+    stage decoder's compute and parameter dtypes."""
     sd = state.canonical_decoder_state()
-    dec = EdgeDiffusionDecoder(state.decoder.cfg)
+    dec = _like(EdgeDiffusionDecoder(state.decoder.cfg, dtype=state.decoder.dtype),
+                state.decoder)
     dec.load_state_dict(sd)
     return dec
 

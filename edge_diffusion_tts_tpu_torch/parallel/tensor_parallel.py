@@ -18,7 +18,10 @@ code adds: the encoder's own forward runs on this rank's slices
 from q_proj's rows).  The batch is split over the data axis and the tokens
 gathered back, so every rank returns the whole batch's.  On the
 hubert-base conv stack the frontend runs on the conv-frontend kernel
-(``ops/fused_frontend.conv_frontend``), as ``fast_encode`` runs it.
+(``ops/fused_frontend.conv_frontend``), as ``fast_encode`` runs it, at the
+encoder's compute dtype (a bf16 encoder takes the frontend's bf16 variant,
+as ``Trainer.hubert_features`` does).  The encoder's structure is rebuilt
+at its compute dtype, and its tensors keep their dtypes.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..layers.dtypes import cast
 from ..models.encoder import SemanticEncoder
 from ..ops.fused_frontend import conv_frontend, kernel_serves, pack_frontend_weights
 from .mesh import DATA_AXIS, MODEL_AXIS, Axis, Mesh, Placement
@@ -80,15 +84,21 @@ def _sub(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor
 
 
 class _RowParallel(nn.Linear):
-    """A row-parallel linear: this rank's partial product, summed over the
-    model axis by one all-reduce, then the bias once."""
+    """A row-parallel linear at ``linear``'s compute dtype: this rank's
+    partial product in float32 (of the operands at the compute dtype),
+    summed over the model axis by one float32 all-reduce, the bias added
+    once, then one rounding to the compute dtype, as the whole product
+    accumulates and rounds on one device."""
 
     def __init__(self, linear: nn.Linear, axis: Axis):
         super().__init__(linear.in_features, linear.out_features, device="meta")
         self.axis = axis
+        self.compute_dtype = getattr(linear, "compute_dtype", torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.axis.all_reduce(F.linear(x, self.weight)) + self.bias
+        dt, f32 = self.compute_dtype, torch.float32
+        part = F.linear(cast(cast(x, dt), f32), cast(cast(self.weight, dt), f32))
+        return cast(self.axis.all_reduce(part) + cast(cast(self.bias, dt), f32), dt)
 
 
 class TPEncode:
@@ -107,13 +117,16 @@ class TPEncode:
             raise ValueError(f"{hc.num_heads} heads and FFN width {hc.intermediate_size} "
                              f"must divide over the {n}-rank model axis")
         self.layer = min(encoder.cfg.hubert_layer, hc.num_layers)
-        self.frontend_weights = (pack_frontend_weights(encoder.hubert.feature_extractor)
+        self.dtype = encoder.dtype
+        self.frontend_weights = (pack_frontend_weights(encoder.hubert.feature_extractor,
+                                                       self.dtype)
                                  if kernel_serves(hc) else None)
         # The encoder's structure without storage; every call hands it this
         # rank's tensors.  Buffers outside the state dict (the FSQ's levels)
         # are the encoder's own.
         with torch.device("meta"):
-            self.local = SemanticEncoder(encoder.cfg, hc, use_dropout=encoder.use_dropout)
+            self.local = SemanticEncoder(encoder.cfg, hc, use_dropout=encoder.use_dropout,
+                                         dtype=self.dtype)
         for layer in self.local.hubert.encoder.layers:
             layer.attention.out_proj = _RowParallel(layer.attention.out_proj, self.model)
             layer.feed_forward.output_dense = _RowParallel(layer.feed_forward.output_dense,
@@ -129,7 +142,8 @@ class TPEncode:
             raise ValueError(f"batch {B} does not divide over the {ax.size}-rank data axis")
         n = B // ax.size
         wav = wav[ax.index * n:(ax.index + 1) * n]
-        feats = (conv_frontend(wav.float().contiguous(), self.frontend_weights)
+        feats = (conv_frontend(wav.float().contiguous(), self.frontend_weights,
+                               compute_dtype=self.dtype)
                  if self.frontend_weights is not None else None)
         return wav, {**self.fixed, **enc_params}, feats
 

@@ -27,10 +27,13 @@ process group (``torchrun`` + ``parallel.init_multihost()``):
   axis (``parallel/pipeline_parallel.py``); checkpoints carry the packed
   layout and the final model is written canonical.
 
-Rank 0 alone writes checkpoints, metrics and plots; a barrier follows every
-write, and resume loads on every rank.  ``export=True`` writes the final
-decoder as ``edge_model.pt2`` (``utils/export.py``) beside ``edge_model_final``,
-where the JAX package writes ``edge_model.stablehlo``.
+Both take the modules at ``cfg.compute_dtype`` and ``cfg.param_dtype`` as a
+single-device run does: the stage decoders, the checkpoints (packed or not)
+and the final model keep them.  Rank 0 alone writes checkpoints, metrics and
+plots; a barrier follows every write, and resume loads on every rank.
+``export=True`` writes the final decoder as ``edge_model.pt2``
+(``utils/export.py``) beside ``edge_model_final``, where the JAX package
+writes ``edge_model.stablehlo``.
 """
 
 from __future__ import annotations
@@ -106,11 +109,6 @@ def _parallel_layout(cfg: CFG):
 
     dp = pipe = None
     n_mb = 0
-    multi = (cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1) or cfg.pipeline_stages > 1
-    if multi and (cfg.compute_dtype, cfg.param_dtype) != ("float32", "float32"):
-        raise NotImplementedError(
-            "parallel/ trains in float32 only: bf16 compute or parameters over a mesh or "
-            "pipeline stages is ROADMAP Queue A item A6.4")
     if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
         n_mesh = int(np.prod(cfg.mesh_shape))
         if cfg.pipeline_stages > 1:

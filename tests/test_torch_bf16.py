@@ -617,12 +617,6 @@ def test_train_large_batch_config_bf16(tmp_path, monkeypatch, param_dtype):
     assert rel(b.numpy(), a.numpy()) < 0.05
 
 
-def test_parallel_training_refuses_bf16(tmp_path):
-    cfg = dataclasses.replace(_large_batch_cfg(tmp_path), mesh_shape=[2, 1])
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        train(cfg, train_loader=[], hubert_cfg=PHC.tiny(), device="cpu")
-
-
 def test_fused_entry_points_take_only_float32_or_bf16():
     """The fused DDIM/DDPM entry points take the JAX functions'
     ``compute_dtype``, float32 or bfloat16 (their bf16 variants,

@@ -13,7 +13,8 @@ import os
 import numpy as np
 import torch
 
-from edge_diffusion_tts_tpu_torch.config import CFG
+from edge_diffusion_tts_tpu_torch.config import CFG, torch_dtype
+from edge_diffusion_tts_tpu_torch.layers.dtypes import cast_parameters
 from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder, HubertConfig, SemanticEncoder
 from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
 from edge_diffusion_tts_tpu_torch.training import (
@@ -33,12 +34,24 @@ def tiny_cfg(**kw) -> CFG:
     return CFG(**d)
 
 
-def build_state(cfg: CFG, weights: dict, with_teacher: bool = False):
-    """``(trainer, state)`` on the CPU from ``weights`` ({"encoder",
-    "decoder", "teacher"} state dicts), the optimizer at a constant rate."""
-    enc, dec = SemanticEncoder(cfg, HubertConfig.tiny()), EdgeDiffusionDecoder(cfg)
+def build_models(cfg: CFG, weights: dict):
+    """``(encoder, decoder)`` computing at ``cfg.compute_dtype``, every
+    parameter stored at ``cfg.param_dtype`` (``training.init_models``'s
+    dtypes), loaded from ``weights`` (rounded to bf16 where stored so, as
+    JAX's ``astype`` of the tree rounds)."""
+    compute, param = torch_dtype(cfg.compute_dtype), torch_dtype(cfg.param_dtype)
+    enc = cast_parameters(SemanticEncoder(cfg, HubertConfig.tiny(), dtype=compute), param)
+    dec = cast_parameters(EdgeDiffusionDecoder(cfg, dtype=compute), param)
     enc.load_state_dict(weights["encoder"])
     dec.load_state_dict(weights["decoder"])
+    return enc, dec
+
+
+def build_state(cfg: CFG, weights: dict, with_teacher: bool = False):
+    """``(trainer, state)`` on the CPU from ``weights`` ({"encoder",
+    "decoder", "teacher"} state dicts) at the config's dtypes, the optimizer
+    at a constant rate."""
+    enc, dec = build_models(cfg, weights)
     trainer = Trainer(cfg, enc, dec, DiffusionSchedule.create(cfg.diff_steps), device="cpu")
     state = create_train_state(trainer.encoder, trainer.decoder, make_optimizer(
         cfg, trainer.encoder, trainer.decoder, 100, learning_rate=constant_schedule(LR)))
@@ -357,3 +370,197 @@ def pp4_rank(rank: int, backbone: dict, dppp: dict) -> dict:
                               f"{n.split('.', 3)[3]}" if n.startswith("decoder.layers.")
                               else n): g for n, g in grads.items()}}
     return out
+
+
+# -- bfloat16 -------------------------------------------------------------------------
+
+
+def _whole(name: str, stage: int, k: int) -> str:
+    """A stage's ``decoder.layers.{j}.*`` name under the whole decoder's numbering."""
+    parts = name.split(".")
+    if parts[0] == "decoder" and parts[1] == "layers":
+        parts[2] = str(stage * k + int(parts[2]))
+    return ".".join(parts)
+
+
+def _dtypes(module) -> tuple:
+    """``(compute dtype, sorted parameter dtypes)`` of a module, as strings."""
+    return str(module.dtype), sorted({str(p.dtype) for p in module.parameters()})
+
+
+def _count_allreduces(step, *args) -> int:
+    """The ``Axis.all_reduce`` calls one ``step(*args)`` makes."""
+    from edge_diffusion_tts_tpu_torch.parallel.mesh import Axis
+
+    calls = []
+    reduce = Axis.all_reduce
+
+    def counting(self, t):
+        calls.append(t.dtype)
+        return reduce(self, t)
+
+    Axis.all_reduce = counting
+    try:
+        step(*args)
+    finally:
+        Axis.all_reduce = reduce
+    return len(calls)
+
+
+def _bf16_dp(rank: int, spec: dict) -> dict:
+    """Each DP step in every dtype case, with its all-reduce count; the
+    2-rank bucket: ``spec["bucket"][rank]`` reduced in bf16 by gloo and in
+    the float32 bucket, both halved."""
+    from edge_diffusion_tts_tpu_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh((2, 1))
+    out = {"steps": {}, "allreduces": {}}
+    for case, kw in spec["cases"].items():
+        cfg = tiny_cfg(**kw)
+        for kind, batch in spec["batches"].items():
+            out["steps"][(case, kind)] = run_step(cfg, spec["weights"], kind,
+                                                  shard_batch(batch, mesh), dp_mesh=mesh)
+        trainer, state = build_state(cfg, spec["weights"])
+        out["allreduces"][case] = _count_allreduces(
+            make_step(trainer, "diffusion", dp_mesh=mesh), state,
+            trainer.put_batch(shard_batch(spec["batches"]["diffusion"], mesh)),
+            torch.Generator().manual_seed(0))
+    ax = mesh.axis("data")
+    mine = spec["bucket"][rank].clone()
+    out["bucket"] = {"bf16": ax.all_reduce(mine.clone()).div_(ax.size),
+                     "float32": ax.all_reduce(mine.float()).div_(ax.size).to(mine.dtype)}
+    return out
+
+
+def _bf16_pp(rank: int, spec: dict) -> dict:
+    """The 2-stage diffusion step at compute bf16 and every parameter dtype
+    (the cases but "f32"): metrics, the
+    optimizer's gradients (whole-decoder names), the dtypes of the source,
+    stage and canonical decoders, and the packed state reloaded into a fresh
+    stage state; then DP x PP on (data 2, pipe 1) and (data 1, pipe 2)."""
+    from edge_diffusion_tts_tpu_torch.parallel import make_mesh, make_pp_diffusion_step, \
+        shard_batch
+    from edge_diffusion_tts_tpu_torch.parallel.pipeline_parallel import (
+        PIPE_AXIS,
+        canonical_decoder,
+        create_pp_state,
+        make_pp_trainer,
+    )
+
+    batch = spec["batches"]["diffusion"]
+    out = {"pp": {}, "dppp": {}}
+    for pdt in (c for c in spec["cases"] if c != "f32"):
+        cfg = tiny_cfg(**spec["cases"][pdt])
+        trainer, _ = build_state(cfg, spec["weights"])
+        mesh = make_mesh((2,), (PIPE_AXIS,))
+        pp = make_pp_trainer(trainer, mesh, 2)
+        state = create_pp_state(pp, 100, learning_rate=constant_schedule(LR))
+        grads = record_grads(state)
+        state, metrics = pp.make_diffusion_step()(state, pp.put_batch(batch),
+                                                  torch.Generator().manual_seed(0))
+        k, stage = len(state.decoder.layers), mesh.axis(PIPE_AXIS).index
+        canon = canonical_decoder(state)
+        packed = state.state_dict()
+        again = create_pp_state(pp, 100, learning_rate=constant_schedule(LR))
+        again.load_state_dict(packed)
+        mine = list(state.decoder.state_dict().values()) + list(state.optimizer.mu.values())
+        back = list(again.decoder.state_dict().values()) + list(again.optimizer.mu.values())
+        out["pp"][pdt] = {
+            "metrics": {n: float(v) for n, v in metrics.items()},
+            "grads": {_whole(n, stage, k): g for n, g in grads.items()},
+            "dtypes": {"source": _dtypes(trainer.decoder), "stage": _dtypes(state.decoder),
+                       "canonical": _dtypes(canon), "reloaded": _dtypes(again.decoder)},
+            "canonical": {n: t.clone() for n, t in canon.state_dict().items()},
+            "packed": {n: t.dtype for n, t in packed["decoder"]["pp_stack"].items()},
+            "mu": sorted({str(t.dtype) for t in again.optimizer.mu.values()}),
+            "reloaded": all(a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(mine, back))}
+    cfg = tiny_cfg(**spec["cases"]["bfloat16"])
+    for shape, n_mb in (((2, 1), 1), ((1, 2), 2)):
+        trainer, _ = build_state(cfg, spec["weights"])
+        mesh = make_mesh(shape, ("data", PIPE_AXIS))
+        pp = make_pp_trainer(trainer, mesh, n_mb, data_axis="data")
+        state = create_pp_state(pp, 100, learning_rate=constant_schedule(LR))
+        grads = record_grads(state)
+        step = make_pp_diffusion_step(pp, mesh, n_mb, data_axis="data")
+        state, metrics = step(state, pp.put_batch(shard_batch(batch, mesh)),
+                              torch.Generator().manual_seed(0))
+        k, stage = len(state.decoder.layers), mesh.axis(PIPE_AXIS).index
+        out["dppp"][shape] = {"metrics": {n: float(v) for n, v in metrics.items()},
+                              "grads": {_whole(n, stage, k): g for n, g in grads.items()}}
+    return out
+
+
+def _bf16_tp_seq(spec: dict) -> dict:
+    """The TP encode over (data 1, model 2) of a bf16 encoder at every
+    parameter dtype (the cases but "f32"); sequence-parallel DDIM of a bf16-compute decoder, eps
+    and v, over both ranks."""
+    from edge_diffusion_tts_tpu_torch.parallel import (
+        make_mesh,
+        make_seq_parallel_generate,
+        make_tp_encode,
+        shard_encoder_params,
+    )
+
+    out = {"tp": {}, "seq": {}}
+    wav = torch.as_tensor(spec["tp"]["wav"])
+    for pdt in (c for c in spec["cases"] if c != "f32"):
+        enc, _ = build_models(tiny_cfg(**spec["cases"][pdt]), spec["weights"])
+        enc.eval()
+        mesh = make_mesh((1, 2))
+        params = shard_encoder_params(enc, mesh)
+        encode = make_tp_encode(enc, mesh)
+        out["tp"][pdt] = {"tokens": encode(params, wav).clone(),
+                          "features": encode.features(params, wav).clone(),
+                          "local": _dtypes(encode.local),
+                          "params": sorted({str(t.dtype) for t in params.values()
+                                            if t.is_floating_point()})}
+    seq = spec["seq"]
+    cfg = CFG(**seq["cfg"])
+    dec = EdgeDiffusionDecoder(cfg, dtype=torch.bfloat16)
+    dec.load_state_dict(seq["decoder"])
+    dec.eval()
+    schedule = DiffusionSchedule.create(cfg.diff_steps)
+    sem, x = torch.as_tensor(seq["sem"]), torch.as_tensor(seq["x_T"])
+    for pred in ("eps", "v"):
+        fn = make_seq_parallel_generate(cfg, dec, schedule, make_mesh(), seq["steps"],
+                                        prediction=pred)
+        out["seq"][pred] = fn(sem, x).clone()
+    out["seq"]["dtype"] = _dtypes(dec)
+    return out
+
+
+def _bf16_train(spec: dict) -> dict:
+    """``train()`` on each configuration of ``spec["train"]``, then again
+    with ``resume="auto"``."""
+    from edge_diffusion_tts_tpu_torch.training import train
+
+    out = {}
+    for name, cfg_kw in spec["train"].items():
+        tags = []
+        state = train(CFG.from_dict(cfg_kw), spec["loader"], spec["loader"][:1],
+                      hubert_cfg=HubertConfig.tiny(), device="cpu",
+                      phase_end_hook=lambda tag, st: tags.append((tag, st.step)))
+        resumed_tags = []
+        resumed = train(CFG.from_dict(cfg_kw), spec["loader"], spec["loader"][:1],
+                        hubert_cfg=HubertConfig.tiny(), device="cpu", resume="auto",
+                        phase_end_hook=lambda tag, st: resumed_tags.append(tag))
+        out[name] = {"tags": tags, "step": state.step, "resumed_step": resumed.step,
+                     "resumed_tags": resumed_tags,
+                     "params": {n: p.detach().clone() for n, p in state.optimizer.params.items()},
+                     "dtypes": _dtypes(state.decoder), "encoder": _dtypes(state.encoder),
+                     "run_dir": CFG.from_dict(cfg_kw).get_run_dir()}
+    return out
+
+
+def bf16_rank(rank: int, spec: dict) -> dict:
+    """Every case of tests/test_torch_parallel_bf16.py on this rank of two:
+    the DP steps and the bucket, the PP and DP x PP steps, the TP encode,
+    sequence-parallel DDIM, then ``train()`` on a mesh and on pipeline
+    stages."""
+    import sys
+
+    torch.set_num_threads(1)
+    sys.modules["torch.utils.tensorboard"] = None  # rank 0's import pulls in TensorFlow
+    return {**_bf16_dp(rank, spec), **_bf16_pp(rank, spec), **_bf16_tp_seq(spec),
+            "train": _bf16_train(spec)}
