@@ -324,8 +324,14 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    checkpoint of configs/flagship.json (the depthwise pre-net on; phase 9's
    decoder is the default config, without it) with ``seeded_decoder``'s
    weights goes to build/phase13.  At (1,200,100) and (1,500,250), for
-   each mode "", "weight_int8" and "dynamic": ``export_tflite``; the
-   artifact read back with the port's reader; every float constant named
+   each mode "", "weight_int8", "dynamic" and "int8" (the calibrated full
+   integer artifact, on ``synthetic_representative_batches``):
+   ``export_tflite``; the artifact read back with the port's reader; for
+   "int8", every Linear's and convolution's codes and scales equal to
+   ``symmetric_per_channel`` of the decoder's weight, every other named
+   int8 constant (norm weights, embedding tables) to the per-tensor rule
+   (``tflite_int8.asymmetric``) on its weight, every bias int32 at its own
+   scales, and the artifact smaller than weight_int8's; else every float constant named
    after a decoder weight equal to that weight (the dequantized one for
    weight_int8) or a transpose of it, bit for bit, and every weight but
    ``sem_proj`` (not in the graph) present; every int8 tensor and its
@@ -333,9 +339,9 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    dynamic, where the pass also takes the sensitive weights, to the same
    rule, ``symmetric_per_channel``, on the float weight), bit for bit; a
    second export byte-equal.  ``cli.main(["export", ..., "--format",
-   "tflite"])`` writes the API's bytes (float at the default shape, dynamic
-   with ``--t-frames 500 --s-tokens 250``), and ``--quantize int8`` exits
-   naming QUANT_r05.json's ``tflite_full_int8_mode_status``.  TensorFlow is
+   "tflite"])`` writes the API's bytes (float and ``--quantize int8`` at
+   the default shape, dynamic with ``--t-frames 500 --s-tokens 250``).
+   TensorFlow is
    never imported.  Printed per mode and shape: export s (both exports),
    bytes and the first 16 hex digits of their sha256, operators, int8
    tensors.  No kernel launches: the ``kernels``
@@ -4306,6 +4312,8 @@ def _check_tflite(blob: bytes, sd: dict, qflat: dict, mode: str) -> dict:
     ``qflat``; returns the artifact's counts."""
     from edge_diffusion_tts_tpu_torch.utils import tflite_surgery as ts
 
+    if mode == "int8":
+        return _check_tflite_int8(blob, sd)
     model = ts.read_model(blob)
     sg = model.subgraphs[0]
     floats = int8 = 0
@@ -4337,6 +4345,58 @@ def _check_tflite(blob: bytes, sd: dict, qflat: dict, mode: str) -> dict:
     return dict(bytes=len(blob), ops=len(sg.operators), int8=int8, float_weights=floats)
 
 
+def _int8_views(q: np.ndarray, axis: int) -> np.ndarray:
+    """A full-integer artifact's per-channel codes as [out, in * K] in the
+    decoder weight's layout: FULLY_CONNECTED's [out, in] as is, CONV_2D's
+    [out, K, 1, in], DEPTHWISE_CONV_2D's [1, K, 1, C] (channel axis 3)."""
+    if axis == 3:
+        return np.ascontiguousarray(q[0, :, 0, :].T)
+    if q.ndim == 4:
+        return q[:, :, 0, :].transpose(0, 2, 1).reshape(q.shape[0], -1)
+    return q
+
+
+def _check_tflite_int8(blob: bytes, sd: dict) -> dict:
+    """The full-integer artifact read back: each weight's codes and scales
+    as the export's rules give them from the decoder's state dict."""
+    from edge_diffusion_tts_tpu_torch.utils import tflite_int8 as ti
+    from edge_diffusion_tts_tpu_torch.utils import tflite_surgery as ts
+
+    model = ts.read_model(blob)
+    sg = model.subgraphs[0]
+    linears = tensors = biases = int8 = 0
+    seen = set()
+    for t in sg.tensors:
+        int8 += t.type == ts.INT8
+        value = ts.constant(model, t)
+        if value is None or t.name not in sd:
+            continue
+        w, qp = sd[t.name], t.quantization
+        if t.type == ts.INT8 and qp.scale.size > 1:  # a Linear's or a convolution's weight
+            q, scale = ts.symmetric_per_channel(w.reshape(w.shape[0], -1))
+            assert np.array_equal(_int8_views(value, qp.quantized_dimension), q), (
+                f"int8: {t.name} codes")
+            assert qp.scale.tobytes() == scale.tobytes(), f"int8: {t.name} scales"
+            linears += 1
+        elif t.type == ts.INT8:  # a norm weight or a table, per tensor
+            scale, zp = ti.asymmetric(float(w.min()), float(w.max()))
+            assert (qp.scale.tobytes(), int(qp.zero_point[0])) == (
+                np.float32(scale).tobytes(), zp), f"int8: {t.name} parameters"
+            assert np.array_equal(value, ti.quantize_values(w, scale, zp).reshape(value.shape)), (
+                f"int8: {t.name} codes")
+            tensors += 1
+        else:  # a bias, int32 at s_in * s_w
+            assert t.type == ts.INT32, f"int8: {t.name} left {t.type}"
+            want = np.round(w.astype(np.float64) / qp.scale.astype(np.float64))
+            assert np.array_equal(value, want.astype(np.int32)), f"int8: {t.name} codes"
+            biases += 1
+        seen.add(t.name)
+    missing = {k for k in sd if not k.startswith("sem_proj.")} - seen
+    assert not missing, f"int8: weights not in the artifact: {sorted(missing)}"
+    return dict(bytes=len(blob), ops=len(sg.operators), int8=int8, float_weights=0,
+                linears=linears, per_tensor=tensors, biases=biases)
+
+
 def phase_tflite(torch) -> dict:
     """Phase 13: the TFLite export (the module docstring's phase 13); returns
     its numbers per shape and mode."""
@@ -4362,12 +4422,12 @@ def phase_tflite(torch) -> dict:
     save_checkpoint(ckpt, cfg, decoder)
     qflat = quantize_decoder_params(decoder)
     sds = {"": decoder.state_dict(), "dynamic": decoder.state_dict(),
-           "weight_int8": dequantize_decoder_params(qflat)}
+           "int8": decoder.state_dict(), "weight_int8": dequantize_decoder_params(qflat)}
     sds = {m: {k: v.detach().cpu().numpy() for k, v in sd.items()} for m, sd in sds.items()}
     dev_flag = [] if DEVICE == "cuda" else ["--device", DEVICE]
     out = {}
     for shape in TFLITE_SHAPES:
-        for mode in ("", "weight_int8", "dynamic"):
+        for mode in ("", "weight_int8", "dynamic", "int8"):
             blobs, secs = [], []
             for k in range(2):
                 tag = f"{'x'.join(map(str, shape))}_{mode or 'float'}{k}"
@@ -4381,12 +4441,18 @@ def phase_tflite(torch) -> dict:
             r = _check_tflite(blobs[0], sds[mode], qflat, mode or "float")
             r.update(export_s=secs, path=path)
             out[(shape, mode)] = r
+            what = (f"{r['linears']} Linear/conv weights = symmetric_per_channel, "
+                    f"{r['per_tensor']} per-tensor constants and {r['biases']} int32 biases "
+                    "as the rules give them" if mode == "int8" else
+                    f"{r['float_weights']} float weights = the decoder's bit for bit")
             print(f"[tflite] {shape} {mode or 'float'}: export {secs[0]:.3f} s, again "
                   f"{secs[1]:.3f} s (byte-equal); {r['bytes']} bytes, sha256 "
                   f"{hashlib.sha256(blobs[0]).hexdigest()[:16]}, {r['ops']} operators, "
-                  f"{r['int8']} int8 tensors, {r['float_weights']} float weights = the "
-                  "decoder's bit for bit")
+                  f"{r['int8']} int8 tensors, {what}")
+        assert out[(shape, "int8")]["bytes"] < out[(shape, "weight_int8")]["bytes"], (
+            f"{shape}: the full-integer artifact is not smaller than weight_int8's")
     for argv, key in ((["--format", "tflite"], ((1, 200, 100), "")),
+                      (["--format", "tflite", "--quantize", "int8"], ((1, 200, 100), "int8")),
                       (["--format", "tflite", "--t-frames", "500", "--s-tokens", "250",
                         "--quantize", "dynamic"], ((1, 500, 250), "dynamic"))):
         path = os.path.join(base, "cli.tflite")
@@ -4395,8 +4461,6 @@ def phase_tflite(torch) -> dict:
         with open(path, "rb") as f, open(out[key]["path"], "rb") as g:
             assert f.read() == g.read(), f"cli {argv}: other bytes than export_tflite"
         print(f"[tflite] cli export {' '.join(argv)}: {wall:.3f} s, the API's bytes")
-    _refused(["export", ckpt, "--format", "tflite", "--quantize", "int8"] + dev_flag,
-             "export --format tflite --quantize int8", "tflite_full_int8_mode_status")
     assert "tensorflow" not in sys.modules, "the export imported TensorFlow"
     print(f"[tflite] phase 13: {time.perf_counter() - t_phase:.3f} s; TensorFlow not "
           "imported")

@@ -30,9 +30,10 @@ Where the port differs:
   device.
 - ``export --format`` adds ``pt2``, the default; ``stablehlo`` exits
   naming ``pt2`` in its place.  ``--format tflite`` writes the port's own
-  flatbuffer (``export_tflite``) with ``--quantize dynamic``; ``--quantize
-  int8`` exits with the reason it is not ported, and ``--quantize`` with
-  another format exits naming ``--format weight-int8``.
+  flatbuffer (``export_tflite``), with ``--quantize dynamic`` or with
+  ``--quantize int8``, the calibrated full-integer artifact (calibrated on
+  ``synthetic_representative_batches``, as the JAX package's CLI does);
+  ``--quantize`` with another format exits naming ``--format weight-int8``.
 - ``serve --compile-cache`` exits: the port compiles no XLA programs (its
   CUDA kernels are built once, into ``build/kernels/``).
 - ``train --mesh``/``--pipeline`` run one process per rank: start the CLI
@@ -154,8 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--s-tokens", type=int, default=100,
                     help="static context length (tflite only)")
     ex.add_argument("--quantize", choices=["dynamic", "int8"], default="",
-                    help="post-training quantization (tflite only; int8 is not ported); "
-                         "the selective weight-only artifact is --format weight-int8")
+                    help="post-training quantization (tflite only; int8 = calibrated "
+                         "full integer); the selective weight-only artifact is "
+                         "--format weight-int8")
     _add_device(ex)
 
     sv = sub.add_parser(
@@ -219,12 +221,6 @@ def _refuse_unported(args) -> None:
         if args.format == "stablehlo":
             raise SystemExit("export --format stablehlo is the JAX package's; the port "
                              "exports a torch.export program: --format pt2")
-        if args.format == "tflite" and args.quantize == "int8":
-            raise SystemExit(
-                "export --format tflite --quantize int8: the calibrated full-integer TFLite "
-                "mode is not ported (QUANT_r05.json, tflite_full_int8_mode_status: the JAX "
-                "package's artifact in that mode aborts a stock interpreter at invoke); use "
-                "--quantize dynamic, or export_tflite(quantize='weight_int8')")
         if args.quantize and args.format != "tflite":
             raise SystemExit("export --quantize is the TFLite converter's and has no "
                              "counterpart here; the selective weight-only int8 artifact is "

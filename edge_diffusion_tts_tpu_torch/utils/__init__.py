@@ -1,8 +1,9 @@
 """Utilities of the port: mel normalization (audio), metric logging (logging),
 divergence guards (reliability), timing and profiling (speed), the decoder's
 ``.pt2`` and TFLite exports (export; the TFLite lowering and flatbuffer in
-tflite_lower and tflite_surgery), weight-only int8 (quantize),
-reference-checkpoint conversion (torch_compat), sample plots (visualization)."""
+tflite_lower and tflite_surgery, the full-integer graph in tflite_int8),
+weight-only int8 (quantize), reference-checkpoint conversion (torch_compat),
+sample plots (visualization)."""
 
 from .audio import denormalize_mel, normalize_mel
 from .logging import MetricWriter

@@ -24,7 +24,8 @@ flatbuffer with the JAX package's signature (x_t float32, t, sem_idx and
 step_idx int32, bound by name), which a stock ``tf.lite.Interpreter`` runs
 on an edge CPU.  The port writes it itself: ``utils/tflite_lower.py`` lowers
 the static program to TFLite builtins and ``utils/tflite_surgery.py`` writes
-the flatbuffer, so neither TensorFlow nor JAX is needed to export.
+the flatbuffer, so neither TensorFlow nor JAX is needed to export; the
+calibrated full-integer mode's graph is ``utils/tflite_int8.py``'s.
 ``load_tflite`` runs an artifact and needs TensorFlow; it is imported there
 only.
 """
@@ -98,7 +99,7 @@ def load_exported(path: str, device=None):
     return program.module()
 
 
-TFLITE_MODES = ("", "weight_int8", "dynamic")
+TFLITE_MODES = ("", "weight_int8", "dynamic", "int8")
 
 
 def export_tflite(
@@ -130,18 +131,26 @@ def export_tflite(
         (``tflite_surgery.quantize_dynamic_range``): int8 weights and float
         activations, every large FULLY_CONNECTED/CONV_2D weight included,
         the sensitive ones too; kept for comparison, not shipping;
-      - "int8": the calibrated full-integer mode is not ported and raises
-        NotImplementedError.  ``representative_batches`` belongs to it.
+      - "int8": the calibrated full-integer mode, "full integer where
+        calibrated, float fallback elsewhere" (``utils/tflite_int8.py``):
+        the program runs node by node on ``representative_batches``
+        (iterable of (x_t, t, sem_idx, step_idx) tuples; by default
+        ``synthetic_representative_batches(cfg, batch, t_frames,
+        s_tokens)``, the JAX package's draws) and each tensor takes int8
+        parameters from its calibrated range; weights are symmetric int8
+        per output channel, biases int32.  The timestep's sinusoid and the
+        index arithmetic stay float, and the inputs and output stay
+        float32 behind QUANTIZE and DEQUANTIZE.  An op whose calibrated
+        scales TFLite's integer kernels cannot represent raises ValueError
+        naming it, and nothing is written.
+
+    Every mode traces the same plain, eval-mode CPU copy of the decoder, so
+    two machines write the same bytes for the same weights (and, in "int8",
+    the same batches).
     """
     from .tflite_lower import lower_decoder
     from .tflite_surgery import quantize_dynamic_range, rewrite_weights_int8, write_model
 
-    if quantize == "int8":
-        raise NotImplementedError(
-            "export_tflite(quantize='int8'), the calibrated full-integer mode, is not ported: "
-            "the JAX package's own artifact in that mode aborts a stock interpreter at invoke "
-            "(QUANT_r05.json, tflite_full_int8_mode_status); the supported quantized mode is "
-            "'weight_int8'")
     if quantize not in TFLITE_MODES:
         raise ValueError(f"quantize must be '', 'dynamic', 'int8' or 'weight_int8', "
                          f"got {quantize!r}")
@@ -153,7 +162,16 @@ def export_tflite(
         qflat = quantize_decoder_params(decoder)
         decoder = EdgeDiffusionDecoder(cfg, use_kernel=False)
         decoder.load_state_dict(dequantize_decoder_params(qflat))
-    model, used = lower_decoder(cfg, decoder, batch, t_frames, s_tokens)
+    if quantize == "int8":
+        from .tflite_int8 import lower_decoder_int8
+
+        if representative_batches is None:
+            representative_batches = synthetic_representative_batches(
+                cfg, batch, t_frames, s_tokens)
+        model, _, _ = lower_decoder_int8(cfg, decoder, batch, t_frames, s_tokens,
+                                         representative_batches)
+    else:
+        model, used = lower_decoder(cfg, decoder, batch, t_frames, s_tokens)
     if quantize == "dynamic":
         quantize_dynamic_range(model)
     blob = write_model(model)

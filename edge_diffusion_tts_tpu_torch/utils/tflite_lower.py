@@ -185,6 +185,7 @@ class _Graph:
 
     def __init__(self, low: Lowering):
         self.low = low
+        self.node_map: Dict[str, int] = {}  # node name -> the tensor holding its value
 
     def operand(self, x, dtype, name: str) -> int:
         """A tensor index for ``x``: a Value (in its logical layout), a Const
@@ -210,8 +211,11 @@ class _Graph:
                     index = self.low.tensor(shape, dtype, INPUT_NAMES[len(inputs)])
                     inputs.append(index)
                     env[node] = Value(index, shape, dtype)
+                    self.node_map[node.name] = index
             elif node.op == "call_function":
                 env[node] = self.call(node, env)
+                if isinstance(env[node], Value):
+                    self.node_map[node.name] = env[node].index
             elif node.op == "output":
                 (result,) = node.args[0]
                 out = self.low.plain(env[result], OUTPUT_NAME)
@@ -517,6 +521,7 @@ def _group_norm(g, node, x, weight, bias, N, C, HxW, group, eps):
 aten = torch.ops.aten
 LOWER = {
     aten.add.Tensor: _binary("ADD"),
+    aten.sub.Tensor: _binary("SUB"),
     aten.mul.Tensor: _binary("MUL"),
     aten.sin.default: _unary("SIN"),
     aten.cos.default: _unary("COS"),
@@ -548,9 +553,36 @@ LOWER = {
 }
 
 
-def trace_decoder(cfg, decoder, batch: int, t_frames: int, s_tokens: int):
+def _layer_norm_parts(x, normalized_shape, weight, bias, eps):
+    """``native_layer_norm`` over the last axis in mean, sub, mul, rsqrt and
+    add nodes, so that each of its tensors is a node of the program."""
+    mean = x.mean(-1, keepdim=True)
+    d = x - mean
+    rstd = torch.rsqrt((d * d).mean(-1, keepdim=True) + eps)
+    y = d * rstd
+    y = y if weight is None else y * weight
+    return (y if bias is None else y + bias), mean, rstd
+
+
+def _group_norm_parts(x, weight, bias, N, C, HxW, group, eps):
+    """``native_group_norm`` of [N, C, T] in those nodes, computed channels
+    last as the lowering stores the pre-net's [N, C, T] values."""
+    h = x.transpose(1, 2).reshape(N, HxW, group, C // group)
+    mean = h.mean((1, 3), keepdim=True)
+    d = h - mean
+    rstd = torch.rsqrt((d * d).mean((1, 3), keepdim=True) + eps)
+    y = (d * rstd).reshape(N, HxW, C)
+    y = y if weight is None else y * weight
+    y = y if bias is None else y + bias
+    return y.transpose(1, 2), mean.reshape(N, group), rstd.reshape(N, group)
+
+
+def trace_decoder(cfg, decoder, batch: int, t_frames: int, s_tokens: int,
+                  split_norms: bool = False):
     """The decoder's denoise forward exported at one static shape, int32
-    indices, decomposed to core ATen."""
+    indices, decomposed to core ATen.  With ``split_norms`` the layer and
+    group norms are decomposed too (the full-integer export quantizes each
+    of their tensors)."""
     from .export import _DenoiseForward, _plain_cpu_copy
 
     module = _DenoiseForward(_plain_cpu_copy(cfg, decoder))
@@ -558,8 +590,25 @@ def trace_decoder(cfg, decoder, batch: int, t_frames: int, s_tokens: int):
             torch.zeros(batch, dtype=torch.int32),
             torch.zeros(batch, s_tokens, dtype=torch.int32),
             torch.zeros(batch, dtype=torch.int32))
+    table = None
+    if split_norms:
+        table = torch.export.default_decompositions()
+        table[aten.native_layer_norm.default] = _layer_norm_parts
+        table[aten.native_group_norm.default] = _group_norm_parts
     with torch.no_grad():
-        return torch.export.export(module, args).run_decompositions()
+        return torch.export.export(module, args).run_decompositions(table)
+
+
+def lower_program(program) -> Tuple[Lowering, List[int], int, Dict[str, int]]:
+    """One exported program lowered: the ``Lowering``, its input tensors,
+    its output tensor and the tensor of each node (by node name)."""
+    low = Lowering()
+    graph = _Graph(low)
+    inputs, output = graph.run(program)
+    return low, inputs, output, graph.node_map
+
+
+DESCRIPTION = "edge-diffusion-tts decoder (PyTorch port)"
 
 
 def lower_decoder(cfg, decoder, batch: int = 1, t_frames: int = 200,
@@ -567,7 +616,6 @@ def lower_decoder(cfg, decoder, batch: int = 1, t_frames: int = 200,
     """The decoder's forward at (batch, t_frames, s_tokens) as a TFLite
     ``Model`` table, and the tensor index of each weight or table it holds,
     by name (a weight's is its state-dict name)."""
-    low = Lowering()
-    inputs, output = _Graph(low).run(trace_decoder(cfg, decoder, batch, t_frames, s_tokens))
-    model = low.model(inputs, output, "edge-diffusion-tts decoder (PyTorch port)")
-    return model, dict(low.weights)
+    low, inputs, output, _ = lower_program(
+        trace_decoder(cfg, decoder, batch, t_frames, s_tokens))
+    return low.model(inputs, output, DESCRIPTION), dict(low.weights)

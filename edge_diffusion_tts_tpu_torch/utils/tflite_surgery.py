@@ -54,8 +54,9 @@ BUILTIN = dict(
     LOGISTIC=14, MUL=18, RESHAPE=22, SOFTMAX=25, PAD=34, GATHER=36, TRANSPOSE=39, MEAN=40,
     SUB=41, DIV=42, EXP=47, CAST=53, MAXIMUM=55, MINIMUM=57, LESS=58, NEG=59,
     GREATER_EQUAL=62, LESS_EQUAL=63, SELECT=64, SLICE=65, SIN=66, SUM=74, RSQRT=76,
-    LOGICAL_AND=86, ABS=101, GATHER_ND=107, COS=108, SELECT_V2=123, BATCH_MATMUL=126,
-    PLACEHOLDER_FOR_GREATER_OP_CODES=127, BROADCAST_TO=130, REDUCE_ALL=140, GELU=150,
+    LOGICAL_AND=86, ABS=101, GATHER_ND=107, COS=108, QUANTIZE=114, SELECT_V2=123,
+    BATCH_MATMUL=126, PLACEHOLDER_FOR_GREATER_OP_CODES=127, BROADCAST_TO=130, REDUCE_ALL=140,
+    GELU=150,
 )
 OP_NAME = {v: k for k, v in BUILTIN.items()}
 
@@ -68,8 +69,8 @@ BUILTIN_OPTIONS = {
     37: "CastOptions", 38: "DequantizeOptions", 39: "MaximumMinimumOptions",
     41: "LessOptions", 42: "NegOptions", 45: "GreaterEqualOptions", 46: "LessEqualOptions",
     47: "SelectOptions", 48: "SliceOptions", 62: "LogicalAndOptions", 78: "AbsOptions",
-    83: "GatherNdOptions", 84: "CosOptions", 98: "SelectV2Options", 101: "BatchMatMulOptions",
-    104: "BroadcastToOptions", 116: "GeluOptions",
+    83: "GatherNdOptions", 84: "CosOptions", 89: "QuantizeOptions", 98: "SelectV2Options",
+    101: "BatchMatMulOptions", 104: "BroadcastToOptions", 116: "GeluOptions",
 }
 OPTIONS_TYPE = {v: k for k, v in BUILTIN_OPTIONS.items()}
 
@@ -141,7 +142,7 @@ SCHEMA: Dict[str, tuple] = {
         "PadOptions", "TransposeOptions", "ExpOptions", "DequantizeOptions",
         "MaximumMinimumOptions", "LessOptions", "NegOptions", "GreaterEqualOptions",
         "LessEqualOptions", "SelectOptions", "SliceOptions", "LogicalAndOptions",
-        "AbsOptions", "GatherNdOptions", "CosOptions", "SelectV2Options",
+        "AbsOptions", "GatherNdOptions", "CosOptions", "QuantizeOptions", "SelectV2Options",
         "BroadcastToOptions")},
 }
 

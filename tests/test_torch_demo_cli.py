@@ -136,8 +136,6 @@ def test_model_commands_need_a_card_unless_told_cpu(ckpts, monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["export", "ck", "--format", "stablehlo"], "--format pt2"),
-    (["export", "ck", "--format", "tflite", "--quantize", "int8"],
-     "tflite_full_int8_mode_status"),
     (["export", "ck", "--quantize", "int8"], "--format weight-int8"),
     (["serve", "ck", "--compile-cache", "/tmp/x"], "no counterpart"),
     (["bench", "--device", "cpu"], "refused"),

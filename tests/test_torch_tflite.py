@@ -128,6 +128,7 @@ def tiny(tmp_path_factory):
                                   quantize=mode)
         m[f"jax_{mode}"] = _jax(m["jcfg"], m["jdec"], m["params"], tmp / f"jax_{mode}.tflite",
                                 quantize=mode)
+    m["port_int8"] = _port(m["cfg"], m["pdec"], tmp / "port_int8.tflite", quantize="int8")
     # JAX's float artifact of the dequantized weights, and JAX's qflat.
     m["jqflat"] = jquantize.quantize_decoder_params(m["params"])
     m["jax_deq"] = _jax(m["jcfg"], m["jdec"],
@@ -324,10 +325,13 @@ def test_dynamic_equals_the_converters_pass(tiny):
     assert versions["FULLY_CONNECTED"] == 12 and versions["CONV_2D"] == 5
 
 
-# ---- (h), (i), (j) ------------------------------------------------------------------
+# ---- (h), (i), (j); the int8 mode's own checks are in test_torch_tflite_int8.py ------
 
 
 def test_representative_batches_equal_jax_and_int8_refused(tiny, tmp_path):
+    """The synthetic batches are JAX's; "int8" refuses batches whose ranges
+    TFLite's integer kernels cannot requantize (the mode itself is checked in
+    test_torch_tflite_int8.py), and an unknown mode is refused."""
     m = tiny[True]
     ours = synthetic_representative_batches(m["cfg"], 2, 20, 10, n=5, seed=3)
     theirs = jexport.synthetic_representative_batches(m["jcfg"], 2, 20, 10, n=5, seed=3)
@@ -335,14 +339,17 @@ def test_representative_batches_equal_jax_and_int8_refused(tiny, tmp_path):
         for x, y in zip(a, b):
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="tflite_full_int8_mode_status"):
-        export_tflite(m["cfg"], m["pdec"], str(tmp_path / "x.tflite"), quantize="int8")
+    huge = [(x * np.float32(1e30), t, s, st) for x, t, s, st in
+            synthetic_representative_batches(m["cfg"], *SHAPE, n=2)]
+    with pytest.raises(ValueError, match="unrepresentable"):
+        export_tflite(m["cfg"], m["pdec"], str(tmp_path / "x.tflite"), *SHAPE, quantize="int8",
+                      representative_batches=huge)
     with pytest.raises(ValueError, match="quantize"):
         export_tflite(m["cfg"], m["pdec"], str(tmp_path / "x.tflite"), quantize="fp16")
     assert not os.path.exists(tmp_path / "x.tflite")
 
 
-@pytest.mark.parametrize("mode", ["", "weight_int8", "dynamic"])
+@pytest.mark.parametrize("mode", ["", "weight_int8", "dynamic", "int8"])
 def test_two_exports_are_byte_equal(tiny, tmp_path, mode):
     m = tiny[True]
     key = f"port_{mode}" if mode else "port"

@@ -2,8 +2,8 @@
 
 - ``edge-tts-torch export CKPT --format tflite`` (with ``--t-frames``,
   ``--s-tokens`` and ``--quantize dynamic``) writes the bytes
-  ``export_tflite`` writes for the checkpoint's decoder; ``--quantize int8``
-  exits naming QUANT_r05.json's status, and ``--format stablehlo`` still
+  ``export_tflite`` writes for the checkpoint's decoder (``--quantize
+  int8``: test_torch_tflite_int8.py), and ``--format stablehlo`` still
   exits naming ``--format pt2``.
 - ``training.checkpoint.restore_final_model`` returns the state dicts a
   final model holds and its cfg; ``restore_hubert_config`` its HuBERT
@@ -73,10 +73,9 @@ def test_cli_export_tflite_writes_export_tflites_bytes(ckpt, tmp_path, flags, sh
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--format", "tflite", "--quantize", "int8"], "tflite_full_int8_mode_status"),
     (["--format", "stablehlo"], "--format pt2"),
     (["--format", "pt2", "--quantize", "dynamic"], "--format weight-int8"),
-], ids=["int8", "stablehlo", "quantize_without_tflite"])
+], ids=["stablehlo", "quantize_without_tflite"])
 def test_cli_export_refusals(ckpt, tmp_path, argv, match):
     out = str(tmp_path / "never.tflite")
     with pytest.raises(SystemExit, match=match):
