@@ -34,6 +34,7 @@ from .config import CFG, resolve_device
 from .ops.fused_denoise import fused_generate_mel, pack_decoder_weights, start_noise
 from .ops.fused_frontend import fast_encode, kernel_serves, pack_frontend_weights
 from .schedule import DiffusionSchedule, DPMSolverPP, ddim_sample
+from .utils.speed import span
 
 
 class EdgeInference:
@@ -182,9 +183,10 @@ class EdgeInference:
         wav = torch.as_tensor(wav, dtype=torch.float32, device=self.device)
         if wav.dim() == 1:
             wav = wav[None, :]
-        if self.encode_route == "kernel":
-            sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
-        else:
-            sem_idx = self.encoder.encode(wav)
+        with span("prep:encode"):
+            if self.encode_route == "kernel":
+                sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
+            else:
+                sem_idx = self.encoder.encode(wav)
         return self.generate_mel(sem_idx, num_steps, temperature=temperature,
                                  generator=generator, x_T=x_T)

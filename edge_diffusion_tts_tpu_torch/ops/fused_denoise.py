@@ -62,6 +62,7 @@ from ..config import CFG, resolve_device
 from ..layers.attention import sdpa
 from ..layers.ffn import swiglu as _swiglu
 from ..schedule import DiffusionSchedule
+from ..utils.speed import span
 from .window_attention import banded_attention_plain
 
 X0_CLIP = 3.0  # the DDIM update clips x0 to +-X0_CLIP, as the JAX kernel does
@@ -786,34 +787,35 @@ def fused_ddim(
     ``fused_ddim.bf16_launches`` (bf16), and raise under grad mode when one
     of them requires a gradient (no backward).
     """
-    low = _compute_dtype(compute_dtype, "fused_ddim") != torch.float32
-    if x_T.device.type == "cpu":
-        return fused_ddim_plain(x_T, pos, mods, ckv, coef, w, heads=heads, window=window,
-                                prediction=prediction, compute_dtype=compute_dtype)
-    if x_T.device.type != "cuda":
-        raise ValueError(f"fused_ddim runs on CPU or CUDA, not {x_T.device}")
-    _build.refuse_autograd("fused_ddim", x_T, pos, mods, ckv, coef, *w.values())
-    _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 4, compute_dtype)
-    B, T, M = x_T.shape
-    steps, L, _, H = mods.shape
-    S = ckv.shape[2]
-    lib = _lib()
-    ffn = w["fc1_w"].shape[1] // 2
-    out = torch.empty_like(x_T)
-    work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M, int(low)),
-                       dtype=torch.float32, device=x_T.device)
-    with torch.cuda.device(x_T.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.edt_fused_ddim(
-            x_T.data_ptr(), out.data_ptr(), work.data_ptr(), pos.data_ptr(),
-            *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
-            ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(), *_prenet_ptrs(w),
-            B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
-            X0_CLIP, int(low), stream,
-        )
-    _launch_counts(fused_ddim, low)
-    _build.check(err, "fused_ddim")
-    return out
+    with span("prep:launch"):  # opened first: the CPU route carries it too
+        low = _compute_dtype(compute_dtype, "fused_ddim") != torch.float32
+        if x_T.device.type == "cpu":
+            return fused_ddim_plain(x_T, pos, mods, ckv, coef, w, heads=heads, window=window,
+                                    prediction=prediction, compute_dtype=compute_dtype)
+        if x_T.device.type != "cuda":
+            raise ValueError(f"fused_ddim runs on CPU or CUDA, not {x_T.device}")
+        _build.refuse_autograd("fused_ddim", x_T, pos, mods, ckv, coef, *w.values())
+        _check_loop_args(x_T, pos, mods, ckv, coef, w, heads, 4, compute_dtype)
+        B, T, M = x_T.shape
+        steps, L, _, H = mods.shape
+        S = ckv.shape[2]
+        lib = _lib()
+        ffn = w["fc1_w"].shape[1] // 2
+        out = torch.empty_like(x_T)
+        work = torch.empty(lib.edt_fused_ddim_workspace(B, T, H, ffn, M, int(low)),
+                           dtype=torch.float32, device=x_T.device)
+        with torch.cuda.device(x_T.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.edt_fused_ddim(
+                x_T.data_ptr(), out.data_ptr(), work.data_ptr(), pos.data_ptr(),
+                *_weight_ptrs(w, 0, 2), mods.data_ptr(), *_weight_ptrs(w, 2, 7),
+                ckv.data_ptr(), *_weight_ptrs(w, 7), coef.data_ptr(), *_prenet_ptrs(w),
+                B, T, S, M, H, heads, L, ffn, window, steps, int(prediction == "v"),
+                X0_CLIP, int(low), stream,
+            )
+        _launch_counts(fused_ddim, low)
+        _build.check(err, "fused_ddim")
+        return out
 
 
 fused_ddim.launches = 0
@@ -895,13 +897,15 @@ def fused_generate_mel(
     float32); the loop's inputs are computed in float32 either way.
     """
     _compute_dtype(compute_dtype, "fused_generate_mel")
-    ts, coef = ddim_coefficients(schedule, num_steps)
     with torch.no_grad():
-        w = weights if weights is not None else pack_decoder_weights(decoder, compute_dtype)
-        loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts)
+        with span("prep:loop_inputs"):
+            ts, coef = ddim_coefficients(schedule, num_steps)
+            w = weights if weights is not None else pack_decoder_weights(decoder, compute_dtype)
+            loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts)
+            x_T, ckv, coef = (x_T.float().contiguous(), loop["ckv"].to(compute_dtype),
+                              coef.to(x_T.device))
         return fused_ddim(
-            x_T.float().contiguous(), loop["pos"], loop["mods"],
-            loop["ckv"].to(compute_dtype), coef.to(x_T.device), w, heads=cfg.heads,
+            x_T, loop["pos"], loop["mods"], ckv, coef, w, heads=cfg.heads,
             window=cfg.attn_window_size, prediction=prediction, compute_dtype=compute_dtype,
         )
 

@@ -44,13 +44,13 @@ import copy
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..inference import EdgeInference
 from ..ops.fused_denoise import start_noise
 from ..pipeline import fold_seed
 from ..training.state import TrainState, ema_update
 from ..training.steps import Trainer
+from ..utils.speed import span
 from .mesh import DATA_AXIS, Axis, Mesh
 
 
@@ -91,9 +91,9 @@ def _make_dp_step(trainer: Trainer, mesh: Mesh, loss_fn: Callable, axis: str,
         g = rank_generator(generator, state.step, ax.index)
         with vq_group(state.encoder, ax):
             loss, metrics = loss_fn(state, batch, g)
-        with record_function("train:backward"):
+        with span("train:backward"):
             trainer._backward(loss)
-        with record_function("train:allreduce"):
+        with span("train:allreduce"):
             names = list(params)
             grads = [params[n].grad if params[n].grad is not None
                      else torch.zeros_like(params[n]) for n in names]
@@ -107,7 +107,7 @@ def _make_dp_step(trainer: Trainer, mesh: Mesh, loss_fn: Callable, axis: str,
             # gradient is bf16): one rounding of the float32 mean.
             grads = [r.view_as(g).to(g.dtype) for r, g in zip(reduced, grads)]
             metrics = {k: bucket[bucket.numel() - len(vals) + i] for i, k in enumerate(keys)}
-        with record_function("train:optimizer"):
+        with span("train:optimizer"):
             grads = dict(zip(names, grads))
             applied = state.optimizer.update(grads)
             metrics["grad_norm"] = state.optimizer.step_norm(grads)

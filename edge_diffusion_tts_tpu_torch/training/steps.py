@@ -32,13 +32,13 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import CFG, resolve_device
 from ..ops.fused_frontend import conv_frontend, kernel_serves, pack_frontend_weights
 from ..ops.mel import MelFrontend
 from ..schedule import DiffusionSchedule, DPMSolverPP, _bcast, ddim_sample
 from ..utils.audio import normalize_mel
+from ..utils.speed import span
 from .state import TrainState, ema_update, freeze_hubert
 
 Batch = Dict[str, torch.Tensor]
@@ -107,7 +107,7 @@ class Trainer:
     def hubert_features(self, state: TrainState, wav: torch.Tensor) -> torch.Tensor:
         """Frozen HuBERT layer features of ``wav`` on the trainer's route,
         under no gradient."""
-        with torch.no_grad(), record_function("train:hubert"):
+        with torch.no_grad(), span("train:hubert"):
             conv_feats = None
             if self.encode_route == "kernel":
                 conv_feats = conv_frontend(wav.float().contiguous(), self.frontend_weights,
@@ -119,7 +119,7 @@ class Trainer:
         feats = batch.get("hubert_features")
         if feats is None:
             feats = self.hubert_features(state, batch["wav"])
-        with record_function("train:encoder"):
+        with span("train:encoder"):
             return state.encoder.from_features(feats, train=train, generator=generator)
 
     def _decode(self, decoder, x_t: torch.Tensor, t: torch.Tensor, **cond) -> torch.Tensor:
@@ -134,7 +134,7 @@ class Trainer:
         loss.backward()
 
     def _mel_normalized(self, wav: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad(), record_function("train:mel"):
+        with torch.no_grad(), span("train:mel"):
             return normalize_mel(self.mel_frontend(wav))[0]
 
     def _teacher_decay(self, applied: bool, base: float) -> float:
@@ -149,24 +149,25 @@ class Trainer:
         """Wrap a loss closure into a training step."""
 
         def step(state: TrainState, batch: Batch, generator) -> Tuple[TrainState, dict]:
-            params = state.optimizer.params
-            for p in params.values():
-                p.grad = None
-            state.train()
-            loss, metrics = loss_fn(state, batch, generator)
-            with record_function("train:backward"):
-                self._backward(loss)
-            with record_function("train:optimizer"):
-                grads = {n: p.grad for n, p in params.items()}
-                applied = state.optimizer.update(grads)
-                if with_grad_norm:
-                    metrics["grad_norm"] = state.optimizer.step_norm(grads)
-                if ema is not None and state.teacher is not None:
-                    ema_update(state.teacher, state.decoder, self._teacher_decay(applied, ema))
-            for p in params.values():
-                p.grad = None
-            state.step += 1
-            return state, metrics
+            with span("train:step"):  # its own time: the glue between the ranges below
+                params = state.optimizer.params
+                for p in params.values():
+                    p.grad = None
+                state.train()
+                loss, metrics = loss_fn(state, batch, generator)
+                with span("train:backward"):
+                    self._backward(loss)
+                with span("train:optimizer"):
+                    grads = {n: p.grad for n, p in params.items()}
+                    applied = state.optimizer.update(grads)
+                    if with_grad_norm:
+                        metrics["grad_norm"] = state.optimizer.step_norm(grads)
+                    if ema is not None and state.teacher is not None:
+                        ema_update(state.teacher, state.decoder, self._teacher_decay(applied, ema))
+                for p in params.values():
+                    p.grad = None
+                state.step += 1
+                return state, metrics
 
         return step
 
@@ -182,7 +183,7 @@ class Trainer:
             mel_n = self._mel_normalized(batch["wav"])
             B = mel_n.shape[0]
             z_q, sem_idx, vq_loss, ppl, used = self._encode(state, batch, g, train=True)
-            with record_function("train:decoder"):
+            with span("train:decoder"):
                 align_loss = torch.zeros((), device=mel_n.device)
                 if cfg.token_align_weight > 0:
                     ctx_tok, ctx_feat = state.decoder.align_contexts(sem_idx, z_q.detach())
@@ -231,7 +232,7 @@ class Trainer:
             mel_n = self._mel_normalized(batch["wav"])
             B, dev = mel_n.shape[0], mel_n.device
             _, sem_idx, vq_loss, ppl, used = self._encode(state, batch, g, train=True)
-            with record_function("train:decoder"):
+            with span("train:decoder"):
                 step_indices = batch["step_indices"] if "step_indices" in batch else \
                     torch.randint(0, num_steps, (B,), device=dev, generator=g)
                 t = (step_indices + 1) * stride - 1
@@ -269,7 +270,7 @@ class Trainer:
             mel_n = self._mel_normalized(batch["wav"])
             B, dev = mel_n.shape[0], mel_n.device
             _, sem_idx, vq_loss, ppl, used = self._encode(state, batch, g, train=True)
-            with record_function("train:decoder"):
+            with span("train:decoder"):
                 step_indices = batch["step_indices"] if "step_indices" in batch else \
                     torch.randint(0, num_steps, (B,), device=dev, generator=g)
                 t = (step_indices + 1) * stride - 1
@@ -325,7 +326,7 @@ class Trainer:
             mel_n = self._mel_normalized(batch["wav"])
             B, dev = mel_n.shape[0], mel_n.device
             _, sem_idx, vq_loss, ppl, used = self._encode(state, batch, g, train=True)
-            with record_function("train:decoder"):
+            with span("train:decoder"):
                 t1 = batch["t1"] if "t1" in batch else torch.randint(
                     1, cfg.diff_steps, (B,), device=dev, generator=g)
                 t2 = batch["t2"] if "t2" in batch else torch.randint(
@@ -366,7 +367,7 @@ class Trainer:
             mel_n = self._mel_normalized(batch["wav"])
             B, dev = mel_n.shape[0], mel_n.device
             _, sem_idx, vq_loss, ppl, used = self._encode(state, batch, g, train=True)
-            with record_function("train:decoder"):
+            with span("train:decoder"):
                 n = batch["n"] if "n" in batch else torch.randint(
                     0, grid_size - 1, (B,), device=dev, generator=g)
                 t_lo, t_hi = t_lo_tbl[n], t_hi_tbl[n]

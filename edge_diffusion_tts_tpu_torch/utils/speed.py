@@ -6,6 +6,7 @@
   fit_device_ms    per-iteration time of a chain by a two-point fit
   scan_chain_builder  the chain ``fit_device_ms`` times, from one body
   profile_trace    ``torch.profiler`` around a block, Chrome trace written
+  span             a named profiler range over a block, a no-op with no profiler
   remat_decoder    each decoder block under ``torch.utils.checkpoint``
   memory_stats     ``torch.cuda.memory_stats`` in MB
 
@@ -194,6 +195,26 @@ def profile_trace(log_dir: str = "torch_trace"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``with`` block's range in the running ``torch.profiler``
+    (``profile_trace`` or any other): ``record_function(name)``, on the
+    profiler's clock beside the device's activities and exported with them.
+    With no profiler running, a shared no-op that enters no
+    ``record_function`` (which costs microseconds even then).
+
+    The port's names start with ``train:`` (the trainer) or ``prep:``
+    (synthesis): the benchmark's trace reader (``benchmark/harness/trace.py``)
+    takes ranges of those prefixes, which the profiler also draws on the
+    device's timeline, for host ranges and never for device work.
+    """
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class _ReplayBlock:
