@@ -75,7 +75,9 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    own, beside ``F.linear`` on the same bf16 operands and the wgmma kernel
    in every tile, at 500 and 4,000 rows, with the float32 GEMMs at 4,000
    rows; and the step's attentions alone (``step_attention``: the
-   self-attention and the cross-attention at B rows of T=500, S=250), the
+   self-attention and the cross-attention at B rows of T=500, S=250, and
+   at B=8 also at the bf16 token cell's largest call, 64 rows of T=1000,
+   S=500, in the host's tile and in each tile forced), the
    tensor-core kernel beside the float32-FMA kernel the bf16 step ran
    before and band-masked ``scaled_dot_product_attention`` on the same
    bf16 q, k, v, held to ``_attention_rounded`` by the two-sided witness
@@ -981,6 +983,9 @@ def phase_fused_bf16(torch, cfg, decoder, schedule, seed: int, B: int = 1) -> di
     if not cfg.use_depthwise:
         out["v"]["gemms"] = step_gemms16(torch, cfg, B * T, loop, w16)
         out["v"]["attention"] = step_attention16(torch, cfg, B)
+        if B > 1:  # and the bf16 token cell's largest call, in each tile
+            out["v"]["attention_cell"] = step_attention16(torch, cfg, 64, 1000, 500,
+                                                          (None, "keys", "rows"))
         if B > 1:  # the float32 GEMMs at these rows, for the comparison
             step_gemms(torch, cfg, B * T, loop, w32)
     return out["v"]
@@ -1158,25 +1163,29 @@ def step_gemms16(torch, cfg, rows: int, loop, w16) -> dict:
     return tot
 
 
-def step_attention16(torch, cfg, B: int) -> dict:
+def step_attention16(torch, cfg, B: int, T: int = 500, S: int = 250,
+                     tiles: tuple = (None,)) -> dict:
     """The bf16 step's attentions alone (``step_attention``) at B rows of
-    T = 500, S = 250 (the flagship heads): the self-attention (window
+    T frames and S tokens (the flagship heads): the self-attention (window
     ``cfg.attn_window_size``) and the cross-attention, each the tensor-core
-    kernel (csrc/attention16.cuh) / the float32-FMA kernel the step ran
+    kernel (csrc/attention16.cuh) in each of ``tiles`` (None: the host's
+    rule; "keys" or "rows" forced) / the float32-FMA kernel the step ran
     before (``fma=True``) / band-masked ``scaled_dot_product_attention`` on
     the same bf16 q, k, v (a yardstick), device µs by graph replay, and the
-    bound; each held to ``_attention_rounded`` (P normalised, then
+    bound; each tile held to ``_attention_rounded`` (P normalised, then
     rounded) by the witness rule's two-sided bars against the float32
     attention on the same values.  Returns one step's sums in ms (L of
-    each) and the largest error against the plain version."""
+    each; ``ms`` the first tile's, ``tiles`` each tile's) and the largest
+    error against the plain version."""
     import torch.nn.functional as F
 
     from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
 
     bf16 = torch.bfloat16
-    heads, d, w, T, S = cfg.heads, cfg.hidden // cfg.heads, cfg.attn_window_size, 500, 250
+    heads, d, w = cfg.heads, cfg.hidden // cfg.heads, cfg.attn_window_size
     g = torch.Generator().manual_seed(7000 + B)
-    tot = dict(ms=0.0, fma=0.0, plain=0.0, library=0.0, err=0.0)
+    tot = dict(ms=0.0, fma=0.0, plain=0.0, library=0.0, err=0.0,
+               tiles=dict.fromkeys(tiles, 0.0))
     flops = nbytes = 0
     i = torch.arange(T, device=DEVICE)
     for kind, tk, window in (("self", T, w), ("cross", S, None)):
@@ -1185,18 +1194,26 @@ def step_attention16(torch, cfg, B: int) -> dict:
         mask = None
         if window is not None:
             mask = (i[:, None] - torch.arange(tk, device=DEVICE)[None, :]).abs() <= window
-        got = fd.step_attention(q, k, v, window, compute_dtype=bf16)
         old = fd.step_attention(q, k, v, window, compute_dtype=bf16, fma=True)
-        torch.cuda.synchronize()
         q32, k32, v32 = q.float(), k.float(), v.float()
         exact = fd._attention_rounded(q32, k32, v32, torch.float32, mask)
         plain = fd._attention_rounded(q32, k32, v32, bf16, mask).to(bf16)
-        e_k, e_p, e_kp = _rel(got, exact), _rel(plain, exact), _rel(got, plain)
-        assert WITNESS_FLOOR * e_p <= e_k <= 1.25 * e_p and e_kp <= 2.0 * e_p, (
-            f"step attention {kind} B={B}: kernel {e_k} from float32, plain {e_p}, "
-            f"kernel vs plain {e_kp}")
-        tot["err"] = max(tot["err"], (got.float() - plain.float()).abs().max().item())
-        us = 1e3 * graph_ms(torch, lambda: fd.step_attention(q, k, v, window, compute_dtype=bf16))
+        e_p = _rel(plain, exact)
+        said = []
+        for tile in tiles:
+            got = fd.step_attention(q, k, v, window, compute_dtype=bf16, tile=tile)
+            torch.cuda.synchronize()
+            e_k, e_kp = _rel(got, exact), _rel(got, plain)
+            assert WITNESS_FLOOR * e_p <= e_k <= 1.25 * e_p and e_kp <= 2.0 * e_p, (
+                f"step attention {kind} B={B} tile={tile}: kernel {e_k} from float32, plain "
+                f"{e_p}, kernel vs plain {e_kp}")
+            tot["err"] = max(tot["err"], (got.float() - plain.float()).abs().max().item())
+            us = 1e3 * graph_ms(torch, lambda: fd.step_attention(q, k, v, window,
+                                                                 compute_dtype=bf16, tile=tile))
+            tot["tiles"][tile] += cfg.layers * us / 1e3
+            said.append(f"tile {tile or fd.attention16_tile(B, heads, T)}"
+                        f"{'' if tile else ' (host)'} {us:.3f} us (kernel {e_k:.4g} from "
+                        f"float32, vs plain {e_kp:.4g})")
         fma_us = 1e3 * graph_ms(torch, lambda: fd.step_attention(q, k, v, window,
                                                                  compute_dtype=bf16, fma=True))
         sdpa_us = 1e3 * graph_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1207,16 +1224,17 @@ def step_attention16(torch, cfg, B: int) -> dict:
         work = (B * heads * 4 * d * pairs, 2 * (2 * q.numel() + k.numel() + v.numel()))
         b_ms, b_by = bound(*work, BF16_PEAK_FLOPS)
         flops, nbytes = flops + cfg.layers * work[0], nbytes + cfg.layers * work[1]
-        for key, val in (("ms", us), ("fma", fma_us), ("plain", plain_us), ("library", sdpa_us)):
+        for key, val in (("fma", fma_us), ("plain", plain_us), ("library", sdpa_us)):
             tot[key] += cfg.layers * val / 1e3
         print(f"[attn-bf16] {kind} B={B} T={T} keys={tk} heads={heads} d={d}: tensor cores "
-              f"{us:.3f} us / float32 FMA (before) {fma_us:.3f} / SDPA (masked) {sdpa_us:.3f}; "
-              f"bound {1e3 * b_ms:.4f} us ({b_by}); witness: kernel {e_k:.4g} from float32, "
-              f"plain {e_p:.4g}, kernel vs plain {e_kp:.4g} (FMA kernel "
-              f"{_rel(old, exact):.4g})")
+              f"{'; '.join(said)} / float32 FMA (before) {fma_us:.3f} / SDPA (masked) "
+              f"{sdpa_us:.3f}; bound {1e3 * b_ms:.4f} us ({b_by}); plain {e_p:.4g} from "
+              f"float32 (FMA kernel {_rel(old, exact):.4g})")
+    tot["ms"] = tot["tiles"][tiles[0]]
     tot["bound"], tot["bound_by"] = bound(flops, nbytes, BF16_PEAK_FLOPS)
-    print(f"[attn-bf16] B={B}: one step's {2 * cfg.layers} attentions: tensor cores "
-          f"{tot['ms']:.5f} ms, float32 FMA {tot['fma']:.5f}, SDPA {tot['library']:.5f}, bound "
+    each = ", ".join(f"{t or 'host'} {ms:.5f}" for t, ms in tot["tiles"].items())
+    print(f"[attn-bf16] B={B} T={T} S={S}: one step's {2 * cfg.layers} attentions: tensor "
+          f"cores {each} ms, float32 FMA {tot['fma']:.5f}, SDPA {tot['library']:.5f}, bound "
           f"{tot['bound']:.5f} ({tot['bound_by']})")
     return tot
 

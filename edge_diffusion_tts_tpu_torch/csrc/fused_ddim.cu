@@ -511,13 +511,14 @@ extern "C" long long edt_kernel_launches_of(int kind) {
   switch (kind) {
     case 1: return edt::g_wgmma_launches;
     case 2: return edt::g_mma16_launches;
-    case 3: return edt::g_attn16_launches;
+    case 3: return edt::g_attn16_launches[0] + edt::g_attn16_launches[1];
     default: return -1;
   }
 }
 
 extern "C" void edt_zero_kernel_launches() {
-  edt::g_wgmma_launches = edt::g_mma16_launches = edt::g_attn16_launches = 0;
+  edt::g_wgmma_launches = edt::g_mma16_launches = 0;
+  for (long long& n : edt::g_attn16_launches) n = 0;
 }
 
 // The decoder step's GEMM alone (gemm.cuh), as a test and timing hook, in
@@ -607,14 +608,32 @@ edt::AttnArgs hook_attention(const void* q, const void* k, const void* v, void* 
 // softmax(q k^T / sqrt(d)) v over the keys j of row i with |i - j| <=
 // window (every key for a window < 0, the cross-attention), q [B, heads,
 // tq, d], k and v [B, heads, tk, d], all contiguous, float32, or bf16 with
-// bf16 (P normalised, then rounded to bf16 before PV, o bf16).  Returns a
-// cudaError_t.
+// bf16 (P normalised, then rounded to bf16 before PV, o bf16), then in
+// `tile` (0 the key tile, 1 the row tile; < 0 the host's rule, as the step
+// takes it; bf16 only).  Returns a cudaError_t.
 extern "C" int edt_step_attention(const void* q, const void* k, const void* v, void* o, int B,
                                   int heads, int tq, int tk, int d, int window, int bf16,
-                                  void* stream) {
-  EDT_LAUNCH(attention(hook_attention(q, k, v, o, heads, tq, tk, d, window, bf16), B,
-                       (cudaStream_t)stream));
+                                  int tile, void* stream) {
+  const edt::AttnArgs a = hook_attention(q, k, v, o, heads, tq, tk, d, window, bf16);
+  if (tile >= 0 && !bf16) return (int)cudaErrorInvalidValue;
+  EDT_LAUNCH(bf16 ? edt::launch_attention16(a, B, (cudaStream_t)stream, tile)
+                  : attention(a, B, (cudaStream_t)stream));
   return 0;
+}
+
+// The tile of attention16.cuh's kernel the host's rule takes for a bf16
+// step attention of B x heads pairs over tq query rows: 0 the key tile, 1
+// the row tile (edt_step_attention's `tile`).
+extern "C" int edt_attention16_pick_tile(int B, int heads, int tq) {
+  return edt::att16_pick_tile(B, heads, tq);
+}
+
+// Launches of attention16_kernel by tile since the last
+// edt_zero_kernel_launches: out[tile], the key tile's and the row tile's;
+// returns the number of tiles.
+extern "C" int edt_attention16_tile_launches(long long* out) {
+  for (int t = 0; t < edt::ATT16_NTILES; ++t) out[t] = edt::g_attn16_launches[t];
+  return edt::ATT16_NTILES;
 }
 
 // edt_step_attention in attention.cuh's float32-FMA kernel at either dtype

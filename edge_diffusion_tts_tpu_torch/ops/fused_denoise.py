@@ -461,7 +461,7 @@ def _lib() -> ctypes.CDLL:
     lib.edt_zero_kernel_launches.restype = None
     lib.edt_decoder_prenet.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.edt_decoder_prenet.restype = ctypes.c_int
-    lib.edt_step_attention.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.edt_step_attention.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.edt_step_attention.restype = ctypes.c_int
     lib.edt_step_attention_fma.argtypes = [p] * 4 + [i] * 7 + [p]
     lib.edt_step_attention_fma.restype = ctypes.c_int
@@ -469,6 +469,10 @@ def _lib() -> ctypes.CDLL:
     lib.edt_decoder_gemm_tile.restype = None
     lib.edt_kernel_launches.argtypes = []
     lib.edt_kernel_launches.restype = ctypes.c_longlong
+    lib.edt_attention16_pick_tile.argtypes = [i] * 3
+    lib.edt_attention16_pick_tile.restype = ctypes.c_int
+    lib.edt_attention16_tile_launches.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.edt_attention16_tile_launches.restype = ctypes.c_int
     return lib
 
 
@@ -491,8 +495,33 @@ def kernel_launches(kind: Optional[str] = None) -> int:
 
 
 def zero_kernel_launches() -> None:
-    """Set the counts of ``kernel_launches(kind)`` to 0 (not the total)."""
+    """Set the counts of ``kernel_launches(kind)`` and of
+    ``attention16_tile_launches()`` to 0 (not the total)."""
     _lib().edt_zero_kernel_launches()
+
+
+# The tiles of the bf16 step attention (csrc/attention16.cuh), by the
+# library's index: "keys", a block of 16 query rows whose 4 warps split the
+# keys (the B = 1 tile); "rows", a block of 64 rows, a warp's 16 each, K and
+# V streamed through a ring (the batched tile).
+ATTENTION16_TILES = {"keys": 0, "rows": 1}
+
+
+def attention16_tile_launches() -> dict:
+    """Launches of the bf16 step attention by tile since
+    ``zero_kernel_launches``: ``{"keys": n, "rows": n}``, summing to
+    ``kernel_launches("attention16")``."""
+    out = (ctypes.c_longlong * len(ATTENTION16_TILES))()
+    _lib().edt_attention16_tile_launches(out)
+    return {name: int(out[i]) for name, i in ATTENTION16_TILES.items()}
+
+
+def attention16_tile(batch: int, heads: int, tq: int) -> str:
+    """The tile (a key of ``ATTENTION16_TILES``) the host's rule takes for a
+    bf16 step attention over ``batch`` x ``heads`` pairs of ``tq`` query
+    rows: "rows" where its 64-row blocks fill the card, else "keys"."""
+    index = _lib().edt_attention16_pick_tile(batch, heads, tq)
+    return next(name for name, i in ATTENTION16_TILES.items() if i == index)
 
 
 def decoder_gemm_tile(m: int, n: int, compute_dtype: torch.dtype = torch.float32):
@@ -673,7 +702,8 @@ decoder_prenet.launches = 0
 
 
 def step_attention(q, k, v, window: Optional[int] = None,
-                   compute_dtype: torch.dtype = torch.float32, fma: bool = False) -> torch.Tensor:
+                   compute_dtype: torch.dtype = torch.float32, fma: bool = False,
+                   tile: Optional[str] = None) -> torch.Tensor:
     """The decoder step's attention kernel alone: q [B, heads, tq, d]
     attends k, v [B, heads, tk, d] over |i - j| <= ``window``, or every key
     with None (the cross-attention).  At bf16 ``compute_dtype`` q, k and v
@@ -683,12 +713,18 @@ def step_attention(q, k, v, window: Optional[int] = None,
     csrc/attention.cuh's float32-FMA kernel at either dtype instead (at bf16
     the kernel the bf16 step ran before, which rounds each probability
     against its thread's running max): a yardstick, never on the main path.
+    ``tile`` (a key of ``ATTENTION16_TILES``, bf16 only) forces the
+    tensor-core kernel's tile; None takes the host's rule
+    (``attention16_tile``), as the decoder step does.
 
     A test and timing hook: contiguous CUDA tensors of the compute dtype
     only; it raises on anything else, CPU tensors included.  Counted in
     ``step_attention.launches``.
     """
     low = _compute_dtype(compute_dtype, "step_attention") != torch.float32
+    if tile is not None and (tile not in ATTENTION16_TILES or not low or fma):
+        raise ValueError(f"tile {tile!r}: one of {sorted(ATTENTION16_TILES)}, for the bf16 "
+                         "tensor-core kernel only")
     B, heads, tq, d = q.shape
     tk = k.shape[2]
     for name, t, rows in (("q", q, tq), ("k", k, tk), ("v", v, tk)):
@@ -703,9 +739,12 @@ def step_attention(q, k, v, window: Optional[int] = None,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        launch = _lib().edt_step_attention_fma if fma else _lib().edt_step_attention
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, heads, tq, tk,
-                     d, -1 if window is None else window, int(low), stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, heads, tq, tk, d,
+                -1 if window is None else window, int(low))
+        if fma:
+            err = _lib().edt_step_attention_fma(*args, stream)
+        else:
+            err = _lib().edt_step_attention(*args, ATTENTION16_TILES.get(tile, -1), stream)
     step_attention.launches += 1
     _build.check(err, "step_attention")
     return out

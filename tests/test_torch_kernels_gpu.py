@@ -1539,7 +1539,8 @@ STEP_ATTENTION_CASES = [(2, 2, 80, 80, 16, 8), (2, 2, 80, 40, 16, None), (1, 4, 
                         (1, 4, 500, 250, 40, None), (2, 2, 200, 200, 64, 8)]
 
 
-@pytest.mark.parametrize("B,H,T,S,d,window", STEP_ATTENTION_CASES)
+@pytest.mark.parametrize("B,H,T,S,d,window",
+                         STEP_ATTENTION_CASES + [(16, 4, 1000, 500, 40, None)])
 def test_step_attention_bf16_rounds_p_as_the_tpu_kernel(cuda, B, H, T, S, d, window):
     """The bf16 step's attention alone against ``_attention_rounded`` (P
     normalised, then rounded to bf16 before PV, the output rounded) and
@@ -1570,18 +1571,26 @@ def test_step_attention_bf16_rounds_p_as_the_tpu_kernel(cuda, B, H, T, S, d, win
 
 # Self- and cross-attention at heads of 40 and 32 (and 64), T and S not
 # multiples of 16, B up to 8 (four warps a block), a cross-attention over
-# more keys than a warp's registers hold (700: three passes) and one over
-# more than a block stages at once (1100: chunk by chunk).
+# more keys than a warp's registers hold (700: three passes in the key
+# tile) and one over more than a block stages at once (1100: chunk by
+# chunk); then the batched shapes the rule sends to the row tile: the bf16
+# token cell's largest call (T = 1000, S = 500: the cross keys streamed
+# through the ring), its band over 1000 keys, T not a multiple of 64, and
+# a cross-attention past 512 keys.
 STEP_ATTENTION16_CASES = [(1, 4, 500, 500, 40, 64), (1, 4, 500, 250, 40, None),
                           (2, 4, 77, 77, 40, 64), (2, 4, 77, 29, 40, None),
                           (1, 5, 133, 133, 32, 8), (1, 5, 133, 251, 32, None),
                           (8, 4, 500, 500, 40, 64), (8, 4, 500, 250, 40, None),
                           (1, 2, 130, 700, 40, None), (1, 2, 70, 1100, 64, None),
-                          (2, 2, 45, 45, 24, 0)]
+                          (2, 2, 45, 45, 24, 0),
+                          (16, 4, 1000, 500, 40, None), (16, 4, 1000, 1000, 40, 64),
+                          (32, 4, 201, 101, 40, None), (16, 4, 333, 333, 40, 64),
+                          (8, 2, 300, 700, 40, None)]
 
 
+@pytest.mark.parametrize("tile", [None, "keys", "rows"])
 @pytest.mark.parametrize("B,H,T,S,d,window", STEP_ATTENTION16_CASES)
-def test_step_attention16_matches_plain(cuda, B, H, T, S, d, window):
+def test_step_attention16_matches_plain(cuda, B, H, T, S, d, window, tile):
     """The tensor-core step attention (csrc/attention16.cuh) against
     ``_attention_rounded`` at bf16 on the same bf16 q, k, v: the same
     roundings in the same order but for the float32 sums of S, the row sum
@@ -1590,8 +1599,9 @@ def test_step_attention16_matches_plain(cuda, B, H, T, S, d, window):
     distance from float32 (on the H100 0-0.035) and every element within
     4 bf16 ulps of the larger output plus 2^-8 of the largest |v| (what a
     probability's flip moves an output by: ulp(p) |v| <= 2^-8 |v| for p <
-    1; these inputs cancel, so an output may sit near 0); counted per kind;
-    the same bits twice."""
+    1; these inputs cancel, so an output may sit near 0); counted per kind
+    and per tile; the same bits twice.  In the host's tile (None) and in
+    each tile forced."""
     q, k, v = _attention_inputs(cuda, B, H, T, S, d, seed=3 * T + S + d)
     mask = None
     if window is not None:
@@ -1601,15 +1611,43 @@ def test_step_attention16_matches_plain(cuda, B, H, T, S, d, window):
     plain = fd._attention_rounded(q32, k32, v32, BF16, mask)
     exact = fd._attention_rounded(q32, k32, v32, torch.float32, mask)
     fd.zero_kernel_launches()
-    got = fd.step_attention(q, k, v, window, compute_dtype=BF16)
+    got = fd.step_attention(q, k, v, window, compute_dtype=BF16, tile=tile)
     torch.cuda.synchronize()
     assert fd.kernel_launches("attention16") == 1
+    ran = tile or fd.attention16_tile(B, H, T)
+    assert fd.attention16_tile_launches() == {t: int(t == ran) for t in fd.ATTENTION16_TILES}
     plain = plain.to(BF16)  # the output rounded once, as the kernel rounds it
     g, p = got.float(), plain.float()
     bar = 4 * _bf16_ulp(torch.maximum(g.abs(), p.abs())) + v32.abs().amax() / 256
     assert bool(((g - p).abs() <= bar).all()), (g - p).abs().max().item()
     assert _rel(got, plain) <= 0.1 * _rel(plain, exact) + 1e-6
-    assert torch.equal(got, fd.step_attention(q, k, v, window, compute_dtype=BF16))
+    assert torch.equal(got, fd.step_attention(q, k, v, window, compute_dtype=BF16, tile=tile))
+
+
+def test_attention16_tile_rule_and_the_batched_loop(cuda):
+    """The host's rule takes the key tile for the edge call (B = 1, T =
+    500) and the row tile for the bf16 token cell's largest call (B = 64, T
+    = 1000); a bf16 DDIM call at a batched shape launches all of its 2L x
+    steps attentions in the row tile, one at B = 1 all in the key tile."""
+    assert fd.attention16_tile(1, 4, 500) == "keys"
+    assert fd.attention16_tile(64, 4, 1000) == "rows"
+    cfg, dec = _prenet_decoder(cuda, 2, layers=4)
+    S, steps = 300, 3
+    w16 = fd.pack_decoder_weights(dec, BF16)
+    coef = fd.ddim_coefficients(DiffusionSchedule.create(1000), steps)[1].to(cuda)
+    for B, T, tile in ((64, 2 * S, "rows"), (1, 16, "keys")):
+        sem_idx = torch.zeros(B, S, dtype=torch.long, device=cuda)
+        li = fd.prepare_loop_inputs(dec, sem_idx, T, list(range(steps - 1, -1, -1)))
+        assert fd.attention16_tile(B, cfg.heads, T) == tile
+        fd.zero_kernel_launches()
+        fd.fused_ddim(torch.zeros(B, T, 80, device=cuda), li["pos"], li["mods"],
+                      li["ckv"].to(BF16), coef, w16, heads=cfg.heads,
+                      window=cfg.attn_window_size, compute_dtype=BF16)
+        torch.cuda.synchronize()
+        want = steps * 2 * cfg.layers
+        assert fd.kernel_launches("attention16") == want
+        assert fd.attention16_tile_launches() == {t: want * (t == tile)
+                                                  for t in fd.ATTENTION16_TILES}
 
 
 def test_fused_loops_bf16_launch_the_tensor_core_kernels(cuda):

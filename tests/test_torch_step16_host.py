@@ -44,3 +44,34 @@ def test_step_attention_refuses_cpu_tensors(no_library, fma):
     q = torch.zeros(1, 2, 16, 40, dtype=BF16)
     with pytest.raises(ValueError, match="CUDA"):
         fd.step_attention(q, q, q, 4, compute_dtype=BF16, fma=fma)
+
+
+@pytest.mark.parametrize("tile,compute_dtype,fma", [("diagonal", BF16, False),
+                                                    ("rows", torch.float32, False),
+                                                    ("keys", BF16, True)])
+def test_step_attention_refuses_a_tile_before_the_library(no_library, tile, compute_dtype,
+                                                          fma):
+    q = torch.zeros(1, 2, 16, 40, dtype=compute_dtype)
+    with pytest.raises(ValueError, match="tile"):
+        fd.step_attention(q, q, q, 4, compute_dtype=compute_dtype, fma=fma, tile=tile)
+
+
+class _TileLibrary:
+    """The two tile exports of the kernels' library, as fixed numbers."""
+
+    @staticmethod
+    def edt_attention16_tile_launches(out):
+        out[0], out[1] = 3, 5
+        return 2
+
+    @staticmethod
+    def edt_attention16_pick_tile(batch, heads, tq):
+        return int(100 * batch * heads * ((tq + 63) // 64) >= 75 * 132)
+
+
+def test_attention16_tile_counts_and_rule_by_name(monkeypatch):
+    monkeypatch.setattr(fd, "_lib", _TileLibrary)
+    assert set(fd.ATTENTION16_TILES) == {"keys", "rows"}
+    assert fd.attention16_tile_launches() == {"keys": 3, "rows": 5}
+    assert fd.attention16_tile(1, 4, 500) == "keys"
+    assert fd.attention16_tile(64, 4, 1000) == "rows"
