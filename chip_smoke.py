@@ -130,6 +130,21 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    module route's to atol 1e-3 and its FSQ tokens agree on >= 99% (an
    exact-GroupNorm vs analytical-GroupNorm difference can flip a token that
    sits on a rounding edge);
+   7b. WavLM's gated relative-position attention (csrc/relpos_attention16.cuh,
+   ``ops/relpos_attention.py::relpos_attention16``) at the WavLM-Large
+   cell's widths, B = 32, 16 heads of 64, at S = 149 (3 s: K/V resident in
+   the ring) and S = 499 (10 s: streamed): against ``models/hubert.py::
+   gated_attention`` on the same packed y / offset vector / gate constants
+   (every output within 2^-7 of the plain route's largest and 1e-2
+   normwise), two calls bit-equal; device time by CUDA-graph replay beside
+   the plain route's (CUDA events), ``scaled_dot_product_attention`` with
+   the gated bias as an additive bf16 mask (a yardstick: the mask built
+   outside its time) and the bound (``benchmark/counts/wavlm.py``'s
+   products at 989 TFLOP/s, its bytes at 3.35 TB/s); then the main path,
+   ``EdgeInference(backend="fused").generate_from_audio`` at bf16 behind
+   WavLM-Large to layer 21, B = 32 x 10 s: ``kernel_launches(
+   "relpos_attention16")``, set to 0 just before the call and read just
+   after, is 21;
 8. DDPM: the fused DDPM kernel against its plain version over the 50-step
    schedule at the flagship shape, injected and Philox noise (tolerance
    below), for the default decoder and for phase 3's pre-net decoder, with
@@ -1689,6 +1704,87 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
           + ", ".join(f"{e:.3f} + {g:.3f}" for e, g in split)
           + f"; frontend launches={launches}, fused_ddim launches={ddim_launches}")
     return launches, agree
+
+
+RELPOS_S = (149, 499)  # phase 7b's frame counts: the cell's 3 s (resident) and 10 s buckets
+
+
+def phase_relpos(torch) -> dict:
+    """Phase 7b: WavLM's gated relative-position attention kernel at the
+    cell's widths, then its launches on the main path.  Returns the
+    ``kernels`` line's numbers (S = 499) and the main path's launches."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from benchmark.counts.wavlm import relpos_attention
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.models import HubertConfig, SemanticEncoder
+    from edge_diffusion_tts_tpu_torch.models.hubert import (gated_attention, relative_bias,
+                                                            relpos_gate)
+    from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops.relpos_attention import relpos_attention16
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+
+    bf16, B, heads, d = torch.bfloat16, 32, 16, 64
+    H = heads * d
+    out = {}
+    for S in RELPOS_S:
+        g = torch.Generator().manual_seed(8000 + S)
+        y = torch.randn(B, S, heads * (3 * d + 8), generator=g).to(DEVICE).to(bf16)
+        rel = (0.25 * torch.randn(heads, 2 * S - 1, generator=g)).to(DEVICE)
+        const = (0.25 * torch.randn(heads, generator=g)).to(DEVICE)
+        want = gated_attention(y, rel, const).float()
+        got = relpos_attention16(y, rel, const)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        norm = ((got.float() - want).norm() / want.norm()).item()
+        bar = 2 ** -7 * max(1.0, want.abs().max().item())
+        assert err <= bar and norm <= 1e-2, f"relpos S={S}: max err {err} (bar {bar}), {norm}"
+        assert torch.equal(relpos_attention16(y, rel, const), got), f"relpos S={S}: not bit-equal"
+        q, k, v = (y[..., n * H:(n + 1) * H].unflatten(-1, (heads, d)).transpose(1, 2)
+                   for n in range(3))
+        gate = relpos_gate(y[..., 3 * H:].unflatten(-1, (heads, 8)), const)
+        mask = (gate.transpose(1, 2)[..., None] * relative_bias(rel, S)).to(bf16)
+        ms = graph_ms(torch, lambda: relpos_attention16(y, rel, const))
+        plain_ms = timed_ms(torch, lambda: gated_attention(y, rel, const), iters=5)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                          n=10)
+        del mask
+        n = relpos_attention(B, S, heads, d)
+        bound_ms, bound_by = bound(n["products"], n["bytes"], BF16_PEAK_FLOPS)
+        print(f"[relpos] B={B} S={S} heads={heads} d={d}: kernel {ms:.5f} ms "
+              f"({n['products'] / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound), plain "
+              f"route {plain_ms:.5f} ms, SDPA with the bias as a mask {lib_ms:.5f} ms, "
+              f"bound_ms={bound_ms:.6f} ({bound_by}); max err {err:.4g} (bar {bar:.4g}), "
+              f"{norm:.4g} normwise")
+        out = dict(max_abs_err=max(err, out.get("max_abs_err", 0.0)), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    cfg = dataclasses.replace(flagship_cfg(), hubert_id="microsoft/wavlm-large",
+                              hubert_layer=21, compute_dtype="bfloat16")
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        enc = SemanticEncoder(cfg, HubertConfig.wavlm_large(), dtype=bf16)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    decoder = seeded_decoder(torch, cfg, PRENET_SEED).to(DEVICE)
+    schedule = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
+    engine = EdgeInference(cfg, schedule, decoder, prediction="v", backend="fused",
+                           device=DEVICE, encoder=enc.eval())
+    assert engine.encode_route == "modules", engine.encode_route
+    wav = 0.1 * torch.randn(B, 160000, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    engine.generate_from_audio(wav, num_steps=4)  # warm-up
+    torch.cuda.synchronize()
+    fd.zero_kernel_launches()
+    mel, call_ms = timed_call(torch, lambda: engine.generate_from_audio(wav, num_steps=4))
+    out["launches"] = fd.kernel_launches("relpos_attention16")
+    assert out["launches"] == 21, f"relpos launches on the main path: {out['launches']}, not 21"
+    assert torch.isfinite(mel).all() and mel.shape == (B, 998, cfg.n_mels), mel.shape
+    print(f"[relpos] main path: generate_from_audio at bf16, WavLM-Large to layer 21, "
+          f"[{B}, 160000]: {out['launches']} relpos_attention16 launches, {call_ms:.3f} ms")
+    return out
 
 
 def report_ddpm(label: str, got, want):
@@ -4519,6 +4615,7 @@ def run(torch) -> None:
     frontend = phase_frontend(torch, encoder)
     frontend16 = frontend_bf16(torch, encoder)
     frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
+    relpos = phase_relpos(torch)
     ddpm = phase_ddpm(torch, cfg, decoder, pre_decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
     trained = phase_train(torch)
@@ -4614,6 +4711,11 @@ def run(torch) -> None:
     ]
     for k in kernels[-2:]:
         assert k["launches"] > 0, f"{k['name']}: no launch on the bf16 main paths"
+    # WavLM's gated attention (phase 7b: the numbers at S = 499); no TPU kernel
+    # computes it, the JAX package has no WavLM
+    kernels.append({"name": "relpos_attention16", "route": "cuda",
+                    "source": "edge_diffusion_tts_tpu_torch/csrc/relpos_attention16.cuh",
+                    "replaces": None, **relpos})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -388,19 +388,27 @@ def _export(args) -> None:
 
 def _migrate(args) -> None:
     from .config import CFG
-    from .models import EdgeDiffusionDecoder, HubertConfig, SemanticEncoder
+    from .models import EdgeDiffusionDecoder, SemanticEncoder, hubert_config_for
     from .utils.torch_compat import convert_reference_checkpoint, load_reference_checkpoint
-    from .weights import hubert_state_dict_from_hf, save_checkpoint
+    from .weights import hubert_state_dict_from_hf, save_checkpoint, wavlm_state_dict_from_hf
 
     ckpt = load_reference_checkpoint(args.pt_path)
     cfg = CFG.from_dict(ckpt["cfg"]) if ckpt.get("cfg") else CFG()
-    hubert_cfg = HubertConfig()
+    # The architecture is the configuration's (hubert_id); --hubert-id names
+    # where its pretrained weights are (a hub id or a local directory).
+    hubert_cfg = hubert_config_for(cfg.hubert_id)
     hubert_state = None
     if args.hubert_id:
-        from transformers import HubertModel
+        if hubert_cfg.num_buckets:
+            from transformers import WavLMModel as HFModel
 
-        hm = HubertModel.from_pretrained(args.hubert_id, local_files_only=True)
-        hubert_state = hubert_state_dict_from_hf(hm.state_dict(), hubert_cfg)
+            convert = wavlm_state_dict_from_hf
+        else:
+            from transformers import HubertModel as HFModel
+
+            convert = hubert_state_dict_from_hf
+        hm = HFModel.from_pretrained(args.hubert_id, local_files_only=True)
+        hubert_state = convert(hm.state_dict(), hubert_cfg)
     dec_sd, enc_sd, cfg_dict = convert_reference_checkpoint(
         ckpt, num_layers=cfg.layers, hubert_state=hubert_state)
     if cfg_dict:
@@ -425,19 +433,21 @@ def _precompute(args, device) -> None:
 
     from .config import CFG
     from .data import precompute_hubert_features
-    from .models import HubertConfig, HubertEncoder
+    from .models import HubertEncoder, hubert_config_for
     from .ops import fused_frontend
 
     cfg = CFG()
     torch.manual_seed(0)
-    hubert = HubertEncoder(HubertConfig()).to(device).eval()
-    weights = fused_frontend.pack_frontend_weights(hubert.feature_extractor)
+    hubert_cfg = hubert_config_for(cfg.hubert_id)
+    hubert = HubertEncoder(hubert_cfg).to(device).eval()
+    weights = (fused_frontend.pack_frontend_weights(hubert.feature_extractor)
+               if fused_frontend.kernel_serves(hubert_cfg) else None)
 
     def apply(wav):
         x = torch.from_numpy(wav).to(device)
         with torch.no_grad():
-            return hubert.extract_layer(
-                x, cfg.hubert_layer, conv_feats=fused_frontend.conv_frontend(x, weights))
+            feats = None if weights is None else fused_frontend.conv_frontend(x, weights)
+            return hubert.extract_layer(x, cfg.hubert_layer, conv_feats=feats)
 
     print("WARNING: random-init HuBERT; pass converted weights for real use", file=sys.stderr)
     precompute_hubert_features(args.root, apply, limit=args.limit)

@@ -95,6 +95,7 @@
 
 #include "attention.cuh"
 #include "attention16.cuh"
+#include "relpos_attention16.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -505,20 +506,39 @@ extern "C" long long edt_fused_ddim_workspace(int B, int T, int H, int F, int M,
 extern "C" long long edt_kernel_launches() { return g_launches; }
 
 // Launches of one bf16 kernel since the last edt_zero_kernel_launches:
-// kind 1 gemm_wgmma_kernel, 2 gemm16_kernel, 3 attention16_kernel (-1 for
-// another kind).
+// kind 1 gemm_wgmma_kernel, 2 gemm16_kernel, 3 attention16_kernel, 4
+// relpos_attention16_kernel (-1 for another kind).
 extern "C" long long edt_kernel_launches_of(int kind) {
   switch (kind) {
     case 1: return edt::g_wgmma_launches;
     case 2: return edt::g_mma16_launches;
     case 3: return edt::g_attn16_launches[0] + edt::g_attn16_launches[1];
+    case 4: return edt::g_relpos_launches;
     default: return -1;
   }
 }
 
 extern "C" void edt_zero_kernel_launches() {
-  edt::g_wgmma_launches = edt::g_mma16_launches = 0;
+  edt::g_wgmma_launches = edt::g_mma16_launches = edt::g_relpos_launches = 0;
   for (long long& n : edt::g_attn16_launches) n = 0;
+}
+
+// WavLM's gated relative-position attention (relpos_attention16.cuh), the
+// encoder's and not the loop's: o [B, S, heads x 64] bf16 from y [B, S, ld]
+// bf16 (q, k, v, then each head's 8 gate projections), rel [heads, 2S - 1]
+// and gconst [heads] float32.  Counted by kind 4 of edt_kernel_launches_of,
+// not by edt_kernel_launches.  Returns a cudaError_t.
+extern "C" int edt_relpos_attention16(const void* y, const float* rel, const float* gconst,
+                                      void* o, int B, int heads, int S, int ld, void* stream) {
+  edt::RelposArgs a;
+  a.y = static_cast<const edt::bf16*>(y);
+  a.rel = rel;
+  a.gconst = gconst;
+  a.o = static_cast<edt::bf16*>(o);
+  a.heads = heads;
+  a.S = S;
+  a.ld = ld;
+  return edt::launch_relpos_attention16(a, B, (cudaStream_t)stream);
 }
 
 // The decoder step's GEMM alone (gemm.cuh), as a test and timing hook, in

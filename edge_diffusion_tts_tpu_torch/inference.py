@@ -16,8 +16,10 @@ backends:
 - ``"fused"``: the whole DDIM loop in one call of the fused CUDA kernel
   sequence (ops/fused_denoise.py), for any AdaLN config, the depthwise
   pre-net (``use_depthwise``, set by every config under configs/)
-  included.  It runs the kernels or raises; it never falls back to the
-  module loop.
+  included, at ``cfg.compute_dtype`` (the weights packed at it once).  It
+  runs the kernels or raises; it never falls back to the module loop.  An
+  encoder runs at the dtype it was built at: a configuration's encoder is
+  built at its compute dtype (``training.train.init_models``).
 
 Masked (variable-length batch) calls always take the module loop, as in the
 JAX package.  The entry point runs on CUDA unless ``device`` names another
@@ -30,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from .config import CFG, resolve_device
+from .config import CFG, resolve_device, torch_dtype
 from .ops.fused_denoise import fused_generate_mel, pack_decoder_weights, start_noise
 from .ops.fused_frontend import fast_encode, kernel_serves, pack_frontend_weights
 from .schedule import DiffusionSchedule, DPMSolverPP, ddim_sample
@@ -81,8 +83,9 @@ class EdgeInference:
         self.backend = backend
         self.sampler = sampler
         self.solver_order = solver_order
+        self.compute_dtype = torch_dtype(cfg.compute_dtype)
         self.fused_weights = (
-            pack_decoder_weights(self.decoder) if backend == "fused" else None
+            pack_decoder_weights(self.decoder, self.compute_dtype) if backend == "fused" else None
         )
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
         # The encode route is fixed here: "kernel" (fast_encode) for a stack
@@ -154,7 +157,7 @@ class EdgeInference:
         if self.backend == "fused":
             return fused_generate_mel(
                 self.cfg, self.schedule, self.decoder, sem_idx, x_T, num_steps,
-                self.prediction, weights=self.fused_weights,
+                self.prediction, weights=self.fused_weights, compute_dtype=self.compute_dtype,
             )
 
         def model_fn(x, t, step_idx):

@@ -4,7 +4,7 @@
 from .decoder import EdgeDiffusionDecoder
 from .encoder import SemanticEncoder, is_hubert_param
 from .fsq import FSQ, FSQEncoder, count_code_usage, usage_metrics
-from .hubert import HubertConfig, HubertEncoder
+from .hubert import HubertConfig, HubertEncoder, hubert_config_for
 from .vq import VectorQuantizer
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "SemanticEncoder",
     "VectorQuantizer",
     "count_code_usage",
+    "hubert_config_for",
     "is_hubert_param",
     "load_hubert_params_from_torch",
     "usage_metrics",

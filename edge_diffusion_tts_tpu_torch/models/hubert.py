@@ -1,4 +1,5 @@
-"""HuBERT-base speech encoder (counterpart of ``edge_diffusion_tts_tpu/models/hubert.py``).
+"""The frozen speech encoder: HuBERT-base, and WavLM-Large (counterpart of
+``edge_diffusion_tts_tpu/models/hubert.py``, which has HuBERT-base alone).
 
 The architecture of facebook/hubert-base-ls960 (feat_extract_norm="group",
 post-LN encoder)::
@@ -9,8 +10,32 @@ post-LN encoder)::
     grouped positional conv (k=128, groups=16) added in ->
     LayerNorm -> 12 post-LN transformer layers (12 heads, FFN 3072, GELU)
 
+and that of microsoft/wavlm-large (``HubertConfig.wavlm_large()``: Chen et
+al. 2022, arXiv:2110.13900; transformers' ``WavLMModel`` with
+``do_stable_layer_norm`` and ``feat_extract_norm="layer"``)::
+
+  wav [B, T] ->
+    7x strided Conv1d, no bias, each followed by a LayerNorm over channels ->
+    LayerNorm + Linear(512->1024) -> positional conv (k=128, groups=16) added
+    in, no LayerNorm -> 24 pre-LN layers (16 heads of 64, FFN 4096) with
+    the gated relative-position attention -> a final LayerNorm
+
+The relative-position attention adds ``gate[b, h, i] * r[h, j - i]`` to the
+scaled logits: ``r`` is layer 0's ``rel_attn_embed`` [320 buckets, heads]
+read through a log-bucket map of the offset (``relative_buckets``), built
+once a call as a per-head vector over the 2S - 1 offsets and shared by every
+layer; each layer's gate comes from that head's slice of its normed input:
+``gru_rel_pos_linear`` (head_dim -> 8), the sums of its two groups of 4,
+sigmoids a and b, ``a * (b * gru_rel_pos_const[h] - 1) + 2``.  q, k, v and
+the gate projections come from one GEMM (``Attention.packed_input``); on the
+card at bfloat16 the attention is then one kernel a layer
+(``ops/relpos_attention.py``), which never forms the [B, heads, S, S] bias,
+and elsewhere ``gated_attention``'s tensor ops.
+
 ``hidden_states[i]`` follows the HF indexing: 0 is the encoder input (after
-the positional conv and LayerNorm), i the output of layer i.
+the positional conv, and for post-LN its LayerNorm), i the output of layer
+i; with stable (pre-LN) layers the last layer's output also passes the
+final LayerNorm, and no other does.
 
 Parameter names follow the state dict of transformers' ``HubertModel``
 (``feature_extractor.conv_layers.{i}.conv.weight``, ``encoder.layers.{i}.
@@ -30,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers.dtypes import Conv1d, LayerNorm, Linear, cast
+from ..utils.speed import span
 
 MASK_LOGIT = -1e30  # padded keys' logit: exp underflows to exactly 0 in float32
 
@@ -56,6 +83,18 @@ class HubertConfig:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    # The architecture's own switches (hubert-base's values by default):
+    # the conv stack's norm, "group" (conv0 alone) or "layer" (every conv);
+    # pre-LN layers (transformers' do_stable_layer_norm); and the gated
+    # relative-position attention's buckets and distance, 0 for none.
+    feat_extract_norm: str = "group"
+    do_stable_layer_norm: bool = False
+    num_buckets: int = 0
+    max_bucket_distance: int = 0
+
+    def __post_init__(self):
+        if self.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm {self.feat_extract_norm!r}: 'group' or 'layer'")
 
     @property
     def total_stride(self) -> int:
@@ -63,7 +102,14 @@ class HubertConfig:
         return int(np.prod(self.conv_stride))
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        """The fields as JSON; the architecture's switches only where they
+        differ from hubert-base's, so that a hubert-base file is the one the
+        JAX package reads."""
+        d, base = dataclasses.asdict(self), dataclasses.asdict(HubertConfig())
+        for k in SWITCHES:
+            if d[k] == base[k]:
+                del d[k]
+        return json.dumps(d, indent=2)
 
     @classmethod
     def from_json(cls, s: str) -> "HubertConfig":
@@ -88,6 +134,53 @@ class HubertConfig:
             hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
         )
+
+    @classmethod
+    def wavlm_large(cls) -> "HubertConfig":
+        """microsoft/wavlm-large at its published widths (transformers'
+        ``WavLMConfig`` defaults for the buckets)."""
+        return cls(
+            hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+            feat_extract_norm="layer", do_stable_layer_norm=True,
+            num_buckets=320, max_bucket_distance=800,
+        )
+
+
+SWITCHES = ("feat_extract_norm", "do_stable_layer_norm", "num_buckets", "max_bucket_distance")
+
+# The encoders a configuration's ``hubert_id`` names.
+HUBERT_IDS = {
+    "facebook/hubert-base-ls960": HubertConfig,
+    "microsoft/wavlm-large": HubertConfig.wavlm_large,
+}
+
+
+def hubert_config_for(hubert_id: str) -> HubertConfig:
+    """The architecture of the encoder ``hubert_id`` names (``CFG.hubert_id``);
+    an id the port does not know raises."""
+    if hubert_id not in HUBERT_IDS:
+        raise ValueError(f"hubert_id {hubert_id!r}: the port knows {sorted(HUBERT_IDS)}")
+    return HUBERT_IDS[hubert_id]()
+
+
+def relative_buckets(offsets: torch.Tensor, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """WavLM's bucket of each key - query offset (transformers'
+    ``WavLMAttention._relative_positions_bucket``): half the buckets for
+    keys after the query, exact up to a quarter of the buckets, then
+    logarithmic up to ``max_distance``."""
+    half = num_buckets // 2
+    exact = half // 2
+    n = offsets.abs()
+    large = torch.log(n.float() / exact) / math.log(max_distance / exact) * (half - exact)
+    large = torch.clamp_max((exact + large).to(torch.long), half - 1)
+    return (offsets > 0).to(torch.long) * half + torch.where(n < exact, n, large)
+
+
+def relative_bias(rel: torch.Tensor, S: int) -> torch.Tensor:
+    """The per-head offset vector ``rel`` [heads, 2S - 1] (offset j - i at
+    index j - i + S - 1) as the [heads, S, S] bias of S positions."""
+    pos = torch.arange(S, device=rel.device)
+    return rel[:, pos[None, :] - pos[:, None] + S - 1]
 
 
 def conv_frame_lengths(cfg: HubertConfig, length) -> list:
@@ -133,27 +226,37 @@ class MaskedGroupNorm(nn.Module):
 
 
 class ConvLayer(nn.Module):
-    def __init__(self, c_in: int, c_out: int, k: int, s: int, norm: bool,
+    """A conv of the stack and its norm: ``"group"`` (conv0's masked
+    GroupNorm), ``"layer"`` (a LayerNorm over channels, eps 1e-5) or None."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, s: int, norm: Optional[str],
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.norm = norm
         self.conv = Conv1d(c_in, c_out, k, stride=s, bias=False, compute_dtype=dtype)
-        if norm:
+        if norm == "group":
             self.layer_norm = MaskedGroupNorm(c_out, dtype=dtype)
+        elif norm == "layer":
+            self.layer_norm = LayerNorm(c_out, eps=1e-5, compute_dtype=dtype)
 
 
 class FeatureExtractor(nn.Module):
     """Strided conv stack: wav [B, T] -> features [B, frames, conv_dim[-1]].
 
     ``wav_len`` (true sample count, int or [B]) makes the GroupNorm ignore
-    zero-padded tail samples; every conv is VALID, so frames inside the true
-    length then equal an exact-length forward's."""
+    zero-padded tail samples; every conv is VALID and a LayerNorm over
+    channels sees one frame, so frames inside the true length then equal an
+    exact-length forward's."""
 
     def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = (1,) + tuple(cfg.conv_dim)
         self.cfg, self.dtype = cfg, dtype
+        layer_norm = cfg.feat_extract_norm == "layer"
         self.conv_layers = nn.ModuleList(
-            ConvLayer(dims[i], dims[i + 1], k, s, norm=i == 0, dtype=dtype)
+            ConvLayer(dims[i], dims[i + 1], k, s,
+                      norm="layer" if layer_norm else ("group" if i == 0 else None),
+                      dtype=dtype)
             for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride))
         )
 
@@ -161,10 +264,12 @@ class FeatureExtractor(nn.Module):
         x = cast(wav[:, None, :].float(), self.dtype)
         for i, layer in enumerate(self.conv_layers):
             x = layer.conv(x)
-            if i == 0:
+            if layer.norm == "group":
                 length = None if wav_len is None else conv_frame_lengths(
-                    self.cfg, torch.as_tensor(wav_len, device=x.device))[0]
+                    self.cfg, torch.as_tensor(wav_len, device=x.device))[i]
                 x = layer.layer_norm(x, length)
+            elif layer.norm == "layer":
+                x = layer.layer_norm(x.transpose(1, 2)).transpose(1, 2)
             x = F.gelu(x)
         return x.transpose(1, 2)
 
@@ -199,9 +304,16 @@ class PositionalConvEmbedding(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention; the logits and softmax in float32 whatever
-    the compute dtype (JAX's ``preferred_element_type=float32``)."""
+    the compute dtype (JAX's ``preferred_element_type=float32``).
 
-    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
+    With ``cfg.num_buckets`` it is WavLM's gated relative-position
+    attention: ``forward`` then takes the call's offset vector ``rel``
+    [heads, 2S - 1] (float32) and adds each head's gated bias to the scaled
+    logits.  ``has_rel_embed`` (layer 0) holds the bucket table the vector
+    is read from."""
+
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32,
+                 has_rel_embed: bool = False):
         super().__init__()
         H = cfg.hidden_size
         self.head_dim = H // cfg.num_heads
@@ -209,12 +321,25 @@ class Attention(nn.Module):
         self.k_proj = Linear(H, H, compute_dtype=dtype)
         self.v_proj = Linear(H, H, compute_dtype=dtype)
         self.out_proj = Linear(H, H, compute_dtype=dtype)
+        if cfg.num_buckets:
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, cfg.num_heads, 1, 1))
+            self.gru_rel_pos_linear = Linear(self.head_dim, 8, compute_dtype=dtype)
+            if has_rel_embed:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, cfg.num_heads)
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+                rel: Optional[torch.Tensor] = None):
         # The head count follows q_proj's rows, so a tensor-parallel rank
         # holding a slice of them runs its own heads (parallel/tensor_parallel.py).
         B, T, _ = x.shape
         dh = self.head_dim
+        if rel is not None:
+            y = self.packed_input(x)
+            if relpos_kernel_serves(x, key_mask, dh):
+                from ..ops.relpos_attention import relpos_attention16
+
+                return self.out_proj(relpos_attention16(y, rel, self.gru_rel_pos_const))
+            return self.out_proj(gated_attention(y, rel, self.gru_rel_pos_const, key_mask))
 
         def split(t):
             return t.reshape(B, T, -1, dh).transpose(1, 2)
@@ -226,6 +351,58 @@ class Attention(nn.Module):
             logits = logits.masked_fill(~key_mask[:, None, None, :], MASK_LOGIT)
         attn = cast(torch.softmax(logits, dim=-1), v.dtype) @ v
         return self.out_proj(attn.transpose(1, 2).reshape(B, T, -1))
+
+    def packed_input(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, 3 H + 8 heads] at the compute dtype: q, k, v and each
+        head's 8 gate projections from one GEMM, the gate's [8, head_dim]
+        weight set block-diagonally over the heads."""
+        dt = self.q_proj.compute_dtype
+        heads = self.q_proj.weight.shape[0] // self.head_dim
+        g = self.gru_rel_pos_linear
+        w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+                       torch.block_diag(*[g.weight] * heads)])
+        b = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias,
+                       g.bias.repeat(heads)])
+        return F.linear(cast(x, dt), cast(w, dt), cast(b, dt))
+
+
+def gated_attention(y: torch.Tensor, rel: torch.Tensor, const: torch.Tensor,
+                    key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gated relative-position attention's plain route on a layer's
+    packed projections ``y`` [B, T, 3 H + 8 heads] (``packed_input``; heads
+    = ``rel``'s rows): the logits, the gated bias and the softmax in
+    float32, P rounded to ``y``'s dtype before it weights v; the heads'
+    outputs [B, T, H] before ``out_proj``."""
+    heads = rel.shape[0]
+    B, T, width = y.shape
+    H = (width - 8 * heads) // 3
+    dh = H // heads
+    q, k, v = (y[..., n * H:(n + 1) * H].reshape(B, T, heads, dh).transpose(1, 2)
+               for n in range(3))
+    f32 = torch.float32
+    logits = (cast(q, f32) @ cast(k, f32).transpose(-1, -2)) * dh ** -0.5
+    gate = relpos_gate(y[..., 3 * H:].reshape(B, T, heads, 8), const)  # [B, T, heads]
+    logits = logits + gate.transpose(1, 2)[..., None] * relative_bias(rel.float(), T)
+    if key_mask is not None:
+        logits = logits.masked_fill(~key_mask[:, None, None, :], MASK_LOGIT)
+    attn = cast(torch.softmax(logits, dim=-1), v.dtype) @ v
+    return attn.transpose(1, 2).reshape(B, T, H)
+
+
+def relpos_gate(gp: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
+    """WavLM's gate [B, T, heads] (float32) from the gate projections ``gp``
+    [B, T, heads, 8]: sigmoids a and b of the sums of its two groups of 4,
+    then ``a * (b * const[h] - 1) + 2``."""
+    a, b = torch.sigmoid(gp.float().unflatten(-1, (2, 4)).sum(-1)).unbind(-1)
+    return a * (b * const.float().reshape(-1) - 1.0) + 2.0
+
+
+def relpos_kernel_serves(x: torch.Tensor, key_mask, head_dim: int) -> bool:
+    """Whether the gated attention takes the bf16 kernel: bf16 CUDA input
+    with no key mask (a masked call takes the plain route), head dim 64 and
+    no gradient to carry."""
+    return (x.is_cuda and x.dtype == torch.bfloat16 and key_mask is None and head_dim == 64
+            and not (torch.is_grad_enabled() and x.requires_grad))
 
 
 class FeedForward(nn.Module):
@@ -240,27 +417,45 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN transformer layer: MHA -> +res -> LN -> FFN -> +res -> LN."""
+    """Post-LN transformer layer: MHA -> +res -> LN -> FFN -> +res -> LN;
+    with ``stable`` (pre-LN, WavLM-Large's): x + MHA(LN(x)), then x +
+    FFN(final LN(x))."""
 
-    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32,
+                 has_rel_embed: bool = False):
         super().__init__()
         eps = cfg.layer_norm_eps
-        self.attention = Attention(cfg, dtype)
+        self.stable = cfg.do_stable_layer_norm
+        self.attention = Attention(cfg, dtype, has_rel_embed)
         self.layer_norm = LayerNorm(cfg.hidden_size, eps=eps, compute_dtype=dtype)
         self.feed_forward = FeedForward(cfg, dtype)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=eps, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None):
-        x = self.layer_norm(x + self.attention(x, key_mask))
+    def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor] = None,
+                rel: Optional[torch.Tensor] = None):
+        if self.stable:
+            x = x + self.attention(self.layer_norm(x), key_mask, rel)
+            return x + self.feed_forward(self.final_layer_norm(x))
+        x = self.layer_norm(x + self.attention(x, key_mask, rel))
         return self.final_layer_norm(x + self.feed_forward(x))
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.max_bucket_distance = cfg.max_bucket_distance
         self.pos_conv_embed = PositionalConvEmbedding(cfg, dtype)
         self.layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, compute_dtype=dtype)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, has_rel_embed=i == 0)
+                                    for i in range(cfg.num_layers))
+
+    def rel_values(self, S: int, device) -> torch.Tensor:
+        """The call's offset vector [heads, 2S - 1] (float32): layer 0's
+        bucket table at each offset -(S - 1) .. S - 1."""
+        table = self.layers[0].attention.rel_attn_embed.weight
+        offsets = torch.arange(-(S - 1), S, device=device)
+        buckets = relative_buckets(offsets, table.shape[0], self.max_bucket_distance)
+        return table.float()[buckets].t().contiguous()
 
 
 class HubertEncoder(nn.Module):
@@ -300,13 +495,22 @@ class HubertEncoder(nn.Module):
         h = self.feature_projection(feats)
         if frame_mask is not None:
             h = finalize(h)
-        enc = self.encoder
-        h = enc.layer_norm(h + enc.pos_conv_embed(h))
+        enc, cfg = self.encoder, self.cfg
+        h = h + enc.pos_conv_embed(h)
+        if not cfg.do_stable_layer_norm:
+            h = enc.layer_norm(h)
         hidden_states = [finalize(h)]
-        n = self.cfg.num_layers if num_layers is None else num_layers
-        for layer in enc.layers[:n]:
-            h = layer(h, key_mask=frame_mask)
-            hidden_states.append(finalize(h))
+        rel = None
+        if cfg.num_buckets:
+            with span("prep:relpos_bias"):
+                rel = enc.rel_values(h.shape[1], h.device)
+        n = cfg.num_layers if num_layers is None else num_layers
+        with span("prep:encoder_layers"):
+            for layer in enc.layers[:n]:
+                h = layer(h, key_mask=frame_mask, rel=rel)
+                hidden_states.append(finalize(h))
+        if cfg.do_stable_layer_norm and n == cfg.num_layers:
+            hidden_states[-1] = finalize(enc.layer_norm(h))
         return hidden_states
 
     def extract_layer(self, wav: torch.Tensor, layer: int,

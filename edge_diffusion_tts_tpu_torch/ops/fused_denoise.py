@@ -477,7 +477,7 @@ def _lib() -> ctypes.CDLL:
 
 
 # The bf16 kernels whose launches the library counts one by one.
-KERNEL_KINDS = {"gemm_wgmma": 1, "gemm16": 2, "attention16": 3}
+KERNEL_KINDS = {"gemm_wgmma": 1, "gemm16": 2, "attention16": 3, "relpos_attention16": 4}
 
 
 def kernel_launches(kind: Optional[str] = None) -> int:
@@ -486,7 +486,8 @@ def kernel_launches(kind: Optional[str] = None) -> int:
     ``kind`` (a key of ``KERNEL_KINDS``) the launches of that bf16 kernel
     alone since ``zero_kernel_launches``: ``gemm_wgmma`` (csrc/
     gemm_wgmma.cuh), ``gemm16`` (gemm.cuh's mma.sync kernel),
-    ``attention16`` (csrc/attention16.cuh)."""
+    ``attention16`` (csrc/attention16.cuh), ``relpos_attention16`` (the
+    encoder's csrc/relpos_attention16.cuh, outside the total)."""
     if kind is None:
         return int(_lib().edt_kernel_launches())
     if kind not in KERNEL_KINDS:

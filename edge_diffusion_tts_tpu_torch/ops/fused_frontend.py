@@ -92,7 +92,7 @@ def _chunk(dtype) -> int:
 
 def _base_stack(hc: HubertConfig) -> bool:
     return (tuple(hc.conv_kernel) == BASE_KERNELS and tuple(hc.conv_stride) == BASE_STRIDES
-            and len(set(hc.conv_dim)) == 1)
+            and len(set(hc.conv_dim)) == 1 and hc.feat_extract_norm == "group")
 
 
 def check_base_specs(hc: HubertConfig) -> None:
@@ -100,13 +100,16 @@ def check_base_specs(hc: HubertConfig) -> None:
     if not _base_stack(hc):
         raise ValueError(
             "the conv-frontend kernel implements the hubert-base stack (kernels "
-            f"{BASE_KERNELS}, strides {BASE_STRIDES}, one width), not kernels "
-            f"{hc.conv_kernel}, strides {hc.conv_stride}, widths {hc.conv_dim}")
+            f"{BASE_KERNELS}, strides {BASE_STRIDES}, one width, conv0's GroupNorm alone), "
+            f"not kernels {hc.conv_kernel}, strides {hc.conv_stride}, widths {hc.conv_dim}, "
+            f"norm {hc.feat_extract_norm!r}")
 
 
 def kernel_serves(hc: HubertConfig) -> bool:
     """Whether the frontend kernel takes ``hc``'s conv stack: hubert-base's
-    kernels and strides, one width, and that width a multiple of ``TILE[1]``."""
+    kernels and strides, one width, and that width a multiple of ``TILE[1]``,
+    with conv0's GroupNorm (a LayerNorm stack, WavLM's, takes the
+    modules)."""
     return _base_stack(hc) and hc.conv_dim[0] % TILE[1] == 0
 
 

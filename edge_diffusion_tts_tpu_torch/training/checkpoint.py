@@ -36,7 +36,7 @@ import torch
 
 from .. import weights
 from ..config import CFG
-from ..models.hubert import HubertConfig
+from ..models.hubert import HubertConfig, hubert_config_for
 from .state import TrainState
 
 _STATE_FILE = "state.pt"
@@ -164,11 +164,16 @@ def restore_final_model(path: str) -> Tuple[Dict[str, Dict[str, torch.Tensor]], 
 
 def restore_hubert_config(path: str) -> HubertConfig:
     """The HuBERT architecture a checkpoint's encoder was built for, from its
-    ``hubert.json``; the full-size default for an artifact without the file
-    (one that predates it, or a reference-migrated one, always full size)."""
+    ``hubert.json``; for an artifact without the file (one that predates it,
+    or a reference-migrated one, always full size) the encoder its
+    ``cfg.json``'s ``hubert_id`` names, or hubert-base without either."""
     path = resolve_checkpoint_dir(path) or os.path.abspath(path)
     p = os.path.join(path, _HUBERT_FILE)
     if os.path.exists(p):
         with open(p) as f:
             return HubertConfig.from_json(f.read())
+    p = os.path.join(path, _CFG_FILE)
+    if os.path.exists(p):
+        with open(p) as f:
+            return hubert_config_for(CFG.from_json(f.read()).hubert_id)
     return HubertConfig()

@@ -48,7 +48,7 @@ import torch.distributed as dist
 
 from ..config import CFG, resolve_device, torch_dtype
 from ..layers.dtypes import cast_parameters
-from ..models import EdgeDiffusionDecoder, HubertConfig, SemanticEncoder
+from ..models import EdgeDiffusionDecoder, HubertConfig, SemanticEncoder, hubert_config_for
 from ..schedule import DiffusionSchedule, ddim_sample
 from ..utils.logging import MetricWriter
 from ..utils.reliability import make_nan_guard
@@ -78,12 +78,13 @@ def init_models(cfg: CFG, hubert_cfg: Optional[HubertConfig] = None,
     """``(encoder, decoder)`` initialized from torch's global generator (which
     ``CFG.setup_environment`` seeds).  ``hubert_state`` (a ``HubertEncoder``
     state dict, e.g. ``weights.hubert_state_dict_from_hf``) replaces the
-    random frozen HuBERT.  The modules compute at ``cfg.compute_dtype``;
+    random frozen HuBERT, whose architecture is ``hubert_cfg`` or else the one
+    ``cfg.hubert_id`` names.  The modules compute at ``cfg.compute_dtype``;
     every parameter, the frozen HuBERT's included, is then stored at
     ``cfg.param_dtype``, as the JAX package casts its parameter tree after
     init (the VQ's statistics are buffers and stay float32)."""
     compute, param = torch_dtype(cfg.compute_dtype), torch_dtype(cfg.param_dtype)
-    encoder = SemanticEncoder(cfg, hubert_cfg or HubertConfig(), dtype=compute)
+    encoder = SemanticEncoder(cfg, hubert_cfg or hubert_config_for(cfg.hubert_id), dtype=compute)
     decoder = EdgeDiffusionDecoder(cfg, dtype=compute)
     if hubert_state is not None:
         encoder.hubert.load_state_dict(hubert_state)
@@ -274,7 +275,7 @@ def train(
     if val_loader is not None and not hasattr(val_loader, "__len__"):
         val_loader = list(val_loader)
 
-    hubert_cfg = hubert_cfg or HubertConfig()
+    hubert_cfg = hubert_cfg or hubert_config_for(cfg.hubert_id)
     encoder, decoder = init_models(cfg, hubert_cfg, hubert_state)
     schedule = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
     steps_per_epoch = max(len(train_loader), 1)

@@ -25,7 +25,8 @@ and count, the accumulated gradients) into ``training.TrainState``'s
 one, and a pipeline run's packed decoder, teacher and moments are unpacked.
 ``hubert_state_dict_from_hf(sd, cfg)`` takes an HF ``HubertModel`` state
 dict (the inverse of the JAX package's ``load_hubert_params_from_torch``)
-and materializes the positional conv's weight norm.
+and materializes the positional conv's weight norm;
+``wavlm_state_dict_from_hf`` does the same for ``WavLMModel``'s.
 
 ``save_checkpoint`` / ``load_checkpoint`` write and read the port's own
 checkpoint, the directory ``serving.run_server`` serves: ``cfg.json``
@@ -260,6 +261,19 @@ def hubert_state_dict_from_hf(state_dict: Mapping, cfg: HubertConfig) -> Dict[st
     ``weight`` is taken as is.  Keys the port has no use for (such as
     ``masked_spec_embed``) are dropped; a missing one raises KeyError.
     """
+    return _hf_state_dict(state_dict, cfg, "HuBERT")
+
+
+def wavlm_state_dict_from_hf(state_dict: Mapping, cfg: HubertConfig) -> Dict[str, torch.Tensor]:
+    """transformers ``WavLMModel.state_dict()`` -> the port ``HubertEncoder``'s
+    at a WavLM ``cfg`` (``HubertConfig.wavlm_large()``): the same names (the
+    gate's ``gru_rel_pos_const`` and ``gru_rel_pos_linear`` in every layer,
+    ``rel_attn_embed`` in layer 0, a LayerNorm after every conv), the
+    positional conv's weight norm materialized as for HuBERT."""
+    return _hf_state_dict(state_dict, cfg, "WavLM")
+
+
+def _hf_state_dict(state_dict: Mapping, cfg: HubertConfig, what: str) -> Dict[str, torch.Tensor]:
     sd = {k: torch.as_tensor(np.asarray(v.detach().cpu() if hasattr(v, "detach") else v,
                                         dtype=np.float32))
           for k, v in state_dict.items()}
@@ -274,7 +288,7 @@ def hubert_state_dict_from_hf(state_dict: Mapping, cfg: HubertConfig) -> Dict[st
         wanted = list(HubertEncoder(cfg).state_dict())
     missing = [k for k in wanted if k not in sd]
     if missing:
-        raise KeyError(f"HF HuBERT state dict lacks {missing[:5]} ({len(missing)} keys)")
+        raise KeyError(f"HF {what} state dict lacks {missing[:5]} ({len(missing)} keys)")
     return {k: sd[k].contiguous() for k in wanted}
 
 

@@ -64,7 +64,7 @@ def cli_rank(rank: int, port: int, argv: list, train_cfg: dict) -> dict:
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE="2", LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
     # Both runs take train()'s default HuBERT: the tiny stack here.
-    train_mod.HubertConfig = HubertConfig.tiny
+    train_mod.hubert_config_for = lambda hubert_id: HubertConfig.tiny()
     # The metric writer's TensorBoard mirror (best-effort, not under test)
     # would import TensorFlow where it is installed: ~10 s.
     sys.modules["torch.utils.tensorboard"] = None

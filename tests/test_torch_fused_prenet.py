@@ -228,10 +228,11 @@ def test_pack_prenet_refusals():
 @pytest.mark.parametrize("name", sorted(f for f in os.listdir(CONFIGS) if f.endswith(".json")))
 def test_fused_backend_builds_for_every_shipped_config(name):
     """Every config under configs/ (all AdaLN) builds ``EdgeInference(
-    backend="fused")``, packs the pre-net exactly when it sets
-    ``use_depthwise`` and answers a short request (finite, its shape); one
-    decoder forward through the packed weights (``decoder_step_plain``) =
-    the module's forward on the same perturbed weights, 1e-4."""
+    backend="fused")``, packs at the config's compute dtype, the pre-net
+    exactly when it sets ``use_depthwise``, and answers a short request
+    (finite, its shape); one decoder forward through the float32 packing
+    (``decoder_step_plain``) = the module's forward on the same perturbed
+    weights, 1e-4."""
     with open(os.path.join(CONFIGS, name)) as f:
         cfg = PCFG.from_dict(dict(json.load(f), dropout=0.0))
     assert cfg.use_adaln
@@ -244,6 +245,11 @@ def test_fused_backend_builds_for_every_shipped_config(name):
                        device="cpu")
     w = fused.fused_weights
     assert (set(pf.PRENET_NAMES) <= set(w)) == cfg.use_depthwise
+    compute = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+    packed = pf.pack_decoder_weights(dec, compute)
+    assert w.keys() == packed.keys() and all(torch.equal(w[k], packed[k]) for k in w)
+    if compute != torch.float32:
+        w = pf.pack_decoder_weights(dec)
     rng = np.random.RandomState(2)
     sem_idx = torch.from_numpy(rng.randint(0, cfg.effective_codebook_size(), size=(2, 4)))
     mel = fused.generate_mel(sem_idx, num_steps=2)

@@ -36,6 +36,13 @@ BASE_STACK = HubertConfig(conv_dim=(128,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2
                           num_heads=2, intermediate_size=64, num_conv_pos_embeddings=16,
                           num_conv_pos_embedding_groups=4)
 SYNTH_SPANS = ("prep:encode", "prep:loop_inputs", "prep:launch")
+ENCODER_SPANS = ("prep:relpos_bias", "prep:encoder_layers")
+# WavLM's conv stack and gated relative-position attention at a small width
+WAVLM_STACK = HubertConfig(conv_dim=(16,) * 5, conv_kernel=(10, 4, 4, 2, 2),
+                           conv_stride=(5, 4, 4, 2, 2), hidden_size=32, num_layers=2,
+                           num_heads=2, intermediate_size=64, num_conv_pos_embeddings=16,
+                           num_conv_pos_embedding_groups=4, feat_extract_norm="layer",
+                           do_stable_layer_norm=True, num_buckets=320, max_bucket_distance=800)
 TRAIN_RANGES = {"train:mel", "train:hubert", "train:encoder", "train:decoder",
                 "train:backward", "train:optimizer"}
 
@@ -112,6 +119,20 @@ def test_generate_from_audio_opens_encode_first(hubert_cfg):
     assert all(_ancestors(e)[-1] == "bench:call" for e in spans)
 
 
+@pytest.mark.parametrize("hubert_cfg", [BASE_STACK, WAVLM_STACK], ids=["hubert", "wavlm"])
+def test_the_encoder_opens_its_layers_span_inside_encode(hubert_cfg):
+    """``prep:encoder_layers`` around the transformer layers on both
+    architectures, and WavLM's ``prep:relpos_bias`` (the call's offset
+    vector) before it, once a call, both inside ``prep:encode``."""
+    engine = _engine(hubert_cfg)
+    events = _profiled(lambda: engine.generate_from_audio(_wav(), 2))
+    spans = _named(events, ENCODER_SPANS)
+    want = ["prep:encoder_layers"] if hubert_cfg is BASE_STACK else list(ENCODER_SPANS)
+    assert [e.name for e in spans] == want
+    assert all("prep:encode" in _ancestors(e) for e in spans)
+    assert spans[0].time_range.end <= spans[-1].time_range.start or len(spans) == 1
+
+
 def test_fused_generate_mel_bf16_opens_both_spans():
     engine = _engine()
     dec, cfg = engine.decoder, engine.cfg
@@ -174,7 +195,8 @@ def test_every_span_name_carries_a_trace_prefix():
                 assert isinstance(arg, ast.Constant) and isinstance(arg.value, str), \
                     f"{path}:{node.lineno}"
                 names.append(arg.value)
-    assert set(SYNTH_SPANS) | TRAIN_RANGES | {"train:step", "train:allreduce"} == set(names)
+    assert set(SYNTH_SPANS) | set(ENCODER_SPANS) | TRAIN_RANGES | {"train:step",
+                                                                   "train:allreduce"} == set(names)
     for name in names:
         assert name.startswith(ANNOTATIONS) and not name.startswith("bench:"), name
 
@@ -219,6 +241,9 @@ TRAIN_DEVICE = [("k", 15, 18), ("k", 590, 610), ("k", 700, 750), ("k", 960, 995)
     ("prep_idle_ms_per_call.synth", SYNTH_HOST, SYNTH_DEVICE, (50 + 40 + 100 + 5) / 2 / 1e3),
     ("encode_idle_ms_per_call.synth", SYNTH_HOST, SYNTH_DEVICE, (90 + 60) / 2 / 1e3),
     ("glue_idle_ms_per_step.train", TRAIN_HOST, TRAIN_DEVICE, (80 - 43 + 200 - 10) / 2 / 1e3),
+    ("encoder_layers_idle_ms_per_call.synth", SYNTH_HOST + [
+        ("prep:encoder_layers", 150, 290), ("prep:encoder_layers", 1020, 1090)], SYNTH_DEVICE,
+     (140 - 100 + 70 - 30) / 2 / 1e3),
 ])
 def test_reader_gives_the_idle_inside_its_spans(metric, host, device, want):
     view = _view(host, device)
@@ -238,3 +263,31 @@ def test_prep_and_encode_idle_are_part_of_the_host_time_per_call():
     breakdown = view.breakdown()
     assert not any(name.startswith(ANNOTATIONS) for name, _ in breakdown["device_ops"])
     assert {name for name, _ in breakdown["idle_gaps"]} & {"prep:loop_inputs", "prep:launch"}
+
+
+def test_the_relpos_roofline_reads_its_kernel_by_name():
+    """``relpos_attention_roofline.synth``: each audio call's least time of its
+    launches (counts/wavlm.py) over the device time of the kernel found by
+    function name; None where it did not run (the parent, a HuBERT cell)."""
+    from benchmark.counts.wavlm import call_least_s
+
+    h = {"hidden_size": 1024, "num_heads": 16, "num_layers": 24}
+    cfg = {"hubert_layer": 21}
+    info = {"hubert": h, "cfg": cfg,
+            "calls": [{"rows": 32, "tokens": 499, "samples": 160000},
+                      {"rows": 32, "tokens": 99, "samples": 32000}]}
+    kernel = "void edt::relpos_attention16_kernel(edt::RelposArgs)"
+    device = [(kernel, 100, 900), (kernel, 1000, 1300), ("gemm", 1300, 1400)]
+    read = Manifest().reader("relpos_attention_roofline.synth")
+    least = call_least_s(h, cfg, 32, 499) + call_least_s(h, cfg, 32, 99)
+    assert read(_view(SYNTH_HOST, device, info)) == pytest.approx(
+        100 * least / 1.1e-3, rel=1e-12, abs=0)  # 1,100 us of the kernel
+    assert read(_view(SYNTH_HOST, [("gemm", 100, 900)], info)) is None
+    # 21 layers, each the longer of 4 B heads S^2 64 bf16 products at 989
+    # TFLOP/s and its bytes at 3.35 TB/s: bf16 q, k, v, the gates' 8 a head
+    # and o, the float32 offset vector and constants (bytes, at S = 499)
+    products = 4 * 32 * 16 * 499 ** 2 * 64
+    nbytes = 2 * 32 * 499 * (3 * 1024 + 128 + 1024) + 4 * 16 * (2 * 499 - 1) + 4 * 16
+    assert call_least_s(h, cfg, 32, 499) == pytest.approx(
+        21 * max(products / 989e12, nbytes / 3.35e12), rel=1e-12)
+    assert nbytes / 3.35e12 > products / 989e12

@@ -32,7 +32,7 @@ def test_decoder_gemm_with_a_tile_still_refuses_cpu_tensors(no_library):
 
 
 def test_kernel_kinds_and_rules_are_checked_before_the_library(no_library):
-    assert set(fd.KERNEL_KINDS) == {"gemm_wgmma", "gemm16", "attention16"}
+    assert set(fd.KERNEL_KINDS) == {"gemm_wgmma", "gemm16", "attention16", "relpos_attention16"}
     with pytest.raises(ValueError, match="kind"):
         fd.kernel_launches("gemm32")
     with pytest.raises(ValueError, match="rule"):
