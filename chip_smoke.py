@@ -123,6 +123,14 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    operands (a yardstick the port never calls; their sum printed: no single
    call computes the frontend), and every tile of the rule's table
    (``FRONTEND_BF16_TILES``) forced by index, the plan's marked;
+   6c. the frontend's LayerNorm mode (WavLM-Large's conv stack, a LayerNorm
+   over the channels after every conv, at bf16) at [32, 160000], the
+   WavLM cell's 10 s bucket: against ``conv_frontend_plain`` on the card
+   (1e-2 normwise) and against the float32 modules no farther than the bf16
+   modules route is (1.1 times its distance); two calls bit-equal, seven
+   ``ff.ln_launches`` a call; device time by CUDA-graph replay beside the
+   bf16 modules route's (cuDNN convolutions, transposed float32
+   LayerNorms; CUDA events) and the bound at 989 TFLOP/s;
 7. the audio path: ``EdgeInference(backend="fused", encoder=...)`` at full
    HuBERT-base width answers three ``generate_from_audio`` requests (5 s at
    B=1, the same at temperature 0.7, 2 s at B=2), each one frontend and one
@@ -1706,6 +1714,61 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
     return launches, agree
 
 
+def frontend_layernorm(torch) -> dict:
+    """Phase 6c: the frontend kernels' LayerNorm mode at WavLM-Large's conv
+    stack, [32, 160000].  Returns the ``kernels`` line's numbers."""
+    from edge_diffusion_tts_tpu_torch.models.hubert import FeatureExtractor, HubertConfig
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+
+    bf16, B, n = torch.bfloat16, 32, 160000
+    torch.manual_seed(SEED)
+    fe32 = FeatureExtractor(HubertConfig.wavlm_large())
+    with torch.no_grad():
+        for layer in fe32.conv_layers:
+            layer.conv.weight.normal_(0, (2.0 / layer.conv.weight[0].numel()) ** 0.5)
+            layer.layer_norm.weight.add_(0.1 * torch.randn(512))
+            layer.layer_norm.bias.add_(0.1 * torch.randn(512))
+    fe = FeatureExtractor(fe32.cfg, bf16)
+    fe.load_state_dict(fe32.state_dict())
+    fe32, fe = fe32.to(DEVICE).eval(), fe.to(DEVICE).eval()
+    wb = ff.pack_frontend_weights(fe, bf16)
+    wav = (0.1 * torch.randn(B, n, generator=torch.Generator().manual_seed(SEED))).to(DEVICE)
+    with torch.no_grad():
+        before = ff.ln_launches()
+        got = ff.conv_frontend(wav, wb, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        launches = ff.ln_launches() - before
+        assert torch.equal(got, ff.conv_frontend(wav, wb, compute_dtype=bf16)), "two calls"
+        plain = ff.conv_frontend_plain(wav, wb, compute_dtype=bf16)
+        e_kp = _rel(got, plain)
+        err = (got - plain).abs().max().item()
+        del plain
+        f32 = fe32(wav)
+        e_k, e_m = _rel(got, f32), _rel(fe(wav), f32)
+        del f32
+    assert launches == 7, f"LayerNorm mode: {launches} layer launches a call, not 7"
+    assert e_kp <= 1e-2, f"LayerNorm mode: {e_kp} from the plain version"
+    assert e_k <= 1.1 * e_m, f"LayerNorm mode: {e_k} from float32, the bf16 modules {e_m}"
+    with torch.no_grad():
+        ms = graph_ms(torch, lambda: ff.conv_frontend(wav, wb, compute_dtype=bf16), n=4,
+                      replays=3)
+        modules_ms = timed_ms(torch, lambda: fe(wav), iters=5, warmup=1)
+        plain_ms = timed_ms(torch, lambda: ff.conv_frontend_plain(wav, wb, compute_dtype=bf16),
+                            iters=2, warmup=1)
+    flops = frontend_flops(B, n)
+    nbytes = (4 * (wav.numel() + wb["w0"].numel() + 2 * wb["gamma"].numel()
+                   + B * ff.frame_counts(n)[-1] * 512)
+              + 2 * (wb["wk3"].numel() + wb["wk2"].numel()))
+    bound_ms, bound_by = bound(flops, nbytes, BF16_PEAK_FLOPS)
+    print(f"[frontend-ln] [{B},{n}]: kernels {ms:.5f} ms by CUDA-graph replay "
+          f"({flops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.3f} of the bound {bound_ms:.5f} ms, "
+          f"{bound_by}), the bf16 modules route {modules_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"vs float32 modules {e_k:.4g} (bf16 modules {e_m:.4g}), vs plain {e_kp:.4g}, max abs "
+          f"{err:.4g}; two calls bit-equal; {launches} layer launches")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=modules_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 RELPOS_S = (149, 499)  # phase 7b's frame counts: the cell's 3 s (resident) and 10 s buckets
 
 
@@ -1723,6 +1786,7 @@ def phase_relpos(torch) -> dict:
     from edge_diffusion_tts_tpu_torch.models.hubert import (gated_attention, relative_bias,
                                                             relpos_gate)
     from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+    from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
     from edge_diffusion_tts_tpu_torch.ops.relpos_attention import relpos_attention16
     from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
 
@@ -1773,17 +1837,21 @@ def phase_relpos(torch) -> dict:
     schedule = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
     engine = EdgeInference(cfg, schedule, decoder, prediction="v", backend="fused",
                            device=DEVICE, encoder=enc.eval())
-    assert engine.encode_route == "modules", engine.encode_route
+    assert engine.encode_route == "kernel", engine.encode_route
     wav = 0.1 * torch.randn(B, 160000, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
     engine.generate_from_audio(wav, num_steps=4)  # warm-up
     torch.cuda.synchronize()
     fd.zero_kernel_launches()
+    ln0 = ff.ln_launches()
     mel, call_ms = timed_call(torch, lambda: engine.generate_from_audio(wav, num_steps=4))
     out["launches"] = fd.kernel_launches("relpos_attention16")
+    out["ln_launches"] = ff.ln_launches() - ln0
     assert out["launches"] == 21, f"relpos launches on the main path: {out['launches']}, not 21"
+    assert out["ln_launches"] == 7, f"LayerNorm-mode launches: {out['ln_launches']}, not 7"
     assert torch.isfinite(mel).all() and mel.shape == (B, 998, cfg.n_mels), mel.shape
     print(f"[relpos] main path: generate_from_audio at bf16, WavLM-Large to layer 21, "
-          f"[{B}, 160000]: {out['launches']} relpos_attention16 launches, {call_ms:.3f} ms")
+          f"[{B}, 160000]: {out['launches']} relpos_attention16 launches, "
+          f"{out['ln_launches']} frontend LayerNorm-mode launches, {call_ms:.3f} ms")
     return out
 
 
@@ -4614,6 +4682,7 @@ def run(torch) -> None:
     encoder = seeded_encoder(torch, cfg, SEED).to(DEVICE)
     frontend = phase_frontend(torch, encoder)
     frontend16 = frontend_bf16(torch, encoder)
+    frontend_ln = frontend_layernorm(torch)
     frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
     relpos = phase_relpos(torch)
     ddpm = phase_ddpm(torch, cfg, decoder, pre_decoder)
@@ -4713,9 +4782,15 @@ def run(torch) -> None:
         assert k["launches"] > 0, f"{k['name']}: no launch on the bf16 main paths"
     # WavLM's gated attention (phase 7b: the numbers at S = 499); no TPU kernel
     # computes it, the JAX package has no WavLM
+    # The frontend's LayerNorm mode (phase 6c at [32, 160000]; launches: phase
+    # 7b's main-path call, WavLM's conv stack); the JAX package has no WavLM
+    ln_launches = relpos.pop("ln_launches")
     kernels.append({"name": "relpos_attention16", "route": "cuda",
                     "source": "edge_diffusion_tts_tpu_torch/csrc/relpos_attention16.cuh",
                     "replaces": None, **relpos})
+    kernels.append({"name": "conv_frontend_ln", "route": "cuda",
+                    "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
+                    "replaces": None, "launches": ln_launches, **frontend_ln})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -90,6 +90,20 @@
 // the bytes: at [256, 32000] it takes ~1.45 ms with erff, ~0.87 ms with the
 // GELU left out (scratch builds, PERF.md §6), against 0.51 ms of
 // output.
+// The LayerNorm mode (edt_conv_frontend_ln, edt_conv_layer_ln) is the bf16
+// variant for WavLM's stack: the same seven convs, each followed by a
+// LayerNorm over the C channels of a frame (eps 1e-5, gamma and beta of its
+// own) and GELU.  The statistics come from the float32 sums in each
+// kernel's epilogue, exact two-pass (the mean, then the centred variance),
+// so no float32 activation goes to memory and nothing is rounded between a
+// conv and its norm: conv0_bf16_kernel<true> reduces a frame's C channels
+// across its frame group (shuffles, then the group's warps through shared
+// memory); conv_wgmma_kernel<..., true> exchanges the rows' partial sums
+// across a cluster of blocks (conv_wgmma.cuh); on the mma.sync tile the
+// slab kernel always writes float32 partial sums, whatever the split, and
+// split_sum_gelu_kernel<..., true> normalises whole rows, one warp a row.
+// The wav stays float32 into conv0, as in the GroupNorm mode, whose kernels
+// are unchanged.  edt_conv_ln_launches counts the mode's layer launches.
 // edt_frontend_geometry reports every tile's constants, to hold the host's
 // plan against.
 #include <cuda_bf16.h>
@@ -109,6 +123,8 @@ namespace {
 constexpr int LAYERS = 7;
 constexpr int KERNEL[LAYERS] = {10, 3, 3, 3, 3, 2, 2};
 constexpr int STRIDE[LAYERS] = {5, 2, 2, 2, 2, 2, 2};
+constexpr float LN_EPS = 1e-5f;  // the LayerNorm mode's eps
+constexpr int LN_MAX_C = edt::CW_LN_MAX_C;  // its widest stack
 
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
@@ -180,17 +196,36 @@ constexpr int SEG0B = S0 * (ROWS0B - 1) + K0;
 
 int groups0b(int C) { return THREADS0B / (C / 8); }
 
+// The sum of x over the C / 8 threads of frame group threadIdx.y (conv0's
+// LayerNorm mode; C / 8 a multiple of 32): each warp's by shuffles, then
+// the group's warps' in order through red[buf] (two buffers, so that a fast
+// warp's next write waits behind the group's barrier of the other one).
+__device__ __forceinline__ float group_sum(float x, float* red, int buf) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  const int warps = blockDim.x / 32;
+  float* r = red + (buf * blockDim.y + threadIdx.y) * warps;
+  if ((threadIdx.x & 31) == 0) r[threadIdx.x / 32] = x;
+  edt::named_sync(1 + threadIdx.y, blockDim.x);
+  float s = 0.f;
+  for (int i = 0; i < warps; ++i) s += r[i];
+  return s;
+}
+
 // conv0 at compute_dtype bf16: conv0_kernel's arithmetic for channels n ..
 // n + 7 (n = 8 threadIdx.x), rounded to bf16 and written as one 16-byte
 // store per frame.  A block walks the chunks of ROWS0B frames blockIdx.x,
 // blockIdx.x + gridDim.x, ... of batch row blockIdx.y with its weights held
 // in registers; group threadIdx.y takes frames y, y + blockDim.y, ... of a
-// chunk.
+// chunk.  With LN, scale and shift are conv0's LayerNorm gamma and beta [C]
+// and each frame is normalised over its C channels, all in its group.
+template <bool LN>
 __global__ void __launch_bounds__(THREADS0B)
 conv0_bf16_kernel(const float* __restrict__ wav, int Twav, const float* __restrict__ w0,
                   const float* __restrict__ scale, const float* __restrict__ shift,
                   bf16* __restrict__ out, int M, int C) {
   __shared__ float seg[SEG0B];
+  __shared__ float red[LN ? 2 * THREADS0B / 32 : 1];  // LN: [2][groups][warps of a group]
   const int b = blockIdx.y, tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n = 8 * threadIdx.x;
   float w[8 * K0];  // channels n .. n+7, 10 taps each: 80 floats, 16-byte aligned
@@ -201,10 +236,11 @@ conv0_bf16_kernel(const float* __restrict__ wav, int Twav, const float* __restri
     w[4 * q] = v.x, w[4 * q + 1] = v.y, w[4 * q + 2] = v.z, w[4 * q + 3] = v.w;
   }
   float scs[8], shs[8];
+  const long long row = LN ? 0 : (long long)b * C;  // GroupNorm: the fold is per batch row
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float4 sc = *reinterpret_cast<const float4*>(scale + (long long)b * C + n + 4 * h);
-    const float4 sh = *reinterpret_cast<const float4*>(shift + (long long)b * C + n + 4 * h);
+    const float4 sc = *reinterpret_cast<const float4*>(scale + row + n + 4 * h);
+    const float4 sh = *reinterpret_cast<const float4*>(shift + row + n + 4 * h);
     scs[4 * h] = sc.x, scs[4 * h + 1] = sc.y, scs[4 * h + 2] = sc.z, scs[4 * h + 3] = sc.w;
     shs[4 * h] = sh.x, shs[4 * h + 1] = sh.y, shs[4 * h + 2] = sh.z, shs[4 * h + 3] = sh.w;
   }
@@ -222,7 +258,19 @@ conv0_bf16_kernel(const float* __restrict__ wav, int Twav, const float* __restri
         float acc = 0.f;
 #pragma unroll
         for (int j = 0; j < K0; ++j) acc = fmaf(p[j], w[c * K0 + j], acc);
-        v[c] = gelu(acc * scs[c] + shs[c]);
+        v[c] = LN ? acc : gelu(acc * scs[c] + shs[c]);
+      }
+      if constexpr (LN) {
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s += v[c];
+        const float mean = group_sum(s, red, 0) / C;
+        s = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s = fmaf(v[c] - mean, v[c] - mean, s);
+        const float rstd = rsqrtf(group_sum(s, red, 1) / C + LN_EPS);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) v[c] = gelu(fmaf((v[c] - mean) * rstd, scs[c], shs[c]));
       }
       uint4 u;
       u.x = edt::pack_bf16(v[0], v[1]);
@@ -390,18 +438,70 @@ conv_slab_kernel(const float* __restrict__ in, int Tin, int C, const float* __re
 }
 
 // out[e] = gelu(part[0][e] + part[1][e] + ... + part[splits-1][e]), in that
-// order, stored as OutT; n4 float4s per split.
-template <typename OutT>
+// order, stored as OutT; n4 float4s per split.  With LN, each row of C of
+// those sums is normalised first (gamma and beta [C]; C a multiple of 128,
+// at most LN_MAX_C): one warp a row, lane l taking its float4s l, l + 32,
+// ..., the statistics two-pass over the summed row.
+template <typename OutT, bool LN = false>
 __global__ void split_sum_gelu_kernel(const float4* __restrict__ part, OutT* __restrict__ out,
-                                      long long n4, int splits) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n4;
-       e += (long long)gridDim.x * blockDim.x) {
-    float4 v = part[e];
-    for (int s = 1; s < splits; ++s) {
-      const float4 p = part[s * n4 + e];
-      v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+                                      long long n4, int splits, int C,
+                                      const float* __restrict__ gamma,
+                                      const float* __restrict__ beta) {
+  if constexpr (!LN) {
+    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n4;
+         e += (long long)gridDim.x * blockDim.x) {
+      float4 v = part[e];
+      for (int s = 1; s < splits; ++s) {
+        const float4 p = part[s * n4 + e];
+        v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+      }
+      store4(out + 4 * e, gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
     }
-    store4(out + 4 * e, gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+  } else {
+    constexpr int Q = LN_MAX_C / 128;
+    const int q = C / 128, lane = threadIdx.x & 31;
+    const long long rows = n4 / (C / 4);
+    for (long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) / 32; r < rows;
+         r += (long long)gridDim.x * blockDim.x / 32) {
+      float4 v[Q];
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        if (i >= q) break;
+        const long long e = r * (C / 4) + lane + 32 * i;
+        float4 x = part[e];
+        for (int k = 1; k < splits; ++k) {
+          const float4 p = part[k * n4 + e];
+          x.x += p.x, x.y += p.y, x.z += p.z, x.w += p.w;
+        }
+        v[i] = x;
+        s += x.x, s += x.y, s += x.z, s += x.w;
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float mean = s / C;
+      s = 0.f;
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        if (i >= q) break;
+        s = fmaf(v[i].x - mean, v[i].x - mean, s), s = fmaf(v[i].y - mean, v[i].y - mean, s);
+        s = fmaf(v[i].z - mean, v[i].z - mean, s), s = fmaf(v[i].w - mean, v[i].w - mean, s);
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float rstd = rsqrtf(s / C + LN_EPS);
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        if (i >= q) break;
+        const int c = 4 * (lane + 32 * i);
+        const float4 g = *reinterpret_cast<const float4*>(gamma + c);
+        const float4 be = *reinterpret_cast<const float4*>(beta + c);
+        store4(out + r * C + c, gelu(fmaf((v[i].x - mean) * rstd, g.x, be.x)),
+               gelu(fmaf((v[i].y - mean) * rstd, g.y, be.y)),
+               gelu(fmaf((v[i].z - mean) * rstd, g.z, be.z)),
+               gelu(fmaf((v[i].w - mean) * rstd, g.w, be.w)));
+      }
+    }
   }
 }
 
@@ -516,9 +616,10 @@ __device__ __forceinline__ void chunk_mma(const bf16* st, int lane, int wm, int 
 // conv_slab_kernel's work with bf16 operands on tensor cores: split s of
 // `splits` over in [B, Tin, C] bf16 and W [C, KT*C] bf16; with one split,
 // out [B, M, C] = gelu(sum) as OutT (bf16, or float32 for the last layer);
-// else float32 partial sums [splits, B, M, C] into part.  Grid (C / BN,
-// ceil(M / BM), B * splits); 8 warps, 2 (rows) x 4 (channels).
-template <int KT, typename OutT>
+// else, and with LN whatever the split, float32 partial sums [splits, B, M,
+// C] into part.  Grid (C / BN, ceil(M / BM), B * splits); 8 warps, 2 (rows)
+// x 4 (channels).
+template <int KT, typename OutT, bool LN = false>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_slab_bf16_kernel(const bf16* __restrict__ in, int Tin, int C, const bf16* __restrict__ W,
                       OutT* __restrict__ out, float* __restrict__ part, int M, int splits) {
@@ -568,7 +669,7 @@ conv_slab_bf16_kernel(const bf16* __restrict__ in, int Tin, int C, const bf16* _
       for (int q = 0; q < 4; ++q) {
         const int n = n0 + 32 * wn + 8 * q + 2 * tq;
         const float v0 = acc[i][q][2 * h], v1 = acc[i][q][2 * h + 1];
-        if (splits == 1)
+        if (splits == 1 && !LN)
           store2(out + ((long long)b * M + m) * C + n, gelu(v0), gelu(v1));
         else
           store2(part + ((long long)(s * B + b) * M + m) * C + n, v0, v1);
@@ -579,12 +680,16 @@ conv_slab_bf16_kernel(const bf16* __restrict__ in, int Tin, int C, const bf16* _
 // ---- the launchers of both variants -------------------------------------------
 
 // A stride-2, KT-tap conv layer: the float32 slab kernel (InT float) or the
-// bf16 one, then, with splits > 1, the split sum of its partial sums.
-template <int KT, typename InT, typename OutT>
+// bf16 one, then, with splits > 1, the split sum of its partial sums.  With
+// LN (bf16), the partial sums and the split sum whatever the split, which
+// then normalises each row with gamma and beta [C].
+template <int KT, typename InT, typename OutT, bool LN = false>
 int conv_slab(const InT* in, int Tin, int C, const InT* W, OutT* out, float* part, int M, int B,
-              int splits, cudaStream_t st) {
+              int splits, cudaStream_t st, const float* gamma = nullptr,
+              const float* beta = nullptr) {
   constexpr bool f32 = std::is_same<InT, float>::value;
   static_assert(!f32 || std::is_same<OutT, float>::value, "the float32 kernel writes float32");
+  static_assert(!f32 || !LN, "the LayerNorm mode is a bf16 variant");
   constexpr int bytes = f32 ? Stage<KT>::BYTES : StageB<KT>::BYTES;
   // The attribute is per device: set once on each, before any graph capture.
   static bool smem_set[edt::kMaxDevices] = {};
@@ -596,7 +701,7 @@ int conv_slab(const InT* in, int Tin, int C, const InT* W, OutT* out, float* par
       err = cudaFuncSetAttribute(conv_slab_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  bytes);
     else
-      err = cudaFuncSetAttribute(conv_slab_bf16_kernel<KT, OutT>,
+      err = cudaFuncSetAttribute(conv_slab_bf16_kernel<KT, OutT, LN>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err) return (int)err;
     smem_set[dev] = true;
@@ -605,14 +710,16 @@ int conv_slab(const InT* in, int Tin, int C, const InT* W, OutT* out, float* par
   if constexpr (f32)
     conv_slab_kernel<KT><<<grid, THREADS, bytes, st>>>(in, Tin, C, W, out, part, M, splits);
   else
-    conv_slab_bf16_kernel<KT, OutT><<<grid, THREADS, bytes, st>>>(in, Tin, C, W, out, part, M,
-                                                                  splits);
+    conv_slab_bf16_kernel<KT, OutT, LN><<<grid, THREADS, bytes, st>>>(in, Tin, C, W, out, part, M,
+                                                                      splits);
   int err = (int)cudaGetLastError();
-  if (err || splits == 1) return err;
+  if (err || (splits == 1 && !LN)) return err;
   const long long n4 = (long long)B * M * C / 4;
-  const long long blocks = (n4 + 255) / 256 < 1056 ? (n4 + 255) / 256 : 1056;
-  split_sum_gelu_kernel<OutT><<<(int)blocks, 256, 0, st>>>(reinterpret_cast<const float4*>(part),
-                                                           out, n4, splits);
+  // One thread a float4, or with LN one warp a row of C / 4 float4s.
+  const long long threads = LN ? 32 * (n4 / (C / 4)) : n4;
+  const long long blocks = (threads + 255) / 256 < 1056 ? (threads + 255) / 256 : 1056;
+  split_sum_gelu_kernel<OutT, LN><<<(int)blocks, 256, 0, st>>>(
+      reinterpret_cast<const float4*>(part), out, n4, splits, C, gamma, beta);
   return (int)cudaGetLastError();
 }
 
@@ -637,36 +744,75 @@ bool shapes_ok_bf16(int C, int splits, int tile) {
   return splits >= 1 && splits <= C / CHB;
 }
 
-// A stride-2, KT-tap bf16 layer in `tile`.
-template <int KT, typename OutT>
+// The LayerNorm mode's widths: conv0's frame group whole warps (C / 8 a
+// multiple of 32), a cluster of at most 8 blocks.
+bool shapes_ok_ln(int C) { return C % 256 == 0 && C <= LN_MAX_C; }
+
+long long g_conv_ln_launches = 0;  // layer launches of the LayerNorm mode
+
+// A stride-2, KT-tap bf16 layer in `tile`; with LN, in the LayerNorm mode
+// with the layer's gamma and beta [C].
+template <int KT, typename OutT, bool LN>
 int conv_bf16(const bf16* x, int Tin, int C, const bf16* w, OutT* out, float* part, int M, int B,
-              int splits, int tile, cudaStream_t st) {
-  if (tile == 1) return edt::conv_wgmma<KT, edt::CW_TILE_BN[0]>(x, Tin, C, w, out, M, B, st);
-  if (tile == 2) return edt::conv_wgmma<KT, edt::CW_TILE_BN[1]>(x, Tin, C, w, out, M, B, st);
-  return conv_slab<KT>(x, Tin, C, w, out, part, M, B, splits, st);
+              int splits, int tile, const float* gamma, const float* beta, cudaStream_t st) {
+  if (tile == 1)
+    return edt::conv_wgmma<KT, edt::CW_TILE_BN[0], OutT, LN>(x, Tin, C, w, out, M, B, st, gamma,
+                                                             beta);
+  if (tile == 2)
+    return edt::conv_wgmma<KT, edt::CW_TILE_BN[1], OutT, LN>(x, Tin, C, w, out, M, B, st, gamma,
+                                                             beta);
+  return conv_slab<KT, bf16, OutT, LN>(x, Tin, C, w, out, part, M, B, splits, st, gamma, beta);
+}
+
+// conv1-6 of the bf16 variant, as conv_layer_bf16 below.
+template <bool LN>
+int conv_rest_bf16(const bf16* x, void* out, float* part, const bf16* w, const float* gamma,
+                   const float* beta, int layer, int B, int Tin, int C, int M, int splits,
+                   int tile, cudaStream_t st) {
+  if (layer == LAYERS - 1)
+    return conv_bf16<2, float, LN>(x, Tin, C, w, static_cast<float*>(out), part, M, B, splits,
+                                   tile, gamma, beta, st);
+  if (KERNEL[layer] == 3)
+    return conv_bf16<3, bf16, LN>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits,
+                                  tile, gamma, beta, st);
+  return conv_bf16<2, bf16, LN>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, tile,
+                                gamma, beta, st);
 }
 
 // Layer `layer` of the bf16 variant: in is the float32 wav (layer 0) or bf16
 // [B, Tin, C]; out bf16 [B, Tout, C] (layers 0-5) or float32 (layer 6); W
-// float32 w0 (layer 0) or bf16 [C, k*C]; conv1-6 in `tile`.
+// float32 w0 (layer 0) or bf16 [C, k*C]; conv1-6 in `tile`.  scale and
+// shift: conv0's folded GroupNorm [B, C], or with `ln` the layer's
+// LayerNorm gamma and beta [C] (then `part` takes float32 partial sums on
+// tile 0 whatever the split).
 int conv_layer_bf16(const void* in, void* out, float* part, const void* W, const float* scale,
                     const float* shift, int layer, int B, int Tin, int C, int splits, int tile,
-                    cudaStream_t st) {
-  if (!shapes_ok_bf16(C, splits, layer ? tile : 0)) return (int)cudaErrorInvalidValue;
+                    bool ln, cudaStream_t st) {
+  if (!shapes_ok_bf16(C, splits, layer ? tile : 0) || (ln && !shapes_ok_ln(C)))
+    return (int)cudaErrorInvalidValue;
   const int M = (Tin - KERNEL[layer]) / STRIDE[layer] + 1;
+  int err;
   if (layer == 0) {
-    conv0_bf16_kernel<<<grid0b(M, B), dim3(C / 8, groups0b(C)), 0, st>>>(
-        static_cast<const float*>(in), Tin, static_cast<const float*>(W), scale, shift,
-        static_cast<bf16*>(out), M, C);
-    return (int)cudaGetLastError();
+    const dim3 grid = grid0b(M, B), block(C / 8, groups0b(C));
+    const float* wav = static_cast<const float*>(in);
+    const float* w0 = static_cast<const float*>(W);
+    if (ln)
+      conv0_bf16_kernel<true><<<grid, block, 0, st>>>(wav, Tin, w0, scale, shift,
+                                                      static_cast<bf16*>(out), M, C);
+    else
+      conv0_bf16_kernel<false><<<grid, block, 0, st>>>(wav, Tin, w0, scale, shift,
+                                                       static_cast<bf16*>(out), M, C);
+    err = (int)cudaGetLastError();
+  } else {
+    const bf16* x = static_cast<const bf16*>(in);
+    const bf16* w = static_cast<const bf16*>(W);
+    err = ln ? conv_rest_bf16<true>(x, out, part, w, scale, shift, layer, B, Tin, C, M, splits,
+                                    tile, st)
+             : conv_rest_bf16<false>(x, out, part, w, scale, shift, layer, B, Tin, C, M, splits,
+                                     tile, st);
   }
-  const bf16* x = static_cast<const bf16*>(in);
-  const bf16* w = static_cast<const bf16*>(W);
-  if (layer == LAYERS - 1)
-    return conv_bf16<2>(x, Tin, C, w, static_cast<float*>(out), part, M, B, splits, tile, st);
-  if (KERNEL[layer] == 3)
-    return conv_bf16<3>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, tile, st);
-  return conv_bf16<2>(x, Tin, C, w, static_cast<bf16*>(out), part, M, B, splits, tile, st);
+  if (!err && ln) ++g_conv_ln_launches;
+  return err;
 }
 
 }  // namespace
@@ -743,7 +889,7 @@ extern "C" int edt_conv_layer_bf16(const void* in, void* out, float* work, const
                                    int Tin, int C, int splits, int tile, void* stream) {
   if (layer < 0 || layer >= LAYERS) return (int)cudaErrorInvalidValue;
   return conv_layer_bf16(in, out, work, W, scale, shift, layer, B, Tin, C, layer ? splits : 1,
-                         tile, (cudaStream_t)stream);
+                         tile, false, (cudaStream_t)stream);
 }
 
 // edt_conv_frontend at compute_dtype bf16: wav [B, Twav], w0, scale, shift
@@ -761,13 +907,66 @@ extern "C" int edt_conv_frontend_bf16(const float* wav, float* out, void* work, 
   float* part = reinterpret_cast<float*>(buf[1] + (long long)B * f[1] * C);
   const bf16* w3 = static_cast<const bf16*>(wk3);
   const bf16* w2 = static_cast<const bf16*>(wk2);
-  int err = conv_layer_bf16(wav, buf[0], nullptr, w0, scale, shift, 0, B, Twav, C, 1, 0, st);
+  int err =
+      conv_layer_bf16(wav, buf[0], nullptr, w0, scale, shift, 0, B, Twav, C, 1, 0, false, st);
   for (int i = 1; i < LAYERS && !err; ++i) {
     const int K = KERNEL[i] * C;
     const bf16* W = i <= 4 ? w3 + (long long)(i - 1) * C * K : w2 + (long long)(i - 5) * C * K;
     void* dst = i == LAYERS - 1 ? static_cast<void*>(out) : static_cast<void*>(buf[i % 2]);
     err = conv_layer_bf16(buf[(i - 1) % 2], dst, part, W, nullptr, nullptr, i, B, f[i - 1], C,
-                          splits[i], tiles[i], st);
+                          splits[i], tiles[i], false, st);
+  }
+  return err;
+}
+
+// Bytes of scratch that edt_conv_frontend_ln needs with the plan's splits
+// and tiles: conv0's and conv1's outputs in bf16, then the largest float32
+// partial sums of a layer on the mma.sync tile (tile 0), split or not.
+extern "C" long long edt_conv_frontend_ln_workspace(int B, int Twav, int C, const int* splits,
+                                                    const int* tiles) {
+  int f[LAYERS];
+  frame_counts(Twav, f);
+  long long partials = 0;
+  for (int i = 1; i < LAYERS; ++i)
+    if (tiles[i] == 0) partials = std::max(partials, (long long)splits[i] * f[i]);
+  return (long long)B * C * (2 * ((long long)f[0] + f[1]) + 4 * partials);
+}
+
+// One layer of the LayerNorm mode alone (a test and timing hook), as
+// edt_conv_layer_bf16 with the layer's LayerNorm gamma and beta [C] in place
+// of conv0's fold; work [splits * B * Tout * C] floats on tile 0 (splits >=
+// 1).
+extern "C" int edt_conv_layer_ln(const void* in, void* out, float* work, const void* W,
+                                 const float* gamma, const float* beta, int layer, int B,
+                                 int Tin, int C, int splits, int tile, void* stream) {
+  if (layer < 0 || layer >= LAYERS) return (int)cudaErrorInvalidValue;
+  return conv_layer_bf16(in, out, work, W, gamma, beta, layer, B, Tin, C, layer ? splits : 1,
+                         tile, true, (cudaStream_t)stream);
+}
+
+// The bf16 variant over WavLM's stack, a LayerNorm after every conv: as
+// edt_conv_frontend_bf16, with gamma and beta [7, C] (layer i's at row i)
+// in place of conv0's fold, and work [edt_conv_frontend_ln_workspace(...)]
+// bytes.  Requires C a multiple of 256, at most 1024.
+extern "C" int edt_conv_frontend_ln(const float* wav, float* out, void* work, const float* w0,
+                                    const void* wk3, const void* wk2, const float* gamma,
+                                    const float* beta, int B, int Twav, int C, const int* splits,
+                                    const int* tiles, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int f[LAYERS];
+  frame_counts(Twav, f);
+  bf16* buf[2] = {static_cast<bf16*>(work), static_cast<bf16*>(work) + (long long)B * f[0] * C};
+  float* part = reinterpret_cast<float*>(buf[1] + (long long)B * f[1] * C);
+  const bf16* w3 = static_cast<const bf16*>(wk3);
+  const bf16* w2 = static_cast<const bf16*>(wk2);
+  int err = conv_layer_bf16(wav, buf[0], nullptr, w0, gamma, beta, 0, B, Twav, C, 1, 0, true, st);
+  for (int i = 1; i < LAYERS && !err; ++i) {
+    const int K = KERNEL[i] * C;
+    const bf16* W = i <= 4 ? w3 + (long long)(i - 1) * C * K : w2 + (long long)(i - 5) * C * K;
+    void* dst = i == LAYERS - 1 ? static_cast<void*>(out) : static_cast<void*>(buf[i % 2]);
+    err = conv_layer_bf16(buf[(i - 1) % 2], dst, part, W, gamma + (long long)i * C,
+                          beta + (long long)i * C, i, B, f[i - 1], C, splits[i], tiles[i], true,
+                          st);
   }
   return err;
 }
@@ -795,3 +994,7 @@ extern "C" int edt_frontend_geometry(int tile, int C, int* out) {
 
 // Launches of the wgmma kernel since the library was loaded.
 extern "C" long long edt_conv_wgmma_launches() { return edt::g_conv_wgmma_launches; }
+
+// Layer launches of the LayerNorm mode (seven a call) since the library was
+// loaded.
+extern "C" long long edt_conv_ln_launches() { return g_conv_ln_launches; }

@@ -51,6 +51,25 @@
 // split-K and no atomics, so a call repeats bit for bit.  Every mbarrier
 // wait traps after seconds rather than hang the card.
 //
+// The LayerNorm mode (LN, WavLM's stack: a LayerNorm over the C channels of
+// each frame after every conv, eps 1e-5, then GELU) needs each row's
+// statistics over all C channels, but a tile holds BN of them.  So it runs
+// as a cluster of C / BN blocks along the channel axis (2 at BN = 256, 4 at
+// BN = 128), block rank r taking channels [r BN, (r + 1) BN) of every tile
+// its cluster walks; the mainloop, the ring and the producer are the ones
+// above.  In the epilogue each quad sums its row over the block's columns
+// (shuffles), writes that partial into every block's exchange buffer
+// (distributed shared memory, slot = its rank) and arrives on that block's
+// exchange barrier; once the 64 * (C / BN) arrivals of the phase are in,
+// every block sums the C / BN partials in rank order, so all hold the same
+// mean.  A second exchange does the same for the sum of squared deviations
+// from it.  Then (acc - mean) * rstd * gamma + beta, GELU, and the staged
+// store, 128-byte rows in either output type.  One buffer and one barrier
+// per exchange suffice: a block writes the next tile's partials only after
+// its wait on this tile's other exchange, which needs every block's lanes
+// to have read this one first.  No exchange runs in the GroupNorm mode,
+// which compiles to what it was.
+//
 // Measured on the H100 (PERF.md §6, conv1 at [256, 32000]): 2.55 ms,
 // 0.51 of the bound, against cuDNN's 4.01 on the same bf16 operands.
 // Scratch builds put the time in the stages' round trip and the epilogue,
@@ -93,31 +112,84 @@ __host__ __device__ constexpr int cw_smem_bytes(int bn) {
 }
 static_assert(cw_smem_bytes(256) <= 232448 && cw_smem_bytes(128) <= 232448, "a block's smem");
 
+// The LayerNorm mode's shared bytes at a cluster of cl blocks: the ring, the
+// consumer warpgroups' epilogue tiles of 128-byte rows, the block's gamma
+// and beta, the two exchange buffers [cl][CW_BM], the full, empty and two
+// exchange barriers.
+constexpr int CW_LN_MAX_C = 1024;  // the widest LayerNorm stack: a cluster of at most 8 blocks
+constexpr float CW_LN_EPS = 1e-5f;
+__host__ __device__ constexpr int cw_smem_bytes_ln(int bn, int cl) {
+  return 1024 + cw_stages(bn) * cw_stage_bytes(bn) + 2 * 64 * 128 + 2 * bn * 4 +
+         2 * cl * CW_BM * 4 + (2 * cw_stages(bn) + 2) * 8;
+}
+static_assert(cw_smem_bytes_ln(256, CW_LN_MAX_C / 256) <= 232448 &&
+                  cw_smem_bytes_ln(128, CW_LN_MAX_C / 128) <= 232448,
+              "the LayerNorm mode's smem");
+
 __device__ __forceinline__ float cw_gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
+// The LayerNorm mode's exchange `buf` (0: the rows' sums, 1: their squared
+// deviations): v[h], this quad's partial over the block's columns of block
+// rows rb and rb + 8, becomes the sum over the cluster's cl blocks in rank
+// order.  Lane l of the quad sends the pair to blocks l, l + 4, ... and
+// arrives on their barrier; the wait then sees all 64 * cl arrivals of this
+// phase (the __syncwarp orders the warp's reads of the buffer's last
+// phase before the arrivals that let other blocks rewrite it).
+__device__ __forceinline__ void cw_ln_exchange(float (&v)[2], float* xs, uint64_t* xbar, int buf,
+                                               uint32_t parity, uint32_t rank, int cl, int rb,
+                                               int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    v[h] += __shfl_xor_sync(0xffffffffu, v[h], 1);
+    v[h] += __shfl_xor_sync(0xffffffffu, v[h], 2);
+  }
+  float* bx = xs + buf * cl * CW_BM;
+  __syncwarp();
+  const uint32_t slot = smem_u32(bx + rank * CW_BM + rb), bar = smem_u32(xbar + buf);
+  for (int k = lane & 3; k < cl; k += 4) {
+    const uint32_t dst = mapa(slot, k);
+    st_cluster(dst, v[0]);
+    st_cluster(dst + 8 * 4, v[1]);
+    mbar_arrive_cluster(mapa(bar, k));
+  }
+  mbar_wait_cluster_or_trap(xbar + buf, parity);
+  v[0] = v[1] = 0.f;
+  for (int k = 0; k < cl; ++k) {
+    v[0] += bx[k * CW_BM + rb];
+    v[1] += bx[k * CW_BM + rb + 8];
+  }
+}
+
 // ta: the activations [B][Tin][C] bf16 (3-D, boxes 64 x 256 frames at
 // stride 2 x 1); tw: W [C][KT C] bf16 (2-D, boxes 64 x BN).  out [B, M, C]
-// as OutT.  tiles = B * tiles_m * (C / BN); grid <= tiles.
-template <int KT, int BN, typename OutT>
+// as OutT.  tiles = B * tiles_m * (C / BN); grid <= tiles.  With LN, the
+// layer's LayerNorm gamma and beta [C], and a launch in clusters of C / BN
+// blocks (grid a multiple of it).
+template <int KT, int BN, typename OutT, bool LN = false>
 __global__ void __launch_bounds__(CW_THREADS, 1)
     conv_wgmma_kernel(__grid_constant__ const CUtensorMap ta, __grid_constant__ const CUtensorMap tw,
-                      OutT* __restrict__ out, int M, int C, int tiles_m, int tiles) {
+                      OutT* __restrict__ out, int M, int C, int tiles_m, int tiles,
+                      const float* __restrict__ gamma, const float* __restrict__ beta) {
   constexpr int S = cw_stages(BN);
   constexpr int STAGE = cw_stage_bytes(BN);
   constexpr int A_BYTES = CW_BM * CW_KS * 2;
   constexpr int NACC = BN / 2;
-  constexpr int ROWB = CW_EPI * (int)sizeof(OutT);  // bytes of a staged epilogue row
-  constexpr int UPR = ROWB / 16;                    // its 16-byte units
+  constexpr int EPI = LN ? 128 / (int)sizeof(OutT) : CW_EPI;  // output columns per epilogue pass
+  constexpr int ROWB = EPI * (int)sizeof(OutT);  // bytes of a staged epilogue row
+  constexpr int UPR = ROWB / 16;                 // its 16-byte units
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   unsigned char* epi = base + S * STAGE;                              // [2][64][ROWB]
-  uint64_t* full = reinterpret_cast<uint64_t*>(epi + 2 * 64 * CW_EPI * 4);
-  uint64_t* empty = full + S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tiles_n = C / BN;
+  float* gb = reinterpret_cast<float*>(epi + 2 * 64 * (LN ? ROWB : CW_EPI * 4));  // LN: gamma, beta
+  float* xs = gb + (LN ? 2 * BN : 0);                            // LN: the exchange buffers
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + (LN ? 2 * tiles_n * CW_BM : 0));
+  uint64_t* empty = full + S;
+  uint64_t* xbar = empty + S;  // LN: the exchange barriers
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ksteps = KT * (C / CW_KS);
 
   if (tid == 0) {
@@ -125,9 +197,29 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);  // every consumer thread releases
     }
+    if constexpr (LN) {
+      mbar_init(&xbar[0], 64 * tiles_n);  // each quad of each block of the cluster arrives
+      mbar_init(&xbar[1], 64 * tiles_n);
+    }
     mbar_fence_init();
   }
-  __syncthreads();
+  uint32_t rank = 0;
+  if constexpr (LN) {
+    // The schedule below gives block b the channel tile b % tiles_n: its
+    // rank when the grid is whole clusters of tiles_n.
+    rank = cluster_ctarank();
+    if ((int)cluster_nctarank() != tiles_n || blockIdx.x % tiles_n != rank ||
+        gridDim.x % tiles_n)
+      __trap();
+    for (int i = tid; i < BN; i += CW_THREADS) {
+      gb[i] = gamma[rank * BN + i];
+      gb[BN + i] = beta[rank * BN + i];
+    }
+    __syncthreads();
+    cluster_sync();  // every block's barriers are set before any remote arrival
+  } else {
+    __syncthreads();
+  }
 
   if (warp == 8) {  // the producer
     if (lane == 0) {
@@ -153,7 +245,7 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
   const int cw = warp / 4, w4 = warp % 4;  // consumer warpgroup, warp within it
   unsigned char* ep = epi + cw * 64 * ROWB;
   float acc[NACC];
-  uint32_t it = 0;
+  uint32_t it = 0, ln_parity = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int nt = t % tiles_n, mt = t / tiles_n % tiles_m, b = t / (tiles_n * tiles_m);
 #pragma unroll
@@ -179,23 +271,49 @@ __global__ void __launch_bounds__(CW_THREADS, 1)
     // Accumulator 4j + e: row 16 w4 + lane/4 + 8 (e / 2), column 8j + 2 (lane
     // % 4) + e % 2 of the warpgroup's 64 x BN.
     const int m0 = mt * CW_BM + cw * 64, n0 = nt * BN;
+    float mean[2] = {0.f, 0.f}, rstd[2] = {1.f, 1.f};
+    if constexpr (LN) {  // the rows' statistics over all C channels, two exchanges
+      const int rb = cw * 64 + 16 * w4 + lane / 4;
+      float v[2] = {0.f, 0.f};
 #pragma unroll
-    for (int p = 0; p < BN / CW_EPI; ++p) {
+      for (int i = 0; i < NACC; ++i) v[(i >> 1) & 1] += acc[i];
+      cw_ln_exchange(v, xs, xbar, 0, ln_parity, rank, tiles_n, rb, lane);
+      mean[0] = v[0] / C, mean[1] = v[1] / C;
+      v[0] = v[1] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < CW_EPI / 8; ++jj)
+      for (int i = 0; i < NACC; ++i) {
+        const float d = acc[i] - mean[(i >> 1) & 1];
+        v[(i >> 1) & 1] = fmaf(d, d, v[(i >> 1) & 1]);
+      }
+      cw_ln_exchange(v, xs, xbar, 1, ln_parity, rank, tiles_n, rb, lane);
+      rstd[0] = rsqrtf(v[0] / C + CW_LN_EPS), rstd[1] = rsqrtf(v[1] / C + CW_LN_EPS);
+      ln_parity ^= 1;
+    }
+#pragma unroll
+    for (int p = 0; p < BN / EPI; ++p) {
+#pragma unroll
+      for (int jj = 0; jj < EPI / 8; ++jj)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = 16 * w4 + lane / 4 + 8 * h;
           const int byte = (8 * jj + 2 * (lane % 4)) * (int)sizeof(OutT);
-          const int a = 4 * (8 * p + jj) + 2 * h;
+          const int a = 4 * (EPI / 8 * p + jj) + 2 * h;
+          float y0 = acc[a], y1 = acc[a + 1];
+          if constexpr (LN) {
+            const int c = EPI * p + 8 * jj + 2 * (lane % 4);  // of the block's BN channels
+            const float2 g = *reinterpret_cast<const float2*>(gb + c);
+            const float2 be = *reinterpret_cast<const float2*>(gb + BN + c);
+            y0 = fmaf((y0 - mean[h]) * rstd[h], g.x, be.x);
+            y1 = fmaf((y1 - mean[h]) * rstd[h], g.y, be.y);
+          }
           store2(reinterpret_cast<OutT*>(ep + r * ROWB + ((byte / 16) ^ (r & 7)) * 16 + byte % 16),
-                 cw_gelu(acc[a]), cw_gelu(acc[a + 1]));
+                 cw_gelu(y0), cw_gelu(y1));
         }
       named_sync(1 + cw, 128);
       for (int e = tid % 128; e < 64 * UPR; e += 128) {
         const int r = e / UPR, u = e % UPR;
         if (m0 + r < M)
-          *reinterpret_cast<uint4*>(out + ((long long)b * M + m0 + r) * C + n0 + CW_EPI * p +
+          *reinterpret_cast<uint4*>(out + ((long long)b * M + m0 + r) * C + n0 + EPI * p +
                                     u * (16 / (int)sizeof(OutT))) =
               *reinterpret_cast<const uint4*>(ep + r * ROWB + (u ^ (r & 7)) * 16);
       }
@@ -253,19 +371,25 @@ inline int conv_tmap(const void* p, int rank, const cuuint64_t* dims, const cuui
 }
 
 // A stride-2, KT-tap conv layer on the wgmma kernel in tile BN: in [B, Tin,
-// C] bf16, W [C, KT C] bf16, out [B, M, C] as OutT.  Returns a cudaError_t.
-template <int KT, int BN, typename OutT>
+// C] bf16, W [C, KT C] bf16, out [B, M, C] as OutT.  With LN, in the
+// LayerNorm mode with the layer's gamma and beta [C] (C <= CW_LN_MAX_C),
+// launched in clusters of C / BN blocks, as many as can be resident at
+// once.  Returns a cudaError_t.
+template <int KT, int BN, typename OutT, bool LN = false>
 int conv_wgmma(const bf16* in, int Tin, int C, const bf16* W, OutT* out, int M, int B,
-               cudaStream_t st) {
-  if (C % BN || C % CW_KS) return (int)cudaErrorInvalidValue;
-  const auto kernel = conv_wgmma_kernel<KT, BN, OutT>;
-  constexpr int smem = cw_smem_bytes(BN);
+               cudaStream_t st, const float* gamma = nullptr, const float* beta = nullptr) {
+  if (C % BN || C % CW_KS || (LN && C > CW_LN_MAX_C)) return (int)cudaErrorInvalidValue;
+  const auto kernel = conv_wgmma_kernel<KT, BN, OutT, LN>;
+  const int cl = C / BN;
+  const int smem = LN ? cw_smem_bytes_ln(BN, cl) : cw_smem_bytes(BN);
   static bool opted_in[kMaxDevices] = {};
+  static int clusters[kMaxDevices][CW_LN_MAX_C / 128 + 1] = {};  // LN: resident clusters, by size
   const int dev = current_device();
   if (dev < 0) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev]) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        LN ? cw_smem_bytes_ln(BN, CW_LN_MAX_C / BN) : cw_smem_bytes(BN));
     if (e != cudaSuccess) return (int)e;
     opted_in[dev] = true;
   }
@@ -282,9 +406,29 @@ int conv_wgmma(const bf16* in, int Tin, int C, const bf16* W, OutT* out, int M, 
   const int tiles_m = (M + CW_BM - 1) / CW_BM;
   const long long tiles = (long long)B * tiles_m * (C / BN);
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  kernel<<<grid, CW_THREADS, smem, st>>>(ta, tw, out, M, C, tiles_m, (int)tiles);
-  e = (int)cudaGetLastError();
+  if constexpr (LN) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cl, attr[0].val.clusterDim.y = 1, attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cl), cfg.blockDim = dim3(CW_THREADS), cfg.dynamicSmemBytes = smem;
+    cfg.stream = st, cfg.attrs = attr, cfg.numAttrs = 1;
+    if (!clusters[dev][cl]) {
+      int n = 0;
+      const cudaError_t q = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+      if (q != cudaSuccess) return (int)q;
+      if (n < 1) return (int)cudaErrorInvalidConfiguration;
+      clusters[dev][cl] = n;
+    }
+    const long long most = (long long)clusters[dev][cl] * cl;
+    cfg.gridDim = dim3((unsigned)(tiles < most ? tiles : most));
+    e = (int)cudaLaunchKernelEx(&cfg, kernel, ta, tw, out, M, C, tiles_m, (int)tiles, gamma, beta);
+  } else {
+    const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+    kernel<<<grid, CW_THREADS, smem, st>>>(ta, tw, out, M, C, tiles_m, (int)tiles, nullptr,
+                                           nullptr);
+    e = (int)cudaGetLastError();
+  }
   if (!e) ++g_conv_wgmma_launches;
   return e;
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers for the bf16 step GEMM (gemm_wgmma.cuh) and the
-// bf16 frontend's conv GEMM (conv_wgmma.cuh): mbarriers, TMA tile loads and
+// bf16 frontend's conv GEMM (conv_wgmma.cuh): mbarriers, clusters and their
+// distributed shared memory, TMA tile loads and
 // the warpgroup product wgmma.mma_async with both operands in shared memory,
 // K-major, in the 128-byte swizzle that a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes; on the host, the tensor-map encoder.
@@ -62,6 +63,62 @@ __device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity
     uint32_t done;
     asm volatile(
         "{\n.reg .pred P1;\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 26)) __trap();
+  }
+}
+
+// ---- thread block clusters: the blocks' own ranks, a barrier over them,
+// and their shared memory (distributed shared memory) -------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits: writes
+// before it (shared memory, barrier initialisation) are seen after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of this block's shared address `a` in the
+// block of rank `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// A store to another block's shared memory (a shared::cluster address).
+__device__ __forceinline__ void st_cluster(uint32_t a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+// Arrive once on a barrier of another block (a shared::cluster address),
+// releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait_or_trap with acquire at cluster scope: the writes that other
+// blocks released by their arrivals on this phase are seen after it.
+__device__ __forceinline__ void mbar_wait_cluster_or_trap(uint64_t* bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%1], %2;\n"
         "selp.u32 %0, 1, 0, P1;\n}\n"
         : "=r"(done)
         : "r"(smem_u32(bar)), "r"(parity)

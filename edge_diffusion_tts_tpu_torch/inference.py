@@ -7,8 +7,8 @@ EdgeDiffusionDecoder.  ``generate_from_audio(wav)``: a 16 kHz reference wav
 -> tokens through the ``SemanticEncoder`` (HuBERT layer 9 + projection +
 FSQ) -> ``generate_mel``; an encoder with the conv stack the conv-frontend
 kernel takes runs its frontend on that kernel (ops/fused_frontend.py::
-fast_encode), any other runs its modules, as the JAX package does.  Two
-backends:
+fast_encode) at the encoder's dtype, any other runs its modules, as the JAX
+package does.  Two backends:
 
 - ``"eager"`` (the JAX package's ``"xla"``): the module loop, one decoder
   forward per step; long sequences route their windowed self-attention to
@@ -48,8 +48,9 @@ class EdgeInference:
     packs the decoder's weights once, when the object is built.  ``encoder``
     (a ``SemanticEncoder``) enables ``generate_from_audio``.  Its route,
     ``encode_route``, is fixed here: ``"kernel"`` when the conv-frontend
-    kernel takes its conv stack (``kernel_serves``; the frontend weights
-    are packed here), else ``"modules"``.
+    kernel takes its conv stack at the encoder's dtype (``kernel_serves``;
+    the frontend weights are packed here, at that dtype), else
+    ``"modules"``.
     """
 
     def __init__(
@@ -89,16 +90,17 @@ class EdgeInference:
         )
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
         # The encode route is fixed here: "kernel" (fast_encode) for a stack
-        # the frontend kernel takes, "modules" (encoder.encode, the JAX
-        # package's route) for any other.
+        # the frontend kernel takes at the encoder's dtype, "modules"
+        # (encoder.encode, the JAX package's route) for any other.
         self.encode_route = None
         self.frontend_weights = None
         if encoder is not None:
-            self.encode_route = ("kernel" if kernel_serves(self.encoder.hubert_cfg)
+            dtype = self.encoder.dtype
+            self.encode_route = ("kernel" if kernel_serves(self.encoder.hubert_cfg, dtype)
                                  else "modules")
             if self.encode_route == "kernel":
                 self.frontend_weights = pack_frontend_weights(
-                    self.encoder.hubert.feature_extractor)
+                    self.encoder.hubert.feature_extractor, dtype)
 
     def _sample(self, model_fn, x_T: torch.Tensor, num_steps: int) -> torch.Tensor:
         if self.sampler == "dpmpp":
@@ -188,7 +190,8 @@ class EdgeInference:
             wav = wav[None, :]
         with span("prep:encode"):
             if self.encode_route == "kernel":
-                sem_idx = fast_encode(self.encoder, wav, self.frontend_weights)
+                sem_idx = fast_encode(self.encoder, wav, self.frontend_weights,
+                                      self.encoder.dtype)
             else:
                 sem_idx = self.encoder.encode(wav)
         return self.generate_mel(sem_idx, num_steps, temperature=temperature,

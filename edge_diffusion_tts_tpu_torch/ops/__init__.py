@@ -4,8 +4,9 @@ window_attention  banded attention (CUDA kernel, plain version)
 fused_denoise     the few-step DDIM loop and the full-schedule DDPM loop
                   (CUDA kernel sequences with in-kernel Philox noise, plain
                   versions)
-fused_frontend    the HuBERT conv feature extractor (CUDA kernel sequence,
-                  plain version) and fast_encode
+fused_frontend    the HuBERT conv feature extractor, and WavLM's in its
+                  LayerNorm mode (CUDA kernel sequence, plain version), and
+                  fast_encode
 relpos_attention  WavLM's gated relative-position attention (CUDA kernel,
                   plain version)
 mel               STFT, iSTFT, HTK mel filterbank, MelFrontend (torch.fft)

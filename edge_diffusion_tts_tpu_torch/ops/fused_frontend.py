@@ -23,6 +23,16 @@ one layer alone (a test and timing hook, as ``conv_frontend_layer_plain`` is
 its plain version).  ``fast_encode`` is ``SemanticEncoder.encode`` with the
 frontend routed through it.
 
+WavLM's stack (``feat_extract_norm="layer"``: a LayerNorm over the channels
+of each frame after every conv, no GroupNorm) takes the bf16 variant's
+LayerNorm mode: ``pack_frontend_weights`` packs the seven norms' ``gamma``
+and ``beta`` as [7, C] (the GroupNorm's are [C]), and that shape selects the
+mode everywhere below.  Each conv's norm and GELU run in its kernel's
+epilogue from the float32 sums; nothing is rounded between a conv and its
+norm, and the wav stays float32 into conv0 (the modules round both to
+bf16).  The mode runs at bf16 only: a float32 LayerNorm stack keeps the
+modules (``kernel_serves``).
+
 ``compute_dtype=torch.bfloat16`` selects the bf16 variant, the TPU kernel at
 ``compute_dtype=jnp.bfloat16``: conv0, its GroupNorm and GELU in float32, then
 bf16 activations and bf16 weights (``pack_frontend_weights(..., dtype=
@@ -78,6 +88,9 @@ FRONTEND_BF16_TILES = (
 )
 H100_SMS = 132
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+# The LayerNorm mode's widths (csrc/conv_frontend.cu): conv0's frame groups
+# whole warps (a multiple of 256 channels), a cluster of at most 8 blocks.
+LN_WIDTH, LN_MAX_WIDTH, LN_EPS = 256, 1024, 1e-5
 
 
 def _compute_dtype(dtype) -> torch.dtype:
@@ -92,7 +105,7 @@ def _chunk(dtype) -> int:
 
 def _base_stack(hc: HubertConfig) -> bool:
     return (tuple(hc.conv_kernel) == BASE_KERNELS and tuple(hc.conv_stride) == BASE_STRIDES
-            and len(set(hc.conv_dim)) == 1 and hc.feat_extract_norm == "group")
+            and len(set(hc.conv_dim)) == 1)
 
 
 def check_base_specs(hc: HubertConfig) -> None:
@@ -100,38 +113,51 @@ def check_base_specs(hc: HubertConfig) -> None:
     if not _base_stack(hc):
         raise ValueError(
             "the conv-frontend kernel implements the hubert-base stack (kernels "
-            f"{BASE_KERNELS}, strides {BASE_STRIDES}, one width, conv0's GroupNorm alone), "
-            f"not kernels {hc.conv_kernel}, strides {hc.conv_stride}, widths {hc.conv_dim}, "
-            f"norm {hc.feat_extract_norm!r}")
+            f"{BASE_KERNELS}, strides {BASE_STRIDES}, one width; conv0's GroupNorm or a "
+            f"LayerNorm after every conv), not kernels {hc.conv_kernel}, strides "
+            f"{hc.conv_stride}, widths {hc.conv_dim}")
 
 
-def kernel_serves(hc: HubertConfig) -> bool:
-    """Whether the frontend kernel takes ``hc``'s conv stack: hubert-base's
-    kernels and strides, one width, and that width a multiple of ``TILE[1]``,
-    with conv0's GroupNorm (a LayerNorm stack, WavLM's, takes the
-    modules)."""
-    return _base_stack(hc) and hc.conv_dim[0] % TILE[1] == 0
+def kernel_serves(hc: HubertConfig, dtype=torch.float32) -> bool:
+    """Whether the frontend kernel takes ``hc``'s conv stack at compute
+    ``dtype``: hubert-base's kernels and strides, one width, and that width a
+    multiple of ``TILE[1]``; a LayerNorm stack (WavLM's) only at bfloat16, in
+    the LayerNorm mode's widths (a float32 one takes the modules)."""
+    if not (_base_stack(hc) and hc.conv_dim[0] % TILE[1] == 0):
+        return False
+    C = hc.conv_dim[0]
+    return hc.feat_extract_norm == "group" or (
+        dtype == torch.bfloat16 and C % LN_WIDTH == 0 and C <= LN_MAX_WIDTH)
+
+
+def layer_norm_mode(w: Dict[str, torch.Tensor]) -> bool:
+    """Whether packed weights ``w`` are a LayerNorm stack's ([7, C] norms)."""
+    return "gamma" in w and w["gamma"].dim() == 2
 
 
 def pack_frontend_weights(feature_extractor, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """The extractor's weights in the kernel's layout: ``w0`` [C, 10], ``wk3``
     [4, C, 3C] (conv1-4) and ``wk2`` [2, C, 2C] (conv5-6), each [C_out,
-    k*C_in] with the tap outer, and the GroupNorm's ``gamma``, ``beta`` [C].
-    With ``dtype`` bfloat16, ``wk3`` and ``wk2`` are rounded to bf16 once,
-    here (the TPU kernel casts them when it stacks them); ``w0`` and the
-    GroupNorm stay float32."""
+    k*C_in] with the tap outer, and the GroupNorm's ``gamma``, ``beta`` [C]
+    (a LayerNorm stack's: the seven norms' [7, C]).  With ``dtype``
+    bfloat16, ``wk3`` and ``wk2`` are rounded to bf16 once, here (the TPU
+    kernel casts them when it stacks them); ``w0`` and the norms stay
+    float32."""
     check_base_specs(feature_extractor.cfg)
-    convs = [layer.conv.weight.detach().float() for layer in feature_extractor.conv_layers]
+    layers = feature_extractor.conv_layers
+    convs = [layer.conv.weight.detach().float() for layer in layers]
     C = convs[0].shape[0]
     wk = [w.permute(0, 2, 1).reshape(C, -1) for w in convs[1:]]
-    gn = feature_extractor.conv_layers[0].layer_norm
+    norms = layers if feature_extractor.cfg.feat_extract_norm == "layer" else layers[:1]
     w = {
         "w0": convs[0][:, 0, :],
         "wk3": torch.stack(wk[:4]),
         "wk2": torch.stack(wk[4:]),
-        "gamma": gn.weight.detach(),
-        "beta": gn.bias.detach(),
+        "gamma": torch.stack([n.layer_norm.weight.detach().float() for n in norms]),
+        "beta": torch.stack([n.layer_norm.bias.detach().float() for n in norms]),
     }
+    if len(norms) == 1:  # conv0's GroupNorm: [C]
+        w["gamma"], w["beta"] = w["gamma"][0], w["beta"][0]
     w = {k: v.float().contiguous() for k, v in w.items()}
     if _compute_dtype(dtype) != torch.float32:
         w["wk3"], w["wk2"] = w["wk3"].to(dtype), w["wk2"].to(dtype)
@@ -219,13 +245,17 @@ def _layer_splits(tiles: int, chunks: int, sms: int) -> int:
     return max(1, min(chunks, sms // tiles))
 
 
-def frontend_workspace(B: int, plan: List[dict], dtype=torch.float32) -> int:
+def frontend_workspace(B: int, plan: List[dict], dtype=torch.float32,
+                       layer_norm: bool = False) -> int:
     """Floats of scratch the frontend needs: conv0's and conv1's outputs
     (every later layer fits in one of the two) and the largest split-K
     layer's partial sums.  For ``dtype`` bfloat16 the two outputs are bf16
-    (half a float each) and the partial sums stay float32."""
+    (half a float each) and the partial sums stay float32; in the
+    ``layer_norm`` mode every layer on the mma.sync tile writes partial
+    sums, split or not."""
     C = plan[0]["N"]
-    partials = max([p["splits"] * p["M"] for p in plan[1:] if p["splits"] > 1] or [0])
+    partials = max([p["splits"] * p["M"] for p in plan[1:]
+                    if p["splits"] > 1 or (layer_norm and p.get("tile_index") == 0)] or [0])
     if _compute_dtype(dtype) == torch.float32:
         return B * C * (plan[0]["M"] + plan[1]["M"] + partials)
     return B * C * (plan[0]["M"] + plan[1]["M"]) // 2 + B * C * partials
@@ -271,9 +301,12 @@ def conv_frontend_plain(wav: torch.Tensor, w: Dict[str, torch.Tensor], wav_len=N
     With ``compute_dtype`` bfloat16 it rounds where the bf16 kernel rounds:
     each layer's GELU output to bf16 (conv6's stays float32), and conv1-6's
     weights to bf16; the products of those bf16 values are exact in float32
-    and summed in float32, as on the tensor cores."""
-    if _compute_dtype(compute_dtype) != torch.float32:
-        return _conv_frontend_plain_bf16(wav, w, wav_len, compute_dtype)
+    and summed in float32, as on the tensor cores.  A LayerNorm stack's
+    ``w`` normalises each conv's float32 output over its channels before
+    the GELU (``wav_len`` then changes nothing: a frame's norm sees that
+    frame alone)."""
+    if _compute_dtype(compute_dtype) != torch.float32 or layer_norm_mode(w):
+        return _conv_frontend_plain_layers(wav, w, wav_len, compute_dtype)
     scale, shift = groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"], wav_len)
     C = w["w0"].shape[0]
     x = F.conv1d(wav[:, None, :].float(), w["w0"][:, None, :], stride=BASE_STRIDES[0])
@@ -284,9 +317,10 @@ def conv_frontend_plain(wav: torch.Tensor, w: Dict[str, torch.Tensor], wav_len=N
     return x.transpose(1, 2)
 
 
-def _conv_frontend_plain_bf16(wav, w, wav_len, dtype) -> torch.Tensor:
+def _conv_frontend_plain_layers(wav, w, wav_len, dtype) -> torch.Tensor:
     x = wav.float()
-    fold = groupnorm_fold(x, w["w0"], w["gamma"], w["beta"], wav_len)
+    fold = () if layer_norm_mode(w) else groupnorm_fold(x, w["w0"], w["gamma"], w["beta"],
+                                                        wav_len)
     x = conv_frontend_layer_plain(x, 0, w, *fold, compute_dtype=dtype)
     for layer in range(1, LAYERS):
         x = conv_frontend_layer_plain(x, layer, w, compute_dtype=dtype)
@@ -301,13 +335,18 @@ def conv_frontend_layer_plain(x: torch.Tensor, layer: int, w: Dict[str, torch.Te
     [B, Twav] (layer 0, with conv0's folded GroupNorm ``scale``, ``shift``
     [B, C]) or [B, Tin, C] -> [B, Tout, C]: one ``F.conv1d``, then GELU.
     With ``compute_dtype`` bfloat16 the output is rounded to bf16 (conv6's
-    is float32) and conv1-6 take their input and weights at bf16."""
+    is float32) and conv1-6 take their input and weights at bf16.  For a
+    LayerNorm stack's ``w`` (no ``scale``, ``shift``) the float32 conv
+    output is normalised over its channels with the layer's ``gamma``,
+    ``beta`` (eps 1e-5) before the GELU; conv0 takes the float32 wav."""
     W = layer_weight(w, layer)
     C = W.shape[0]
     low = _compute_dtype(compute_dtype) != torch.float32
+    ln = layer_norm_mode(w)
     if layer == 0:
         y = F.conv1d(x[:, None, :].float(), W.float()[:, None, :], stride=BASE_STRIDES[0])
-        y = y * scale[:, :, None] + shift[:, :, None]
+        if not ln:
+            y = y * scale[:, :, None] + shift[:, :, None]
     elif low:
         y = F.conv1d(x.to(compute_dtype).float().transpose(1, 2).contiguous(),
                      W.to(compute_dtype).float().reshape(C, -1, C).permute(0, 2, 1),
@@ -316,6 +355,9 @@ def conv_frontend_layer_plain(x: torch.Tensor, layer: int, w: Dict[str, torch.Te
         y = F.conv1d(x.transpose(1, 2).contiguous(),
                      W.reshape(C, -1, C).permute(0, 2, 1), stride=BASE_STRIDES[layer])
     out_dtype = compute_dtype if low and layer < LAYERS - 1 else torch.float32
+    if ln:
+        y = F.layer_norm(y.transpose(1, 2), (C,), w["gamma"][layer].float(),
+                         w["beta"][layer].float(), LN_EPS).transpose(1, 2)
     return _gelu_round(y, out_dtype).transpose(1, 2).contiguous()
 
 
@@ -331,9 +373,16 @@ def _lib() -> ctypes.CDLL:
         front.argtypes, front.restype = [p] * 8 + [i] * 3 + [p] * (3 if low else 2), ctypes.c_int
         layer = getattr(lib, f"edt_conv_layer{suffix}")
         layer.argtypes, layer.restype = [p] * 6 + [i] * (6 if low else 5) + [p], ctypes.c_int
+    lib.edt_conv_frontend_ln_workspace.argtypes = [i, i, i, p, p]
+    lib.edt_conv_frontend_ln_workspace.restype = ctypes.c_longlong
+    lib.edt_conv_frontend_ln.argtypes, lib.edt_conv_frontend_ln.restype = \
+        [p] * 8 + [i] * 3 + [p] * 3, ctypes.c_int
+    lib.edt_conv_layer_ln.argtypes, lib.edt_conv_layer_ln.restype = [p] * 6 + [i] * 6 + [p], \
+        ctypes.c_int
     lib.edt_frontend_geometry.argtypes, lib.edt_frontend_geometry.restype = [i, i, p], ctypes.c_int
-    lib.edt_conv_wgmma_launches.argtypes, lib.edt_conv_wgmma_launches.restype = [], \
-        ctypes.c_longlong
+    for counter in ("edt_conv_wgmma_launches", "edt_conv_ln_launches"):
+        fn = getattr(lib, counter)
+        fn.argtypes, fn.restype = [], ctypes.c_longlong
     return lib
 
 
@@ -353,6 +402,12 @@ def frontend_geometry(tile: int, C: int = 512) -> dict:
 def wgmma_launches() -> int:
     """Launches of the bf16 wgmma conv kernel since the library was loaded."""
     return _lib().edt_conv_wgmma_launches()
+
+
+def ln_launches() -> int:
+    """Layer launches of the LayerNorm mode (seven a call) since the library
+    was loaded."""
+    return _lib().edt_conv_ln_launches()
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,8 +452,11 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
     over each row's first ``wav_len`` samples where ``wav_len`` is given (a
     zero-padded wav; the frames inside the true length then equal an
     exact-length call's).  The kernels themselves take the fold as it is.
+    A LayerNorm stack's ``w`` runs the LayerNorm mode, at bfloat16 only on
+    the card, with no fold (``wav_len`` changes nothing there).
     """
     low = _compute_dtype(compute_dtype) != torch.float32
+    ln = layer_norm_mode(w)
     if wav.dim() != 2:
         raise ValueError(f"wav must be [B, T], got {tuple(wav.shape)}")
     B, Twav = wav.shape
@@ -414,25 +472,31 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
     if C % TILE[1]:
         raise ValueError(f"the frontend kernel needs a width that is a multiple of {TILE[1]}, "
                          f"not {C}")
-    scale, shift = fold if fold is not None else groupnorm_fold(
-        wav, w["w0"], w["gamma"], w["beta"], wav_len)
+    if ln:  # the kernels take the seven norms where the GroupNorm's fold goes
+        _check_ln(C, low, fold)
+        scale, shift = w["gamma"], w["beta"]
+    else:
+        scale, shift = fold if fold is not None else groupnorm_fold(
+            wav, w["w0"], w["gamma"], w["beta"], wav_len)
+    norm, affine = ((LAYERS, C), (LAYERS, C)) if ln else ((C,), (B, C))
     _check(dict(w, wav=wav, scale=scale, shift=shift),
            {"wav": (B, Twav), "w0": (C, 10), "wk3": (4, C, 3 * C), "wk2": (2, C, 2 * C),
-            "gamma": (C,), "beta": (C,), "scale": (B, C), "shift": (B, C)}, wav.device,
+            "gamma": norm, "beta": norm, "scale": affine, "shift": affine}, wav.device,
            {"wk3": compute_dtype, "wk2": compute_dtype})
     plan = frontend_plan(B, Twav, C, _sm_count(wav.device.index or 0), compute_dtype)
-    splits = _splits(plan)
+    splits, tiles = _splits(plan), _tiles(plan)
     lib = _lib()
-    suffix = "_bf16" if low else ""
+    suffix = "_ln" if ln else "_bf16" if low else ""
     out = torch.empty((B, frames, C), dtype=torch.float32, device=wav.device)
-    nbytes = getattr(lib, f"edt_conv_frontend{suffix}_workspace")(B, Twav, C, splits)
+    nbytes = getattr(lib, f"edt_conv_frontend{suffix}_workspace")(
+        B, Twav, C, splits, *((tiles,) if ln else ()))
     work = torch.empty(nbytes if low else nbytes * 4, dtype=torch.uint8, device=wav.device)
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"edt_conv_frontend{suffix}")(
             wav.data_ptr(), out.data_ptr(), work.data_ptr(), w["w0"].data_ptr(),
             w["wk3"].data_ptr(), w["wk2"].data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            B, Twav, C, splits, *((_tiles(plan),) if low else ()), stream,
+            B, Twav, C, splits, *((tiles,) if low else ()), stream,
         )
     with _LAUNCHES_LOCK:  # handler threads launch it at once (stream preps)
         if low:
@@ -446,6 +510,18 @@ def conv_frontend(wav: torch.Tensor, w: Dict[str, torch.Tensor], fold=None,
 conv_frontend.launches = 0
 conv_frontend.bf16_launches = 0
 _LAUNCHES_LOCK = threading.Lock()
+
+
+def _check_ln(C: int, low: bool, fold) -> None:
+    """Raise unless the LayerNorm mode takes a call at width ``C``."""
+    if not low:
+        raise ValueError("the frontend kernel's LayerNorm mode runs at bfloat16 (a float32 "
+                         "LayerNorm stack takes the modules)")
+    if C % LN_WIDTH or C > LN_MAX_WIDTH:
+        raise ValueError(f"the LayerNorm mode needs a width that is a multiple of {LN_WIDTH}, "
+                         f"at most {LN_MAX_WIDTH}, not {C}")
+    if fold is not None:
+        raise ValueError("a LayerNorm stack has no GroupNorm fold")
 
 
 def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
@@ -468,9 +544,13 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
     with ``compute_dtype`` bfloat16, bf16 input and weights for conv1-6 and a
     bf16 output for conv0-5) and raises on anything else, CPU tensors
     included; it never falls back.  Counted in
-    ``conv_frontend_layer.launches`` (``.bf16_launches``).
+    ``conv_frontend_layer.launches`` (``.bf16_launches``).  A LayerNorm
+    stack's ``w`` runs the layer in the LayerNorm mode (bfloat16, no
+    ``scale`` or ``shift``: the layer's norm comes from ``w``; its mma.sync
+    tile writes partial sums whatever ``splits``).
     """
     low = _compute_dtype(compute_dtype) != torch.float32
+    ln = layer_norm_mode(w)
     if x.device.type != "cuda":
         raise ValueError(f"conv_frontend_layer runs on CUDA tensors only, not {x.device} "
                          "(its plain version is conv_frontend_layer_plain)")
@@ -493,7 +573,12 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
     tensors, expected = {"x": x, "W": W}, {"W": (C, k * (1 if layer == 0 else C))}
     expected["x"] = (B, Tin) if layer == 0 else (B, Tin, C)
     dtypes = {"x": compute_dtype, "W": compute_dtype} if low and layer > 0 else {}
-    if layer == 0:
+    if ln:
+        _check_ln(C, low, None if scale is None and shift is None else (scale, shift))
+        scale, shift = w["gamma"][layer], w["beta"][layer]
+        tensors.update(scale=scale, shift=shift)
+        expected.update(scale=(C,), shift=(C,))
+    elif layer == 0:
         if scale is None or shift is None:
             raise ValueError("layer 0 takes conv0's folded GroupNorm scale and shift")
         tensors.update(scale=scale, shift=shift)
@@ -512,12 +597,15 @@ def conv_frontend_layer(x: torch.Tensor, layer: int, w: Dict[str, torch.Tensor],
         raise ValueError(f"splits must be 1 in the wgmma tile {tile}, got {splits}")
     out_dtype = compute_dtype if low and layer < LAYERS - 1 else torch.float32
     out = torch.empty((B, M, C), dtype=out_dtype, device=x.device)
-    work = torch.empty(splits * B * M * C, dtype=torch.float32, device=x.device) if splits > 1 \
+    partials = splits > 1 or (ln and layer > 0 and tile == 0)
+    work = torch.empty(splits * B * M * C, dtype=torch.float32, device=x.device) if partials \
         else None  # the split-K partial sums
     lib = _lib()
+    entry = lib.edt_conv_layer_ln if ln else lib.edt_conv_layer_bf16 if low else \
+        lib.edt_conv_layer
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = (lib.edt_conv_layer_bf16 if low else lib.edt_conv_layer)(
+        err = entry(
             x.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(), W.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), layer, B, Tin, C, splits,
@@ -560,8 +648,9 @@ def fast_encode(encoder, wav: torch.Tensor, weights: Dict[str, torch.Tensor],
 
     ``weights`` are ``pack_frontend_weights(encoder.hubert.feature_extractor,
     compute_dtype)``, packed once by the caller.  Only the hubert-base conv
-    stack is supported: any other raises.  ``compute_dtype`` defaults to
-    float32, not to the JAX function's bfloat16 (module docstring).
+    stack is supported (with its GroupNorm, or WavLM's LayerNorms at
+    bfloat16): any other raises.  ``compute_dtype`` defaults to float32,
+    not to the JAX function's bfloat16 (module docstring).
     """
     check_base_specs(encoder.hubert_cfg)
     wav = wav.float().contiguous()

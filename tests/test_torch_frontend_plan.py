@@ -84,6 +84,18 @@ def test_workspace_covers_the_plan(B, n):
     assert work == B * 512 * (f0 + f1) + max(partials or [0])
 
 
+@pytest.mark.parametrize("B,n", [(32, 32000), (32, 160000), (2, 8000), (1, 80000)])
+def test_layernorm_workspace_covers_the_mma_sync_layers(B, n):
+    """The LayerNorm mode's workspace: every layer on the mma.sync tile
+    (tile 0) writes float32 partial sums, split or not; the wgmma tiles none."""
+    plan = ff.frontend_plan(B, n, dtype=torch.bfloat16)
+    f0, f1 = plan[0]["M"], plan[1]["M"]
+    on_slab = [p["splits"] * p["M"] for p in plan[1:] if p["tile_index"] == 0]
+    work = ff.frontend_workspace(B, plan, torch.bfloat16, layer_norm=True)
+    assert work == B * 512 * (f0 + f1) // 2 + B * 512 * max(on_slab or [0])
+    assert work >= ff.frontend_workspace(B, plan, torch.bfloat16)
+
+
 def test_plan_fills_the_card_at_5_seconds():
     """wav [1, 80000] on 132 SMs: conv0 and conv1 launch >= 132 blocks; every
     layer that would not fill the card alone runs split-K as one wave of

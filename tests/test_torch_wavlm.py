@@ -4,7 +4,9 @@ reference (``benchmark/reference/wavlm.py``) against transformers'
 against both, its bf16 plain route, the packed GEMM the card's kernel
 reads (``Attention.packed_input``) against the four projections,
 ``wav_len`` masking, ``wavlm_state_dict_from_hf``, the encoder named by
-``hubert_id``, and ``train()`` with a tiny WavLM frozen in it.
+``hubert_id``, ``train()`` with a tiny WavLM frozen in it, and the conv
+stack's plain version in the frontend kernels' LayerNorm mode with the
+routes that take it.
 
 All at a tiny size (width 32-128, 2-3 layers) with the published bucket
 numbers (320 buckets, distance 800), stable (pre-LN) layers and a
@@ -23,6 +25,8 @@ from edge_diffusion_tts_tpu_torch.models import (EdgeDiffusionDecoder, HubertCon
                                                  SemanticEncoder, hubert_config_for)
 from edge_diffusion_tts_tpu_torch.models.hubert import (HubertEncoder, relative_buckets,
                                                         relpos_kernel_serves)
+from edge_diffusion_tts_tpu_torch.models.hubert import FeatureExtractor
+from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
 from edge_diffusion_tts_tpu_torch.ops.fused_frontend import kernel_serves
 from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
 from edge_diffusion_tts_tpu_torch.weights import wavlm_state_dict_from_hf
@@ -263,3 +267,119 @@ def test_train_follows_hubert_id(tmp_path, monkeypatch):
     assert "hubert.encoder.layers.0.attention.rel_attn_embed.weight" in frozen
     assert not any(k.startswith("encoder.hubert.") or "hubert" in k.split(".")
                    for k in state.optimizer.params)
+
+
+# -- the conv stack in the frontend kernels' LayerNorm mode ----------------------------------
+
+BASE_CONVS = dict(conv_kernel=(10, 3, 3, 3, 3, 2, 2), conv_stride=(5, 2, 2, 2, 2, 2, 2))
+
+
+def layernorm_stack(width: int, dtype=torch.float32) -> FeatureExtractor:
+    """WavLM's conv stack (hubert-base's kernels and strides, a LayerNorm
+    after every conv) at ``width``, with each norm's gamma and beta drawn."""
+    torch.manual_seed(width)
+    fe = FeatureExtractor(tiny_wavlm(conv_dim=(width,) * 7, **BASE_CONVS), dtype)
+    with torch.no_grad():
+        for layer in fe.conv_layers:
+            layer.conv.weight.normal_(0, (2.0 / layer.conv.weight[0].numel()) ** 0.5)
+            layer.layer_norm.weight.add_(0.1 * torch.randn(width))
+            layer.layer_norm.bias.add_(0.1 * torch.randn(width))
+    return fe.eval()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("width", [16, 512])
+def test_layernorm_plain_is_the_feature_extractor(width, masked):
+    """``conv_frontend_plain`` over packed LayerNorm weights ([7, C] norms):
+    the float32 ``FeatureExtractor`` to 1e-5 relative, the per-layer plain
+    version chained bit for bit; at bf16, in the kernel's rounding order (one
+    bf16 rounding a layer, after the GELU), within 2e-2 of the bf16 modules
+    and no farther from float32 than they are (they round the wav, w0, each
+    conv's output and each norm's).  ``wav_len``: a zero-padded row's frames
+    inside its true length are its exact-length call's (1e-5: the CPU's
+    convolutions sum in an order that follows the length)."""
+    fe = layernorm_stack(width)
+    w = ff.pack_frontend_weights(fe)
+    assert ff.layer_norm_mode(w) and w["gamma"].shape == w["beta"].shape == (7, width)
+    wav = torch.randn(2, 6000, generator=torch.Generator().manual_seed(width))
+    wav_len = torch.tensor([6000, 3700]) if masked else None
+    if masked:
+        wav[1, 3700:] = 0.0
+    with torch.no_grad():
+        want = fe(wav, wav_len=wav_len)
+        got = ff.conv_frontend_plain(wav, w, wav_len=wav_len)
+        assert rel_gap(got, want) <= 1e-5
+        x = wav
+        for layer in range(ff.LAYERS):
+            x = ff.conv_frontend_layer_plain(x, layer, w)
+        assert torch.equal(x, got)
+        fe16 = FeatureExtractor(fe.cfg, torch.bfloat16).eval()
+        fe16.load_state_dict(fe.state_dict())
+        modules = fe16(wav, wav_len=wav_len).float()
+        wb = ff.pack_frontend_weights(fe16, torch.bfloat16)
+        low = ff.conv_frontend_plain(wav, wb, wav_len=wav_len, compute_dtype=torch.bfloat16)
+        assert low.dtype == torch.float32 and wb["wk3"].dtype == torch.bfloat16
+        assert rel_gap(low, modules) <= 2e-2
+        assert 0 < rel_gap(low, want) <= rel_gap(modules, want)
+        if masked:
+            n = ff.frame_counts(3700)[-1]
+            alone = ff.conv_frontend_plain(wav[1:, :3700], w)
+            assert rel_gap(got[1:, :n], alone) <= 1e-5
+
+
+def test_kernel_serves_a_layernorm_stack_at_bf16():
+    """The frontend kernel takes WavLM's stack at bf16 compute (its LayerNorm
+    mode), not at float32; hubert-base's GroupNorm stack at either; a
+    LayerNorm stack only at the mode's widths (multiples of 256, to 1024)."""
+    bf16 = torch.bfloat16
+    assert kernel_serves(HubertConfig.wavlm_large(), bf16)
+    assert not kernel_serves(HubertConfig.wavlm_large(), torch.float32)
+    assert not kernel_serves(HubertConfig.wavlm_large())
+    assert kernel_serves(HubertConfig()) and kernel_serves(HubertConfig(), bf16)
+    for width, takes in ((128, False), (256, True), (1024, True), (2048, False)):
+        hc = tiny_wavlm(conv_dim=(width,) * 7, **BASE_CONVS)
+        assert kernel_serves(hc, bf16) == takes, width
+    assert not kernel_serves(tiny_wavlm(), bf16)  # not hubert-base's kernels
+    ff.check_base_specs(HubertConfig.wavlm_large())
+    with pytest.raises(ValueError, match="hubert-base stack"):
+        ff.check_base_specs(tiny_wavlm())
+
+
+def test_edge_inference_takes_the_kernel_route_at_bf16():
+    """``EdgeInference`` over a WavLM-shaped encoder built at bf16 (WavLM's
+    conv stack at width 256) fixes the kernel route, with the frontend
+    weights packed at bf16 and the seven norms [7, C]; its tokens are
+    ``encode`` over ``conv_frontend`` at bf16 (on the CPU the plain
+    version).  A float32 encoder of hubert-base's stack keeps the float32
+    packing of ``pack_frontend_weights``."""
+    cfg = CFG(hidden=32, layers=1, heads=2, hubert_id="microsoft/wavlm-large",
+              compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    enc = SemanticEncoder(cfg, tiny_wavlm(conv_dim=(256,) * 7, **BASE_CONVS),
+                          dtype=torch.bfloat16)
+    sched = DiffusionSchedule.create(cfg.diff_steps)
+    engine = EdgeInference(cfg, sched, EdgeDiffusionDecoder(cfg, dtype=torch.bfloat16),
+                           backend="fused", device="cpu", encoder=enc)
+    w = engine.frontend_weights
+    assert engine.encode_route == "kernel"
+    assert w["wk3"].dtype == w["wk2"].dtype == torch.bfloat16 and w["gamma"].shape == (7, 256)
+    wav = 0.3 * torch.randn(2, 6400, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        want = enc.encode(wav, conv_feats=ff.conv_frontend_plain(wav, w,
+                                                                 compute_dtype=torch.bfloat16))
+    assert torch.equal(ff.fast_encode(enc, wav, w, torch.bfloat16), want)
+    mel = engine.generate_from_audio(wav, 2)
+    assert mel.shape == (2, 2 * want.shape[1], cfg.n_mels) and torch.isfinite(mel).all()
+
+    base = SemanticEncoder(CFG(hidden=32, layers=1, heads=2),
+                           HubertConfig(conv_dim=(128,) * 7, **{k: TINY[k] for k in TINY
+                                                                if "conv_dim" != k and
+                                                                not k.startswith("conv_")}))
+    flagship = EdgeInference(CFG(hidden=32, layers=1, heads=2), sched,
+                             EdgeDiffusionDecoder(CFG(hidden=32, layers=1, heads=2)),
+                             device="cpu", encoder=base)
+    packed = ff.pack_frontend_weights(base.hubert.feature_extractor)
+    assert flagship.encode_route == "kernel" and set(flagship.frontend_weights) == set(packed)
+    assert all(torch.equal(flagship.frontend_weights[k], v) and v.dtype == torch.float32
+               for k, v in packed.items())
+    assert packed["gamma"].shape == (128,)

@@ -1,5 +1,6 @@
-"""WavLM's gated relative-position attention kernel (csrc/relpos_attention16.cuh)
-and the WavLM encoder's bf16 route on the card.
+"""WavLM's gated relative-position attention kernel (csrc/relpos_attention16.cuh),
+the frontend kernels' LayerNorm mode (csrc/conv_frontend.cu) and the WavLM
+encoder's bf16 route on the card.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA device;
 like ``test_torch_kernels_gpu.py`` this file imports neither JAX nor the JAX
@@ -16,6 +17,7 @@ from edge_diffusion_tts_tpu_torch.inference import EdgeInference
 from edge_diffusion_tts_tpu_torch.models import (EdgeDiffusionDecoder, HubertConfig,
                                                  SemanticEncoder)
 from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
+from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
 from edge_diffusion_tts_tpu_torch.ops.fused_denoise import fused_generate_mel
 from edge_diffusion_tts_tpu_torch.models.hubert import gated_attention as relpos_attention_plain
 from edge_diffusion_tts_tpu_torch.ops.relpos_attention import relpos_attention16
@@ -126,8 +128,8 @@ def test_one_launch_per_layer_per_call(cuda):
 
 def test_edge_inference_at_bf16_is_encode_then_the_bf16_loop(cuda):
     """``EdgeInference(backend="fused")`` at a bf16 configuration: the tokens
-    of ``encoder.encode`` and the mel of ``fused_generate_mel`` at bf16, bit
-    for bit."""
+    of ``fast_encode`` (the conv stack on the frontend kernels' LayerNorm
+    mode) and the mel of ``fused_generate_mel`` at bf16, bit for bit."""
     cfg = CFG(hubert_id="microsoft/wavlm-large", hubert_layer=21, compute_dtype="bfloat16",
               use_v_prediction=True, use_depthwise=True)
     enc = wavlm_encoder(cfg, 21, cuda)
@@ -137,12 +139,128 @@ def test_edge_inference_at_bf16_is_encode_then_the_bf16_loop(cuda):
     sched = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
     engine = EdgeInference(cfg, sched, dec, prediction="v", backend="fused", device=cuda,
                            encoder=enc)
-    assert engine.encode_route == "modules"
+    assert engine.encode_route == "kernel"
+    assert engine.frontend_weights["wk3"].dtype == torch.bfloat16
+    assert engine.frontend_weights["gamma"].shape == (7, 512)
     wav = 0.1 * torch.randn(4, 40000, device=cuda)
-    tokens = enc.encode(wav)
+    tokens = ff.fast_encode(enc, wav, engine.frontend_weights, torch.bfloat16)
     x = torch.randn(4, 2 * tokens.shape[1], cfg.n_mels, device=cuda)
     got = engine.generate_from_audio(wav, 4, x_T=x)
     with torch.no_grad():
         want = fused_generate_mel(cfg, sched.to(cuda), dec, tokens, x, 4, "v",
                                   compute_dtype=torch.bfloat16)
     assert torch.equal(got, want)
+
+
+# -- the frontend kernels' LayerNorm mode --------------------------------------------------
+
+
+def layernorm_extractor(device):
+    """WavLM-Large's conv stack at bf16 with seeded weights: the convs at
+    He scale, each LayerNorm's gamma and beta moved off 1 and 0."""
+    torch.manual_seed(0)
+    from edge_diffusion_tts_tpu_torch.models.hubert import FeatureExtractor
+
+    fe = FeatureExtractor(HubertConfig.wavlm_large(), dtype=torch.bfloat16)
+    with torch.no_grad():
+        for layer in fe.conv_layers:
+            layer.conv.weight.normal_(0, (2.0 / layer.conv.weight[0].numel()) ** 0.5)
+            layer.layer_norm.weight.add_(0.1 * torch.randn(512))
+            layer.layer_norm.bias.add_(0.1 * torch.randn(512))
+    return fe.to(device).eval()
+
+
+def bf16_close(got, want, normwise=4e-3):
+    """Within one bf16 rounding flip of each element (summation orders
+    differ) and ``normwise`` over all."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    assert float(err.max()) <= 2 ** -7 * max(1.0, float(want.abs().max())), float(err.max())
+    assert float(err.norm() / want.norm()) <= normwise, float(err.norm() / want.norm())
+
+
+# conv1-6 on each bf16 tile: the two wgmma tiles (clusters of 2 and 4 blocks)
+# and the mma.sync tile with one and with four K splits
+LN_ROUTES = [dict(tile=1), dict(tile=2), dict(tile=0, splits=1), dict(tile=0, splits=4)]
+
+
+@pytest.mark.parametrize("seconds", [2, 7, 10])
+def test_layernorm_mode_layers_match_the_plain_version(cuda, seconds):
+    """Each layer of the LayerNorm mode at B = 32 against
+    ``conv_frontend_layer_plain`` on the same input (the plain chain's), in
+    every tile; conv0 on its kernel."""
+    fe = layernorm_extractor(cuda)
+    w = ff.pack_frontend_weights(fe, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(seconds)
+    x = 0.1 * torch.randn(32, 16000 * seconds, generator=g, device=cuda)
+    with torch.no_grad():
+        for layer in range(ff.LAYERS):
+            want = ff.conv_frontend_layer_plain(x, layer, w, compute_dtype=torch.bfloat16)
+            for route in [{}] if layer == 0 else LN_ROUTES:
+                got = ff.conv_frontend_layer(x, layer, w, compute_dtype=torch.bfloat16, **route)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype and got.shape == want.shape, (layer, route)
+                bf16_close(got, want)
+            x = want
+
+
+def test_layernorm_mode_repeats_and_counts_seven_launches(cuda):
+    """A call of the LayerNorm mode at [32, 112000] (the 7 s bucket): the
+    plain chain's features within bf16 rounding (normwise 1e-2: rounding
+    flips feed the next layer), two calls bit for bit, seven layer launches
+    each, and none in a GroupNorm call; the library's workspace is the
+    plan's (``frontend_workspace(..., layer_norm=True)``)."""
+    fe = layernorm_extractor(cuda)
+    w = ff.pack_frontend_weights(fe, torch.bfloat16)
+    wav = 0.1 * torch.randn(32, 112000, generator=torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda)
+    with torch.no_grad():
+        before = ff.ln_launches()
+        got = ff.conv_frontend(wav, w, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert ff.ln_launches() - before == 7
+        assert torch.equal(ff.conv_frontend(wav, w, compute_dtype=torch.bfloat16), got)
+        assert ff.ln_launches() - before == 14
+        want = ff.conv_frontend_plain(wav, w, compute_dtype=torch.bfloat16)
+    err = float((got - want).norm() / want.norm())
+    assert got.shape == (32, 349, 512) and got.dtype == torch.float32 and err <= 1e-2, err
+    for B, n in ((32, 112000), (32, 32000), (1, 80000), (2, 8000)):
+        plan = ff.frontend_plan(B, n, dtype=torch.bfloat16)
+        assert ff._lib().edt_conv_frontend_ln_workspace(B, n, 512, ff._splits(plan),
+                                                       ff._tiles(plan)) == \
+            4 * ff.frontend_workspace(B, plan, torch.bfloat16, layer_norm=True)
+    from edge_diffusion_tts_tpu_torch.models.hubert import FeatureExtractor
+
+    torch.manual_seed(0)
+    base = FeatureExtractor(HubertConfig()).to(cuda).eval()
+    before = ff.ln_launches()
+    with torch.no_grad():
+        ff.conv_frontend(wav[:2], ff.pack_frontend_weights(base, torch.bfloat16),
+                         compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ff.ln_launches() == before
+
+
+def test_kernel_route_tokens_against_the_modules_route(cuda):
+    """Layer 21 of WavLM-Large at bf16 on [4, 48000]: the kernel route's
+    hidden state and tokens against the float32 modules (the reference
+    here), no farther than the bf16 modules route's."""
+    cfg = CFG(hubert_id="microsoft/wavlm-large", hubert_layer=21, compute_dtype="bfloat16")
+    enc = wavlm_encoder(cfg, 21, cuda).to(cuda)  # the FSQ's basis is made on the CPU
+    ref = SemanticEncoder(cfg, HubertConfig.wavlm_large())
+    ref.load_state_dict(enc.state_dict())
+    ref = ref.to(cuda).eval()
+    w = ff.pack_frontend_weights(enc.hubert.feature_extractor, torch.bfloat16)
+    wav = 0.1 * torch.randn(4, 48000, generator=torch.Generator(device=cuda).manual_seed(2),
+                            device=cuda)
+    with torch.no_grad():
+        feats = ff.conv_frontend(wav, w, compute_dtype=torch.bfloat16)
+        kernel = enc.extract_hubert(wav, conv_feats=feats).float()
+        modules = enc.extract_hubert(wav).float()
+        want = ref.extract_hubert(wav).float()
+        tokens = [ff.fast_encode(enc, wav, w, torch.bfloat16), enc.encode(wav), ref.encode(wav)]
+    gap_kernel = float((kernel - want).norm() / want.norm())
+    gap_modules = float((modules - want).norm() / want.norm())
+    assert gap_kernel <= 1.1 * gap_modules, (gap_kernel, gap_modules)
+    agree = [float((t == tokens[2]).float().mean()) for t in tokens[:2]]
+    assert agree[0] >= agree[1] - 0.02, agree
