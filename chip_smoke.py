@@ -1425,6 +1425,7 @@ def seeded_encoder(torch, cfg, seed: int, hubert_cfg=None):
                 p.copy_(torch.randn(p.shape, generator=gen) * math.sqrt(g / p[0].numel()))
             else:
                 p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    enc.hubert.pack_frontend()  # the drawn conv stack, packed for the frontend kernel
     return enc.eval()
 
 
@@ -1682,14 +1683,16 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
         assert torch.isfinite(mel).all(), "non-finite mel"
 
     # The kernel route against the module route (exact GroupNorm, F.conv1d).
-    w = engine.frontend_weights
+    assert encoder.hubert.frontend_kernel
     agree = []
     with torch.no_grad():
         for wav in (wav5, wav2):
-            h_kernel = encoder.extract_hubert(wav, conv_feats=ff.conv_frontend(wav, w))
-            h_module = encoder.extract_hubert(wav)
+            modules = encoder.hubert.feature_extractor(wav)
+            h_kernel = encoder.extract_hubert(wav)
+            h_module = encoder.extract_hubert(wav, conv_feats=modules)
             feat_err = (h_kernel - h_module).abs().max().item()
-            tok = (ff.fast_encode(encoder, wav, w) == encoder.encode(wav)).float().mean().item()
+            tok = (ff.fast_encode(encoder, wav) == encoder.encode(wav, conv_feats=modules)
+                   ).float().mean().item()
             agree.append((feat_err, tok))
             print(f"[audio] wav {tuple(wav.shape)}: layer-9 feature max err {feat_err:.3g}, "
                   f"tokens equal {tok:.4%}")
@@ -1699,7 +1702,7 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
     split = []
     for req in requests:
         t0 = time.perf_counter()
-        tokens = ff.fast_encode(encoder, req["wav"], w)
+        tokens = ff.fast_encode(encoder, req["wav"])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         engine.generate_mel(tokens, num_steps=4, temperature=req.get("temperature", 1.0),
@@ -1833,11 +1836,12 @@ def phase_relpos(torch) -> dict:
     with torch.no_grad():
         for p in enc.parameters():
             p.add_(0.02 * torch.randn_like(p))
+    enc.hubert.pack_frontend()
     decoder = seeded_decoder(torch, cfg, PRENET_SEED).to(DEVICE)
     schedule = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
     engine = EdgeInference(cfg, schedule, decoder, prediction="v", backend="fused",
                            device=DEVICE, encoder=enc.eval())
-    assert engine.encode_route == "kernel", engine.encode_route
+    assert engine.encoder.hubert.frontend_kernel
     wav = 0.1 * torch.randn(B, 160000, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
     engine.generate_from_audio(wav, num_steps=4)  # warm-up
     torch.cuda.synchronize()
@@ -2061,7 +2065,7 @@ def phase_serve(torch, cfg, decoder, encoder):
     pipe = sched.pipe
     out = {}
     try:
-        assert pipe.encode_route == "kernel", pipe.encode_route
+        assert pipe.encoder.hubert.frontend_kernel
         rng = np.random.RandomState(9000 + SEED)
         # Every count to 0 just before the traffic (the phase's main path).
         ff.conv_frontend.launches = 0
@@ -2280,9 +2284,9 @@ def phase_serve(torch, cfg, decoder, encoder):
         wav_b[0, :wavs[2].size] = torch.from_numpy(wavs[2])
         n = wavs[2].size + (-wavs[2].size) % pipe.sem_stride
         with torch.no_grad():
-            feats = ff.conv_frontend(wav_b, pipe.frontend_weights, wav_len=n)
-            idx_k = pipe.encoder(wav_b, wav_len=n, conv_feats=feats)[1][:, :S]
-            idx_m = pipe.encoder(wav_b, wav_len=n)[1][:, :S]
+            modules = pipe.encoder.hubert.feature_extractor(wav_b, wav_len=n)
+            idx_k = pipe.encoder(wav_b, wav_len=n)[1][:, :S]
+            idx_m = pipe.encoder(wav_b, wav_len=n, conv_feats=modules)[1][:, :S]
         tok = (idx_k == idx_m).float().mean().item()
         assert tok >= 0.99, f"kernel and module routes: tokens equal {tok:.4%}"
         print(f"[serve] prep of the 6 s stream, 8 s bucket, {S} valid latents: FSQ indices, "
@@ -2295,10 +2299,11 @@ def phase_serve(torch, cfg, decoder, encoder):
         wav2[0, 80000:] = 0.0
         cases = encoded + [(wav2, torch.tensor([80000, 128000], device=DEVICE))]
         fold_errs = []
+        w = pipe.encoder.hubert.packed_frontend()
         for wav_c, n_c in cases:
-            got = ff.conv_frontend(wav_c, pipe.frontend_weights, wav_len=n_c)
+            got = ff.conv_frontend(wav_c, w, wav_len=n_c)
             torch.cuda.synchronize()
-            want = ff.conv_frontend_plain(wav_c, pipe.frontend_weights, wav_len=n_c)
+            want = ff.conv_frontend_plain(wav_c, w, wav_len=n_c)
             err = (got - want).abs().max().item()
             excess = ((got - want).abs() - 1e-3 * want.abs()).max().item()
             n_txt = tuple(n_c.tolist()) if torch.is_tensor(n_c) else n_c
@@ -2675,12 +2680,11 @@ def phase_train(torch, cuts=None, hubert_cfg=None, utterances: int = TRAIN_UTTER
           f"{rtags} from step {meta['step']} to {resumed.step} in {resume_s:.3f} s")
 
     # -- 4. the precomputed-features path --------------------------------------------
-    w = ff.pack_frontend_weights(state.encoder.hubert.feature_extractor)
+    assert state.encoder.hubert.frontend_kernel
 
     def hubert_apply(wav):
-        x = torch.from_numpy(wav).to(DEVICE)
         with torch.no_grad():
-            return state.encoder.extract_hubert(x, conv_feats=ff.conv_frontend(x, w))
+            return state.encoder.extract_hubert(torch.from_numpy(wav).to(DEVICE))
 
     ff.conv_frontend.launches = 0
     t0 = time.perf_counter()
@@ -2727,7 +2731,7 @@ def phase_train(torch, cuts=None, hubert_cfg=None, utterances: int = TRAIN_UTTER
     wav = Collate(cfg0, deterministic=True)([ds[i] for i in range(B)])["wav"]
     with torch.no_grad():
         x = torch.from_numpy(wav).to(DEVICE)
-        feats = state.encoder.extract_hubert(x, conv_feats=ff.conv_frontend(x, w)).cpu()
+        feats = state.encoder.extract_hubert(x).cpu()
     rs = np.random.RandomState(5000 + SEED)
     batch = {"wav": wav, "hubert_features": feats, "t": rs.randint(1, cfg0.max_timestep, B),
              "noise": rs.randn(B, cfg0.segment_mel_frames, cfg0.n_mels).astype(np.float32)}
@@ -3014,14 +3018,13 @@ def phase_large_batch(torch, cuts=None, hubert_cfg=None, utterances: int = LARGE
     cfg0 = dataclasses.replace(cfg, dropout=0.0, cfg_dropout=0.0, batch_size=W)
     enc_sd = {k: v.cpu() for k, v in state.encoder.state_dict().items()}
     dec_sd = {k: v.cpu() for k, v in state.decoder.state_dict().items()}
-    w32 = ff.pack_frontend_weights(state.encoder.hubert.feature_extractor)
     x = wav[:W]
     with torch.no_grad():
         enc32 = init_models(cfg32, hubert_cfg)[0]
         enc32.load_state_dict(enc_sd)
         enc32 = enc32.to(DEVICE).eval()
         ff.conv_frontend.launches = 0
-        feats = enc32.extract_hubert(x, conv_feats=ff.conv_frontend(x, w32)).cpu()
+        feats = enc32.extract_hubert(x).cpu()
         f32_launches += ff.conv_frontend.launches
         del enc32
     rs = np.random.RandomState(14000 + SEED)
@@ -3696,15 +3699,14 @@ def phase_parallel(torch, cfg, decoder, hubert=None, train_cuts=None,
 
     # d. the TP encode against fast_encode on one device.
     enc = base[0].to(DEVICE)
-    w = ff.pack_frontend_weights(enc.hubert.feature_extractor)
     tp_wav = torch.from_numpy(spec["tp_wav"]).to(DEVICE)
     with torch.inference_mode():
-        tokens = ff.fast_encode(enc, tp_wav, w)
-        feats = enc.extract_hubert(tp_wav, conv_feats=ff.conv_frontend(tp_wav, w))
+        tokens = ff.fast_encode(enc, tp_wav)
+        feats = enc.extract_hubert(tp_wav)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(PAR_TIMED):
-            ff.fast_encode(enc, tp_wav, w)
+            ff.fast_encode(enc, tp_wav)
         torch.cuda.synchronize()
     tp_single_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
     feat_err = float((r0["tp"]["features"] - feats.cpu()).abs().max())
@@ -4018,16 +4020,14 @@ def parallel_bf16(torch, ranks, base, batches, spec, singles, large, note) -> di
 
     # d. the TP encode of a bf16 encoder against the single-device bf16 encode (kernel route).
     enc = par_models16(torch, fcfg, base[:1], "float32")[0].to(DEVICE)
-    w16 = ff.pack_frontend_weights(enc.hubert.feature_extractor, bf16)
     tp_wav = torch.from_numpy(spec["tp_wav"]).to(DEVICE)
     with torch.inference_mode():
-        conv = ff.conv_frontend(tp_wav, w16, compute_dtype=bf16)
-        feats = enc.extract_hubert(tp_wav, conv_feats=conv).float().cpu()
-        tokens = ff.fast_encode(enc, tp_wav, w16, compute_dtype=bf16).cpu()
+        feats = enc.extract_hubert(tp_wav).float().cpu()
+        tokens = ff.fast_encode(enc, tp_wav).cpu()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(PAR_TIMED):
-            ff.fast_encode(enc, tp_wav, w16, compute_dtype=bf16)
+            ff.fast_encode(enc, tp_wav)
         torch.cuda.synchronize()
     tp_ms = (time.perf_counter() - t0) * 1e3 / PAR_TIMED
     tok32 = singles["tp_tokens"]
@@ -4261,7 +4261,7 @@ def phase_cli(torch, train_cuts=None):
         prediction = "v" if cfg.use_v_prediction else "eps"
         engine = EdgeInference(cfg, schedule, decoder, prediction=prediction, device=DEVICE,
                                encoder=encoder)
-        assert engine.encode_route == "kernel", engine.encode_route
+        assert engine.encoder.hubert.frontend_kernel
 
         # -- a. generate ------------------------------------------------------------
         w5 = _write_wav16(os.path.join(base, "ref_5s.wav"), synthetic_wav(5.0, 12000 + SEED))

@@ -434,20 +434,14 @@ def _precompute(args, device) -> None:
     from .config import CFG
     from .data import precompute_hubert_features
     from .models import HubertEncoder, hubert_config_for
-    from .ops import fused_frontend
 
     cfg = CFG()
     torch.manual_seed(0)
-    hubert_cfg = hubert_config_for(cfg.hubert_id)
-    hubert = HubertEncoder(hubert_cfg).to(device).eval()
-    weights = (fused_frontend.pack_frontend_weights(hubert.feature_extractor)
-               if fused_frontend.kernel_serves(hubert_cfg) else None)
+    hubert = HubertEncoder(hubert_config_for(cfg.hubert_id)).to(device).eval()
 
     def apply(wav):
-        x = torch.from_numpy(wav).to(device)
         with torch.no_grad():
-            feats = None if weights is None else fused_frontend.conv_frontend(x, weights)
-            return hubert.extract_layer(x, cfg.hubert_layer, conv_feats=feats)
+            return hubert.extract_layer(torch.from_numpy(wav).to(device), cfg.hubert_layer)
 
     print("WARNING: random-init HuBERT; pass converted weights for real use", file=sys.stderr)
     precompute_hubert_features(args.root, apply, limit=args.limit)

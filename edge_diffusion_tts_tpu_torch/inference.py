@@ -5,10 +5,9 @@
 log-mel [B, 2S, n_mels], by eta=0 DDIM (or DPM-Solver++) over
 EdgeDiffusionDecoder.  ``generate_from_audio(wav)``: a 16 kHz reference wav
 -> tokens through the ``SemanticEncoder`` (HuBERT layer 9 + projection +
-FSQ) -> ``generate_mel``; an encoder with the conv stack the conv-frontend
-kernel takes runs its frontend on that kernel (ops/fused_frontend.py::
-fast_encode) at the encoder's dtype, any other runs its modules, as the JAX
-package does.  Two backends:
+FSQ) -> ``generate_mel``; the encoder routes its own conv frontend
+(models/hubert.py: the conv-frontend kernel where it takes the stack at the
+encoder's dtype, the modules elsewhere).  Two backends:
 
 - ``"eager"`` (the JAX package's ``"xla"``): the module loop, one decoder
   forward per step; long sequences route their windowed self-attention to
@@ -34,7 +33,7 @@ import torch
 
 from .config import CFG, resolve_device, torch_dtype
 from .ops.fused_denoise import fused_generate_mel, pack_decoder_weights, start_noise
-from .ops.fused_frontend import fast_encode, kernel_serves, pack_frontend_weights
+from .ops.fused_frontend import fast_encode
 from .schedule import DiffusionSchedule, DPMSolverPP, ddim_sample
 from .utils.speed import span
 
@@ -46,11 +45,7 @@ class EdgeInference:
     reads the decoder as a v- (or x0-) prediction model, so it needs
     ``prediction != "eps"``.  The fused backend implements DDIM only and
     packs the decoder's weights once, when the object is built.  ``encoder``
-    (a ``SemanticEncoder``) enables ``generate_from_audio``.  Its route,
-    ``encode_route``, is fixed here: ``"kernel"`` when the conv-frontend
-    kernel takes its conv stack at the encoder's dtype (``kernel_serves``;
-    the frontend weights are packed here, at that dtype), else
-    ``"modules"``.
+    (a ``SemanticEncoder``) enables ``generate_from_audio``.
     """
 
     def __init__(
@@ -89,18 +84,6 @@ class EdgeInference:
             pack_decoder_weights(self.decoder, self.compute_dtype) if backend == "fused" else None
         )
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
-        # The encode route is fixed here: "kernel" (fast_encode) for a stack
-        # the frontend kernel takes at the encoder's dtype, "modules"
-        # (encoder.encode, the JAX package's route) for any other.
-        self.encode_route = None
-        self.frontend_weights = None
-        if encoder is not None:
-            dtype = self.encoder.dtype
-            self.encode_route = ("kernel" if kernel_serves(self.encoder.hubert_cfg, dtype)
-                                 else "modules")
-            if self.encode_route == "kernel":
-                self.frontend_weights = pack_frontend_weights(
-                    self.encoder.hubert.feature_extractor, dtype)
 
     def _sample(self, model_fn, x_T: torch.Tensor, num_steps: int) -> torch.Tensor:
         if self.sampler == "dpmpp":
@@ -178,10 +161,9 @@ class EdgeInference:
     ) -> torch.Tensor:
         """Reference wav [T] or [B, T] at 16 kHz -> normalized log-mel.
 
-        The tokens come from ``fast_encode`` (the conv frontend on its
-        kernel) on the ``"kernel"`` route, from ``encoder.encode`` on the
-        ``"modules"`` route; then ``generate_mel(tokens, num_steps, temperature,
-        generator, x_T=x_T)``.
+        The tokens come from ``fast_encode`` (the encoder's ``encode``, on
+        its own frontend route); then ``generate_mel(tokens, num_steps,
+        temperature, generator, x_T=x_T)``.
         """
         if self.encoder is None:
             raise ValueError("EdgeInference was constructed without an encoder")
@@ -189,10 +171,6 @@ class EdgeInference:
         if wav.dim() == 1:
             wav = wav[None, :]
         with span("prep:encode"):
-            if self.encode_route == "kernel":
-                sem_idx = fast_encode(self.encoder, wav, self.frontend_weights,
-                                      self.encoder.dtype)
-            else:
-                sem_idx = self.encoder.encode(wav)
+            sem_idx = fast_encode(self.encoder, wav)
         return self.generate_mel(sem_idx, num_steps, temperature=temperature,
                                  generator=generator, x_T=x_T)

@@ -7,7 +7,9 @@ training-mode call (``train=True``) draws its dropout masks (the
 ``use_dropout`` projection variant) and the VQ's dead-code permutation from
 the ``generator`` it is given.  ``dtype`` is the compute dtype of HuBERT,
 the projection and the FSQ's projections (the VQ computes in float32, as
-JAX's has no dtype).
+JAX's has no dtype).  Its HuBERT owns the conv frontend's route (the
+conv-frontend kernel where it takes the stack at ``dtype``, the modules
+elsewhere: models/hubert.py), so every caller just calls the encoder.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ class SemanticEncoder(nn.Module):
     def extract_hubert(self, wav: torch.Tensor, conv_feats=None, wav_len=None) -> torch.Tensor:
         """Frozen HuBERT hidden layer ``cfg.hubert_layer`` (9), clamped to the
         encoder's depth.  ``conv_feats`` replaces the conv frontend's output
-        (``ops/fused_frontend.fast_encode``); ``wav_len`` makes zero-padded
-        inputs exact (see ``HubertEncoder.forward``)."""
+        (a test's injection point); ``wav_len`` makes zero-padded inputs exact
+        (see ``HubertEncoder.forward``)."""
         layer = min(self.cfg.hubert_layer, self.hubert_cfg.num_layers)
         with torch.no_grad():
             return self.hubert.extract_layer(wav, layer, conv_feats=conv_feats,
@@ -84,9 +86,9 @@ class SemanticEncoder(nn.Module):
         """``wav_len`` (true sample count) makes zero-padded inputs exact, and
         zeroes the quantized features and indices at padded frames (the
         projection of a zeroed hidden state is not zero).  ``conv_feats``
-        replaces the conv frontend's output (``ops/fused_frontend.
-        conv_frontend``, computed with the same ``wav_len``).  ``train`` is
-        the JAX package's ``train=True, deterministic=False``."""
+        replaces the conv frontend's output (a test's injection point,
+        computed with the same ``wav_len``).  ``train`` is the JAX package's
+        ``train=True, deterministic=False``."""
         h = self.extract_hubert(wav, conv_feats=conv_feats, wav_len=wav_len)
         out = self._quantize(self._project(h, train, generator), train, generator)
         if wav_len is None:

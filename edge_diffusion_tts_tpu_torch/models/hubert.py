@@ -42,8 +42,14 @@ Parameter names follow the state dict of transformers' ``HubertModel``
 attention.q_proj.weight`` ...), with the positional conv's weight norm
 materialized into a plain ``weight``; ``weights.hubert_state_dict_from_hf``
 turns an HF state dict into this module's.  Attention and the dense layers
-are plain tensor ops.  The conv feature extractor has a CUDA kernel
-(``ops/fused_frontend.py``) that ``conv_feats`` takes the output of.
+are plain tensor ops.
+
+The encoder owns its conv frontend's route, and no caller decides it:
+where the conv-frontend kernel (``ops/fused_frontend.py``) takes the stack
+at the encoder's dtype (``kernel_serves``: hubert-base's stack, and a
+LayerNorm stack such as WavLM's at bfloat16 only), ``HubertEncoder`` keeps
+the stack's weights packed for that kernel and runs its frontend on it
+(on a CPU, its plain version); any other stack runs ``FeatureExtractor``.
 
 ``dtype`` is the compute dtype, as the JAX module's: with bfloat16 the wav
 is cast to bf16 before conv0 and every layer computes in bf16, but for the
@@ -56,7 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -459,14 +465,58 @@ class TransformerEncoder(nn.Module):
 
 
 class HubertEncoder(nn.Module):
-    """Full HuBERT; ``forward`` returns the hidden states (HF indices)."""
+    """Full HuBERT; ``forward`` returns the hidden states (HF indices).
+
+    ``frontend_kernel`` is whether the conv-frontend kernel takes ``cfg``'s
+    conv stack at ``dtype``.  Where it does, the stack's weights packed for
+    it (``pack_frontend_weights``) are non-persistent buffers
+    ``frontend_w0`` ... ``frontend_beta``: out of the state dict, moved by
+    ``.to()``, seen by ``functional_call``, and packed again, in place, by
+    every ``load_state_dict`` (``pack_frontend`` does it after any other
+    change to the stack's weights)."""
 
     def __init__(self, cfg: HubertConfig = HubertConfig(), dtype: torch.dtype = torch.float32):
         super().__init__()
+        from ..ops import fused_frontend as ff
+
         self.cfg, self.dtype = cfg, dtype
         self.feature_extractor = FeatureExtractor(cfg, dtype)
         self.feature_projection = FeatureProjection(cfg, dtype)
         self.encoder = TransformerEncoder(cfg, dtype)
+        self.frontend_kernel = ff.kernel_serves(cfg, dtype)
+        if self.frontend_kernel:
+            for name, w in ff.pack_frontend_weights(self.feature_extractor, dtype).items():
+                self.register_buffer(f"frontend_{name}", w, persistent=False)
+            self.register_load_state_dict_post_hook(HubertEncoder.pack_frontend)
+
+    @torch.no_grad()
+    def pack_frontend(self, *_) -> None:
+        """Pack the conv stack's weights as they are now into the frontend
+        buffers, in place (a holder of the buffers sees the new values);
+        also ``load_state_dict``'s post-hook."""
+        if self.frontend_kernel:
+            from ..ops import fused_frontend as ff
+
+            for name, w in ff.pack_frontend_weights(self.feature_extractor, self.dtype).items():
+                getattr(self, f"frontend_{name}").copy_(w)
+
+    def conv_features(self, wav: torch.Tensor, wav_len=None) -> torch.Tensor:
+        """wav [B, T] -> conv features [B, frames, conv_dim[-1]]: the
+        frontend kernel's ``conv_frontend`` at the encoder's dtype where
+        ``frontend_kernel``, the modules anywhere else."""
+        if not self.frontend_kernel:
+            return self.feature_extractor(wav, wav_len=wav_len)
+        from ..ops.fused_frontend import conv_frontend
+
+        return conv_frontend(wav.float().contiguous(), self.packed_frontend(), wav_len=wav_len,
+                             compute_dtype=self.dtype)
+
+    def packed_frontend(self) -> Dict[str, torch.Tensor]:
+        """The frontend buffers by ``pack_frontend_weights``' names (where
+        ``frontend_kernel``)."""
+        from ..ops.fused_frontend import FRONTEND_NAMES
+
+        return {name: getattr(self, f"frontend_{name}") for name in FRONTEND_NAMES}
 
     def forward(
         self,
@@ -475,15 +525,14 @@ class HubertEncoder(nn.Module):
         wav_len=None,
         num_layers: Optional[int] = None,
     ) -> List[torch.Tensor]:
-        """``conv_feats`` [B, frames, conv_dim[-1]] replaces the conv feature
-        extractor's output (the frontend kernel's route).  ``wav_len`` (true
+        """``conv_feats`` [B, frames, conv_dim[-1]] replaces
+        ``conv_features``' output (a test's injection point).  ``wav_len`` (true
         sample count, int or [B]) makes a zero-padded forward exact up to
         summation order: masked GroupNorm statistics, padded positions
         zeroed before the positional conv, padded keys masked out of every
         softmax, and padded frames zeroed in every returned hidden state.
         ``num_layers`` stops after that many layers (default: all)."""
-        feats = conv_feats if conv_feats is not None else self.feature_extractor(
-            wav, wav_len=wav_len)
+        feats = conv_feats if conv_feats is not None else self.conv_features(wav, wav_len)
         frame_mask = None
         if wav_len is not None:
             n_valid = conv_frame_lengths(self.cfg, torch.as_tensor(wav_len))[-1]

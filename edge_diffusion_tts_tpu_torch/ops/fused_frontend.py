@@ -20,8 +20,10 @@ blocks per layer); the C side takes its split factors as ints.
 ``conv_frontend`` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernels or raises.  ``conv_frontend_layer`` launches
 one layer alone (a test and timing hook, as ``conv_frontend_layer_plain`` is
-its plain version).  ``fast_encode`` is ``SemanticEncoder.encode`` with the
-frontend routed through it.
+its plain version).  The encoder owns the route to it: ``HubertEncoder``
+packs its stack's weights once (``pack_frontend_weights``) where
+``kernel_serves`` says the kernel takes that stack at its dtype, and runs
+``conv_frontend`` in place of its modules (models/hubert.py).
 
 WavLM's stack (``feat_extract_norm="layer"``: a LayerNorm over the channels
 of each frame after every conv, no GroupNorm) takes the bf16 variant's
@@ -41,10 +43,9 @@ features out.  Its conv1-6 run in one of ``FRONTEND_BF16_TILES`` per layer,
 by ``frontend_tile``: ``wgmma`` with TMA loads (csrc/conv_wgmma.cuh) where
 the tiles fill the card, the ``mma.sync`` kernel with split-K where
 they do not.  The wrappers check every tensor against the dtype asked for,
-so neither variant takes the other's weights.  ``fast_encode`` keeps
-float32 as its default where the JAX function defaults to bf16: the port's
-``EdgeInference`` encodes through it, and JAX's encodes with float32
-modules (JAX's docstring advises float32 for token parity).
+so neither variant takes the other's weights.  ``fast_encode`` is the JAX
+package's name for the encode ``EdgeInference`` runs: the encoder's own,
+at the dtype the encoder was built at (the JAX function's ``compute_dtype``).
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ def check_base_specs(hc: HubertConfig) -> None:
             f"{hc.conv_stride}, widths {hc.conv_dim}")
 
 
-def kernel_serves(hc: HubertConfig, dtype=torch.float32) -> bool:
+def kernel_serves(hc: HubertConfig, dtype: torch.dtype) -> bool:
     """Whether the frontend kernel takes ``hc``'s conv stack at compute
     ``dtype``: hubert-base's kernels and strides, one width, and that width a
     multiple of ``TILE[1]``; a LayerNorm stack (WavLM's) only at bfloat16, in
@@ -641,18 +642,8 @@ conv_frontend_layer.bf16_launches = 0
 
 
 @torch.no_grad()
-def fast_encode(encoder, wav: torch.Tensor, weights: Dict[str, torch.Tensor],
-                compute_dtype=torch.float32) -> torch.Tensor:
-    """``SemanticEncoder.encode`` with the conv frontend routed through
-    ``conv_frontend`` (wav [B, T] -> token indices [B, S]).
-
-    ``weights`` are ``pack_frontend_weights(encoder.hubert.feature_extractor,
-    compute_dtype)``, packed once by the caller.  Only the hubert-base conv
-    stack is supported (with its GroupNorm, or WavLM's LayerNorms at
-    bfloat16): any other raises.  ``compute_dtype`` defaults to float32,
-    not to the JAX function's bfloat16 (module docstring).
-    """
-    check_base_specs(encoder.hubert_cfg)
-    wav = wav.float().contiguous()
-    return encoder.encode(wav, conv_feats=conv_frontend(wav, weights,
-                                                        compute_dtype=compute_dtype))
+def fast_encode(encoder, wav: torch.Tensor) -> torch.Tensor:
+    """wav [B, T] -> token indices [B, S]: ``encoder.encode``, whose HuBERT
+    takes its conv frontend's route itself (the kernel where it serves the
+    stack, the modules elsewhere)."""
+    return encoder.encode(wav)

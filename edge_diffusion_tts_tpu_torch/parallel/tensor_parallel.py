@@ -16,12 +16,10 @@ code adds: the encoder's own forward runs on this rank's slices
 (``functional_call`` on a structural copy whose ``out_proj`` and
 ``output_dense`` are ``_RowParallel``; the attention takes its head count
 from q_proj's rows).  The batch is split over the data axis and the tokens
-gathered back, so every rank returns the whole batch's.  On the
-hubert-base conv stack the frontend runs on the conv-frontend kernel
-(``ops/fused_frontend.conv_frontend``), as ``fast_encode`` runs it, at the
-encoder's compute dtype (a bf16 encoder takes the frontend's bf16 variant,
-as ``Trainer.hubert_features`` does).  The encoder's structure is rebuilt
-at its compute dtype, and its tensors keep their dtypes.
+gathered back, so every rank returns the whole batch's.  The encoder's
+structure is rebuilt at its compute dtype, and its tensors keep their
+dtypes; its conv frontend takes the route the encoder owns
+(models/hubert.py), on the packed weights the encoder holds as buffers.
 """
 
 from __future__ import annotations
@@ -35,7 +33,6 @@ from torch.func import functional_call
 
 from ..layers.dtypes import cast
 from ..models.encoder import SemanticEncoder
-from ..ops.fused_frontend import conv_frontend, kernel_serves, pack_frontend_weights
 from .mesh import DATA_AXIS, MODEL_AXIS, Axis, Mesh, Placement
 
 _COL_PARALLEL = ("q_proj", "k_proj", "v_proj", "intermediate_dense")
@@ -117,16 +114,12 @@ class TPEncode:
             raise ValueError(f"{hc.num_heads} heads and FFN width {hc.intermediate_size} "
                              f"must divide over the {n}-rank model axis")
         self.layer = min(encoder.cfg.hubert_layer, hc.num_layers)
-        self.dtype = encoder.dtype
-        self.frontend_weights = (pack_frontend_weights(encoder.hubert.feature_extractor,
-                                                       self.dtype)
-                                 if kernel_serves(hc) else None)
         # The encoder's structure without storage; every call hands it this
-        # rank's tensors.  Buffers outside the state dict (the FSQ's levels)
-        # are the encoder's own.
+        # rank's tensors.  Buffers outside the state dict (the FSQ's levels,
+        # the packed frontend weights) are the encoder's own.
         with torch.device("meta"):
             self.local = SemanticEncoder(encoder.cfg, hc, use_dropout=encoder.use_dropout,
-                                         dtype=self.dtype)
+                                         dtype=encoder.dtype)
         for layer in self.local.hubert.encoder.layers:
             layer.attention.out_proj = _RowParallel(layer.attention.out_proj, self.model)
             layer.feed_forward.output_dense = _RowParallel(layer.feed_forward.output_dense,
@@ -135,30 +128,25 @@ class TPEncode:
         self.fixed = {k: b for k, b in encoder.named_buffers() if k not in saved}
 
     def _local(self, enc_params: Dict[str, torch.Tensor], wav: torch.Tensor):
-        """This rank's rows of ``wav``, its tensors and its frontend features
-        (None off the kernel's stack: the module's conv stack runs)."""
+        """This rank's rows of ``wav`` and its tensors."""
         B, ax = wav.shape[0], self.data
         if B % ax.size:
             raise ValueError(f"batch {B} does not divide over the {ax.size}-rank data axis")
         n = B // ax.size
-        wav = wav[ax.index * n:(ax.index + 1) * n]
-        feats = (conv_frontend(wav.float().contiguous(), self.frontend_weights,
-                               compute_dtype=self.dtype)
-                 if self.frontend_weights is not None else None)
-        return wav, {**self.fixed, **enc_params}, feats
+        return wav[ax.index * n:(ax.index + 1) * n], {**self.fixed, **enc_params}
 
     @torch.inference_mode()
     def features(self, enc_params: Dict[str, torch.Tensor], wav: torch.Tensor) -> torch.Tensor:
         """HuBERT layer ``cfg.hubert_layer`` features of the whole batch."""
-        wav, params, feats = self._local(enc_params, wav)
+        wav, params = self._local(enc_params, wav)
         h = functional_call(self.local.hubert, _sub(params, "hubert."), (wav,),
-                            dict(conv_feats=feats, num_layers=self.layer))[self.layer]
+                            dict(num_layers=self.layer))[self.layer]
         return self.data.all_gather(h, 0)
 
     @torch.inference_mode()
     def __call__(self, enc_params: Dict[str, torch.Tensor], wav: torch.Tensor) -> torch.Tensor:
-        wav, params, feats = self._local(enc_params, wav)
-        idx = functional_call(self.local, params, (wav,), dict(conv_feats=feats))[1]
+        wav, params = self._local(enc_params, wav)
+        idx = functional_call(self.local, params, (wav,))[1]
         return self.data.all_gather(idx, 0)
 
 

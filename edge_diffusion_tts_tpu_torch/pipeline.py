@@ -12,10 +12,8 @@
 The refine is the decoder called once per step, the conditional and
 unconditional CFG branches as one batch of 2B; there is no kernel of its
 own here (chunks of 201 frames stay below the band kernel's
-``pallas_min_seq_len``).  The encode takes the conv-frontend kernel for the
-hubert-base stack (``fused_frontend.conv_frontend``, its conv features
-handed to the encoder) and the modules for any other; the route is fixed
-when the pipeline is built, as ``EdgeInference`` fixes it.
+``pallas_min_seq_len``).  The encode is the encoder's own call, on the
+conv-frontend route the encoder owns (models/hubert.py).
 
 Randomness.  JAX's key chains cannot be reproduced in torch, so the same
 seed gives another (identically distributed) result here than in the JAX
@@ -50,7 +48,6 @@ import torch
 import torch.nn.functional as F
 
 from .config import CFG, resolve_device
-from .ops import fused_frontend
 from .ops.mel import MelFrontend, inverse_mel_scale
 from .ops.vocoder import griffin_lim
 from .schedule import DiffusionSchedule
@@ -79,10 +76,8 @@ class LongFormPipeline:
     """Chunked long-form mel generation around a decoder and an encoder.
 
     ``decoder`` is an ``EdgeDiffusionDecoder`` (v-prediction).  ``encoder``
-    is a ``SemanticEncoder`` (its route, ``encode_route``, fixed here:
-    "kernel" for the hubert-base conv stack, "modules" otherwise), or
-    ``encoder_apply`` a callable ``(wav [1, T], wav_len=None) -> z_q [1, S,
-    D]`` in its place.  ``prep_buckets`` (sample counts) pads every stream's
+    is a ``SemanticEncoder``, or ``encoder_apply`` a callable ``(wav [1, T],
+    wav_len=None) -> z_q [1, S, D]`` in its place.  ``prep_buckets`` (sample counts) pads every stream's
     encode to the smallest bucket that holds it, exactly (``wav_len``); a
     longer stream warns and is encoded at its own length.  The pipeline
     runs on ``device`` (the card unless told otherwise); ``mesh``, a list of
@@ -111,14 +106,6 @@ class LongFormPipeline:
         self.decoder = decoder.to(self.device).eval()
         self.encoder = None if encoder is None else encoder.to(self.device).eval()
         self.encoder_apply = encoder_apply
-        self.encode_route = None
-        self.frontend_weights = None
-        if encoder is not None:
-            self.encode_route = ("kernel" if fused_frontend.kernel_serves(
-                self.encoder.hubert_cfg) else "modules")
-            if self.encode_route == "kernel":
-                self.frontend_weights = fused_frontend.pack_frontend_weights(
-                    self.encoder.hubert.feature_extractor)
         self.mel_frontend = MelFrontend(
             sample_rate=cfg.sample_rate, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
             win_length=cfg.win_length, n_mels=cfg.n_mels, f_min=cfg.f_min, f_max=cfg.f_max,
@@ -258,14 +245,10 @@ class LongFormPipeline:
 
     @torch.inference_mode()
     def encode(self, wav: torch.Tensor, wav_len=None) -> torch.Tensor:
-        """wav [1, T] on the device -> quantized features [1, S, D] by the
-        route fixed when the pipeline was built; ``wav_len`` marks a
-        zero-padded tail (exact: the frames past it are zero)."""
-        if self.encode_route == "kernel":
-            wav = wav.float().contiguous()
-            feats = fused_frontend.conv_frontend(wav, self.frontend_weights, wav_len=wav_len)
-            return self.encoder(wav, wav_len=wav_len, conv_feats=feats)[0]
-        if self.encode_route == "modules":
+        """wav [1, T] on the device -> quantized features [1, S, D] from the
+        encoder, or from ``encoder_apply``; ``wav_len`` marks a zero-padded
+        tail (exact: the frames past it are zero)."""
+        if self.encoder is not None:
             return self.encoder(wav, wav_len=wav_len)[0]
         if self.encoder_apply is None:
             raise ValueError("pipeline constructed without an encoder")

@@ -12,12 +12,10 @@ package's replay keys (``"t"``, ``"noise"``, ``"step_indices"``, ``"t1"``,
 ``"t2"``) in place of draws, and here also ``"n"`` (the exact consistency
 grid index), so a test can hand both packages the same numbers.
 
-The encode route is fixed when the ``Trainer`` is built, by the rule
-``EdgeInference`` follows: the hubert-base conv stack runs on the
-conv-frontend kernel (``ops/fused_frontend.py::conv_frontend``, under no
-gradient) and hands its features to the frozen HuBERT; any other stack runs
-its modules.  A batch with ``"hubert_features"`` skips HuBERT.  The route
-runs at the encoder's compute dtype: a bf16 encoder's kernel route takes
+The frozen HuBERT runs its conv frontend on the route it owns
+(models/hubert.py: the conv-frontend kernel where it takes the stack at the
+encoder's dtype, the modules elsewhere), under no gradient.  A batch with
+``"hubert_features"`` skips HuBERT.  A bf16 encoder's kernel route takes
 the frontend's bf16 variant, which rounds where JAX's frontend kernel rounds
 (conv0 in float32, first rounded at its GELU), not where JAX's bf16 module
 stack does (the wav cast to bf16 before conv0; ROADMAP Queue C 8).
@@ -34,7 +32,6 @@ import numpy as np
 import torch
 
 from ..config import CFG, resolve_device
-from ..ops.fused_frontend import conv_frontend, kernel_serves, pack_frontend_weights
 from ..ops.mel import MelFrontend
 from ..schedule import DiffusionSchedule, DPMSolverPP, _bcast, ddim_sample
 from ..utils.audio import normalize_mel
@@ -69,10 +66,7 @@ class Trainer:
     """Factory of the phase steps around (encoder, decoder, schedule).
 
     The modules move to ``device`` (the card unless ``device="cpu"``); the
-    frozen HuBERT stays out of every gradient.  ``encode_route`` is
-    ``"kernel"`` when the conv-frontend kernel takes the encoder's conv stack
-    (``kernel_serves``), else ``"modules"``; ``dtype`` is the encoder's
-    compute dtype, which the kernel route runs at.
+    frozen HuBERT stays out of every gradient.
     """
 
     def __init__(self, cfg: CFG, encoder, decoder, schedule: DiffusionSchedule, device=None):
@@ -86,11 +80,6 @@ class Trainer:
             sample_rate=cfg.sample_rate, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
             win_length=cfg.win_length, n_mels=cfg.n_mels, f_min=cfg.f_min, f_max=cfg.f_max,
         ).to(self.device)
-        self.encode_route = "kernel" if kernel_serves(encoder.hubert_cfg) else "modules"
-        self.dtype = encoder.dtype
-        self.frontend_weights = (pack_frontend_weights(self.encoder.hubert.feature_extractor,
-                                                       self.dtype)
-                                 if self.encode_route == "kernel" else None)
 
     # -- shared pieces --------------------------------------------------------
 
@@ -105,14 +94,9 @@ class Trainer:
         return out
 
     def hubert_features(self, state: TrainState, wav: torch.Tensor) -> torch.Tensor:
-        """Frozen HuBERT layer features of ``wav`` on the trainer's route,
-        under no gradient."""
+        """Frozen HuBERT layer features of ``wav``, under no gradient."""
         with torch.no_grad(), span("train:hubert"):
-            conv_feats = None
-            if self.encode_route == "kernel":
-                conv_feats = conv_frontend(wav.float().contiguous(), self.frontend_weights,
-                                           compute_dtype=self.dtype)
-            return state.encoder.extract_hubert(wav, conv_feats=conv_feats)
+            return state.encoder.extract_hubert(wav)
 
     def _encode(self, state: TrainState, batch: Batch, generator, train: bool):
         """The semantic encoder's 5-tuple on the wav or the precomputed path."""

@@ -88,7 +88,9 @@ def init_models(cfg: CFG, hubert_cfg: Optional[HubertConfig] = None,
     decoder = EdgeDiffusionDecoder(cfg, dtype=compute)
     if hubert_state is not None:
         encoder.hubert.load_state_dict(hubert_state)
-    return cast_parameters(encoder, param), cast_parameters(decoder, param)
+    encoder = cast_parameters(encoder, param)
+    encoder.hubert.pack_frontend()  # the frontend kernel's copy of the cast weights
+    return encoder, cast_parameters(decoder, param)
 
 
 def _need_ranks(n: int, what: str) -> None:

@@ -590,11 +590,11 @@ def main() -> int:
         report("audio_fused", out["audio_fused"])
         from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
 
-        w = aengine.frontend_weights
+        w = encoder.hubert.packed_frontend()
         with torch.no_grad():
             feats = ff.conv_frontend(wav, w)
             h = encoder.hubert.feature_projection(feats)
-            tokens = ff.fast_encode(encoder, wav, w)
+            tokens = ff.fast_encode(encoder, wav)
             fold = ff.groupnorm_fold(wav, w["w0"], w["gamma"], w["beta"])
             frontend = {
                 "frontend kernels (the fold given)": lambda: ff.conv_frontend(wav, w, fold=fold),
@@ -609,7 +609,7 @@ def main() -> int:
                     lambda: encoder.hubert.encoder.pos_conv_embed(h),
                 "HuBERT to layer 9 from the conv features":
                     lambda: encoder.extract_hubert(wav, conv_feats=feats),
-                "fast_encode (all of the encode)": lambda: ff.fast_encode(encoder, wav, w),
+                "fast_encode (all of the encode)": lambda: ff.fast_encode(encoder, wav),
                 "generate_mel (4-step fused DDIM)":
                     lambda: aengine.generate_mel(tokens, num_steps=4),
             }

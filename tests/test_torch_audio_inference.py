@@ -1,9 +1,9 @@
 """Port parity: EdgeInference.generate_from_audio end to end vs the JAX package.
 
-wav -> SemanticEncoder tokens (the port through ``fast_encode``, i.e. the
-conv frontend's plain version on the CPU, for the hubert-base conv stack,
-and through ``encoder.encode`` for the tiny stacks the kernel does not
-take; JAX through its module path) -> 4-step DDIM (or DPM-Solver++) over a
+wav -> SemanticEncoder tokens (the port through the encoder's own route:
+the conv frontend's plain version on the CPU for the hubert-base conv
+stack, the modules for the tiny stacks the kernel does not take; JAX
+through its module path) -> 4-step DDIM (or DPM-Solver++) over a
 small decoder.  JAX draws its start noise from
 ``PRNGKey(k)``; the port is handed the same numbers as ``x_T``.  The
 encoder has the full hubert-base conv stack under a 2-layer, 64-wide
@@ -26,6 +26,7 @@ from edge_diffusion_tts_tpu.models.hubert import HubertConfig as JHC
 from edge_diffusion_tts_tpu.schedule import DiffusionSchedule as JSchedule
 from edge_diffusion_tts_tpu_torch.config import CFG as PCFG
 from edge_diffusion_tts_tpu_torch.inference import EdgeInference as PInference
+from edge_diffusion_tts_tpu_torch.inference import fast_encode
 from edge_diffusion_tts_tpu_torch.models import EdgeDiffusionDecoder as PDecoder
 from edge_diffusion_tts_tpu_torch.models import HubertConfig as PHC
 from edge_diffusion_tts_tpu_torch.models import SemanticEncoder as PEncoder
@@ -100,18 +101,20 @@ def test_generate_from_audio_fused_backend_and_errors(models):
     with pytest.raises(ValueError, match="without an encoder"):
         PInference(pcfg, PSchedule.create(pcfg.diff_steps), pdec,
                    device="cpu").generate_from_audio(wav)
-    # The route is fixed when the engine is built: the kernel's for the
-    # hubert-base stack, the modules' for any other.
+    # The encoder owns the route: the kernel's for the hubert-base stack, the
+    # modules' for any other.
     engines = {name: PInference(pcfg, PSchedule.create(pcfg.diff_steps), pdec, device="cpu",
                                 encoder=enc)
                for name, enc in (("base", penc), ("tiny320", PEncoder(pcfg, PHC.tiny320())),
                                  ("tiny", PEncoder(pcfg, PHC.tiny())))}
-    assert {n: e.encode_route for n, e in engines.items()} == {
-        "base": "kernel", "tiny320": "modules", "tiny": "modules"}
-    assert engines["tiny"].frontend_weights is None
-    assert set(engines["base"].frontend_weights) == set(ff.FRONTEND_NAMES)
-    with pytest.raises(ValueError, match="hubert-base"):  # fast_encode never serves them
-        ff.fast_encode(engines["tiny320"].encoder, torch.zeros(1, 6400), {})
+    assert {n: e.encoder.hubert.frontend_kernel for n, e in engines.items()} == {
+        "base": True, "tiny320": False, "tiny": False}
+    assert not any("frontend" in n for n, _ in engines["tiny"].encoder.named_buffers())
+    assert set(engines["base"].encoder.hubert.packed_frontend()) == set(ff.FRONTEND_NAMES)
+    tiny320, wav320 = engines["tiny320"].encoder, torch.from_numpy(wav)
+    with torch.no_grad():
+        want = tiny320.encode(wav320, conv_feats=tiny320.hubert.feature_extractor(wav320))
+    assert torch.equal(fast_encode(tiny320, wav320), want)
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +153,7 @@ def test_generate_from_audio_modules_route_matches_jax(models, tiny_encoders, na
     x_T = np.array(jax.random.normal(jax.random.PRNGKey(9), want.shape))
     port = PInference(pcfg, PSchedule.create(pcfg.diff_steps), pdec, device="cpu",
                       encoder=penc, **SOLVER)
-    assert port.encode_route == "modules"
+    assert not port.encoder.hubert.frontend_kernel
     before = ff.conv_frontend.launches
     got = port.generate_from_audio(wav, num_steps=4, x_T=x_T)
     assert ff.conv_frontend.launches == before

@@ -266,7 +266,7 @@ def test_losses_and_gradients_bf16_witness(kind):
 
     enc, dec = p.port(BF16)
     trainer = PTrainer(p.pcfg, enc, dec, PSchedule.create(p.pcfg.diff_steps), device="cpu")
-    assert trainer.encode_route == "modules" and trainer.dtype == BF16
+    assert not trainer.encoder.hubert.frontend_kernel and trainer.encoder.dtype == BF16
     state = create_train_state(trainer.encoder, trainer.decoder,
                                p_make_optimizer(p.pcfg, trainer.encoder, trainer.decoder, 100))
     if kind == "progressive":

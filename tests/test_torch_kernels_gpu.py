@@ -663,6 +663,7 @@ def _seeded_hubert_base_encoder(cfg, seed):
                 p.copy_(torch.randn(p.shape, generator=gen) * (g / p[0].numel()) ** 0.5)
             else:
                 p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    enc.hubert.pack_frontend()
     return enc
 
 
@@ -750,6 +751,12 @@ def test_decoder_kernel_route_refuses_autograd(cuda):
         assert torch.isfinite(dec(x, t, sem_idx=sem)).all()
 
 
+def _modules_features(encoder, wav):
+    """The encoder's layer features with its conv stack on the modules."""
+    with torch.no_grad():
+        return encoder.extract_hubert(wav, conv_feats=encoder.hubert.feature_extractor(wav))
+
+
 def test_trainer_kernel_route_encode_matches_modules(cuda):
     """The trainer's encode route for the hubert-base stack (the frontend
     kernel at [4, 32000], one launch) against the modules route: layer
@@ -760,7 +767,7 @@ def test_trainer_kernel_route_encode_matches_modules(cuda):
     enc = _seeded_hubert_base_encoder(cfg, 7)
     trainer = Trainer(cfg, enc, EdgeDiffusionDecoder(cfg), DiffusionSchedule.create(1000),
                       device=cuda)
-    assert trainer.encode_route == "kernel"
+    assert trainer.encoder.hubert.frontend_kernel
     state = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
     rng = np.random.RandomState(9)
     wav = torch.from_numpy((0.2 * rng.randn(4, 32000)).astype(np.float32)).to(cuda)
@@ -768,7 +775,7 @@ def test_trainer_kernel_route_encode_matches_modules(cuda):
     h_kernel = trainer.hubert_features(state, wav)
     assert ff.conv_frontend.launches == before + 1
     with torch.no_grad():
-        h_modules = state.encoder.extract_hubert(wav)
+        h_modules = _modules_features(state.encoder, wav)
         tok_k = state.encoder.vq.encode(state.encoder._project(h_kernel))
         tok_m = state.encoder.vq.encode(state.encoder._project(h_modules))
     assert h_kernel.shape == (4, 99, 768)
@@ -864,7 +871,7 @@ def prep_pipe():
     pipe = LongFormPipeline(cfg, DiffusionSchedule.create(cfg.diff_steps),
                             EdgeDiffusionDecoder(cfg), enc, prep_buckets=(128000, 256000),
                             device="cuda")
-    assert pipe.encode_route == "kernel"
+    assert pipe.encoder.hubert.frontend_kernel
     wav = (0.2 * np.random.RandomState(13).randn(1, 96000)).astype(np.float32)
     return pipe, wav
 
@@ -1107,15 +1114,16 @@ def test_trainer_bf16_kernel_route_witness(cuda):
         enc.load_state_dict(enc32.state_dict())
         trainer = Trainer(cfg, enc, EdgeDiffusionDecoder(cfg, dtype=BF16),
                           DiffusionSchedule.create(1000), device=cuda)
-        assert trainer.encode_route == "kernel" and trainer.frontend_weights["wk3"].dtype == BF16
+        hubert = trainer.encoder.hubert
+        assert hubert.frontend_kernel and hubert.packed_frontend()["wk3"].dtype == BF16
         state = TrainState(trainer.encoder, trainer.decoder, optimizer=None)
         before = ff.conv_frontend.bf16_launches
         h_kernel = trainer.hubert_features(state, wav)
         assert ff.conv_frontend.bf16_launches == before + 1 and h_kernel.dtype == BF16
         enc32 = enc32.to(cuda).eval()
         with torch.no_grad():
-            h_modules = state.encoder.extract_hubert(wav)
-            h32 = enc32.extract_hubert(wav)
+            h_modules = _modules_features(state.encoder, wav)
+            h32 = _modules_features(enc32, wav)
             tok = [e.vq.encode(e._project(h)) for e, h in (
                 (state.encoder, h_kernel), (state.encoder, h_modules), (enc32, h32))]
 

@@ -129,6 +129,6 @@ def test_orbax_final_model_to_port_checkpoint(tmp_path, use_fsq):
     want = np.asarray(ref.generate_from_audio(jnp.asarray(wav), num_steps=4,
                                               rng=jax.random.PRNGKey(4)))
     x_T = np.array(jax.random.normal(jax.random.PRNGKey(4), want.shape))
-    assert port.encode_route == "kernel"
+    assert port.encoder.hubert.frontend_kernel
     got = port.generate_from_audio(torch.from_numpy(wav), num_steps=4, x_T=x_T).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

@@ -78,7 +78,8 @@ def _inline_prep(pipe, wav, seed):
 def test_async_prep_equals_the_synchronous_prep(small, encoders, name, route, bucketed):
     _, pmake = _pipes(small, encoders, name)
     pipe = pmake(BUCKETS if bucketed else None)
-    assert pipe.encode_route == route and pipe.prep_stream is None
+    assert pipe.encoder.hubert.frontend_kernel == (route == "kernel")
+    assert pipe.prep_stream is None
     for secs in (0.7, 1.3):
         wav = _sine(secs, 150.0 + 90 * secs)[None]
         realize = pipe.stream_prep_async(wav, seed=4)

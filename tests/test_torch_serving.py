@@ -205,7 +205,7 @@ def test_run_server_loads_a_port_checkpoint(served):
     # Buckets past the positional capacity (512 tokens) are dropped.
     assert batcher.buckets == (8, 16)
     pipe = server.longform_fn.scheduler.pipe
-    assert pipe.encode_route == "modules" and pipe.sem_stride == 320
+    assert not pipe.encoder.hubert.frontend_kernel and pipe.sem_stride == 320
     assert pipe.prep_buckets == (12800, 25600)
     assert pipe.row_quantum == 1  # no refine is padded
     with pytest.raises(ValueError, match="2 CUDA devices"):

@@ -111,7 +111,7 @@ def test_generate_mel_opens_loop_inputs_then_launch_per_call(calls):
                          ids=["modules_route", "kernel_route"])
 def test_generate_from_audio_opens_encode_first(hubert_cfg):
     engine = _engine(hubert_cfg)
-    assert engine.encode_route == ("kernel" if hubert_cfg is BASE_STACK else "modules")
+    assert engine.encoder.hubert.frontend_kernel == (hubert_cfg is BASE_STACK)
     events = _profiled(lambda: engine.generate_from_audio(_wav(), 2))
     spans = _named(events, SYNTH_SPANS)
     assert [e.name for e in spans] == list(SYNTH_SPANS)

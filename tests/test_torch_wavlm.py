@@ -20,7 +20,7 @@ import torch
 from benchmark.reference import wavlm as rw
 from benchmark.reference.precision import Ops
 from edge_diffusion_tts_tpu_torch.config import CFG
-from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+from edge_diffusion_tts_tpu_torch.inference import EdgeInference, fast_encode
 from edge_diffusion_tts_tpu_torch.models import (EdgeDiffusionDecoder, HubertConfig,
                                                  SemanticEncoder, hubert_config_for)
 from edge_diffusion_tts_tpu_torch.models.hubert import (HubertEncoder, relative_buckets,
@@ -54,6 +54,7 @@ def seeded(hc: HubertConfig, seed: int = 0, dtype=torch.float32) -> HubertEncode
     with torch.no_grad():
         for p in enc.parameters():
             p.add_(0.1 * torch.randn_like(p))
+    enc.pack_frontend()
     return enc.eval()
 
 
@@ -217,15 +218,16 @@ def test_hubert_id_names_the_encoder():
 
 
 def test_a_layernorm_stack_takes_the_modules():
-    assert kernel_serves(HubertConfig())
-    assert not kernel_serves(HubertConfig.wavlm_large())
+    assert kernel_serves(HubertConfig(), torch.float32)
+    assert not kernel_serves(HubertConfig.wavlm_large(), torch.float32)
     cfg = CFG(hidden=32, layers=1, heads=2, hubert_id="microsoft/wavlm-large")
     torch.manual_seed(0)
     enc = SemanticEncoder(cfg, tiny_wavlm(conv_dim=(16,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2),
                                           conv_stride=(5, 2, 2, 2, 2, 2, 2)))
     engine = EdgeInference(cfg, DiffusionSchedule.create(cfg.diff_steps), EdgeDiffusionDecoder(cfg),
                            backend="fused", device="cpu", encoder=enc)
-    assert engine.encode_route == "modules" and engine.frontend_weights is None
+    assert not engine.encoder.hubert.frontend_kernel
+    assert not any("frontend" in n for n, _ in engine.encoder.named_buffers())
     wav = torch.randn(2, 6400, generator=torch.Generator().manual_seed(4))
     mel = engine.generate_from_audio(wav, 2)
     assert mel.shape == (2, 2 * 19, cfg.n_mels) and torch.isfinite(mel).all()
@@ -334,8 +336,9 @@ def test_kernel_serves_a_layernorm_stack_at_bf16():
     bf16 = torch.bfloat16
     assert kernel_serves(HubertConfig.wavlm_large(), bf16)
     assert not kernel_serves(HubertConfig.wavlm_large(), torch.float32)
-    assert not kernel_serves(HubertConfig.wavlm_large())
-    assert kernel_serves(HubertConfig()) and kernel_serves(HubertConfig(), bf16)
+    with pytest.raises(TypeError):  # no default dtype to fall back to
+        kernel_serves(HubertConfig.wavlm_large())
+    assert kernel_serves(HubertConfig(), torch.float32) and kernel_serves(HubertConfig(), bf16)
     for width, takes in ((128, False), (256, True), (1024, True), (2048, False)):
         hc = tiny_wavlm(conv_dim=(width,) * 7, **BASE_CONVS)
         assert kernel_serves(hc, bf16) == takes, width
@@ -346,9 +349,9 @@ def test_kernel_serves_a_layernorm_stack_at_bf16():
 
 
 def test_edge_inference_takes_the_kernel_route_at_bf16():
-    """``EdgeInference`` over a WavLM-shaped encoder built at bf16 (WavLM's
-    conv stack at width 256) fixes the kernel route, with the frontend
-    weights packed at bf16 and the seven norms [7, C]; its tokens are
+    """A WavLM-shaped encoder built at bf16 (WavLM's conv stack at width
+    256) takes the kernel route, with the frontend weights packed at bf16
+    and the seven norms [7, C]; the tokens ``EdgeInference`` encodes are
     ``encode`` over ``conv_frontend`` at bf16 (on the CPU the plain
     version).  A float32 encoder of hubert-base's stack keeps the float32
     packing of ``pack_frontend_weights``."""
@@ -360,14 +363,14 @@ def test_edge_inference_takes_the_kernel_route_at_bf16():
     sched = DiffusionSchedule.create(cfg.diff_steps)
     engine = EdgeInference(cfg, sched, EdgeDiffusionDecoder(cfg, dtype=torch.bfloat16),
                            backend="fused", device="cpu", encoder=enc)
-    w = engine.frontend_weights
-    assert engine.encode_route == "kernel"
+    w = engine.encoder.hubert.packed_frontend()
+    assert engine.encoder.hubert.frontend_kernel
     assert w["wk3"].dtype == w["wk2"].dtype == torch.bfloat16 and w["gamma"].shape == (7, 256)
     wav = 0.3 * torch.randn(2, 6400, generator=torch.Generator().manual_seed(5))
     with torch.no_grad():
         want = enc.encode(wav, conv_feats=ff.conv_frontend_plain(wav, w,
                                                                  compute_dtype=torch.bfloat16))
-    assert torch.equal(ff.fast_encode(enc, wav, w, torch.bfloat16), want)
+    assert torch.equal(fast_encode(enc, wav), want)
     mel = engine.generate_from_audio(wav, 2)
     assert mel.shape == (2, 2 * want.shape[1], cfg.n_mels) and torch.isfinite(mel).all()
 
@@ -379,7 +382,7 @@ def test_edge_inference_takes_the_kernel_route_at_bf16():
                              EdgeDiffusionDecoder(CFG(hidden=32, layers=1, heads=2)),
                              device="cpu", encoder=base)
     packed = ff.pack_frontend_weights(base.hubert.feature_extractor)
-    assert flagship.encode_route == "kernel" and set(flagship.frontend_weights) == set(packed)
-    assert all(torch.equal(flagship.frontend_weights[k], v) and v.dtype == torch.float32
-               for k, v in packed.items())
+    held = flagship.encoder.hubert.packed_frontend()
+    assert flagship.encoder.hubert.frontend_kernel and set(held) == set(packed)
+    assert all(torch.equal(held[k], v) and v.dtype == torch.float32 for k, v in packed.items())
     assert packed["gamma"].shape == (128,)

@@ -101,6 +101,7 @@ def wavlm_encoder(cfg, layers, device):
     with torch.no_grad():
         for p in enc.parameters():
             p.add_(0.02 * torch.randn_like(p))
+    enc.hubert.pack_frontend()
     return enc.eval()
 
 
@@ -128,7 +129,7 @@ def test_one_launch_per_layer_per_call(cuda):
 
 def test_edge_inference_at_bf16_is_encode_then_the_bf16_loop(cuda):
     """``EdgeInference(backend="fused")`` at a bf16 configuration: the tokens
-    of ``fast_encode`` (the conv stack on the frontend kernels' LayerNorm
+    of the encoder's route (the conv stack on the frontend kernels' LayerNorm
     mode) and the mel of ``fused_generate_mel`` at bf16, bit for bit."""
     cfg = CFG(hubert_id="microsoft/wavlm-large", hubert_layer=21, compute_dtype="bfloat16",
               use_v_prediction=True, use_depthwise=True)
@@ -139,11 +140,13 @@ def test_edge_inference_at_bf16_is_encode_then_the_bf16_loop(cuda):
     sched = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
     engine = EdgeInference(cfg, sched, dec, prediction="v", backend="fused", device=cuda,
                            encoder=enc)
-    assert engine.encode_route == "kernel"
-    assert engine.frontend_weights["wk3"].dtype == torch.bfloat16
-    assert engine.frontend_weights["gamma"].shape == (7, 512)
+    w = engine.encoder.hubert.packed_frontend()
+    assert engine.encoder.hubert.frontend_kernel
+    assert w["wk3"].dtype == torch.bfloat16
+    assert w["gamma"].shape == (7, 512)
     wav = 0.1 * torch.randn(4, 40000, device=cuda)
-    tokens = ff.fast_encode(enc, wav, engine.frontend_weights, torch.bfloat16)
+    with torch.no_grad():
+        tokens = enc.encode(wav, conv_feats=ff.conv_frontend(wav, w, compute_dtype=torch.bfloat16))
     x = torch.randn(4, 2 * tokens.shape[1], cfg.n_mels, device=cuda)
     got = engine.generate_from_audio(wav, 4, x_T=x)
     with torch.no_grad():
@@ -256,9 +259,12 @@ def test_kernel_route_tokens_against_the_modules_route(cuda):
     with torch.no_grad():
         feats = ff.conv_frontend(wav, w, compute_dtype=torch.bfloat16)
         kernel = enc.extract_hubert(wav, conv_feats=feats).float()
-        modules = enc.extract_hubert(wav).float()
-        want = ref.extract_hubert(wav).float()
-        tokens = [ff.fast_encode(enc, wav, w, torch.bfloat16), enc.encode(wav), ref.encode(wav)]
+        assert torch.equal(enc.extract_hubert(wav).float(), kernel)  # the encoder's own route
+        conv = [e.hubert.feature_extractor(wav) for e in (enc, ref)]
+        modules = enc.extract_hubert(wav, conv_feats=conv[0]).float()
+        want = ref.extract_hubert(wav, conv_feats=conv[1]).float()
+        tokens = [ff.fast_encode(enc, wav), enc.encode(wav, conv_feats=conv[0]),
+                  ref.encode(wav, conv_feats=conv[1])]
     gap_kernel = float((kernel - want).norm() / want.norm())
     gap_modules = float((modules - want).norm() / want.norm())
     assert gap_kernel <= 1.1 * gap_modules, (gap_kernel, gap_modules)
