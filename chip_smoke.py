@@ -133,9 +133,10 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    LayerNorms; CUDA events) and the bound at 989 TFLOP/s;
 7. the audio path: ``EdgeInference(backend="fused", encoder=...)`` at full
    HuBERT-base width answers three ``generate_from_audio`` requests (5 s at
-   B=1, the same at temperature 0.7, 2 s at B=2), each one frontend and one
-   fused-DDIM launch; the kernel route's layer-9 features are held to the
-   module route's to atol 1e-3 and its FSQ tokens agree on >= 99% (an
+   B=1, the same at temperature 0.7, 2 s at B=2), each one frontend, one
+   positional-conv and one fused-DDIM launch; the kernel route's layer-9
+   features are held to the module route's to atol 1e-3 and its FSQ
+   tokens agree on >= 99% (an
    exact-GroupNorm vs analytical-GroupNorm difference can flip a token that
    sits on a rounding edge);
    7b. WavLM's gated relative-position attention (csrc/relpos_attention16.cuh,
@@ -153,6 +154,14 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    WavLM-Large to layer 21, B = 32 x 10 s: ``kernel_launches(
    "relpos_attention16")``, set to 0 just before the call and read just
    after, is 21;
+   7c. the positional-conv kernel (csrc/pos_conv.cu, ``ops/pos_conv.py::
+   positional_conv``: HuBERT-base's float32 positional conv, its GELU and
+   the residual add in one launch) at [32, 347, 768] and [32, 499, 768],
+   the audio cell's mean and 10 s buckets: one launch a call, its largest
+   error from the float64 conv no more than twice cuDNN's float32 conv's
+   (TF32 off), two calls bit-equal; device time by CUDA-graph replay beside the bound (67
+   TFLOP/s), the plain version's (CUDA events) and the module route's
+   (cuDNN's conv, its GELU and the add, by graph replay: ``library_ms``);
 8. DDPM: the fused DDPM kernel against its plain version over the 50-step
    schedule at the flagship shape, injected and Philox noise (tolerance
    below), for the default decoder and for phase 3's pre-net decoder, with
@@ -1652,6 +1661,7 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
     from edge_diffusion_tts_tpu_torch.inference import EdgeInference
     from edge_diffusion_tts_tpu_torch.ops import fused_denoise as fd
     from edge_diffusion_tts_tpu_torch.ops import fused_frontend as ff
+    from edge_diffusion_tts_tpu_torch.ops import pos_conv as pc
 
     engine = EdgeInference(cfg, schedule, decoder, backend="fused", device=DEVICE,
                            encoder=encoder)
@@ -1665,6 +1675,7 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
     requests = [dict(wav=wav5), dict(wav=wav5, temperature=0.7, generator=gen),
                 dict(wav=wav2, generator=gen)]
     ff.conv_frontend.launches = fd.fused_ddim.launches = 0
+    pos0 = pc.launches()
     times, outs = [], []
     for req in requests:
         t0 = time.perf_counter()
@@ -1674,9 +1685,10 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
         outs.append(mel)
     launches = ff.conv_frontend.launches
     ddim_launches = fd.fused_ddim.launches
-    assert launches == ddim_launches == len(requests), (
-        f"frontend launches {launches}, fused_ddim launches {ddim_launches}, "
-        f"{len(requests)} requests")
+    pos_launches = pc.launches() - pos0
+    assert launches == ddim_launches == pos_launches == len(requests), (
+        f"frontend launches {launches}, fused_ddim launches {ddim_launches}, positional-conv "
+        f"launches {pos_launches}, {len(requests)} requests")
     for req, mel in zip(requests, outs):
         B, n = req["wav"].shape
         assert mel.shape == (B, 2 * ff.frame_counts(n)[-1], cfg.n_mels), mel.shape
@@ -1713,8 +1725,67 @@ def phase_audio(torch, cfg, decoder, schedule, encoder):
           + ", ".join(f"{t:.3f}" for t in times)
           + "; alone, encode + generate ms: "
           + ", ".join(f"{e:.3f} + {g:.3f}" for e, g in split)
-          + f"; frontend launches={launches}, fused_ddim launches={ddim_launches}")
-    return launches, agree
+          + f"; frontend launches={launches}, fused_ddim launches={ddim_launches}, "
+          f"positional-conv launches={pos_launches}")
+    return launches, pos_launches
+
+
+POS_CONV_SHAPES = ((32, 347), (32, 499))  # phase 7c's [B, S] at 768 channels
+
+
+def phase_pos_conv(torch) -> dict:
+    """Phase 7c: the positional-conv kernel at HuBERT-base's widths and the
+    audio cell's mean and 10 s buckets.  Returns the ``kernels`` line's
+    numbers (at [32, 347, 768]) and each shape's."""
+    import torch.nn.functional as F
+
+    from edge_diffusion_tts_tpu_torch.models.hubert import (HubertConfig,
+                                                            PositionalConvEmbedding)
+    from edge_diffusion_tts_tpu_torch.ops import pos_conv as pc
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as run() sets them: the phase may run alone
+    torch.backends.cudnn.allow_tf32 = False
+    hc = HubertConfig()
+    torch.manual_seed(SEED)
+    module = PositionalConvEmbedding(hc).to(DEVICE).eval()
+    conv = module.conv
+    w = pc.pack_pos_conv_weights(conv.weight)
+    bias = conv.bias.detach()
+    C, cpg = hc.hidden_size, hc.hidden_size // hc.num_conv_pos_embedding_groups
+    geo = pc.geometry(cpg)
+    out = {}
+    for B, S in POS_CONV_SHAPES:
+        h = torch.randn(B, S, C, generator=torch.Generator().manual_seed(SEED + S)).to(DEVICE)
+        with torch.no_grad():
+            before = pc.launches()
+            got = pc.positional_conv(h, w, bias)
+            assert pc.launches() == before + 1, "positional_conv: not one launch a call"
+            library = h + module(h)
+            y = F.conv1d(h.double().transpose(1, 2), conv.weight.double(), bias.double(),
+                         padding=pc.TAPS // 2, groups=conv.groups)[:, :, :-1]
+            want = h.double() + F.gelu(y).transpose(1, 2)
+            assert torch.equal(pc.positional_conv(h, w, bias), got), f"[{B},{S}]: not bit-equal"
+            err = (got.double() - want).abs().max().item()
+            err_library = (library.double() - want).abs().max().item()
+            del y, want
+            assert err <= 2 * err_library, (f"[{B},{S}]: max err {err:.4g} from float64, "
+                                            f"cuDNN's {err_library:.4g}")
+            ms = graph_ms(torch, lambda: pc.positional_conv(h, w, bias))
+            plain_ms = timed_ms(torch, lambda: pc.positional_conv_plain(h, w, bias), iters=5)
+            lib_ms = graph_ms(torch, lambda: h + module(h), n=10)
+        flops = 2 * B * S * C * cpg * pc.TAPS
+        nbytes = 4 * (2 * B * S * C + w.numel() + C)
+        bound_ms, bound_by = bound(flops, nbytes)
+        blocks = -(-S // pc.ROWS) * B * C // cpg
+        print(f"[pos_conv] [{B}, {S}, {C}], {cpg} channels a group, {blocks} blocks "
+              f"({geo['blocks_per_sm']} an SM, {geo['smem']} B of shared memory): kernel "
+              f"{ms:.5f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound), "
+              f"plain {plain_ms:.5f} ms, cuDNN's conv + GELU + add {lib_ms:.5f} ms, "
+              f"bound_ms={bound_ms:.6f} ({bound_by}); max err {err:.4g} from float64 "
+              f"(cuDNN's {err_library:.4g})")
+        out[(B, S)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 def frontend_layernorm(torch) -> dict:
@@ -4683,8 +4754,9 @@ def run(torch) -> None:
     frontend = phase_frontend(torch, encoder)
     frontend16 = frontend_bf16(torch, encoder)
     frontend_ln = frontend_layernorm(torch)
-    frontend_launches, _ = phase_audio(torch, cfg, decoder, schedule, encoder)
+    frontend_launches, pos_launches = phase_audio(torch, cfg, decoder, schedule, encoder)
     relpos = phase_relpos(torch)
+    pos_conv = phase_pos_conv(torch)
     ddpm = phase_ddpm(torch, cfg, decoder, pre_decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
     trained = phase_train(torch)
@@ -4791,6 +4863,13 @@ def run(torch) -> None:
     kernels.append({"name": "conv_frontend_ln", "route": "cuda",
                     "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
                     "replaces": None, "launches": ln_launches, **frontend_ln})
+    # HuBERT-base's positional conv at float32 (phase 7c: the numbers at [32,
+    # 347, 768]; launches: phase 7's main-path calls); the JAX package leaves
+    # the conv to XLA
+    kernels.append({"name": "pos_conv", "route": "cuda",
+                    "source": "edge_diffusion_tts_tpu_torch/csrc/pos_conv.cu",
+                    "replaces": None, "launches": pos_launches,
+                    **pos_conv[POS_CONV_SHAPES[0]]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

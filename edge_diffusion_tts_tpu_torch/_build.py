@@ -31,6 +31,7 @@ SOURCES = {
     "band_attention": "band_attention.cu",
     "conv_frontend": "conv_frontend.cu",
     "fused_ddim": "fused_ddim.cu",  # also holds the DDPM loop (edt_fused_ddpm)
+    "pos_conv": "pos_conv.cu",
 }
 
 _LOCK = threading.RLock()  # held over every build and load in this process

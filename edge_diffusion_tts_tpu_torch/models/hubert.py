@@ -50,6 +50,10 @@ at the encoder's dtype (``kernel_serves``: hubert-base's stack, and a
 LayerNorm stack such as WavLM's at bfloat16 only), ``HubertEncoder`` keeps
 the stack's weights packed for that kernel and runs its frontend on it
 (on a CPU, its plain version); any other stack runs ``FeatureExtractor``.
+It owns the positional conv's route the same way: at float32, with 48 or
+64 channels a group (``ops/pos_conv.py``'s ``kernel_serves``), the conv,
+its GELU and the residual add are one launch of the positional-conv kernel
+(on a CPU, its plain version); anywhere else ``PositionalConvEmbedding``.
 
 ``dtype`` is the compute dtype, as the JAX module's: with bfloat16 the wav
 is cast to bf16 before conv0 and every layer computes in bf16, but for the
@@ -473,32 +477,45 @@ class HubertEncoder(nn.Module):
     ``frontend_w0`` ... ``frontend_beta``: out of the state dict, moved by
     ``.to()``, seen by ``functional_call``, and packed again, in place, by
     every ``load_state_dict`` (``pack_frontend`` does it after any other
-    change to the stack's weights)."""
+    change to the stack's weights).  ``pos_conv_kernel`` is whether the
+    positional-conv kernel takes the positional conv at ``dtype``; where it
+    does, the conv's packed weight (``pack_pos_conv_weights``) is such a
+    buffer too, ``pos_conv_w``, packed by the same hook."""
 
     def __init__(self, cfg: HubertConfig = HubertConfig(), dtype: torch.dtype = torch.float32):
         super().__init__()
         from ..ops import fused_frontend as ff
+        from ..ops import pos_conv as pc
 
         self.cfg, self.dtype = cfg, dtype
         self.feature_extractor = FeatureExtractor(cfg, dtype)
         self.feature_projection = FeatureProjection(cfg, dtype)
         self.encoder = TransformerEncoder(cfg, dtype)
         self.frontend_kernel = ff.kernel_serves(cfg, dtype)
+        self.pos_conv_kernel = pc.kernel_serves(cfg, dtype)
         if self.frontend_kernel:
             for name, w in ff.pack_frontend_weights(self.feature_extractor, dtype).items():
                 self.register_buffer(f"frontend_{name}", w, persistent=False)
+        if self.pos_conv_kernel:
+            self.register_buffer("pos_conv_w", pc.pack_pos_conv_weights(
+                self.encoder.pos_conv_embed.conv.weight), persistent=False)
+        if self.frontend_kernel or self.pos_conv_kernel:
             self.register_load_state_dict_post_hook(HubertEncoder.pack_frontend)
 
     @torch.no_grad()
     def pack_frontend(self, *_) -> None:
-        """Pack the conv stack's weights as they are now into the frontend
-        buffers, in place (a holder of the buffers sees the new values);
-        also ``load_state_dict``'s post-hook."""
+        """Pack the conv stack's weights and the positional conv's, as they
+        are now, into the kernels' buffers, in place (a holder of the
+        buffers sees the new values); also ``load_state_dict``'s post-hook."""
         if self.frontend_kernel:
             from ..ops import fused_frontend as ff
 
             for name, w in ff.pack_frontend_weights(self.feature_extractor, self.dtype).items():
                 getattr(self, f"frontend_{name}").copy_(w)
+        if self.pos_conv_kernel:
+            from ..ops.pos_conv import pack_pos_conv_weights
+
+            self.pos_conv_w.copy_(pack_pos_conv_weights(self.encoder.pos_conv_embed.conv.weight))
 
     def conv_features(self, wav: torch.Tensor, wav_len=None) -> torch.Tensor:
         """wav [B, T] -> conv features [B, frames, conv_dim[-1]]: the
@@ -545,7 +562,12 @@ class HubertEncoder(nn.Module):
         if frame_mask is not None:
             h = finalize(h)
         enc, cfg = self.encoder, self.cfg
-        h = h + enc.pos_conv_embed(h)
+        if self.pos_conv_kernel:
+            from ..ops.pos_conv import positional_conv
+
+            h = positional_conv(h, self.pos_conv_w, enc.pos_conv_embed.conv.bias)
+        else:
+            h = h + enc.pos_conv_embed(h)
         if not cfg.do_stable_layer_norm:
             h = enc.layer_norm(h)
         hidden_states = [finalize(h)]

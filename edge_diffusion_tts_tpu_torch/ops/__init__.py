@@ -9,6 +9,8 @@ fused_frontend    the HuBERT conv feature extractor, and WavLM's in its
                   fast_encode
 relpos_attention  WavLM's gated relative-position attention (CUDA kernel,
                   plain version)
+pos_conv          the encoders' positional conv embedding and its residual
+                  add at float32 (CUDA kernel, plain version)
 mel               STFT, iSTFT, HTK mel filterbank, MelFrontend (torch.fft)
 resample          polyphase windowed-sinc resampling (one strided conv)
 vocoder           Griffin-Lim

@@ -359,20 +359,20 @@ def test_build_lock_loads_each_library_once(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "build_all", fake_build_all)
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: object())
     _build.build_dir().mkdir(parents=True)
-    barrier = threading.Barrier(8)
+    names = list(_build.SOURCES) * 2 + ["conv_frontend"] * 2
+    barrier = threading.Barrier(len(names))
     got = []
 
     def first_use(name):
         barrier.wait()
         got.append((name, _build.load(name)))
 
-    threads = [threading.Thread(target=first_use, args=(n,))
-               for n in list(_build.SOURCES) * 2 + ["conv_frontend"] * 2]
+    threads = [threading.Thread(target=first_use, args=(n,)) for n in names]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
-    assert len(builds) == 1 and len(got) == 8
+    assert len(builds) == 1 and len(got) == len(names)
     for name in _build.SOURCES:
         assert len({id(lib) for n, lib in got if n == name}) == 1

@@ -16,17 +16,21 @@ steps, injected and Philox noise, both decoders), the conv frontend
 (float32 and bf16 at [1, 80000] and [4, 32000]), then the bf16 decoder
 step: its GEMM in each variant at the same shapes (a bf16 A where it takes
 one), its attention alone (self and cross, [1, 4, 500, 40]) and the two
-loops at bf16, and writes {case: sha256 of the output's bytes}.  It calls
-only entry points whose signatures are those of earlier commits (for the
-bf16 cases, those since the bf16 variants were ported), so a copy of this
-file run inside an older checkout fingerprints that checkout's kernels.
-The second form prints the cases whose fingerprints differ and exits 1 if
-any does.  Imports nothing of JAX.
+loops at bf16, then the positional-conv kernel (48 and 64 channels a
+group, at the audio cell's 10 s bucket and a ragged batch), and writes
+{case: sha256 of the output's bytes}.  It calls only entry points whose
+signatures are those of earlier commits (for the bf16 cases, those since
+the bf16 variants were ported; a checkout without the positional-conv
+kernel has none of its cases), so a copy of this file run inside an older
+checkout fingerprints that checkout's kernels.  The second form prints the
+cases whose fingerprints differ and the cases only one file has, and exits
+1 if any case both files have differs.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import sys
@@ -163,6 +167,17 @@ def fingerprints(torch) -> dict:
         out[f"ddpm bf16 philox{tag}"] = _digest(fd.fused_ddpm(
             *args, heads=cfg.heads, window=cfg.attn_window_size, key=(7, 0x5EED),
             compute_dtype=bf16))
+
+    if importlib.util.find_spec("edge_diffusion_tts_tpu_torch.ops.pos_conv"):
+        from edge_diffusion_tts_tpu_torch.ops import pos_conv as pc
+
+        for cpg in (48, 64):
+            G = 16
+            weight = t(G * cpg, cpg, pc.TAPS, scale=(cpg * pc.TAPS) ** -0.5)
+            w, bias = pc.pack_pos_conv_weights(weight), t(G * cpg, scale=0.1)
+            for B, S in ((32, 499), (3, 131)):
+                out[f"pos_conv {cpg} [{B},{S}]"] = _digest(
+                    pc.positional_conv(t(B, S, G * cpg), w, bias))
     torch.cuda.synchronize()
     return out
 
@@ -170,10 +185,13 @@ def fingerprints(torch) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--compare"]:
         a, b = (json.load(open(p)) for p in sys.argv[2:4])
-        differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        both = set(a) & set(b)
+        differ = sorted(k for k in both if a[k] != b[k])
         for k in differ:
             print(f"[bits] differs: {k}")
-        print(f"[bits] {len(a) - len(differ)} of {len(a)} cases bit-equal")
+        for k in sorted(set(a) ^ set(b)):
+            print(f"[bits] only in {sys.argv[2] if k in a else sys.argv[3]}: {k}")
+        print(f"[bits] {len(both) - len(differ)} of {len(both)} shared cases bit-equal")
         return 1 if differ else 0
     import torch
 
