@@ -162,6 +162,19 @@ It imports nothing of JAX or of the JAX package.  Phases, each asserting:
    (TF32 off), two calls bit-equal; device time by CUDA-graph replay beside the bound (67
    TFLOP/s), the plain version's (CUDA events) and the module route's
    (cuDNN's conv, its GELU and the add, by graph replay: ``library_ms``);
+   7d. w2v-BERT's relative-key attention (csrc/relpos_attention16.cuh,
+   ``ops/relpos_attention.py::relkey_attention16``) at the Conformer cell's
+   widths, B = 32, 16 heads of 64, the published table (73 rows, offsets
+   -64 .. 8), at S = 99, 346 and 499 (2 s, the mix's mean, 10 s): against
+   ``models/w2v_bert.py::relkey_attention`` on the same packed y and table
+   (every output within 2^-7 of the plain route's largest and 1e-2
+   normwise), two calls bit-equal, no more memory than its output; device
+   time by CUDA-graph replay beside the plain route's (CUDA events),
+   ``scaled_dot_product_attention`` with the position term as an additive
+   bf16 mask (built outside its time) and the bound
+   (``benchmark/counts/w2v_bert.py``); then the main path at bf16 behind
+   w2v-BERT 2.0 to layer 17, B = 32 x 10 s: ``relkey_launches()`` grows by
+   17 a call (``python3 chip_smoke.py --relkey`` runs this phase alone);
 8. DDPM: the fused DDPM kernel against its plain version over the 50-step
    schedule at the flagship shape, injected and Philox noise (tolerance
    below), for the default decoder and for phase 3's pre-net decoder, with
@@ -1927,6 +1940,93 @@ def phase_relpos(torch) -> dict:
     print(f"[relpos] main path: generate_from_audio at bf16, WavLM-Large to layer 21, "
           f"[{B}, 160000]: {out['launches']} relpos_attention16 launches, "
           f"{out['ln_launches']} frontend LayerNorm-mode launches, {call_ms:.3f} ms")
+    return out
+
+
+RELKEY_S = (99, 346, 499)  # phase 7d's positions: the Conformer cell's 2 s, mean and 10 s
+
+
+def phase_relkey(torch) -> dict:
+    """Phase 7d: w2v-BERT's relative-key attention kernel at the Conformer
+    cell's widths, then its launches on the main path.  Returns the
+    ``kernels`` line's numbers (S = 499) and the main path's launches."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from benchmark.counts.w2v_bert import relkey_attention
+    from edge_diffusion_tts_tpu_torch.inference import EdgeInference
+    from edge_diffusion_tts_tpu_torch.models import SemanticEncoder, W2vBertConfig
+    from edge_diffusion_tts_tpu_torch.models.w2v_bert import relkey_attention as plain
+    from edge_diffusion_tts_tpu_torch.ops.relpos_attention import (relkey_attention16,
+                                                                   relkey_launches)
+    from edge_diffusion_tts_tpu_torch.schedule import DiffusionSchedule
+
+    bf16, B, heads, d, left, rows = torch.bfloat16, 32, 16, 64, 64, 73
+    H = heads * d
+    out = {}
+    for S in RELKEY_S:
+        g = torch.Generator().manual_seed(9000 + S)
+        y = torch.randn(B, S, 3 * H, generator=g).to(DEVICE).to(bf16)
+        E = torch.randn(rows, d, generator=g).to(DEVICE).to(bf16)
+        want = plain(y, E, left).float()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = relkey_attention16(y, E, left)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert extra <= got.numel() * 2 + (1 << 20), f"relkey S={S}: {extra} bytes allocated"
+        err = (got.float() - want).abs().max().item()
+        norm = ((got.float() - want).norm() / want.norm()).item()
+        bar = 2 ** -7 * max(1.0, want.abs().max().item())
+        assert err <= bar and norm <= 1e-2, f"relkey S={S}: max err {err} (bar {bar}), {norm}"
+        assert torch.equal(relkey_attention16(y, E, left), got), f"relkey S={S}: not bit-equal"
+        q, k, v = (y[..., n * H:(n + 1) * H].unflatten(-1, (heads, d)).transpose(1, 2)
+                   for n in range(3))
+        pos = torch.arange(S, device=DEVICE)
+        idx = torch.clamp(pos[None, :] - pos[:, None], -left, rows - 1 - left) + left
+        qe = q.float() @ E.float().t()
+        mask = (torch.gather(qe, -1, idx.expand(B, heads, S, S)) / 8).to(bf16)
+        del qe
+        ms = graph_ms(torch, lambda: relkey_attention16(y, E, left))
+        plain_ms = timed_ms(torch, lambda: plain(y, E, left), iters=5)
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                          n=10)
+        del mask
+        n = relkey_attention(B, S, heads, d, rows)
+        bound_ms, bound_by = bound(n["products"], n["bytes"], BF16_PEAK_FLOPS)
+        print(f"[relkey] B={B} S={S} heads={heads} d={d}: kernel {ms:.5f} ms "
+              f"({n['products'] / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound), plain "
+              f"route {plain_ms:.5f} ms, SDPA with the position term as a mask {lib_ms:.5f} ms, "
+              f"bound_ms={bound_ms:.6f} ({bound_by}); max err {err:.4g} (bar {bar:.4g}), "
+              f"{norm:.4g} normwise")
+        out = dict(max_abs_err=max(err, out.get("max_abs_err", 0.0)), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    cfg = dataclasses.replace(flagship_cfg(), hubert_id="facebook/w2v-bert-2.0",
+                              hubert_layer=17, compute_dtype="bfloat16")
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        enc = SemanticEncoder(cfg, W2vBertConfig(), dtype=bf16)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    assert len(enc.hubert.encoder.layers) == 17
+    decoder = seeded_decoder(torch, cfg, PRENET_SEED).to(DEVICE)
+    schedule = DiffusionSchedule.create(cfg.diff_steps, cfg.beta_start, cfg.beta_end)
+    engine = EdgeInference(cfg, schedule, decoder, prediction="v", backend="fused",
+                           device=DEVICE, encoder=enc.eval())
+    wav = 0.1 * torch.randn(B, 160000, generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    engine.generate_from_audio(wav, num_steps=4)  # warm-up
+    torch.cuda.synchronize()
+    n0 = relkey_launches()
+    mel, call_ms = timed_call(torch, lambda: engine.generate_from_audio(wav, num_steps=4))
+    out["launches"] = relkey_launches() - n0
+    assert out["launches"] == 17, f"relkey launches on the main path: {out['launches']}, not 17"
+    assert torch.isfinite(mel).all() and mel.shape == (B, 998, cfg.n_mels), mel.shape
+    print(f"[relkey] main path: generate_from_audio at bf16, w2v-BERT 2.0 to layer 17, "
+          f"[{B}, 160000]: {out['launches']} relkey_attention16 launches, {call_ms:.3f} ms")
     return out
 
 
@@ -4756,6 +4856,7 @@ def run(torch) -> None:
     frontend_ln = frontend_layernorm(torch)
     frontend_launches, pos_launches = phase_audio(torch, cfg, decoder, schedule, encoder)
     relpos = phase_relpos(torch)
+    relkey = phase_relkey(torch)
     pos_conv = phase_pos_conv(torch)
     ddpm = phase_ddpm(torch, cfg, decoder, pre_decoder)
     serve = phase_serve(torch, cfg, decoder, encoder)
@@ -4860,6 +4961,11 @@ def run(torch) -> None:
     kernels.append({"name": "relpos_attention16", "route": "cuda",
                     "source": "edge_diffusion_tts_tpu_torch/csrc/relpos_attention16.cuh",
                     "replaces": None, **relpos})
+    # w2v-BERT's relative-key attention (phase 7d: the numbers at S = 499); no
+    # TPU kernel computes it, the JAX package has no w2v-BERT
+    kernels.append({"name": "relkey_attention16", "route": "cuda",
+                    "source": "edge_diffusion_tts_tpu_torch/csrc/relpos_attention16.cuh",
+                    "replaces": None, **relkey})
     kernels.append({"name": "conv_frontend_ln", "route": "cuda",
                     "source": "edge_diffusion_tts_tpu_torch/csrc/conv_frontend.cu",
                     "replaces": None, "launches": ln_launches, **frontend_ln})
@@ -4958,6 +5064,12 @@ def main() -> int:
         if "--gemm16-timers" in sys.argv[1:]:
             with torch.no_grad():
                 gemm16_timers(torch)
+        elif "--relkey" in sys.argv[1:]:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            phase_build()
+            with torch.no_grad():
+                phase_relkey(torch)
         else:
             run(torch)
     except Exception:  # any failed phase: report it and print no result

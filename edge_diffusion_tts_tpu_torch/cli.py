@@ -388,9 +388,10 @@ def _export(args) -> None:
 
 def _migrate(args) -> None:
     from .config import CFG
-    from .models import EdgeDiffusionDecoder, SemanticEncoder, hubert_config_for
+    from .models import EdgeDiffusionDecoder, SemanticEncoder, W2vBertConfig, hubert_config_for
     from .utils.torch_compat import convert_reference_checkpoint, load_reference_checkpoint
-    from .weights import hubert_state_dict_from_hf, save_checkpoint, wavlm_state_dict_from_hf
+    from .weights import (hubert_state_dict_from_hf, save_checkpoint, w2v_bert_state_dict_from_hf,
+                          wavlm_state_dict_from_hf)
 
     ckpt = load_reference_checkpoint(args.pt_path)
     cfg = CFG.from_dict(ckpt["cfg"]) if ckpt.get("cfg") else CFG()
@@ -399,7 +400,12 @@ def _migrate(args) -> None:
     hubert_cfg = hubert_config_for(cfg.hubert_id)
     hubert_state = None
     if args.hubert_id:
-        if hubert_cfg.num_buckets:
+        if isinstance(hubert_cfg, W2vBertConfig):
+            from transformers import Wav2Vec2BertModel as HFModel
+
+            def convert(sd, hc):
+                return w2v_bert_state_dict_from_hf(sd, hc, min(cfg.hubert_layer, hc.num_layers))
+        elif hubert_cfg.num_buckets:
             from transformers import WavLMModel as HFModel
 
             convert = wavlm_state_dict_from_hf
@@ -433,11 +439,13 @@ def _precompute(args, device) -> None:
 
     from .config import CFG
     from .data import precompute_hubert_features
-    from .models import HubertEncoder, hubert_config_for
+    from .models import hubert_config_for
+    from .models.encoder import speech_encoder
 
     cfg = CFG()
     torch.manual_seed(0)
-    hubert = HubertEncoder(hubert_config_for(cfg.hubert_id)).to(device).eval()
+    hc = hubert_config_for(cfg.hubert_id)
+    hubert = speech_encoder(hc, num_layers=min(cfg.hubert_layer, hc.num_layers)).to(device).eval()
 
     def apply(wav):
         with torch.no_grad():

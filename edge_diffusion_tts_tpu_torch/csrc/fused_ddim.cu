@@ -541,6 +541,27 @@ extern "C" int edt_relpos_attention16(const void* y, const float* rel, const flo
   return edt::launch_relpos_attention16(a, B, (cudaStream_t)stream);
 }
 
+// w2v-BERT's relative-key attention (relpos_attention16.cuh), the encoder's:
+// o [B, S, heads x 64] bf16 from y [B, S, 3 heads 64] bf16 (q, k, v) and the
+// distance table E [rows, 64] bf16, offset d at row clamp(d, -left, rows - 1
+// - left) + left.  Counted by edt_relkey_launches alone.  Returns a
+// cudaError_t.
+extern "C" int edt_relkey_attention16(const void* y, const void* E, void* o, int B, int heads,
+                                      int S, int rows, int left, void* stream) {
+  edt::RelkeyArgs a;
+  a.y = static_cast<const edt::bf16*>(y);
+  a.E = static_cast<const edt::bf16*>(E);
+  a.o = static_cast<edt::bf16*>(o);
+  a.heads = heads;
+  a.S = S;
+  a.rows = rows;
+  a.left = left;
+  return edt::launch_relkey_attention16(a, B, (cudaStream_t)stream);
+}
+
+// Launches of relkey_attention16_kernel since the library was loaded.
+extern "C" long long edt_relkey_launches() { return edt::g_relkey_launches; }
+
 // The decoder step's GEMM alone (gemm.cuh), as a test and timing hook, in
 // tile `tile` of the bf16 variant's list (edt_gemm_bf16_tile_shape; < 0:
 // the host's pick, as the decoder step takes it):

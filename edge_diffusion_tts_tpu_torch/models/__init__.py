@@ -1,11 +1,12 @@
 """Models of the port: the diffusion decoder and the semantic encoder
-(HuBERT + projection + FSQ/VQ)."""
+(HuBERT, WavLM or w2v-BERT 2.0 + projection + FSQ/VQ)."""
 
 from .decoder import EdgeDiffusionDecoder
 from .encoder import SemanticEncoder, is_hubert_param
 from .fsq import FSQ, FSQEncoder, count_code_usage, usage_metrics
 from .hubert import HubertConfig, HubertEncoder, hubert_config_for
 from .vq import VectorQuantizer
+from .w2v_bert import W2vBertConfig, W2vBertEncoder
 
 __all__ = [
     "EdgeDiffusionDecoder",
@@ -15,6 +16,8 @@ __all__ = [
     "HubertEncoder",
     "SemanticEncoder",
     "VectorQuantizer",
+    "W2vBertConfig",
+    "W2vBertEncoder",
     "count_code_usage",
     "hubert_config_for",
     "is_hubert_param",

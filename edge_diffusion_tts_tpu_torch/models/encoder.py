@@ -10,6 +10,13 @@ the projection and the FSQ's projections (the VQ computes in float32, as
 JAX's has no dtype).  Its HuBERT owns the conv frontend's route (the
 conv-frontend kernel where it takes the stack at ``dtype``, the modules
 elsewhere: models/hubert.py), so every caller just calls the encoder.
+
+The speech encoder is the one its configuration names: a ``HubertConfig``
+builds ``HubertEncoder`` (HuBERT, WavLM), a ``W2vBertConfig`` builds
+``W2vBertEncoder`` (models/w2v_bert.py) to ``cfg.hubert_layer`` only, and
+the valid frame counts come from the architecture (``num_frames``).  The
+MaskGCT recipe's per-channel statistics before quantizing w2v-BERT's layer
+17 are a fixed affine map of the features, which ``proj_fc1`` absorbs.
 """
 
 from __future__ import annotations
@@ -24,8 +31,19 @@ from ..config import CFG
 from ..layers.dtypes import LayerNorm, Linear
 from ..layers.ffn import dropout
 from .fsq import FSQEncoder
-from .hubert import HubertConfig, HubertEncoder, conv_frame_lengths, valid_mask
+from .hubert import HubertConfig, HubertEncoder, valid_mask
 from .vq import VectorQuantizer
+from .w2v_bert import W2vBertConfig, W2vBertEncoder
+
+
+def speech_encoder(hubert_cfg, dtype: torch.dtype = torch.float32,
+                   num_layers: Optional[int] = None) -> nn.Module:
+    """The frozen speech encoder ``hubert_cfg`` describes: ``W2vBertEncoder``
+    for a ``W2vBertConfig`` (built to ``num_layers``, default all), else
+    ``HubertEncoder`` (every layer)."""
+    if isinstance(hubert_cfg, W2vBertConfig):
+        return W2vBertEncoder(hubert_cfg, dtype, num_layers)
+    return HubertEncoder(hubert_cfg, dtype)
 
 
 class SemanticEncoder(nn.Module):
@@ -44,7 +62,8 @@ class SemanticEncoder(nn.Module):
         self.use_dropout = use_dropout
         self.dtype = dtype
         D = cfg.semantic_dim
-        self.hubert = HubertEncoder(hubert_cfg, dtype)
+        self.hubert = speech_encoder(hubert_cfg, dtype,
+                                     min(cfg.hubert_layer, hubert_cfg.num_layers))
         self.proj_fc1 = Linear(hubert_cfg.hidden_size, D, compute_dtype=dtype)
         # flax LayerNorm's default eps
         self.proj_ln = LayerNorm(D, eps=1e-6, compute_dtype=dtype)
@@ -93,7 +112,7 @@ class SemanticEncoder(nn.Module):
         out = self._quantize(self._project(h, train, generator), train, generator)
         if wav_len is None:
             return out
-        n_valid = conv_frame_lengths(self.hubert_cfg, torch.as_tensor(wav_len))[-1]
+        n_valid = self.hubert_cfg.num_frames(torch.as_tensor(wav_len))
         mask = valid_mask(h.shape[1], n_valid, h.device)
         z_q, idx, vq_loss, ppl, used = out
         return (torch.where(mask[:, :, None], z_q, 0.0), torch.where(mask, idx, 0),

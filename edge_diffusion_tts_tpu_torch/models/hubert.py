@@ -111,6 +111,11 @@ class HubertConfig:
         """Samples per output latent (320 for hubert-base: 20 ms at 16 kHz)."""
         return int(np.prod(self.conv_stride))
 
+    def num_frames(self, samples):
+        """Frames the encoder gives for ``samples`` (int or integer tensor):
+        the conv stack's last valid length."""
+        return conv_frame_lengths(self, samples)[-1]
+
     def to_json(self) -> str:
         """The fields as JSON; the architecture's switches only where they
         differ from hubert-base's, so that a hubert-base file is the one the
@@ -158,19 +163,38 @@ class HubertConfig:
 
 SWITCHES = ("feat_extract_norm", "do_stable_layer_norm", "num_buckets", "max_bucket_distance")
 
+def _w2v_bert_2():
+    from .w2v_bert import W2vBertConfig
+
+    return W2vBertConfig()
+
+
 # The encoders a configuration's ``hubert_id`` names.
 HUBERT_IDS = {
     "facebook/hubert-base-ls960": HubertConfig,
     "microsoft/wavlm-large": HubertConfig.wavlm_large,
+    "facebook/w2v-bert-2.0": _w2v_bert_2,
 }
 
 
-def hubert_config_for(hubert_id: str) -> HubertConfig:
-    """The architecture of the encoder ``hubert_id`` names (``CFG.hubert_id``);
-    an id the port does not know raises."""
+def hubert_config_for(hubert_id: str):
+    """The architecture of the encoder ``hubert_id`` names (``CFG.hubert_id``):
+    a ``HubertConfig``, or for w2v-BERT 2.0 a ``W2vBertConfig``
+    (models/w2v_bert.py); an id the port does not know raises."""
     if hubert_id not in HUBERT_IDS:
         raise ValueError(f"hubert_id {hubert_id!r}: the port knows {sorted(HUBERT_IDS)}")
     return HUBERT_IDS[hubert_id]()
+
+
+def encoder_config_from_json(s: str):
+    """The encoder architecture a checkpoint's ``hubert.json`` holds: a
+    ``W2vBertConfig`` where the file names that architecture, else a
+    ``HubertConfig``."""
+    from .w2v_bert import ARCHITECTURE, W2vBertConfig
+
+    if json.loads(s).get("architecture") == ARCHITECTURE:
+        return W2vBertConfig.from_json(s)
+    return HubertConfig.from_json(s)
 
 
 def relative_buckets(offsets: torch.Tensor, num_buckets: int, max_distance: int) -> torch.Tensor:

@@ -33,6 +33,7 @@ from torch.func import functional_call
 
 from ..layers.dtypes import cast
 from ..models.encoder import SemanticEncoder
+from ..models.hubert import HubertConfig
 from .mesh import DATA_AXIS, MODEL_AXIS, Axis, Mesh, Placement
 
 _COL_PARALLEL = ("q_proj", "k_proj", "v_proj", "intermediate_dense")
@@ -109,6 +110,10 @@ class TPEncode:
         self.model = mesh.axis(MODEL_AXIS)
         self.data = mesh.axis(axis)
         hc = encoder.hubert_cfg
+        if not isinstance(hc, HubertConfig):
+            raise ValueError("tensor-parallel encode splits HuBERT's and WavLM's layers, not "
+                             f"w2v-BERT's Conformer layers ({type(hc).__name__}): encode it on "
+                             "one rank")
         n = self.model.size
         if hc.num_heads % n or hc.intermediate_size % n:
             raise ValueError(f"{hc.num_heads} heads and FFN width {hc.intermediate_size} "

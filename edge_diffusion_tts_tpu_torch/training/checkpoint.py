@@ -36,7 +36,7 @@ import torch
 
 from .. import weights
 from ..config import CFG
-from ..models.hubert import HubertConfig, hubert_config_for
+from ..models.hubert import HubertConfig, encoder_config_from_json, hubert_config_for
 from .state import TrainState
 
 _STATE_FILE = "state.pt"
@@ -171,7 +171,7 @@ def restore_hubert_config(path: str) -> HubertConfig:
     p = os.path.join(path, _HUBERT_FILE)
     if os.path.exists(p):
         with open(p) as f:
-            return HubertConfig.from_json(f.read())
+            return encoder_config_from_json(f.read())
     p = os.path.join(path, _CFG_FILE)
     if os.path.exists(p):
         with open(p) as f:

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from .config import CFG
-from .models.hubert import HubertConfig, HubertEncoder
+from .models.hubert import HubertConfig, HubertEncoder, encoder_config_from_json
 
 _MODULE_NAMES = {
     "time_fc1": "time_emb.1",
@@ -292,6 +292,24 @@ def _hf_state_dict(state_dict: Mapping, cfg: HubertConfig, what: str) -> Dict[st
     return {k: sd[k].contiguous() for k in wanted}
 
 
+def w2v_bert_state_dict_from_hf(state_dict: Mapping, cfg, num_layers: Optional[int] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """transformers ``Wav2Vec2BertModel.state_dict()`` -> the port
+    ``W2vBertEncoder``'s at ``cfg`` (a ``W2vBertConfig``) built to
+    ``num_layers`` (default all): the same names, less ``masked_spec_embed``
+    and the layers past ``num_layers``; a missing key raises KeyError."""
+    from .models.w2v_bert import W2vBertEncoder
+
+    with torch.device("meta"):
+        wanted = list(W2vBertEncoder(cfg, num_layers=num_layers).state_dict())
+    missing = [k for k in wanted if k not in state_dict]
+    if missing:
+        raise KeyError(f"HF w2v-BERT state dict lacks {missing[:5]} ({len(missing)} keys)")
+    return {k: torch.as_tensor(np.asarray(state_dict[k].detach().cpu()
+                                          if hasattr(state_dict[k], "detach") else state_dict[k],
+                                          dtype=np.float32)).contiguous() for k in wanted}
+
+
 CKPT_FILES = {"cfg": "cfg.json", "decoder": "decoder.pt", "hubert": "hubert.json",
               "encoder": "encoder.pt"}
 
@@ -329,7 +347,7 @@ def load_checkpoint(path: str, with_encoder: bool = False
     if not with_encoder:
         return cfg, dec, None, None
     with open(os.path.join(path, CKPT_FILES["hubert"])) as f:
-        hubert_cfg = HubertConfig.from_json(f.read())
+        hubert_cfg = encoder_config_from_json(f.read())
     enc = torch.load(os.path.join(path, CKPT_FILES["encoder"]), map_location="cpu",
                      weights_only=True)
     if not any(k.startswith("hubert.") for k in enc):

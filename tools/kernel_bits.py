@@ -17,7 +17,10 @@ steps, injected and Philox noise, both decoders), the conv frontend
 step: its GEMM in each variant at the same shapes (a bf16 A where it takes
 one), its attention alone (self and cross, [1, 4, 500, 40]) and the two
 loops at bf16, then the positional-conv kernel (48 and 64 channels a
-group, at the audio cell's 10 s bucket and a ragged batch), and writes
+group, at the audio cell's 10 s bucket and a ragged batch), then the
+encoders' relative-position attentions (WavLM's gated mode, and where the
+checkout has it w2v-BERT's relative-key mode, [4, 149] and [4, 499] at 16
+heads of 64), and writes
 {case: sha256 of the output's bytes}.  It calls only entry points whose
 signatures are those of earlier commits (for the bf16 cases, those since
 the bf16 variants were ported; a checkout without the positional-conv
@@ -178,6 +181,20 @@ def fingerprints(torch) -> dict:
             for B, S in ((32, 499), (3, 131)):
                 out[f"pos_conv {cpg} [{B},{S}]"] = _digest(
                     pc.positional_conv(t(B, S, G * cpg), w, bias))
+    # The encoders' relative-position attentions at bf16 (WavLM's gated mode
+    # and w2v-BERT's relative-key mode), B = 4, 16 heads of 64.
+    if importlib.util.find_spec("edge_diffusion_tts_tpu_torch.ops.relpos_attention"):
+        from edge_diffusion_tts_tpu_torch.ops import relpos_attention as ra
+
+        packed = {S: t(4, S, 16 * (3 * 64 + 8)).to(bf16) for S in (149, 499)}
+        for S, y in packed.items():
+            rel, const = t(16, 2 * S - 1, scale=0.25), t(16, scale=0.25)
+            out[f"relpos [4,{S}]"] = _digest(ra.relpos_attention16(y, rel, const))
+        if hasattr(ra, "relkey_attention16"):  # drawn after every earlier case's inputs
+            E = t(73, 64).to(bf16)
+            for S, y in packed.items():
+                out[f"relkey [4,{S}]"] = _digest(ra.relkey_attention16(
+                    y[..., :3 * 1024].contiguous(), E, 64))
     torch.cuda.synchronize()
     return out
 
