@@ -45,17 +45,29 @@ plain version for CPU tensors only; for CUDA tensors they launch the kernel
 or raise.  The plain versions keep the dtype they are given (rounding to
 bf16 where ``compute_dtype`` says so), so a float64 run of them is a witness
 of float32 rounding.
+
+An unmasked CUDA call of ``fused_generate_mel`` on packed weights replays a
+CUDA graph of its call shape (``LoopPlans``): the preparation and the whole
+loop's launches, captured the second time the shape is seen, so the host
+makes one graph launch where it made about a hundred small ops.  The
+DDIM grid and coefficients are made once per schedule on the device
+(``ddim_grid``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
+import weakref
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build
 from ..config import CFG, resolve_device
@@ -168,6 +180,24 @@ def ddim_coefficients(schedule: DiffusionSchedule, num_steps: int):
     return ts, torch.from_numpy(coef)
 
 
+_DDIM_GRIDS = WeakIdKeyDictionary()  # schedule.alpha_bar -> {(steps, device): (ts, coef)}
+
+
+def ddim_grid(schedule: DiffusionSchedule, num_steps: int, device):
+    """``ddim_coefficients`` as tensors on ``device``: ts [steps] and coef
+    [steps, 4], float32, made once per (schedule, num_steps, device) and
+    kept while the schedule's tables live, so that a call copies nothing
+    between the host and the device."""
+    device = torch.device(device)
+    grids = _DDIM_GRIDS.setdefault(schedule.alpha_bar, {})
+    grid = grids.get((num_steps, device))
+    if grid is None:
+        ts, coef = ddim_coefficients(schedule, num_steps)
+        grid = grids[num_steps, device] = (
+            torch.tensor(ts, dtype=torch.float32, device=device), coef.to(device))
+    return grid
+
+
 def ddpm_coefficients(schedule: DiffusionSchedule) -> torch.Tensor:
     """[T, 5] float32 per loop index i (t = T-1-i): sqrt ab, sqrt(1-ab),
     1/sqrt(alpha), beta/sqrt(1-ab), and sigma = sqrt(posterior variance),
@@ -190,7 +220,9 @@ def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts,
                         step_idx: Optional[torch.Tensor] = None,
                         mods_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Per-call, step-invariant tensors: ``pos`` [T, H], ``mods``
-    [steps, L, 4, H] and ``ckv`` [L, B, S, 2H], all float32.  ``step_idx``
+    [steps, L, 4, H] and ``ckv`` [L, B, S, 2H], all float32.  ``ts`` is the
+    timestep grid, a list or a float32 tensor on ``sem_idx``'s device
+    (``ddim_grid``'s: nothing is then copied from the host).  ``step_idx``
     [steps] is the stage index each step's time conditioning gets (default:
     0, 1, ...; DDPM drives every step with 0).
 
@@ -209,7 +241,7 @@ def prepare_loop_inputs(decoder, sem_idx: torch.Tensor, T: int, ts,
     ckv = [b.cross_attn.latent_kv(ctx, f32) for b in decoder.layers]
     n = len(ts)
     te = decoder.time_cond(
-        torch.tensor(ts, dtype=f32, device=device),
+        torch.as_tensor(ts, dtype=f32, device=device),
         torch.arange(n, device=device) if step_idx is None else step_idx.to(device),
         dtype=f32,
     )
@@ -487,7 +519,9 @@ def kernel_launches(kind: Optional[str] = None) -> int:
     alone since ``zero_kernel_launches``: ``gemm_wgmma`` (csrc/
     gemm_wgmma.cuh), ``gemm16`` (gemm.cuh's mma.sync kernel),
     ``attention16`` (csrc/attention16.cuh), ``relpos_attention16`` (the
-    encoder's csrc/relpos_attention16.cuh, outside the total)."""
+    encoder's csrc/relpos_attention16.cuh, outside the total).  The host
+    counts launches as it makes them: a CUDA graph's capture counts its
+    kernels once and its replays count none (``fused_generate_mel.replays``)."""
     if kind is None:
         return int(_lib().edt_kernel_launches())
     if kind not in KERNEL_KINDS:
@@ -499,6 +533,13 @@ def zero_kernel_launches() -> None:
     """Set the counts of ``kernel_launches(kind)`` and of
     ``attention16_tile_launches()`` to 0 (not the total)."""
     _lib().edt_zero_kernel_launches()
+
+
+def zero_plan_counts() -> None:
+    """Set ``fused_generate_mel``'s counts of its routes to 0: ``.eager``
+    (calls that launched the loop's ops one by one), ``.captures`` (calls
+    that captured their shape's graph, then replayed it) and ``.replays``."""
+    fused_generate_mel.eager = fused_generate_mel.captures = fused_generate_mel.replays = 0
 
 
 # The tiles of the bf16 step attention (csrc/attention16.cuh), by the
@@ -916,6 +957,94 @@ fused_ddpm.launches = 0
 fused_ddpm.bf16_launches = 0
 
 
+PLANS_PER_DECODER = 32  # call shapes a decoder keeps graphs of; the least recently used go
+
+
+class LoopPlans:
+    """The route of each call shape of one decoder's ``fused_generate_mel``,
+    and the plans of the shapes it captured.
+
+    A call's ``key`` is its shape, its ``addrs`` the addresses of every
+    tensor a graph of it reads.  A key whose plan was captured at the same
+    addresses replays it.  A plan whose addresses no longer match (the
+    decoder moved, new packed weights) is dropped and the call runs
+    eagerly.  A key seen once before at the same addresses is captured.
+    Any other call runs eagerly and is remembered.  Past ``limit`` keys the
+    least recently used plan, or sighting, is forgotten.  This is host
+    bookkeeping alone: ``fused_generate_mel`` makes and replays the graphs,
+    one call of a decoder at a time (``lock``), in one memory ``pool``.
+    """
+
+    def __init__(self, slots=()):
+        self.slots = list(slots)  # (dict, name) of the decoder's tensors: ``_tensor_slots``
+        self.limit = PLANS_PER_DECODER
+        self.seen: "OrderedDict[tuple, tuple]" = OrderedDict()  # key -> addresses
+        self.plans: "OrderedDict[tuple, object]" = OrderedDict()  # key -> plan with .addrs
+        self.lock = threading.Lock()
+        self.pool = None  # the graphs' memory pool, made at the first capture
+        self.done = None  # (stream, event) recorded after the last replay's result
+
+    def route(self, key, addrs) -> str:
+        """"replay" (``plans[key]``), "capture" or "eager"."""
+        plan = self.plans.get(key)
+        if plan is not None:
+            if plan.addrs == addrs:
+                self.plans.move_to_end(key)
+                return "replay"
+            del self.plans[key]
+        if self.seen.pop(key, None) == addrs:
+            return "capture"
+        self.seen[key] = addrs
+        if len(self.seen) > self.limit:
+            self.seen.popitem(last=False)
+        return "eager"
+
+    def keep(self, key, plan) -> None:
+        """Hold ``plan``, captured at ``plan.addrs``, under ``key``."""
+        self.plans[key] = plan
+        if len(self.plans) > self.limit:
+            self.plans.popitem(last=False)
+
+
+_LOOP_PLANS = weakref.WeakKeyDictionary()  # decoder -> LoopPlans, dropped with the decoder
+_LOOP_PLANS_LOCK = threading.Lock()
+
+
+def _tensor_slots(module):
+    """``(dict, name)`` of each parameter and buffer of ``module``: looked up
+    again at every call, so a tensor moved (``.to()``) or reassigned shows
+    in the addresses; a submodule replaced after the first call does not."""
+    return [(d, n) for m in module.modules() for d in (m._parameters, m._buffers)
+            for n, t in d.items() if t is not None]
+
+
+def loop_plans(decoder) -> LoopPlans:
+    """The decoder's ``LoopPlans``, made at its first planned call."""
+    with _LOOP_PLANS_LOCK:
+        plans = _LOOP_PLANS.get(decoder)
+        if plans is None:
+            plans = _LOOP_PLANS[decoder] = LoopPlans(_tensor_slots(decoder))
+        return plans
+
+
+class _LoopPlan:
+    """One call shape's CUDA graph, the inputs it reads and the x0 it writes."""
+
+    def __init__(self, addrs, sem_idx, x_T):
+        self.addrs = addrs
+        with torch.inference_mode(False):  # written in place in and out of inference mode
+            self.sem_idx = torch.empty(sem_idx.shape, dtype=torch.long, device=x_T.device)
+            self.x_T = torch.empty(x_T.shape, dtype=torch.float32, device=x_T.device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.out = None
+
+
+def _loop_inputs(decoder, sem_idx, x_T, ts, compute_dtype):
+    """``fused_ddim``'s pos, mods and ckv (at ``compute_dtype``) for a call."""
+    loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts)
+    return loop["pos"], loop["mods"], loop["ckv"].to(compute_dtype)
+
+
 def fused_generate_mel(
     cfg: CFG,
     schedule: DiffusionSchedule,
@@ -935,19 +1064,67 @@ def fused_generate_mel(
     ``compute_dtype`` is the JAX function's: float32, or bfloat16 for bf16
     operands in every product with float32 sums (the residual stream stays
     float32); the loop's inputs are computed in float32 either way.
+
+    On CUDA tensors with ``weights`` given, a call takes its shape's plan
+    (``LoopPlans``): the first call of a shape runs eagerly, the second
+    captures the loop's inputs and the loop in a CUDA graph, and each later
+    one copies its tokens and noise in and replays it.  The result is a new
+    tensor, bit-equal to the eager route's, whose kernels the graph holds in
+    the same order.  CPU tensors and ``weights=None`` run eagerly.  Counted
+    in ``fused_generate_mel.eager``, ``.captures`` and ``.replays``.
     """
     _compute_dtype(compute_dtype, "fused_generate_mel")
-    with torch.no_grad():
+    device = x_T.device
+    plans = (loop_plans(decoder) if weights is not None and device.type == "cuda"
+             and sem_idx.device == device else None)
+    kw = dict(heads=cfg.heads, window=cfg.attn_window_size, prediction=prediction,
+              compute_dtype=compute_dtype)
+    with torch.no_grad(), plans.lock if plans is not None else contextlib.nullcontext():
         with span("prep:loop_inputs"):
-            ts, coef = ddim_coefficients(schedule, num_steps)
+            ts, coef = ddim_grid(schedule, num_steps, device)
             w = weights if weights is not None else pack_decoder_weights(decoder, compute_dtype)
-            loop = prepare_loop_inputs(decoder, sem_idx, x_T.shape[1], ts)
-            x_T, ckv, coef = (x_T.float().contiguous(), loop["ckv"].to(compute_dtype),
-                              coef.to(x_T.device))
-        return fused_ddim(
-            x_T, loop["pos"], loop["mods"], ckv, coef, w, heads=cfg.heads,
-            window=cfg.attn_window_size, prediction=prediction, compute_dtype=compute_dtype,
-        )
+            route = "eager"
+            if plans is not None:
+                key = (*sem_idx.shape, *x_T.shape[1:], num_steps, compute_dtype, prediction,
+                       cfg.heads, cfg.attn_window_size, device)
+                addrs = (*(d[n].data_ptr() for d, n in plans.slots),
+                         *(t.data_ptr() for t in w.values()), ts.data_ptr(), coef.data_ptr())
+                route = plans.route(key, addrs)
+            if route == "eager":
+                x_T = x_T.float().contiguous()
+                loop = _loop_inputs(decoder, sem_idx, x_T, ts, compute_dtype)
+            else:
+                plan = plans.plans[key] if route == "replay" else _LoopPlan(addrs, sem_idx, x_T)
+                stream = torch.cuda.current_stream(device)
+                if plans.done is not None and plans.done[0] != stream:
+                    stream.wait_event(plans.done[1])  # the last result, taken on another stream
+                plan.sem_idx.copy_(sem_idx)
+                plan.x_T.copy_(x_T)  # as float32, contiguous
+        if route == "eager":
+            fused_generate_mel.eager += 1
+            return fused_ddim(x_T, *loop, coef, w, **kw)
+        with span("prep:launch"):
+            if route == "capture":
+                if plans.pool is None:
+                    plans.pool = torch.cuda.graph_pool_handle()
+                # serving and the pipeline run CUDA work on other threads meanwhile
+                with torch.cuda.graph(plan.graph, pool=plans.pool,
+                                      capture_error_mode="thread_local"):
+                    plan.out = fused_ddim(plan.x_T, *_loop_inputs(
+                        decoder, plan.sem_idx, plan.x_T, ts, compute_dtype), coef, w, **kw)
+                plans.keep(key, plan)
+                fused_generate_mel.captures += 1
+            else:
+                _launch_counts(fused_ddim, compute_dtype != torch.float32)
+                fused_generate_mel.replays += 1
+            with span("prep:graph_replay"):
+                plan.graph.replay()
+            out = plan.out.clone()  # the next call of any shape overwrites plan.out
+            plans.done = (stream, stream.record_event())
+            return out
+
+
+zero_plan_counts()
 
 
 def fused_ddpm_sample(

@@ -7,6 +7,8 @@ port's own eager ``generate_mel``, to 1e-4 (the JAX kernel's bar).  The CUDA
 kernel against the plain version is in test_torch_kernels_gpu.py.
 """
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -92,3 +94,88 @@ def test_fused_facade_and_packing(setup):
     ts, coef = pf.ddim_coefficients(PSchedule.create(1000), 4)
     assert ts == [999, 749, 499, 249] and coef.shape == (4, 4)
 
+
+
+# -- the DDIM grid on the device and the loop plans' rule (no CUDA needed) ----------
+
+
+@pytest.mark.parametrize("steps", range(1, 9))
+def test_ddim_grid_is_the_numpy_table_bit_for_bit(steps):
+    sched = PSchedule.create(1000)
+    ts, coef = pf.ddim_coefficients(sched, steps)
+    grid_ts, grid_coef = pf.ddim_grid(sched, steps, "cpu")
+    assert grid_ts.dtype == grid_coef.dtype == torch.float32
+    assert torch.equal(grid_coef, coef) and grid_ts.tolist() == ts
+    assert pf.ddim_grid(sched, steps, "cpu")[1] is grid_coef  # made once, then kept
+
+
+def test_loop_inputs_from_the_grid_equal_those_from_the_list(setup):
+    _, _, _, pdec = setup
+    sched = PSchedule.create(1000)
+    sem_idx = torch.from_numpy(_inputs()[0])
+    ts, _ = pf.ddim_coefficients(sched, 4)
+    want = pf.prepare_loop_inputs(pdec, sem_idx, 24, ts)
+    got = pf.prepare_loop_inputs(pdec, sem_idx, 24, pf.ddim_grid(sched, 4, "cpu")[0])
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def _plan(addrs):
+    return SimpleNamespace(addrs=addrs)
+
+
+def test_loop_plans_capture_a_shape_the_second_time_it_is_seen():
+    plans = pf.LoopPlans()
+    assert plans.route("a", (1, 2)) == "eager"
+    assert plans.route("b", (1, 2)) == "eager"  # another shape is its own first sighting
+    assert plans.route("a", (1, 2)) == "capture"
+    plans.keep("a", _plan((1, 2)))
+    assert [plans.route("a", (1, 2)) for _ in range(3)] == ["replay"] * 3
+    assert plans.route("b", (1, 2)) == "capture"
+
+
+def test_loop_plans_drop_a_plan_whose_addresses_moved():
+    plans = pf.LoopPlans()
+    plans.route("a", (1, 2))
+    plans.route("a", (1, 2))
+    plans.keep("a", _plan((1, 2)))
+    assert plans.route("a", (1, 3)) == "eager" and "a" not in plans.plans
+    assert plans.route("a", (1, 2)) == "eager"  # the old addresses are a new sighting
+    assert plans.route("a", (1, 2)) == "capture"
+    plans.route("c", (5,))
+    assert plans.route("c", (6,)) == "eager"  # a sighting at other addresses is no second one
+    assert plans.route("c", (6,)) == "capture"
+
+
+def test_loop_plans_forget_the_least_recently_used_past_their_limit():
+    assert pf.PLANS_PER_DECODER == 32 and pf.LoopPlans().limit == 32
+    plans = pf.LoopPlans()
+    plans.limit = 3
+    for key in "abcd":
+        assert plans.route(key, ()) == "eager"
+    assert list(plans.seen) == ["b", "c", "d"]
+    assert plans.route("a", ()) == "eager"  # forgotten: a first sighting again
+    assert plans.route("b", ()) == "eager" and list(plans.seen) == ["d", "a", "b"]
+    for key in "dab":
+        assert plans.route(key, ()) == "capture"
+        plans.keep(key, _plan(()))
+    assert plans.route("d", ()) == "replay"  # now the most recently used
+    plans.route("e", ())
+    plans.route("e", ())
+    plans.keep("e", _plan(()))
+    assert list(plans.plans) == ["b", "d", "e"]
+
+
+def test_cpu_calls_make_no_plan_and_take_the_plain_loop(setup, monkeypatch):
+    _, pcfg, _, pdec = setup
+    sched = PSchedule.create(pcfg.diff_steps)
+    sem_idx, x_T = (torch.from_numpy(a) for a in _inputs())
+    packed = pf.pack_decoder_weights(pdec)
+    plain = []
+    monkeypatch.setattr(pf, "fused_ddim_plain",
+                        lambda *a, **k: plain.append(1) or torch.zeros_like(a[0]))
+    pf.zero_plan_counts()
+    for _ in range(3):
+        pf.fused_generate_mel(pcfg, sched, pdec, sem_idx, x_T, 2, "v", weights=packed)
+    assert len(plain) == 3 and pdec not in pf._LOOP_PLANS
+    counts = pf.fused_generate_mel
+    assert (counts.eager, counts.captures, counts.replays) == (3, 0, 0)

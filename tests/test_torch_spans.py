@@ -38,6 +38,7 @@ BASE_STACK = HubertConfig(conv_dim=(128,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2
 SYNTH_SPANS = ("prep:encode", "prep:loop_inputs", "prep:launch")
 ENCODER_SPANS = ("prep:relpos_bias", "prep:encoder_layers")
 W2V_BERT_SPANS = ("prep:fbank",)  # w2v-BERT's filterbank (tests/test_torch_w2v_bert.py)
+GRAPH_SPANS = ("prep:graph_replay",)  # a planned call's replay (tests/test_torch_loop_graph_gpu.py)
 # WavLM's conv stack and gated relative-position attention at a small width
 WAVLM_STACK = HubertConfig(conv_dim=(16,) * 5, conv_kernel=(10, 4, 4, 2, 2),
                            conv_stride=(5, 4, 4, 2, 2), hidden_size=32, num_layers=2,
@@ -196,7 +197,7 @@ def test_every_span_name_carries_a_trace_prefix():
                 assert isinstance(arg, ast.Constant) and isinstance(arg.value, str), \
                     f"{path}:{node.lineno}"
                 names.append(arg.value)
-    assert set(SYNTH_SPANS) | set(ENCODER_SPANS) | set(W2V_BERT_SPANS) | TRAIN_RANGES | {
+    assert set(SYNTH_SPANS) | set(ENCODER_SPANS) | set(W2V_BERT_SPANS) | set(GRAPH_SPANS) | TRAIN_RANGES | {
         "train:step", "train:allreduce"} == set(names)
     for name in names:
         assert name.startswith(ANNOTATIONS) and not name.startswith("bench:"), name
